@@ -1,0 +1,186 @@
+"""Build, bind and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+into a shared library with a plain C interface, loaded through ``ctypes``.
+The library name carries a hash of its source, so an edited source builds
+anew and a stale library is never loaded. Nothing here runs at import: the
+CPU tests import every module of the port and have no ``nvcc``.
+
+Every kernel entry point takes its pointers and the CUDA stream as
+``c_void_p``, launches on the stream it is given (the wrappers pass
+``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``; the
+wrapper raises on any non-zero value. The wrappers count their launches in
+``LAUNCHES`` (one per launch, nowhere else), so a run can show that a path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the entry points, by source
+SIGNATURES = {
+    "fused_mha": {
+        # x, kpad, w_in, b_in, w_out, b_out, attn scratch, out,
+        # B, S, C, H, dtype (0 f32, 1 bf16), stream
+        "fused_mha_forward": (_P,) * 8 + (_I,) * 5 + (_P,),
+    },
+    "fused_mlp": {
+        # x, c_fc w, c_fc b, c_proj w, c_proj b, out, rows, C, dtype, stream
+        "fused_mlp_forward": (_P,) * 6 + (_I,) * 3 + (_P,),
+    },
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
+    digest = h.hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source; returns (process, tmp path, final path) or
+    None when the library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    except OSError:
+        os.unlink(tmp)
+        raise
+    return proc, tmp, out
+
+
+def _finish_build(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
+            + log.decode(errors="replace")
+        )
+    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+
+
+def _bind(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
+    """Build (one nvcc per source, all started together) and load the
+    libraries of ``names``; returns them by name. A failed build raises with
+    nvcc's output, stops the other compilers and leaves no partial file."""
+    names = list(names)
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        jobs = []
+        try:
+            for n in todo:
+                jobs.append((n, _start_build(n)))
+            for n, job in jobs:
+                _finish_build(n, job)
+        finally:
+            for _, job in jobs:
+                if job is None:
+                    continue
+                proc, tmp, _ = job
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+                proc.stdout.close()
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        for n in todo:
+            _libs[n] = _bind(n)
+        return {n: _libs[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    return lib if lib is not None else build([name])[name]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+
+
+def check_inference(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is inference-only; the training slice ports the "
+            "backward. Run under torch.no_grad()/torch.inference_mode()."
+        )
+
+
+def check_cuda_inputs(name: str, device: torch.device, dtype: torch.dtype,
+                      **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")

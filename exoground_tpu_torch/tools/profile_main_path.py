@@ -1,0 +1,96 @@
+"""Where the main path's time goes on the card.
+
+    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR]
+
+Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
+width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
+warm-up sweep, three timed sweeps (host clock around work that ends in
+``torch.cuda.synchronize()``), then one sweep under ``torch.profiler``.
+Prints, per dtype, one JSON line: frames/s (frames over the median timed
+sweep, as chip_smoke.py reports it), the device busy share of the
+profiled sweep (sum of kernel times over its wall time), and the kernels
+that took the most device time. With ``--out`` the Chrome traces are
+written there. Needs a CUDA device; raises otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
+from exoground_tpu_torch.evals.bench_items import make_bench_items, make_bench_params
+from exoground_tpu_torch.models import TemporalAligner
+from exoground_tpu_torch.ops import _kernels
+from exoground_tpu_torch.utils.convert import load_tan_params
+
+
+def _sweep(ev, items) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev(items)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profile_dtype(model, items, dtype: str, out_dir=None) -> dict:
+    ev = FusedAlignEvaluator(model, AlignEvalConfig(compute_dtype=dtype), device="cuda")
+    _sweep(ev, items)  # warm-up
+    times = [_sweep(ev, items) for _ in range(3)]
+    frames = sum(len(it["video"]) for it in items)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = _sweep(ev, items)
+    # device-side events only (kernels, memcpy, memset): the CPU-side aten
+    # ops that launched them carry the same time again
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"main_path_{dtype}.json"))
+    return {
+        "dtype": dtype,
+        "frames": frames,
+        "sweep_s": sorted(times),
+        "frames_per_s": frames / statistics.median(times),
+        "profiled_sweep_s": wall,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "top_kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                        for us, c, k in rows[:12]],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="directory for Chrome traces")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main_path needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    _kernels.build()
+    model = TemporalAligner(device="cpu")
+    load_tan_params(model, make_bench_params(0))
+    items = make_bench_items(4096, 4096)
+    for dtype in ("float32", "bfloat16"):
+        print(json.dumps({"card": card, **profile_dtype(model, items, dtype, args.out)}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

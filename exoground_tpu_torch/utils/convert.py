@@ -1,0 +1,114 @@
+"""Weight bridge between the JAX package's param trees and the port's
+state dicts, and the reference checkpoint loader.
+
+``tan_state_dict_from_jax`` is the exact inverse of the JAX package's
+``utils/convert.py::convert_tan_state_dict``:
+
+  Dense kernel (in, out)           -> Linear weight (out, in)  [transpose]
+  in_proj_kernel (C, 3C)           -> in_proj_weight (3C, C)   [transpose]
+  LayerNorm scale / bias           -> weight / bias
+  pos tables                       -> as they are
+
+The port's module names are the reference's torch state-dict names, so a
+reference checkpoint needs no mapping at all (``load_reference_state``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+# in the reference's state dict and the port's model, but in no JAX tree:
+# the reference's TemporalAligner holds an ``mlp`` Linear its forward never uses
+UNUSED_REFERENCE_KEYS = ("mlp.weight", "mlp.bias")
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def _dense(out, key, p, bias=True):
+    out[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if bias and "bias" in p:
+        out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _ln(out, key, p):
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def encoder_state_dict_from_jax(stack: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """One TemporalEncoder's JAX params ({"resblocks_0": ..., ...}) -> the
+    port's state dict, keys prefixed with ``prefix`` (e.g.
+    "video_temporal_encoder.")."""
+    out: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"resblocks_{i}" in stack:
+        blk, pre = stack[f"resblocks_{i}"], f"{prefix}resblocks.{i}"
+        attn = blk["attn"]
+        out[f"{pre}.attn.in_proj_weight"] = _t(np.asarray(attn["in_proj_kernel"]).T)
+        out[f"{pre}.attn.in_proj_bias"] = _t(attn["in_proj_bias"])
+        out[f"{pre}.attn.out_proj.weight"] = _t(np.asarray(attn["out_proj_kernel"]).T)
+        out[f"{pre}.attn.out_proj.bias"] = _t(attn["out_proj_bias"])
+        _ln(out, f"{pre}.ln_1", blk["ln_1"])
+        _ln(out, f"{pre}.ln_2", blk["ln_2"])
+        _dense(out, f"{pre}.mlp.c_fc", blk["mlp"]["c_fc"])
+        _dense(out, f"{pre}.mlp.c_proj", blk["mlp"]["c_proj"])
+        i += 1
+    return out
+
+
+def tan_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """TemporalAligner JAX params (``{"params": ...}`` or the bare tree, numpy
+    or JAX arrays) -> the port's state dict of float32 CPU tensors."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for stack in ("video_temporal_encoder", "joint_temporal_encoder"):
+        out.update(encoder_state_dict_from_jax(p[stack], f"{stack}."))
+    for dense in ("video_pre_proj", "text_pre_proj"):
+        _dense(out, dense, p[dense], bias=False)
+    for ln in ("ln_text_init", "ln_video_init", "ln_position_init",
+               "ln_video_post_enc", "ln_joint_post_enc"):
+        _ln(out, ln, p[ln])
+    for table in ("temporal_pos_embed", "text_temporal_pos_embed"):
+        if table in p:  # a sine table is a buffer, absent from the JAX tree
+            out[table] = _t(p[table])
+    if "binary_head" in p:
+        _dense(out, "binary_head", p["binary_head"])
+    return out
+
+
+def load_tan_params(model: torch.nn.Module, params: Mapping) -> None:
+    """Load JAX params into a port TemporalAligner. Every key of the model
+    must be filled, apart from the reference's unused ``mlp`` and a sine
+    pos table (a buffer the model computes itself)."""
+    missing, unexpected = model.load_state_dict(
+        tan_state_dict_from_jax(params), strict=False)
+    allowed = set(UNUSED_REFERENCE_KEYS)
+    if getattr(model, "pos_enc", "learned") != "learned":
+        allowed.add("temporal_pos_embed")
+    bad = sorted(set(missing) - allowed)
+    if bad or unexpected:
+        raise KeyError(f"JAX params do not fit the model: missing {bad}, "
+                       f"unexpected {sorted(unexpected)}")
+
+
+def strip_prefix(state: Mapping, prefix: str) -> Dict:
+    """Keep only keys under ``prefix`` and strip it ('module.', 'target.', ...);
+    a state without such keys is returned whole."""
+    out = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+    return out if out else dict(state)
+
+
+def load_reference_state(path: str) -> Dict:
+    """The reference's released ``.pth.tar`` (reference utils/utils.py +
+    main.py:532-537) as a state dict for the port's TemporalAligner: DDP
+    ``module.`` stripped and, for a cotrain checkpoint, the EMA twin's
+    ``target.`` branch kept (the JAX package serves the same branch)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    state = strip_prefix(strip_prefix(state, "module."), "target.")
+    return {k: v for k, v in state.items() if torch.is_tensor(v)}
