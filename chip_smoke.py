@@ -23,6 +23,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      on the CPU plain path for agreement; then FusedAlignEvaluator over the 8
      bench videos for R@1/AUC and frames/s (frames over the median of three
      timed sweeps after a warm-up, as the profile tool reports it).
+  3b. grid kernel: the MIL-NCE grid kernel's forward (v_den, t_den) and
+     backward (dv, dt for random upstream grads) against grid_lse2_plain on
+     the card, at the train path's shapes (S 6, R = B*64, Cc = B*12, C 512
+     for B 16 and 64, dual St = 1 and joint St = 6), a ragged (2, 36, 15,
+     128) with three invalid columns and a column space above the TPU
+     kernel's cap (1, 512, 3072, 512), in float32 (<= 1e-4 of max|plain|)
+     and bfloat16 (<= 1e-2); forward and backward times beside the plain
+     version's and the bound;
+  5. train path: TANTrainer at the JAX package's train-bench configuration
+     (TemporalAligner E6D6, width 512, 4096-d, alignability head, cotrain
+     with keep agreement, loss threshold 0.7, EMA 0.999): one float32 step
+     at B 4 on the card and on the CPU plain path from the same weights and
+     batch (init loss: loss within 1e-4 relative, every grad within 1e-3 of
+     its max|CPU|; the cotrain loss printed beside it), then a warm-up and
+     10 timed steps at B 16 and 64 in float32 and bfloat16, with the launch
+     counters reset just before and read just after each run: 2 grid
+     forward and 2 grid backward launches per step, no fused MHA/MLP launch.
 
 Float32 products run in full float32 (TF32 off for matmul and cuDNN). The
 line before the last is the kernels JSON; the last line is
@@ -158,6 +175,80 @@ def mlp_case(rows, C, dtype, seed):
     return case
 
 
+# ---------------------------------------------------------------- phase 3b
+def grid_case(S, R, Cc, C, St, dtype, seed, n_invalid=0, timed=False):
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.milnce_grid import (
+        grid_lse2, grid_lse2_backward, grid_lse2_forward, grid_lse2_plain)
+
+    rng = np.random.RandomState(seed)
+
+    def unit(*shape):  # l2-normalized features, as the loss receives them
+        x = rng.standard_normal(shape)
+        return torch.tensor(x / np.linalg.norm(x, axis=-1, keepdims=True), dtype=dtype,
+                            device="cuda")
+
+    v, t = unit(S, R, C), unit(St, Cc, C)
+    valid_np = np.ones(Cc, bool)
+    valid_np[rng.choice(Cc, n_invalid, replace=False)] = False
+    valid = torch.tensor(valid_np, device="cuda")
+    g_v = torch.tensor(rng.standard_normal((S, R)), dtype=torch.float32, device="cuda")
+    g_t = torch.tensor(rng.standard_normal((S, Cc)), dtype=torch.float32, device="cuda")
+    inv = 1.0 / 0.07
+    outs = []
+    for impl in ("kernel", "plain"):
+        a, b = v.clone().requires_grad_(), t.clone().requires_grad_()
+        n0 = dict(_kernels.LAUNCHES)
+        vd, td = grid_lse2(a, b, valid, inv, impl=impl)
+        torch.autograd.backward([vd, td], [g_v, g_t])
+        torch.cuda.synchronize()
+        if impl == "kernel" and (_kernels.LAUNCHES["milnce_grid_fwd"] != n0["milnce_grid_fwd"] + 1
+                                 or _kernels.LAUNCHES["milnce_grid_bwd"]
+                                 != n0["milnce_grid_bwd"] + 1):
+            fail("the grid kernel did not count its forward and backward launches")
+        outs.append((vd.detach(), td.detach(), a.grad, b.grad))
+    (kv, kt, kdv, kdt), (pv, pt, pdv, pdt) = outs
+    errs = {}
+    # t_den is judged on the valid columns (the invalid ones sit at
+    # NEG_FILL + log R and would set the scale) and on the invalid ones apart
+    for name, got, want in (("v_den", kv, pv), ("t_den", kt[:, valid], pt[:, valid]),
+                            ("t_den_invalid", kt[:, ~valid], pt[:, ~valid]),
+                            ("dv", kdv, pdv), ("dt", kdt, pdt)):
+        if want.numel() == 0:
+            continue
+        if not torch.isfinite(got.float()).all():
+            fail(f"grid kernel: non-finite {name} at S{S} R{R} Cc{Cc} C{C} St{St} {dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        errs[name] = (err, err / max(want.float().abs().max().item(), 1e-30))
+    rel = max(r for _, r in errs.values())
+    case = dict(shape=f"S{S} R{R} Cc{Cc} C{C} St{St}", dtype=str(dtype).split(".")[-1],
+                max_abs_err=max(e for e, _ in errs.values()), max_rel_err=rel,
+                rel_err={k: r for k, (_, r) in errs.items()})
+    if timed:
+        cv32 = valid.to(torch.int32)
+        vden, tden = grid_lse2_forward(v, t, cv32, inv)
+        fwd_ms = time_ms(lambda: grid_lse2_forward(v, t, cv32, inv))
+        bwd_ms = time_ms(lambda: grid_lse2_backward(v, t, cv32, vden, tden, g_v, g_t, inv))
+        with torch.no_grad():
+            plain_fwd = time_ms(lambda: grid_lse2_plain(v, t, valid, inv))
+        a, b = v.clone().requires_grad_(), t.clone().requires_grad_()
+        pvd, ptd = grid_lse2_plain(a, b, valid, inv)
+        plain_bwd = time_ms(lambda: torch.autograd.grad([pvd, ptd], [a, b], [g_v, g_t],
+                                                        retain_graph=True))
+        item = v.element_size()
+        work = 2.0 * S * R * Cc * C
+        io = (S * R + St * Cc) * C * item
+        fb, fby = bound_ms(work, io + 4 * (S * R + S * Cc + Cc), dtype)
+        bb, bby = bound_ms(3 * work, 2 * io + 4 * (2 * S * R + 2 * S * Cc + Cc), dtype)
+        case.update(fwd_ms=fwd_ms, fwd_plain_ms=plain_fwd, fwd_bound_ms=fb, fwd_bound_by=fby,
+                    bwd_ms=bwd_ms, bwd_plain_ms=plain_bwd, bwd_bound_ms=bb, bwd_bound_by=bby,
+                    library_ms=None)
+    print("milnce_grid", json.dumps(case), flush=True)
+    if not rel <= TOL[dtype]:
+        fail(f"the grid kernel disagrees with grid_lse2_plain: {case}")
+    return case
+
+
 # ----------------------------------------------------------------- phase 4
 def main_path(card):
     from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
@@ -280,6 +371,119 @@ def main_path(card):
     return launches
 
 
+# ----------------------------------------------------------------- phase 5
+BENCH_TRAIN = dict(model="cotrain", learn_agreement=1, temporal_agreement_type="keep",
+                   loss_threshold=0.7, use_alignability_head=1, momentum_m=0.999, lr=1e-4,
+                   epochs=1, seed=0)
+
+
+def _aligner():
+    from exoground_tpu_torch.evals.bench_items import make_bench_params
+    from exoground_tpu_torch.models import TemporalAligner
+    from exoground_tpu_torch.utils.convert import load_tan_params
+
+    model = TemporalAligner(num_encoder_layers=6, num_joint_layers=6, width=512, heads=8,
+                            input_dim=4096, use_alignability_head=1, device="cpu")
+    load_tan_params(model, make_bench_params(0, binary_head=True))
+    return model
+
+
+def train_agreement(model):
+    """One float32 step's loss and grads on the card and on the CPU plain
+    path, from the same weights, batch and pos-start draws."""
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import make_train_batch
+    from exoground_tpu_torch.losses.milnce import TANLossConfig
+    from exoground_tpu_torch.parallel import make_tan_train_step
+    from exoground_tpu_torch.train import make_fused_optimizer
+
+    batch_np = make_train_batch(4, seed=1)
+    losses = {}
+    for cfg_name, cfg in (("init", TANLossConfig(model="init")),
+                          ("cotrain", TANLossConfig(
+                              model="cotrain", learn_agreement=True,
+                              temporal_agreement_type="keep", loss_threshold=0.7,
+                              use_alignability_head=True))):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            params = {k: p.detach() for k, p in m.named_parameters()}
+            step = make_tan_train_step(m, cfg, make_fused_optimizer(params),
+                                       ema_momentum=0.999 if cfg.model == "cotrain" else None)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+            t0 = time.perf_counter()
+            metrics, grads = step.loss_and_grads(params, params, batch,
+                                                 torch.Generator().manual_seed(0))
+            loss = float(metrics["loss"])
+            res[dev] = (loss, {k: g.float().cpu() for k, g in grads.items() if g is not None},
+                        time.perf_counter() - t0)
+        losses[cfg_name] = (res["cpu"][0], res["cuda"][0])
+        if cfg_name != "init":
+            continue
+        (lc, gc, sc), (lg, gg, sg) = res["cpu"], res["cuda"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        worst = max(((gg[k] - gc[k]).abs().max().item()
+                     / max(gc[k].abs().max().item(), 1e-30), k) for k in gc)
+        print(f"train step card vs CPU (init, B4 f32, {len(gc)} grads, CPU {sc:.1f} s): loss "
+              f"{lg:.6f} vs {lc:.6f} (rel {loss_rel:.2e}), worst grad {worst[1]} at "
+              f"{worst[0]:.2e} of its max|CPU|", flush=True)
+        if set(gg) != set(gc) or not loss_rel <= 1e-4 or not worst[0] <= 1e-3:
+            fail("the card's train step disagrees with the CPU plain path")
+    print(f"cotrain step-1 loss (B4 f32, discrete agreement choices may flip on near-ties): "
+          f"card {losses['cotrain'][1]:.6f}, CPU {losses['cotrain'][0]:.6f}", flush=True)
+
+
+def train_path(model, card):
+    """Timed TANTrainer steps at B 16 and 64, float32 and bfloat16; returns
+    the grid launches of the timed steps."""
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import make_train_batch
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.train import ExperimentConfig, TANTrainer
+
+    totals = {k: 0 for k in _kernels.LAUNCHES}
+    runs = []
+    for b in (16, 64):
+        for amp in (False, True):
+            cfg = ExperimentConfig(amp=amp, **BENCH_TRAIN)
+            trainer = TANTrainer(copy.deepcopy(model), cfg, iters_per_epoch=1000,
+                                 device="cuda")
+            batch = trainer.to_device(trainer.prepare_batch(make_train_batch(b, seed=2)))
+            target0 = {k: v.clone() for k, v in trainer.target_params.items()}
+            losses = [float(trainer.train_step(batch)["loss"])]  # warm-up
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            times = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                losses.append(float(trainer.train_step(batch)["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            launches = dict(_kernels.LAUNCHES)
+            for k, n in launches.items():
+                totals[k] += n
+            ms = statistics.median(times) * 1e3
+            moved = sum((trainer.target_params[k] != target0[k]).sum().item() for k in target0)
+            run = dict(batch=b, dtype="bfloat16" if amp else "float32", step_ms=ms,
+                       samples_per_s=b / ms * 1e3, step_ms_all=[t * 1e3 for t in times],
+                       loss_first=losses[0], loss_last=losses[-1], ema_entries_moved=moved,
+                       launches=launches, card=card)
+            print("train", json.dumps(run), flush=True)
+            runs.append(run)
+            if not all(np.isfinite(losses)):
+                fail(f"non-finite train loss: {run}")
+            if moved == 0:
+                fail(f"the EMA twin did not move: {run}")
+            if (launches["milnce_grid_fwd"] != 20 or launches["milnce_grid_bwd"] != 20
+                    or launches["fused_mha"] or launches["fused_mlp"]):
+                fail(f"train launches {launches} != 2 + 2 grid per step, 0 MHA/MLP")
+            del trainer, batch
+            torch.cuda.empty_cache()
+    return totals, runs
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs on the card only")
@@ -317,8 +521,24 @@ def main():
         mlp_cases.append(mlp_case(77, 1024, dtype, seed=10))
         mlp_cases.append(mlp_case(40, 1280, dtype, seed=11))  # x streamed, not resident
 
-    # phase 4: the main path, counted
+    # phase 3b: the grid kernel against its plain version
+    grid_cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        grid_cases.append(grid_case(6, 1024, 192, 512, 6, dtype, seed=20, timed=True))
+        grid_cases.append(grid_case(6, 1024, 192, 512, 1, dtype, seed=21, timed=True))
+        grid_cases.append(grid_case(6, 4096, 768, 512, 6, dtype, seed=22, timed=True))
+        grid_cases.append(grid_case(6, 4096, 768, 512, 1, dtype, seed=23, timed=True))
+        grid_cases.append(grid_case(2, 36, 15, 128, 1, dtype, seed=24, n_invalid=3))
+        grid_cases.append(grid_case(1, 512, 3072, 512, 1, dtype, seed=25, n_invalid=5))
+
+    # phase 4: the serving path, counted
     launches = main_path(card)
+
+    # phase 5: the train path, counted
+    model = _aligner()
+    train_agreement(model)
+    train_launches, _ = train_path(model, card)
+    launches.update({k: train_launches[k] for k in ("milnce_grid_fwd", "milnce_grid_bwd")})
 
     def entry(name, source, replaces, cases):
         head = cases[0]  # main-path shape, float32
@@ -330,11 +550,24 @@ def main():
                 "library_ms": head["library_ms"], "shape": head["shape"],
                 "dtype": head["dtype"], "cases": cases}
 
+    def grid_entry(part, replaces):
+        cases = [{k: v for k, v in c.items() if not k.startswith("bwd" if part == "fwd" else
+                                                                  "fwd")}
+                 for c in grid_cases]
+        for c in cases:
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by"):
+                if f"{part}_{k}" in c:
+                    c[k] = c.pop(f"{part}_{k}")
+        return entry(f"milnce_grid_{part}", "exoground_tpu_torch/csrc/milnce_grid.cu",
+                     replaces, cases)
+
     print(json.dumps({"kernels": [
         entry("fused_mha", "exoground_tpu_torch/csrc/fused_mha.cu",
               "exoground_tpu/ops/attention.py:761", mha_cases),
         entry("fused_mlp", "exoground_tpu_torch/csrc/fused_mlp.cu",
               "exoground_tpu/ops/fused_mlp.py:244", mlp_cases),
+        grid_entry("fwd", "exoground_tpu/ops/milnce_grid.py:184"),
+        grid_entry("bwd", "exoground_tpu/ops/milnce_grid.py:231"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,12 +40,14 @@ def make_bench_items(video_dim=1024, text_dim=512, vlens=None):
     ]
 
 
-def make_bench_params(seed, layers=6, width=512, input_dim=4096, max_pos=4096):
+def make_bench_params(seed, layers=6, width=512, input_dim=4096, max_pos=4096,
+                      binary_head=False):
     """Seeded random weights for a TemporalAligner (E6D6, width 512, 4096-d
     inputs by default) as a param tree in the JAX package's layout (Dense
     kernels (in, out), in_proj_kernel (C, 3C), LayerNorm scale/bias), drawn
     with numpy at the model's init scales; ``utils/convert.py::
-    load_tan_params`` loads it into the port's model."""
+    load_tan_params`` loads it into the port's model. ``binary_head`` adds
+    the alignability head (drawn last, so the other weights stay the same)."""
     rng = np.random.RandomState(seed)
     w = width
 
@@ -68,7 +70,7 @@ def make_bench_params(seed, layers=6, width=512, input_dim=4096, max_pos=4096):
                     "c_proj": {"kernel": n(4 * w, w, std=proj_std), "bias": n(w, std=0.02)}},
         } for i in range(layers)}
 
-    return {"params": {
+    tree = {
         "video_temporal_encoder": stack(), "joint_temporal_encoder": stack(),
         "video_pre_proj": {"kernel": n(input_dim, w, std=0.01)},
         "text_pre_proj": {"kernel": n(input_dim, w, std=0.01)},
@@ -76,4 +78,25 @@ def make_bench_params(seed, layers=6, width=512, input_dim=4096, max_pos=4096):
         "ln_video_post_enc": ln(), "ln_joint_post_enc": ln(),
         "temporal_pos_embed": n(max_pos, w, std=0.01),
         "text_temporal_pos_embed": n(max_pos, w, std=0.01),
-    }}
+    }
+    if binary_head:
+        tree["binary_head"] = {"kernel": n(w, 1, std=0.01), "bias": np.zeros(1, np.float32)}
+    return {"params": tree}
+
+
+def make_train_batch(b, t=64, n=12, seed=0, video_dim=4096, text_dim=4096):
+    """The JAX package's train-bench batch (bench.py:933-945) as numpy:
+    (B, T, 4096) video and (B, N, 4096) text features, no padding, 6-second
+    text spans starting in [0, T-8), and their normalized positions."""
+    rng = np.random.RandomState(seed)
+    video = rng.randn(b, t, video_dim).astype(np.float32)
+    text = rng.randn(b, n, text_dim).astype(np.float32)
+    start = rng.randint(0, t - 8, (b, n)).astype(np.float32)
+    end = start + 6.0
+    return {
+        "video": video, "text": text,
+        "video_padding_mask": np.zeros((b, t), bool),
+        "text_padding_mask": np.zeros((b, n), bool),
+        "start": start, "end": end,
+        "abs_text_pos": np.stack([start / t, end / t], axis=-1),
+    }

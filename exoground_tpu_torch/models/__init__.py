@@ -1,3 +1,4 @@
 """Models of the port."""
 
 from exoground_tpu_torch.models.aligner import TemporalAligner  # noqa: F401
+from exoground_tpu_torch.models.ema import ema_init, ema_update  # noqa: F401

@@ -13,9 +13,9 @@ CPU tests import every module of the port and have no ``nvcc``.
 Every kernel entry point takes its pointers and the CUDA stream as
 ``c_void_p``, launches on the stream it is given (the wrappers pass
 ``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``; the
-wrapper raises on any non-zero value. The wrappers count their launches in
-``LAUNCHES`` (one per launch, nowhere else), so a run can show that a path
-went through the kernels.
+wrapper raises on any non-zero value. Each wrapper counts its launches in
+``LAUNCHES`` under its own name (one per launch, nowhere else), so a run can
+show that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the entry points, by source
 SIGNATURES = {
     "fused_mha": {
@@ -49,9 +50,20 @@ SIGNATURES = {
         # x, c_fc w, c_fc b, c_proj w, c_proj b, out, rows, C, dtype, stream
         "fused_mlp_forward": (_P,) * 6 + (_I,) * 3 + (_P,),
     },
+    "milnce_grid": {
+        # video3, text3, cvalid, v_den, t_den, part_m, part_l,
+        # S, St, R, Cc, C, nR, inv_temp, dtype, stream
+        "milnce_grid_forward": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
+        # video3, text3, cvalid, v_den, t_den, g_v, g_t, dv, dt, dt_part,
+        # S, St, R, Cc, C, nsplit, inv_temp, dtype, stream
+        "milnce_grid_backward": (_P,) * 10 + (_I,) * 6 + (_F, _I, _P),
+    },
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+# one counter per wrapper
+LAUNCHES: Dict[str, int] = {
+    name: 0 for name in ("fused_mha", "fused_mlp", "milnce_grid_fwd", "milnce_grid_bwd")
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -170,8 +182,9 @@ def dtype_code(t: torch.Tensor) -> int:
 def check_inference(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} is inference-only; the training slice ports the "
-            "backward. Run under torch.no_grad()/torch.inference_mode()."
+            f"{name} is inference-only, as the TPU kernel is. Run under "
+            "torch.no_grad()/torch.inference_mode(), or differentiate inside "
+            "ops.fused_mlp.disable_fused_kernels(), as the train step does."
         )
 
 

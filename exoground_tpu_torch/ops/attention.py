@@ -14,7 +14,8 @@ Counterpart of ``exoground_tpu/ops/attention.py`` for the serving path:
   * ``MultiHeadAttention`` — the ``nn.MultiheadAttention`` parameter layout
     (packed ``in_proj_weight`` (3C, C), ``out_proj``) with the JAX module's
     dispatch: qualifying self-attention takes ``fused_mha``, everything else
-    the unfused composition with the q/kv alias split.
+    (and everything inside ``disable_fused_kernels()``) the unfused
+    composition with the q/kv alias split.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from exoground_tpu_torch.ops import _kernels
+from exoground_tpu_torch.ops.fused_mlp import fused_kernels_disabled
 
 NEG_INF = -1e30  # finite "minus infinity": avoids NaN on fully-masked rows
 MAX_FUSED_S = 128  # windows the fused kernel serves (the TPU kernel's tile)
@@ -140,7 +142,8 @@ class MultiHeadAttention(nn.Module):
         w_in, b_in = self.in_proj_weight, self.in_proj_bias
         w_out, b_out = self.out_proj.weight, self.out_proj.bias
         self_attn = query is key and key is value
-        if self_attn and kernel_eligible(query.shape[1], c, self.num_heads):
+        if (self_attn and kernel_eligible(query.shape[1], c, self.num_heads)
+                and not fused_kernels_disabled()):
             return fused_mha(query, key_padding_mask, w_in, b_in, w_out, b_out,
                              self.num_heads)
         # unfused composition (the XLA branch of the JAX module): one packed

@@ -20,7 +20,12 @@ import torch
 from torch import nn
 
 from exoground_tpu_torch.ops.attention import MultiHeadAttention
-from exoground_tpu_torch.ops.fused_mlp import fused_mlp, kernel_eligible, mlp_plain
+from exoground_tpu_torch.ops.fused_mlp import (
+    fused_kernels_disabled,
+    fused_mlp,
+    kernel_eligible,
+    mlp_plain,
+)
 
 LN_EPS = 1e-5  # torch LayerNorm default
 
@@ -28,7 +33,8 @@ LN_EPS = 1e-5  # torch LayerNorm default
 class MLP(nn.Module):
     """4x-expansion MLP with QuickGELU (reference tfm_model.py:23-27).
     Widths that are multiples of 128 go through ``fused_mlp`` (the JAX
-    package's test); others take the plain composition."""
+    package's test); others, and every width inside
+    ``disable_fused_kernels()``, take the plain composition."""
 
     def __init__(self, width: int):
         super().__init__()
@@ -38,7 +44,7 @@ class MLP(nn.Module):
     def forward(self, x):
         args = (x, self.c_fc.weight, self.c_fc.bias, self.c_proj.weight,
                 self.c_proj.bias)
-        if kernel_eligible(x.shape[-1]):
+        if kernel_eligible(x.shape[-1]) and not fused_kernels_disabled():
             return fused_mlp(*args)
         return mlp_plain(*args)
 

@@ -4,18 +4,46 @@ activation reaching device memory.
 Counterpart of ``exoground_tpu/ops/fused_mlp.py`` (reference
 model/tfm_model.py:23-27). ``fused_mlp`` launches the hand-written kernel in
 ``csrc/fused_mlp.cu`` on CUDA tensors and takes ``mlp_plain``, the
-composition it fuses, only for tensors on the CPU. Inference-only: the TPU
-kernel's custom VJP recomputes the XLA path, and the training slice ports
-the backward, so a CUDA input that requires grad raises.
+composition it fuses, only for tensors on the CPU. Inference-only, as the
+TPU kernel is (its custom VJP recomputes the XLA path): a CUDA input that
+requires grad raises. The train step differentiates inside
+``disable_fused_kernels()``, where ``MLP`` and ``MultiHeadAttention`` take
+their plain compositions, as the JAX package's train steps trace under its
+context of the same name (exoground_tpu/ops/fused_mlp.py:37-58).
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from exoground_tpu_torch.ops import _kernels
 from exoground_tpu_torch.ops.activations import quick_gelu
+
+
+_CTX = threading.local()
+
+
+def fused_kernels_disabled() -> bool:
+    """True inside ``disable_fused_kernels()`` on this thread."""
+    return getattr(_CTX, "disabled", False)
+
+
+@contextlib.contextmanager
+def disable_fused_kernels():
+    """Thread-local off-switch for the inference kernels' dispatch: inside
+    it ``MLP`` and ``MultiHeadAttention`` take their plain compositions on
+    every device. The train step runs its forwards (the no-grad EMA teacher
+    included) inside it, as the JAX package does."""
+    prev = fused_kernels_disabled()
+    _CTX.disabled = True
+    try:
+        yield
+    finally:
+        _CTX.disabled = prev
 
 
 def mlp_plain(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Where the main path's time goes on the card.
 
-    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR]
+    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -9,8 +9,16 @@ warm-up sweep, three timed sweeps (host clock around work that ends in
 Prints, per dtype, one JSON line: frames/s (frames over the median timed
 sweep, as chip_smoke.py reports it), the device busy share of the
 profiled sweep (sum of kernel times over its wall time), and the kernels
-that took the most device time. With ``--out`` the Chrome traces are
-written there. Needs a CUDA device; raises otherwise.
+that took the most device time.
+
+``--train`` profiles the train path instead: TANTrainer cotrain steps at
+the JAX package's train-bench configuration (E6D6 with the alignability
+head, keep agreement, loss threshold 0.7, EMA 0.999) at batch 16 and 64 in
+float32 and bfloat16: two warm-up steps, five timed steps (median), then
+one step under ``torch.profiler``; one JSON line per run.
+
+With ``--out`` the Chrome traces are written there. Needs a CUDA device;
+raises otherwise.
 """
 
 from __future__ import annotations
@@ -41,6 +49,15 @@ def _sweep(ev, items) -> float:
     return time.perf_counter() - t0
 
 
+def _device_rows(prof):
+    # device-side events only (kernels, memcpy, memset): the CPU-side aten
+    # ops that launched them carry the same time again
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    return rows
+
+
 def profile_dtype(model, items, dtype: str, out_dir=None) -> dict:
     ev = FusedAlignEvaluator(model, AlignEvalConfig(compute_dtype=dtype), device="cuda")
     _sweep(ev, items)  # warm-up
@@ -48,11 +65,7 @@ def profile_dtype(model, items, dtype: str, out_dir=None) -> dict:
     frames = sum(len(it["video"]) for it in items)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _sweep(ev, items)
-    # device-side events only (kernels, memcpy, memset): the CPU-side aten
-    # ops that launched them carry the same time again
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"main_path_{dtype}.json"))
@@ -69,9 +82,53 @@ def profile_dtype(model, items, dtype: str, out_dir=None) -> dict:
     }
 
 
+def profile_train(model, batch_size: int, amp: bool, out_dir=None) -> dict:
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import make_train_batch
+    from exoground_tpu_torch.train import ExperimentConfig, TANTrainer
+
+    cfg = ExperimentConfig(model="cotrain", learn_agreement=1, temporal_agreement_type="keep",
+                           loss_threshold=0.7, use_alignability_head=1, momentum_m=0.999,
+                           lr=1e-4, epochs=1, seed=0, amp=amp)
+    trainer = TANTrainer(copy.deepcopy(model), cfg, iters_per_epoch=1000, device="cuda")
+    batch = trainer.to_device(trainer.prepare_batch(make_train_batch(batch_size, seed=2)))
+
+    def step() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(trainer.train_step(batch)["loss"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    step(), step()  # warm-up
+    times = [step() for _ in range(5)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = step()
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    dtype = "bfloat16" if amp else "float32"
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"train_b{batch_size}_{dtype}.json"))
+    grid_us = sum(us for us, _, k in rows if "grid_" in k)
+    return {
+        "batch": batch_size,
+        "dtype": dtype,
+        "step_ms": statistics.median(times) * 1e3,
+        "samples_per_s": batch_size / statistics.median(times),
+        "profiled_step_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "grid_kernels_ms": grid_us / 1e3,
+        "top_kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                        for us, c, k in rows[:12]],
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
+    ap.add_argument("--train", action="store_true", help="profile the train path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
@@ -84,6 +141,14 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _kernels.build()
+    if args.train:
+        model = TemporalAligner(use_alignability_head=1, device="cpu")
+        load_tan_params(model, make_bench_params(0, binary_head=True))
+        for b in (16, 64):
+            for amp in (False, True):
+                print(json.dumps({"card": card, **profile_train(model, b, amp, args.out)}),
+                      flush=True)
+        return
     model = TemporalAligner(device="cpu")
     load_tan_params(model, make_bench_params(0))
     items = make_bench_items(4096, 4096)
