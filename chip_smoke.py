@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. kernels: each kernel against its plain PyTorch version on the card, on the
      same inputs, at the main-path shapes (fused MHA B=304 C=512 H=8 at S=64
      and S=96 with one fully-masked window and ragged tails; fused MLP at
-     19456 rows, C=512) and small shapes that reach the kernels' other
-     instantiations (head sizes 8, 40, 48; MLP widths 128, 640, 1024, 1280), in
+     19456 rows, C=512; and at the global path's 2048, 2096 and 3322 rows)
+     and small shapes that reach the kernels' other instantiations (head
+     sizes 8, 40, 48; MLP widths 128, 640, 1024, 1280), in
      float32 (max error <= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); times
      by CUDA events (median of several runs after warm-up) beside the plain
      version, one PyTorch library call where one computes the same function,
@@ -40,6 +41,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      10 timed steps at B 16 and 64 in float32 and bfloat16, with the launch
      counters reset just before and read just after each run: 2 grid
      forward and 2 grid backward launches per step, no fused MHA/MLP launch.
+     Then the same with attn_impl='flash': one float32 cotrain step at B 4 on
+     the card (flash kernels) and on the CPU (flash_attention_plain), loss
+     within 1e-4 relative, grads within 1e-3 of max|CPU|, and 24 flash
+     forward + 12 dq + 12 dk/dv launches; 10 timed steps at B 16 in float32
+     and bfloat16 with those counts per step.
+  3c. flash kernels: forward (o; lse on rows with a valid key, +1e30 exactly
+     on the rest), dq and dk/dv against autograd of flash_attention_plain on
+     the card for the same random upstream grad, at the global path's shapes
+     (B1 H8 S2048 D64; Sq = Sk = 2096 with the last 48 keys padded; S4096;
+     S1024 for the crossover), the train path's (B16 H8 S64 and S76), ragged
+     tails, a batch row with no valid key and head sizes 32, 40 and 128, in
+     float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); at the four
+     long shapes each kernel's time beside the plain version's,
+     attention_plain's (the 'xla' route), F.scaled_dot_product_attention's
+     (a yardstick the port never calls) and the bound;
+  6. global mode: test_alignment_htm(method='global') over three long videos
+     (evals/bench_items.py::GLOBAL_VLENS) at E6D6 full width, auto dispatch,
+     counted (12 flash forward and 12 fused MLP launches per video, no fused
+     MHA); the first video again on the CPU plain path (sim within 1e-4 of
+     max|CPU|, R@1 and AUC equal); then text_visual_sim at the JAX package's
+     global bench shape (1 x 2048 frames, 48 texts) through flash (auto) and
+     attention_plain ('xla'), float32 and bfloat16, median of 5 each
+     (`global_bench {...}` lines).
 
 Float32 products run in full float32 (TF32 off for matmul and cuDNN). The
 line before the last is the kernels JSON; the last line is
@@ -249,6 +273,101 @@ def grid_case(S, R, Cc, C, St, dtype, seed, n_invalid=0, timed=False):
     return case
 
 
+# ---------------------------------------------------------------- phase 3c
+def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=False):
+    """The flash kernels (forward, dq, dk/dv) against autograd of
+    flash_attention_plain on the same inputs; with ``timed``, each beside the
+    plain version, attention_plain (the 'xla' route), the library call and
+    the bound."""
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.attention import (
+        attention_plain, flash_attention_plain, flash_dkv, flash_dq, flash_forward)
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+
+    q = t(B * H, Sq, D, scale=D ** -0.5)  # pre-scaled, as flash_attention passes it
+    k, v, do = t(B * H, Sk, D), t(B * H, Sk, D), t(B * H, Sq, D)
+    kp = np.zeros((B, Sk), np.int32)
+    if pad_tail:
+        kp[:, Sk - pad_tail:] = 1
+    if empty_row:
+        kp[0] = 1  # a batch row with no valid key
+    kpad = torch.tensor(kp, device="cuda")
+    n0 = dict(_kernels.LAUNCHES)
+    o, lse = flash_forward(q, k, v, kpad)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = flash_dq(q, k, v, kpad, do, lse, delta)
+    dk, dv = flash_dkv(q, k, v, kpad, do, lse, delta)
+    torch.cuda.synchronize()
+    if any(_kernels.LAUNCHES[n] != n0[n] + 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")):
+        fail("the flash kernels did not count their launches")
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    po, plse = flash_attention_plain(qq, kk, vv, kpad)
+    torch.autograd.backward([po], [do])
+    errs = {}
+    for name, got, want in (("o", o, po), ("dq", dq, qq.grad), ("dk", dk, kk.grad),
+                            ("dv", dv, vv.grad)):
+        if not torch.isfinite(got.float()).all():
+            fail(f"flash kernel: non-finite {name} at {(B, H, Sq, Sk, D)} {dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        errs[name] = (err, err / max(want.float().abs().max().item(), 1e-30))
+    has_key = plse < 1e29
+    lse_err = (lse[has_key] - plse[has_key]).abs().max().item() if has_key.any() else 0.0
+    empty_exact = bool((lse[~has_key] == 1e30).all())
+    rel = max(r for _, r in errs.values())
+    case = dict(shape=f"B{B} H{H} Sq{Sq} Sk{Sk} D{D}", dtype=str(dtype).split(".")[-1],
+                pad_tail=pad_tail, empty_row=empty_row,
+                max_abs_err=max(e for e, _ in errs.values()), max_rel_err=rel,
+                rel_err={n: r for n, (_, r) in errs.items()}, lse_abs_err=lse_err,
+                empty_rows=int((~has_key).sum()), empty_lse_exact=empty_exact)
+    if timed:
+        item = q.element_size()
+        nvalid = (kp == 0).sum(axis=1)  # the work this data needs: valid keys only
+        pairs = float(H * Sq * nvalid.sum())
+        io_q, io_k = B * H * Sq * D * item, B * H * Sk * D * item
+        fb = bound_ms(4 * pairs * D, 2 * io_q + 2 * io_k + 4 * B * Sk + 4 * B * H * Sq, dtype)
+        qb = bound_ms(6 * pairs * D, 3 * io_q + 2 * io_k + 12 * B * H * Sq + 4 * B * Sk, dtype)
+        kb = bound_ms(8 * pairs * D, 2 * io_q + 4 * io_k + 8 * B * H * Sq + 4 * B * Sk, dtype)
+        q4, k4, v4 = (x.view(B, H, -1, D) for x in (q, k, v))
+        mask = torch.tensor(kp != 0, device="cuda")
+        attend = ~mask[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: flash_forward(q, k, v, kpad))
+            plain_fwd = time_ms(lambda: flash_attention_plain(q, k, v, kpad))
+            xla_fwd = time_ms(lambda: attention_plain(q4, k4, v4, mask, scale=1.0))
+            lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, attn_mask=attend, scale=1.0))
+        dq_ms = time_ms(lambda: flash_dq(q, k, v, kpad, do, lse, delta))
+        dkv_ms = time_ms(lambda: flash_dkv(q, k, v, kpad, do, lse, delta))
+        do4 = do.view(B, H, Sq, D)
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        po, _ = flash_attention_plain(qq, kk, vv, kpad)
+        plain_dq = time_ms(lambda: torch.autograd.grad(po, [qq], do, retain_graph=True))
+        plain_dkv = time_ms(lambda: torch.autograd.grad(po, [kk, vv], do, retain_graph=True))
+        q4g, k4g, v4g = (x.view(B, H, -1, D).clone().requires_grad_() for x in (q, k, v))
+        xo = attention_plain(q4g, k4g, v4g, mask, scale=1.0)
+        xla_bwd = time_ms(lambda: torch.autograd.grad(xo, [q4g, k4g, v4g], do4,
+                                                      retain_graph=True))
+        lo = sdpa(q4g, k4g, v4g, attn_mask=attend, scale=1.0)
+        lib_dq = time_ms(lambda: torch.autograd.grad(lo, [q4g], do4, retain_graph=True))
+        lib_dkv = time_ms(lambda: torch.autograd.grad(lo, [k4g, v4g], do4, retain_graph=True))
+        del po, xo, lo
+        case.update(
+            fwd_ms=fwd_ms, fwd_plain_ms=plain_fwd, fwd_library_ms=lib_fwd,
+            fwd_bound_ms=fb[0], fwd_bound_by=fb[1], fwd_attention_plain_ms=xla_fwd,
+            dq_ms=dq_ms, dq_plain_ms=plain_dq, dq_library_ms=lib_dq, dq_bound_ms=qb[0],
+            dq_bound_by=qb[1], dkv_ms=dkv_ms, dkv_plain_ms=plain_dkv, dkv_library_ms=lib_dkv,
+            dkv_bound_ms=kb[0], dkv_bound_by=kb[1], bwd_attention_plain_ms=xla_bwd)
+        torch.cuda.empty_cache()
+    print("flash", json.dumps(case), flush=True)
+    if not rel <= TOL[dtype] or not empty_exact or not lse_err <= 1e-3:
+        fail(f"the flash kernels disagree with flash_attention_plain: {case}")
+    return case
+
+
 # ----------------------------------------------------------------- phase 4
 def main_path(card):
     from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
@@ -434,20 +553,74 @@ def train_agreement(model):
           f"card {losses['cotrain'][1]:.6f}, CPU {losses['cotrain'][0]:.6f}", flush=True)
 
 
-def train_path(model, card):
-    """Timed TANTrainer steps at B 16 and 64, float32 and bfloat16; returns
-    the grid launches of the timed steps."""
+# one cotrain step with attn_impl='flash' launches the flash forward in the
+# online and the teacher forward of both towers (6 + 6 layers each) and the
+# two backward kernels once per layer of the online forward
+FLASH_FWD_PER_STEP = 2 * (6 + 6)
+FLASH_BWD_PER_STEP = 6 + 6
+
+
+def train_flash_agreement(model):
+    """One float32 cotrain step at B 4 with attn_impl='flash' on the card
+    (the flash kernels) and on the CPU (flash_attention_plain), from the same
+    weights, batch and pos-start draws."""
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import make_train_batch
+    from exoground_tpu_torch.losses.milnce import TANLossConfig
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.parallel import make_tan_train_step
+    from exoground_tpu_torch.train import make_fused_optimizer
+
+    batch_np = make_train_batch(4, seed=1)
+    cfg = TANLossConfig(model="cotrain", learn_agreement=True, temporal_agreement_type="keep",
+                        loss_threshold=0.7, use_alignability_head=True)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        m.attn_impl = "flash"
+        params = {k: p.detach() for k, p in m.named_parameters()}
+        step = make_tan_train_step(m, cfg, make_fused_optimizer(params), ema_momentum=0.999)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        n0 = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        metrics, grads = step.loss_and_grads(params, params, batch,
+                                             torch.Generator().manual_seed(0))
+        loss = float(metrics["loss"])
+        res[dev] = (loss, {k: g.float().cpu() for k, g in grads.items() if g is not None},
+                    time.perf_counter() - t0,
+                    {n: _kernels.LAUNCHES[n] - n0[n] for n in ("flash_fwd", "flash_dq",
+                                                                "flash_dkv")})
+    (lc, gc, sc, _), (lg, gg, sg, launched) = res["cpu"], res["cuda"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst = max(((gg[k] - gc[k]).abs().max().item()
+                 / max(gc[k].abs().max().item(), 1e-30), k) for k in gc)
+    print(f"flash train step card vs CPU (cotrain, B4 f32, {len(gc)} grads, CPU {sc:.1f} s): "
+          f"loss {lg:.6f} vs {lc:.6f} (rel {loss_rel:.2e}), worst grad {worst[1]} at "
+          f"{worst[0]:.2e} of its max|CPU|, card launches {launched}", flush=True)
+    if set(gg) != set(gc) or not loss_rel <= 1e-4 or not worst[0] <= 1e-3:
+        fail("the card's flash train step disagrees with the CPU plain path")
+    if launched != {"flash_fwd": FLASH_FWD_PER_STEP, "flash_dq": FLASH_BWD_PER_STEP,
+                    "flash_dkv": FLASH_BWD_PER_STEP}:
+        fail(f"flash launches {launched} in one step != {FLASH_FWD_PER_STEP} forward, "
+             f"{FLASH_BWD_PER_STEP} dq and dk/dv")
+
+
+def train_path(model, card, batches=(16, 64), attn_impl="auto"):
+    """Timed TANTrainer steps at ``batches``, float32 and bfloat16, with the
+    configuration's ``attn_impl``; returns the launches of the timed steps."""
     import copy
 
     from exoground_tpu_torch.evals.bench_items import make_train_batch
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.train import ExperimentConfig, TANTrainer
 
+    flash = attn_impl == "flash"
     totals = {k: 0 for k in _kernels.LAUNCHES}
     runs = []
-    for b in (16, 64):
+    for b in batches:
         for amp in (False, True):
-            cfg = ExperimentConfig(amp=amp, **BENCH_TRAIN)
+            cfg = ExperimentConfig(amp=amp, attn_impl=attn_impl, **BENCH_TRAIN)
             trainer = TANTrainer(copy.deepcopy(model), cfg, iters_per_epoch=1000,
                                  device="cuda")
             batch = trainer.to_device(trainer.prepare_batch(make_train_batch(b, seed=2)))
@@ -466,7 +639,8 @@ def train_path(model, card):
                 totals[k] += n
             ms = statistics.median(times) * 1e3
             moved = sum((trainer.target_params[k] != target0[k]).sum().item() for k in target0)
-            run = dict(batch=b, dtype="bfloat16" if amp else "float32", step_ms=ms,
+            run = dict(batch=b, dtype="bfloat16" if amp else "float32", attn_impl=attn_impl,
+                       step_ms=ms,
                        samples_per_s=b / ms * 1e3, step_ms_all=[t * 1e3 for t in times],
                        loss_first=losses[0], loss_last=losses[-1], ema_entries_moved=moved,
                        launches=launches, card=card)
@@ -476,12 +650,130 @@ def train_path(model, card):
                 fail(f"non-finite train loss: {run}")
             if moved == 0:
                 fail(f"the EMA twin did not move: {run}")
+            want_flash = ((10 * FLASH_FWD_PER_STEP, 10 * FLASH_BWD_PER_STEP,
+                           10 * FLASH_BWD_PER_STEP) if flash else (0, 0, 0))
             if (launches["milnce_grid_fwd"] != 20 or launches["milnce_grid_bwd"] != 20
-                    or launches["fused_mha"] or launches["fused_mlp"]):
-                fail(f"train launches {launches} != 2 + 2 grid per step, 0 MHA/MLP")
+                    or launches["fused_mha"] or launches["fused_mlp"]
+                    or (launches["flash_fwd"], launches["flash_dq"],
+                        launches["flash_dkv"]) != want_flash):
+                fail(f"train launches {launches} != 2 + 2 grid per step, 0 MHA/MLP, "
+                     f"flash fwd/dq/dkv {want_flash} in 10 steps")
             del trainer, batch
             torch.cuda.empty_cache()
     return totals, runs
+
+
+# ----------------------------------------------------------------- phase 6
+def global_path(card):
+    """HTM-Align global mode over long videos at E6D6 full width (auto
+    dispatch: every encoder self-attention through the flash kernel),
+    counted; the first video again on the CPU plain path; then
+    text_visual_sim at the JAX package's global bench shape through flash
+    and through attention_plain, float32 and bfloat16."""
+    import copy
+
+    from exoground_tpu_torch.evals.align import (
+        AlignEvalConfig, make_tan_sim_fn, test_alignment_htm)
+    from exoground_tpu_torch.evals.bench_items import (
+        make_bench_params, make_global_bench_inputs, make_global_items)
+    from exoground_tpu_torch.models import TemporalAligner
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.utils.convert import load_tan_params
+
+    model = TemporalAligner(num_encoder_layers=6, num_joint_layers=6, width=512, heads=8,
+                            input_dim=4096, device="cpu")
+    load_tan_params(model, make_bench_params(0))
+    gpu = copy.deepcopy(model).to("cuda")
+    items = make_global_items(4096, 4096)
+    cfg = AlignEvalConfig(method="global")
+    sims = {"cuda": [], "cpu": []}
+
+    def recording(fn, log):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            log.append(out["sim"])
+            return out
+        return rec
+
+    cuda_fn = recording(make_tan_sim_fn(gpu), sims["cuda"])
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = test_alignment_htm(items, cuda_fn, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    frames = sum(len(it["video"]) for it in items)
+    n = len(items)
+    print(f"global mode: {n} videos ({[len(it['video']) for it in items]} frames), R@1 "
+          f"{metrics['Recall']:.4f} AUC {metrics['AUC']:.4f}, {wall:.3f} s (first call "
+          f"included), launches {launches}, {card}", flush=True)
+    want = dict(flash_fwd=12 * n, flash_dq=0, flash_dkv=0, fused_mha=0, fused_mlp=12 * n)
+    if {k: launches[k] for k in want} != want:
+        fail(f"global-mode launches {launches} != {want}")
+    if not (0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0):
+        fail(f"global-mode metrics out of range: {metrics}")
+    for sim, it in zip(sims["cuda"], items):
+        if sim.shape[-1] % 128 or sim.shape[1] != len(it["start"]) or not np.isfinite(sim).all():
+            fail(f"malformed global-mode sim {sim.shape} for a {len(it['video'])}-frame video")
+
+    # the first video on the CPU plain path
+    first = items[:1]
+    t0 = time.perf_counter()
+    cpu_metrics = test_alignment_htm(first, recording(make_tan_sim_fn(model), sims["cpu"]),
+                                     cfg)
+    cpu_s = time.perf_counter() - t0
+    card_metrics = test_alignment_htm(first, make_tan_sim_fn(gpu), cfg)
+    g, c = sims["cuda"][0], sims["cpu"][0]
+    rel = float(np.abs(g - c).max() / np.abs(c).max())
+    print(f"global mode card vs CPU plain path ({len(first[0]['video'])} frames, CPU "
+          f"{cpu_s:.1f} s): sim rel err {rel:.3e}, card {card_metrics}, CPU {cpu_metrics}",
+          flush=True)
+    if not rel <= 1e-4 or card_metrics != cpu_metrics:
+        fail("the card's global mode disagrees with the CPU plain path")
+
+    # text_visual_sim at the JAX bench shape: flash (auto) against plain (xla)
+    inputs = make_global_bench_inputs(0)
+    runs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        m = copy.deepcopy(model).to(device="cuda", dtype=dtype)
+        video = torch.tensor(inputs["video"], dtype=dtype, device="cuda")
+        text = torch.tensor(inputs["text"], dtype=dtype, device="cuda")
+        max_pos = m.temporal_pos_embed.shape[0]
+
+        def call(impl):
+            m.attn_impl = impl
+            with torch.inference_mode():
+                out = m.text_visual_sim(video, text, interpolate_from=max_pos)
+            torch.cuda.synchronize()
+            return out
+
+        times = {None: [], "xla": []}
+        outs = {impl: call(impl) for impl in times}  # warm-up
+        call(None), call("xla")
+        for _ in range(5):
+            for impl in (None, "xla", "xla", None):
+                t0 = time.perf_counter()
+                call(impl)
+                times[impl].append((time.perf_counter() - t0) * 1e3)
+        _kernels.reset_launches()
+        call(None)
+        per_call = dict(_kernels.LAUNCHES)
+        a, b = outs[None]["sim"].float(), outs["xla"]["sim"].float()
+        agree = ((a - b).abs().max() / b.abs().max()).item()
+        run = dict(dtype=str(dtype).split(".")[-1], shape="1 x 2048 frames, 48 texts",
+                   flash_ms=statistics.median(times[None]),
+                   plain_ms=statistics.median(times["xla"]),
+                   flash_ms_all=times[None], plain_ms_all=times["xla"],
+                   flash_vs_plain_sim_rel=agree, launches_per_call=per_call, card=card)
+        print("global_bench", json.dumps(run), flush=True)
+        runs.append(run)
+        if per_call["flash_fwd"] != 12 or per_call["fused_mha"]:
+            fail(f"the bench-shape call launched {per_call}, not 12 flash forwards")
+        if not np.isfinite(a.cpu().numpy()).all() or not agree <= TOL[dtype]:
+            fail(f"flash and plain routes disagree at the bench shape: {run}")
+        del m, video, text, outs
+        torch.cuda.empty_cache()
+    return launches, runs
 
 
 def main():
@@ -520,6 +812,11 @@ def main():
         mlp_cases.append(mlp_case(300, 640, dtype, seed=9))  # two column slabs
         mlp_cases.append(mlp_case(77, 1024, dtype, seed=10))
         mlp_cases.append(mlp_case(40, 1280, dtype, seed=11))  # x streamed, not resident
+        # the global path's rows: dual and joint tower at the bench shape (2048
+        # frames + 48 texts), joint tower of the 3000-frame video (3072 + 250):
+        # 64 to 104 CTAs of 32 rows, the last one partly empty at 2096 and 3322
+        for rows in (2048, 2096, 3322):
+            mlp_cases.append(mlp_case(rows, 512, dtype, seed=12))
 
     # phase 3b: the grid kernel against its plain version
     grid_cases = []
@@ -531,14 +828,42 @@ def main():
         grid_cases.append(grid_case(2, 36, 15, 128, 1, dtype, seed=24, n_invalid=3))
         grid_cases.append(grid_case(1, 512, 3072, 512, 1, dtype, seed=25, n_invalid=5))
 
+    # phase 3c: the flash kernels against their plain version
+    flash_cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_cases.append(flash_case(1, 8, 2048, 2048, 64, dtype, seed=30, timed=True))
+        flash_cases.append(flash_case(1, 8, 2096, 2096, 64, dtype, seed=31, pad_tail=48,
+                                      timed=True))
+        flash_cases.append(flash_case(1, 8, 4096, 4096, 64, dtype, seed=32, timed=True))
+        flash_cases.append(flash_case(1, 8, 1024, 1024, 64, dtype, seed=33, timed=True))
+        flash_cases.append(flash_case(16, 8, 64, 64, 64, dtype, seed=34))
+        flash_cases.append(flash_case(16, 8, 76, 76, 64, dtype, seed=35))
+        flash_cases.append(flash_case(1, 8, 96, 200, 64, dtype, seed=36, pad_tail=60))
+        flash_cases.append(flash_case(2, 2, 130, 257, 32, dtype, seed=37, empty_row=True))
+        flash_cases.append(flash_case(2, 4, 300, 300, 128, dtype, seed=38, pad_tail=20))
+        flash_cases.append(flash_case(2, 3, 50, 70, 40, dtype, seed=39, empty_row=True))
+
     # phase 4: the serving path, counted
     launches = main_path(card)
 
-    # phase 5: the train path, counted
+    # phase 5: the train path, counted (auto at B 16 and 64, then the flash
+    # kernels under attn_impl='flash' at B 16)
     model = _aligner()
     train_agreement(model)
     train_launches, _ = train_path(model, card)
     launches.update({k: train_launches[k] for k in ("milnce_grid_fwd", "milnce_grid_bwd")})
+    train_flash_agreement(model)
+    flash_train_launches, _ = train_path(model, card, batches=(16,), attn_impl="flash")
+
+    # phase 6: global mode over long videos, counted
+    global_launches, _ = global_path(card)
+    flash_launches = {
+        "flash_fwd": {"global mode (phase 6)": global_launches["flash_fwd"],
+                      "train attn_impl=flash (phase 5)": flash_train_launches["flash_fwd"]},
+        "flash_dq": {"train attn_impl=flash (phase 5)": flash_train_launches["flash_dq"]},
+        "flash_dkv": {"train attn_impl=flash (phase 5)": flash_train_launches["flash_dkv"]},
+    }
+    launches.update({k: sum(v.values()) for k, v in flash_launches.items()})
 
     def entry(name, source, replaces, cases):
         head = cases[0]  # main-path shape, float32
@@ -561,6 +886,20 @@ def main():
         return entry(f"milnce_grid_{part}", "exoground_tpu_torch/csrc/milnce_grid.cu",
                      replaces, cases)
 
+    def flash_entry(part, replaces):
+        parts = ("fwd", "dq", "dkv")
+        cases = []
+        for c in flash_cases:
+            c = {k: v for k, v in c.items()
+                 if not any(k.startswith(f"{p}_") for p in parts if p != part)}
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+                if f"{part}_{k}" in c:
+                    c[k] = c.pop(f"{part}_{k}")
+            cases.append(c)
+        e = entry(f"flash_{part}", "exoground_tpu_torch/csrc/flash_attn.cu", replaces, cases)
+        e["launches_by_path"] = flash_launches[f"flash_{part}"]
+        return e
+
     print(json.dumps({"kernels": [
         entry("fused_mha", "exoground_tpu_torch/csrc/fused_mha.cu",
               "exoground_tpu/ops/attention.py:761", mha_cases),
@@ -568,6 +907,9 @@ def main():
               "exoground_tpu/ops/fused_mlp.py:244", mlp_cases),
         grid_entry("fwd", "exoground_tpu/ops/milnce_grid.py:184"),
         grid_entry("bwd", "exoground_tpu/ops/milnce_grid.py:231"),
+        flash_entry("fwd", "exoground_tpu/ops/attention.py:279"),
+        flash_entry("dq", "exoground_tpu/ops/attention.py:329"),
+        flash_entry("dkv", "exoground_tpu/ops/attention.py:347"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -105,7 +105,8 @@ class AlignEvalConfig:
 
 def make_tan_sim_fn(model) -> Callable:
     """Batched-window similarity fn for a port TemporalAligner, on the
-    model's device.
+    model's device; the features go in as the model's type (a bfloat16
+    model takes bfloat16 inputs).
 
     Returns fn(video (W,L,Dv), vmask (W,L), text (W,N,Dt), tmask (W,N),
     interpolate_from=None, pos_interp_len=None) -> dict of numpy arrays:
@@ -113,7 +114,8 @@ def make_tan_sim_fn(model) -> Callable:
       alignability-dual (W, K), alignability-joint (W, K) (stage 2) and
       alignability-joint-last (W, K) when the head is enabled.
     """
-    device = next(model.parameters()).device
+    param = next(model.parameters())
+    device, dtype = param.device, param.dtype
 
     def sim_fn(video, vmask, text, tmask, interpolate_from=None,
                pos_interp_len=None):
@@ -128,7 +130,7 @@ def make_tan_sim_fn(model) -> Callable:
                                           if pos_interp_len is None
                                           else pos_interp_len))
             out = model.text_visual_sim(
-                dev(video, torch.float32), dev(text, torch.float32),
+                dev(video, dtype), dev(text, dtype),
                 video_padding_mask=dev(vmask, torch.bool),
                 lang_padding_mask=dev(tmask, torch.bool), **kw)
             res = {

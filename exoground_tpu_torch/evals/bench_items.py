@@ -12,6 +12,12 @@ import numpy as np
 # HTM-Align's real set is 80 videos of mean ~370 s; 8 x ~600 s gives a stable
 # per-chip measurement without multi-minute bench runs
 BENCH_VLENS = [520, 640, 580, 700, 610, 560, 660, 590]
+# global mode over long videos. These lengths are chosen to cross the 'auto'
+# gate (every padded length, a multiple of 128, is >= 2048, so both towers
+# take the flash kernel on the card), not taken from user traffic: at a mean
+# of ~370 s most HTM-Align videos stay below it, and the share at or above
+# 2048 frames is not known here (PERF.md section 4)
+GLOBAL_VLENS = [2048, 2400, 3000]
 
 
 def make_item(seed, vlen, video_dim=1024, text_dim=512):
@@ -38,6 +44,26 @@ def make_bench_items(video_dim=1024, text_dim=512, vlens=None):
         make_item(s, vlen, video_dim=video_dim, text_dim=text_dim)
         for s, vlen in enumerate(vlens)
     ]
+
+
+def make_global_items(video_dim=4096, text_dim=4096, vlens=None):
+    """Long HTM-Align-like items for the global mode (``make_item`` at
+    ``GLOBAL_VLENS``, seeds 100, 101, ...)."""
+    vlens = GLOBAL_VLENS if vlens is None else vlens
+    return [
+        make_item(100 + s, vlen, video_dim=video_dim, text_dim=text_dim)
+        for s, vlen in enumerate(vlens)
+    ]
+
+
+def make_global_bench_inputs(seed=0):
+    """The JAX package's global-mode bench inputs (bench.py:1133-1135): one
+    (1, 2048, 4096) video and (1, 48, 4096) texts, float32, no padding; the
+    bench calls ``text_visual_sim(video, text, interpolate_from=max_pos)``."""
+    rng = np.random.RandomState(seed)
+    video = rng.randn(1, 2048, 4096).astype(np.float32)
+    text = rng.randn(1, 48, 4096).astype(np.float32)
+    return {"video": video, "text": text}
 
 
 def make_bench_params(seed, layers=6, width=512, input_dim=4096, max_pos=4096,

@@ -12,6 +12,11 @@ Attribute names follow the reference's state dict, so a reference
 checkpoint (and ``tests/golden_common.py::synth_state`` of a golden
 manifest) loads with ``load_state_dict(strict=True)``. That includes the
 reference's ``mlp`` Linear(width, width), which its forward never uses.
+
+``attn_impl`` (None or 'auto', 'xla' or 'flash')
+reaches every encoder block of both towers, as the JAX model's field of the
+same name: under 'auto' a long sequence on the card (sq * sk >= 2048^2, the
+global mode) takes the flash kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from exoground_tpu_torch.ops.attention import check_impl
 from exoground_tpu_torch.ops.blocks import LN_EPS, TemporalEncoder
 from exoground_tpu_torch.ops.pos_embed import (
     get_position_embedding_sine,
@@ -53,9 +59,12 @@ class TemporalAligner(nn.Module):
         heads: int = 8,
         input_dim: int = 4096,
         max_pos: int = 4096,
+        attn_impl: Optional[str] = None,
         device="cuda",
     ):
         super().__init__()
+        check_impl(attn_impl)
+        self.attn_impl = attn_impl
         self.num_encoder_layers = num_encoder_layers
         self.pos_enc = pos_enc
         self.use_text_pos_enc = use_text_pos_enc
@@ -124,7 +133,7 @@ class TemporalAligner(nn.Module):
                                   pos_interp_len, preprojected, generator)
         if self.num_encoder_layers == 0:
             return x[:, None]
-        stages = self.video_temporal_encoder(x, video_padding_mask)
+        stages = self.video_temporal_encoder(x, video_padding_mask, impl=self.attn_impl)
         return _with_last(stages, self.ln_video_post_enc(stages[:, -1]))
 
     def get_textual_feature(self, lang_embed):
@@ -150,7 +159,7 @@ class TemporalAligner(nn.Module):
         t = x.shape[1]
         joint = torch.cat([x, lang_embed_with_time], dim=1)
         joint_mask = torch.cat([video_padding_mask, lang_padding_mask], dim=1)
-        stages = self.joint_temporal_encoder(joint, joint_mask)
+        stages = self.joint_temporal_encoder(joint, joint_mask, impl=self.attn_impl)
         stages = _with_last(stages, self.ln_joint_post_enc(stages[:, -1]))
         return stages[:, :, :t], stages[:, :, t:]
 

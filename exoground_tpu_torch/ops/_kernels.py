@@ -58,11 +58,20 @@ SIGNATURES = {
         # S, St, R, Cc, C, nsplit, inv_temp, dtype, stream
         "milnce_grid_backward": (_P,) * 10 + (_I,) * 6 + (_F, _I, _P),
     },
+    "flash_attn": {
+        # q, k, v, kpad, o, lse, BH, H, Sq, Sk, D, dtype, stream
+        "flash_attn_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
+        # q, k, v, kpad, do, lse, delta, dq, BH, H, Sq, Sk, D, dtype, stream
+        "flash_attn_dq": (_P,) * 8 + (_I,) * 6 + (_P,),
+        # q, k, v, kpad, do, lse, delta, dk, dv, BH, H, Sq, Sk, D, dtype, stream
+        "flash_attn_dkv": (_P,) * 9 + (_I,) * 6 + (_P,),
+    },
 }
 
 # one counter per wrapper
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in ("fused_mha", "fused_mlp", "milnce_grid_fwd", "milnce_grid_bwd")
+    name: 0 for name in ("fused_mha", "fused_mlp", "milnce_grid_fwd", "milnce_grid_bwd",
+                         "flash_fwd", "flash_dq", "flash_dkv")
 }
 
 _lock = threading.Lock()

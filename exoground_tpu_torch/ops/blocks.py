@@ -51,7 +51,10 @@ class MLP(nn.Module):
 
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN self-attention block returning (output, x_norm)
-    (reference model/tfm_model.py:17-38)."""
+    (reference model/tfm_model.py:17-38). ``impl`` reaches the attention
+    (None or 'auto', 'xla', 'flash'); the JAX block's 'fused' (whole-block
+    kernels) and 'small' raise ``NotImplementedError`` there until their
+    kernels are ported."""
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -60,9 +63,9 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = MLP(width)
         self.ln_2 = nn.LayerNorm(width, eps=LN_EPS)
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, impl=None):
         x_norm = self.ln_1(x)
-        x = x + self.attn(x_norm, x_norm, x_norm, key_padding_mask)
+        x = x + self.attn(x_norm, x_norm, x_norm, key_padding_mask, impl=impl)
         x = x + self.mlp(self.ln_2(x))
         return x, x_norm
 
@@ -78,10 +81,10 @@ class TemporalEncoder(nn.Module):
             ResidualAttentionBlock(width, heads) for _ in range(layers)
         )
 
-    def forward(self, x, key_padding_mask=None):
+    def forward(self, x, key_padding_mask=None, impl=None):
         intermediate = []
         for block in self.resblocks:
-            x, x_norm = block(x, key_padding_mask)
+            x, x_norm = block(x, key_padding_mask, impl=impl)
             intermediate.append(x_norm)
         intermediate.pop(0)
         intermediate.append(x)

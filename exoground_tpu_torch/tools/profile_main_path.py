@@ -1,6 +1,6 @@
 """Where the main path's time goes on the card.
 
-    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train]
+    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train | --global]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -16,6 +16,13 @@ the JAX package's train-bench configuration (E6D6 with the alignability
 head, keep agreement, loss threshold 0.7, EMA 0.999) at batch 16 and 64 in
 float32 and bfloat16: two warm-up steps, five timed steps (median), then
 one step under ``torch.profiler``; one JSON line per run.
+
+``--global`` profiles the global mode instead: one ``text_visual_sim`` at
+the JAX package's global bench shape (1 x 2048 frames, 48 texts, E6D6, auto
+dispatch: every encoder self-attention through the flash kernel) in float32
+and bfloat16: two warm-up calls, five timed calls (median), then one call
+under ``torch.profiler``; one JSON line per dtype with the device time by
+kernel, the idle share and the flash and fused-MLP shares of the busy time.
 
 With ``--out`` the Chrome traces are written there. Needs a CUDA device;
 raises otherwise.
@@ -125,10 +132,60 @@ def profile_train(model, batch_size: int, amp: bool, out_dir=None) -> dict:
     }
 
 
+def profile_global(model, dtype: str, out_dir=None) -> dict:
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import make_global_bench_inputs
+
+    tdt = getattr(torch, dtype)
+    m = copy.deepcopy(model).to(device="cuda", dtype=tdt)
+    inputs = make_global_bench_inputs(0)
+    video = torch.tensor(inputs["video"], dtype=tdt, device="cuda")
+    text = torch.tensor(inputs["text"], dtype=tdt, device="cuda")
+    max_pos = m.temporal_pos_embed.shape[0]
+
+    def call() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            m.text_visual_sim(video, text, interpolate_from=max_pos)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    call(), call()  # warm-up
+    times = [call() for _ in range(5)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = call()
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"global_{dtype}.json"))
+    flash_us = sum(us for us, _, k in rows if "flash_" in k)
+    mlp_us = sum(us for us, _, k in rows if "fused_mlp" in k)
+    return {
+        "dtype": dtype,
+        "shape": "1 x 2048 frames, 48 texts",
+        "call_ms": statistics.median(times) * 1e3,
+        "call_ms_all": [t * 1e3 for t in times],
+        "profiled_call_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "flash_ms": flash_us / 1e3,
+        "flash_share_of_busy": flash_us / busy_us,
+        "fused_mlp_ms": mlp_us / 1e3,
+        "fused_mlp_share_of_busy": mlp_us / busy_us,
+        "top_kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                        for us, c, k in rows[:12]],
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
-    ap.add_argument("--train", action="store_true", help="profile the train path")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true", help="profile the train path")
+    mode.add_argument("--global", dest="global_mode", action="store_true",
+                      help="profile global-mode text_visual_sim at the bench shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
@@ -151,6 +208,11 @@ def main():
         return
     model = TemporalAligner(device="cpu")
     load_tan_params(model, make_bench_params(0))
+    if args.global_mode:
+        for dtype in ("float32", "bfloat16"):
+            print(json.dumps({"card": card, **profile_global(model, dtype, args.out)}),
+                  flush=True)
+        return
     items = make_bench_items(4096, 4096)
     for dtype in ("float32", "bfloat16"):
         print(json.dumps({"card": card, **profile_dtype(model, items, dtype, args.out)}),

@@ -199,6 +199,7 @@ class ExperimentConfig:
             assert self.num_max_views >= 1
         assert self.optim_policy in ("default", "bce")
         assert self.opt_moment_dtype in ("float32", "bfloat16")
+        assert self.attn_impl in ("auto", "flash", "xla"), self.attn_impl
         if self.test_egovlp:  # main_egoexo4d_distributed.py:606-607
             assert self.test, "--test_egovlp is a test-time baseline"
         return self

@@ -56,6 +56,8 @@ class TANTrainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if cfg.attn_impl != "auto":  # 'auto' keeps the model's own (train/main.py:124)
+            self.model.attn_impl = cfg.attn_impl
         self.iteration = cfg.iteration
         self.start_epoch = cfg.start_epoch
         self.generator = torch.Generator().manual_seed(cfg.seed)  # random pos start

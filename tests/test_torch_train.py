@@ -382,6 +382,13 @@ def test_disable_fused_kernels_routes_to_plain(monkeypatch):
             block(x)
         assert not fused_kernels_disabled()
     assert calls == []
+    # the switch leaves an explicit impl='flash' on the flash route, as in JAX
+    real_flash = attn_mod.flash_attention
+    monkeypatch.setattr(attn_mod, "flash_attention",
+                        lambda *a: calls.append("flash") or real_flash(*a))
+    with torch.no_grad(), disable_fused_kernels():
+        block(x, impl="flash")
+    assert calls == ["flash"]
 
 
 def test_cuda_guard_still_applies_outside_the_context():
