@@ -16,6 +16,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      by CUDA events (median of several runs after warm-up) beside the plain
      version, one PyTorch library call where one computes the same function,
      and the card's bound;
+  3d. int8 kernels: fused_mha_int8 and fused_mlp_int8 against mha_int8_plain and
+     mlp_int8_plain on the card (a fully-masked window, ragged lengths and a zero
+     row in every case), at the int8 path's shapes (MHA B304 S64 and S96 C512 H8;
+     MLP 19456 and 29184 rows, C512), timed beside the plain version,
+     torch._int_mm of the int8 product alone (a yardstick), the exact kernel of
+     the same dtype and the bound; and at small shapes (head sizes 8, 32, 40,
+     48, S 128; MLP widths 128, 640 and 4224, x streamed), float32 (<= 1e-4 of
+     max|plain|) and bfloat16 (<= 1e-2);
   4. main path: AlignmentService over TemporalAligner E6D6 (width 512, 8 heads,
      4096-d inputs, seeded random weights through the JAX->port weight bridge)
      answers align() requests, three of them concurrent through the coalescing
@@ -24,6 +32,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      on the CPU plain path for agreement; then FusedAlignEvaluator over the 8
      bench videos for R@1/AUC and frames/s (frames over the median of three
      timed sweeps after a warm-up, as the profile tool reports it).
+  4b. int8 path: FusedAlignEvaluator in the JAX bench's int8 configuration
+     (bfloat16 compute, float16 transfer, matmul_dtype='int8', int8_min_cols
+     1024) over the 8 bench videos with the counters reset just before and read
+     just after (12 fused_mha_int8 + 12 fused_mlp_int8 launches per group, no
+     fused_mha/fused_mlp); one video in float32 + int8 on the card and on the CPU
+     plain path (score rel. error <= 1e-3, best_second equal where the top-2
+     margin exceeds 1e-3 of max|score|); R@1, AUC and frames/s (median of 3
+     sweeps, in turns) beside the exact bfloat16 run (`int8_bench {...}`);
+     one AlignmentService(matmul_dtype='int8') request (no int8 launch: the
+     service keeps int8_min_cols 0); one sweep each with int8 and int4 transfer.
   3b. grid kernel: the MIL-NCE grid kernel's forward (v_den, t_den) and
      backward (dv, dt for random upstream grads) against grid_lse2_plain on
      the card, at the train path's shapes (S 6, R = B*64, Cc = B*12, C 512
@@ -199,6 +217,143 @@ def mlp_case(rows, C, dtype, seed):
     return case
 
 
+# ---------------------------------------------------------------- phase 3d
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core rate, SXM
+
+
+def int8_bound_ms(int8_ops: float, rest_flops: float, nbytes: float, dtype) -> tuple:
+    """The int8 product at the int8 rate plus the rest at the dtype's rate,
+    or the bytes at the memory rate, whichever is larger."""
+    t_ops = (int8_ops / H100_INT8_OPS + rest_flops / H100_PEAK_FLOPS[dtype]) * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _int8_inputs(rng, dtype, x_shape):
+    """Random x with its second row zero (a zero row quantizes with scale 1)."""
+    x = torch.tensor(rng.standard_normal(x_shape), dtype=dtype, device="cuda")
+    x.view(-1, x_shape[-1])[1].zero_()
+    return x
+
+
+def mha_int8_case(B, S, C, H, dtype, seed, timed=False):
+    """fused_mha_int8 against mha_int8_plain on the card: one fully-masked
+    window (a padded group window), ragged lengths and a zero row; with
+    ``timed``, beside the plain version, torch._int_mm of the int8 qkv
+    product alone (a yardstick), the exact fused_mha in the same dtype and
+    the bound."""
+    from exoground_tpu_torch.ops import _kernels, quant
+    from exoground_tpu_torch.ops.attention import fused_mha, fused_mha_int8, mha_int8_plain
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+
+    x = _int8_inputs(rng, dtype, (B, S, C))
+    w_in, b_in = t(3 * C, C, scale=C ** -0.5), t(3 * C, scale=0.02)
+    w_out, b_out = t(C, C, scale=C ** -0.5), t(C, scale=0.02)
+    lens = rng.randint(1, S + 1, B)
+    lens[0] = 0
+    lens[-1] = S
+    kpad = torch.tensor(np.arange(S)[None, :] >= lens[:, None], device="cuda")
+    args = (x, kpad, w_in, b_in, w_out, b_out, H)
+    with torch.inference_mode():
+        n0 = _kernels.LAUNCHES["fused_mha_int8"]
+        out = fused_mha_int8(*args)
+        torch.cuda.synchronize()
+        if _kernels.LAUNCHES["fused_mha_int8"] != n0 + 1:
+            fail("fused_mha_int8 did not count its launch")
+        ref = mha_int8_plain(*args)
+        if not torch.isfinite(out.float()).all():
+            fail(f"fused_mha_int8 non-finite output at B{B} S{S} C{C} {dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        case = dict(shape=f"B{B} S{S} C{C} H{H}", dtype=str(dtype).split(".")[-1],
+                    max_abs_err=err, max_rel_err=err / scale, library_ms=None)
+        if timed:
+            xq, _ = quant._quant_last_axis(x)
+            wq, _ = quant._quant_first_axis(w_in)
+            xq2 = xq.reshape(-1, C)
+            case.update(ms=time_ms(lambda: fused_mha_int8(*args)),
+                        plain_ms=time_ms(lambda: mha_int8_plain(*args)),
+                        int_mm_ms=time_ms(lambda: quant._int_mm(xq2, wq)),
+                        exact_kernel_ms=time_ms(lambda: fused_mha(*args)))
+            item = x.element_size()
+            nbytes = (2 * B * S * C + 4 * C * C + 4 * C) * item + 4 * B * S
+            bms, by = int8_bound_ms(6.0 * B * S * C * C,
+                                    2.0 * B * S * C * C + 4.0 * B * S * S * C, nbytes, dtype)
+            case.update(bound_ms=bms, bound_by=by)
+    print("fused_mha_int8", json.dumps(case), flush=True)
+    if not case["max_rel_err"] <= TOL[dtype]:
+        fail(f"fused_mha_int8 disagrees with mha_int8_plain: {case}")
+    return case
+
+
+def mlp_int8_case(rows, C, dtype, seed, timed=False):
+    """fused_mlp_int8 against mlp_int8_plain on the card; with ``timed``,
+    beside the plain version, torch._int_mm of the int8 c_fc product alone,
+    the exact fused_mlp in the same dtype and the bound."""
+    from exoground_tpu_torch.ops import _kernels, quant
+    from exoground_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_int8, mlp_int8_plain
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+
+    x = _int8_inputs(rng, dtype, (rows, C))
+    fc_w, fc_b = t(4 * C, C, scale=C ** -0.5), t(4 * C, scale=0.02)
+    pr_w, pr_b = t(C, 4 * C, scale=(4 * C) ** -0.5), t(C, scale=0.02)
+    args = (x, fc_w, fc_b, pr_w, pr_b)
+    with torch.inference_mode():
+        n0 = _kernels.LAUNCHES["fused_mlp_int8"]
+        out = fused_mlp_int8(*args)
+        torch.cuda.synchronize()
+        if _kernels.LAUNCHES["fused_mlp_int8"] != n0 + 1:
+            fail("fused_mlp_int8 did not count its launch")
+        ref = mlp_int8_plain(*args)
+        if not torch.isfinite(out.float()).all():
+            fail(f"fused_mlp_int8 non-finite output at rows {rows} C{C} {dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        case = dict(shape=f"rows{rows} C{C}", dtype=str(dtype).split(".")[-1],
+                    max_abs_err=err, max_rel_err=err / scale, library_ms=None)
+        if timed:
+            xq, _ = quant._quant_last_axis(x)
+            wq, _ = quant._quant_first_axis(fc_w)
+            case.update(ms=time_ms(lambda: fused_mlp_int8(*args)),
+                        plain_ms=time_ms(lambda: mlp_int8_plain(*args)),
+                        int_mm_ms=time_ms(lambda: quant._int_mm(xq, wq)),
+                        exact_kernel_ms=time_ms(lambda: fused_mlp(*args)))
+            nbytes = (2 * rows * C + 8 * C * C + 5 * C) * x.element_size()
+            bms, by = int8_bound_ms(8.0 * rows * C * C, 8.0 * rows * C * C, nbytes, dtype)
+            case.update(bound_ms=bms, bound_by=by)
+    print("fused_mlp_int8", json.dumps(case), flush=True)
+    if not case["max_rel_err"] <= TOL[dtype]:
+        fail(f"fused_mlp_int8 disagrees with mlp_int8_plain: {case}")
+    return case
+
+
+def int8_kernel_cases():
+    """Phase 3d: both int8 kernels at the main path's shapes (timed) and at
+    small shapes that reach their other instantiations."""
+    mha, mlp = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        mha.append(mha_int8_case(304, 64, 512, 8, dtype, seed=40, timed=True))
+        mha.append(mha_int8_case(304, 96, 512, 8, dtype, seed=41, timed=True))
+        mha.append(mha_int8_case(5, 33, 128, 4, dtype, seed=42))
+        mha.append(mha_int8_case(3, 17, 128, 16, dtype, seed=43))  # head size 8
+        mha.append(mha_int8_case(4, 72, 640, 16, dtype, seed=44))  # head size 40
+        mha.append(mha_int8_case(2, 128, 384, 8, dtype, seed=45))  # head size 48, S 128
+        mlp.append(mlp_int8_case(19456, 512, dtype, seed=46, timed=True))
+        mlp.append(mlp_int8_case(29184, 512, dtype, seed=47, timed=True))
+        mlp.append(mlp_int8_case(210, 128, dtype, seed=48))
+        mlp.append(mlp_int8_case(300, 640, dtype, seed=49))  # two column slabs
+        mlp.append(mlp_int8_case(40, 4224, dtype, seed=50))  # x streamed, not resident
+    return mha, mlp
+
+
 # ---------------------------------------------------------------- phase 3b
 def grid_case(S, R, Cc, C, St, dtype, seed, n_invalid=0, timed=False):
     from exoground_tpu_torch.ops import _kernels
@@ -369,18 +524,27 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
 
 
 # ----------------------------------------------------------------- phase 4
-def main_path(card):
-    from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
-    from exoground_tpu_torch.evals.align_fused import _plan
-    from exoground_tpu_torch.evals.bench_items import make_bench_items, make_bench_params
+def _serving_aligner():
+    """TemporalAligner E6D6, width 512, 8 heads, 4096-d inputs, on the CPU
+    with the seeded bench weights (through the JAX->port weight bridge)."""
+    from exoground_tpu_torch.evals.bench_items import make_bench_params
     from exoground_tpu_torch.models import TemporalAligner
-    from exoground_tpu_torch.ops import _kernels
-    from exoground_tpu_torch.serve import AlignmentService, AlignRequest
     from exoground_tpu_torch.utils.convert import load_tan_params
 
     model = TemporalAligner(num_encoder_layers=6, num_joint_layers=6, width=512,
                             heads=8, input_dim=4096, device="cpu")
     load_tan_params(model, make_bench_params(0))
+    return model
+
+
+def main_path(card):
+    from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
+    from exoground_tpu_torch.evals.align_fused import _plan
+    from exoground_tpu_torch.evals.bench_items import make_bench_items
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.serve import AlignmentService, AlignRequest
+
+    model = _serving_aligner()
     items = make_bench_items(4096, 4096)
     svc = AlignmentService(model, device="cuda")
 
@@ -389,7 +553,7 @@ def main_path(card):
     inner = ev._process
 
     def counting(cfg, dims, host_args):
-        groups.append(dims[1] + host_args[4].shape[1])
+        groups.append(dims[1] + host_args[6].shape[1])  # seq_len + Npad (text_idx)
         return inner(cfg, dims, host_args)
 
     batches = []  # requests per batch the coalescing front served
@@ -487,6 +651,138 @@ def main_path(card):
               f"{dt:.4f} s = {frames / dt:.1f} frames/s on {card}", flush=True)
         if not (0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0):
             fail(f"metrics out of range: {metrics}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 4b
+def _timed_sweep(ev, items) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = ev(items)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, metrics
+
+
+def int8_path(card):
+    """The int8 serving mode at E6D6 full width: FusedAlignEvaluator in the
+    JAX bench's int8 configuration over the 8 bench videos, counted (12
+    int8 MHA + 12 int8 MLP launches per group, none of the exact kernels);
+    one video in float32 + int8 on the card and on the CPU plain path; R@1,
+    AUC and frames/s (median of 3 sweeps, in turns) beside the exact
+    bfloat16 run; one AlignmentService(matmul_dtype='int8') request (the JAX
+    service's policy, int8_min_cols 0: no int8 kernel launch); one sweep
+    each with transfer_dtype int8 and int4."""
+    from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
+    from exoground_tpu_torch.evals.align_fused import _plan
+    from exoground_tpu_torch.evals.bench_items import INT8_SERVING, make_bench_items
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.serve import AlignmentService, AlignRequest
+
+    model = _serving_aligner()
+    items = make_bench_items(4096, 4096)
+    frames = sum(len(it["video"]) for it in items)
+    ev = FusedAlignEvaluator(model, AlignEvalConfig(**INT8_SERVING), device="cuda")
+    groups = []
+    inner = ev._process
+
+    def counting(cfg, dims, host_args):
+        groups.append(dims[1] + host_args[6].shape[1])  # joint S
+        return inner(cfg, dims, host_args)
+
+    ev._process = counting
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = ev(items)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    ev._process = inner
+    want = dict(fused_mha_int8=sum(6 + (6 if s <= 128 else 0) for s in groups),
+                fused_mlp_int8=12 * len(groups), fused_mha=0, fused_mlp=0)
+    print(f"int8 path: {len(groups)} group dispatches (joint S {groups}), {wall:.3f} s "
+          f"(first sweep), launches {launches}, {card}", flush=True)
+    if {k: launches[k] for k in want} != want:
+        fail(f"int8 path launches {launches} != {want}")
+
+    # one video, float32 + int8, on the card and on the CPU plain path
+    item = items[4]
+    cfg32 = AlignEvalConfig(matmul_dtype="int8", int8_min_cols=1024, all_texts_active=True)
+    _kernels.reset_launches()
+    gpu = FusedAlignEvaluator(model, cfg32, device="cuda").predict([item])[0]
+    torch.cuda.synchronize()
+    card_launches = dict(_kernels.LAUNCHES)
+    cpu_ev = FusedAlignEvaluator(model, cfg32, device="cpu")
+    t0 = time.perf_counter()
+    cpu = cpu_ev.predict([item])[0]
+    cpu_s = time.perf_counter() - t0
+    (_, dims, host_args, _), = list(_plan([item], cfg32))
+    _, canvas = cpu_ev._process(cfg32, dims, host_args)
+    k, vlen = len(item["start"]), len(item["video"])
+    top2 = torch.topk(canvas[:k, :vlen], 2, dim=-1).values.numpy()
+    g_score, c_score = np.asarray(gpu["score"]), np.asarray(cpu["score"])
+    score_err = float(np.abs(g_score - c_score).max() / np.abs(c_score).max())
+    tol = 1e-3 * np.abs(c_score).max()
+    clear = top2[:, 0] - top2[:, 1] > tol
+    same = gpu["argmax"] == cpu["argmax"]
+    print(f"int8 card vs CPU plain path (f32 + int8, {k} texts, CPU {cpu_s:.1f} s, card "
+          f"launches {card_launches}): score rel err {score_err:.3e}, best_second equal on "
+          f"{int(same[clear].sum())}/{int(clear.sum())} texts with a top-2 margin > "
+          f"{tol:.2e}", flush=True)
+    if not score_err <= 1e-3 or not same[clear].all():
+        fail("the card's int8 path disagrees with the CPU plain path")
+    if card_launches["fused_mha_int8"] == 0 or card_launches["fused_mlp_int8"] == 0:
+        fail(f"the float32 int8 run launched {card_launches}")
+
+    # R@1, AUC and frames/s beside the exact bfloat16 run, in turns
+    exact = FusedAlignEvaluator(
+        model, AlignEvalConfig(compute_dtype="bfloat16", transfer_dtype="float16"),
+        device="cuda")
+    exact(items)  # warm-up
+    runs = {"int8": [], "exact": []}
+    res = {"int8": metrics}
+    for rep in range(3):
+        for name in (("int8", "exact") if rep % 2 == 0 else ("exact", "int8")):
+            dt, res[name] = _timed_sweep(ev if name == "int8" else exact, items)
+            runs[name].append(dt)
+    out = {}
+    for name in ("int8", "exact"):
+        dt = statistics.median(runs[name])
+        out[name] = dict(recall=res[name]["Recall"], auc=res[name]["AUC"],
+                         sweeps_s=runs[name], frames_per_s=frames / dt)
+    print("int8_bench", json.dumps(dict(config=INT8_SERVING, frames=frames, card=card, **out)),
+          flush=True)
+    for name, m in out.items():
+        if not (0.0 <= m["recall"] <= 1.0 and 0.0 <= m["auc"] <= 1.0):
+            fail(f"{name} metrics out of range: {m}")
+
+    # the service's int8 mode: every projection quantized, unfused
+    it = items[0]
+    svc = AlignmentService(model, matmul_dtype="int8", device="cuda")
+    _kernels.reset_launches()
+    ans = svc.align(AlignRequest(video=it["video"], text_embeds=it["text_embed"],
+                                 start=it["start"], end=it["end"]))
+    torch.cuda.synchronize()
+    svc_launches = dict(_kernels.LAUNCHES)
+    print(f"AlignmentService(matmul_dtype='int8'): launches {svc_launches}", flush=True)
+    if any(svc_launches[k] for k in ("fused_mha_int8", "fused_mlp_int8", "fused_mha",
+                                     "fused_mlp")):
+        fail(f"the int8 service launched {svc_launches}; its policy quantizes every "
+             "projection on the unfused path")
+    if not (len(ans["best_second"]) == len(it["text_embed"])
+            and all(0 <= s < len(it["video"]) for s in ans["best_second"])
+            and np.isfinite(ans["score"]).all()):
+        fail("malformed int8 align() answer")
+
+    # one sweep each with int8 and int4 transfer (after a warm-up sweep)
+    for td in ("int8", "int4"):
+        tev = FusedAlignEvaluator(model, AlignEvalConfig(**dict(INT8_SERVING, transfer_dtype=td)),
+                                  device="cuda")
+        tev(items)
+        dt, m = _timed_sweep(tev, items)
+        print(f"int8 path, transfer_dtype {td}: R@1 {m['Recall']:.4f} AUC {m['AUC']:.4f}, "
+              f"{dt:.4f} s = {frames / dt:.1f} frames/s on {card}", flush=True)
+        if not (0.0 <= m["Recall"] <= 1.0 and 0.0 <= m["AUC"] <= 1.0):
+            fail(f"transfer {td} metrics out of range: {m}")
     return launches
 
 
@@ -843,8 +1139,15 @@ def main():
         flash_cases.append(flash_case(2, 4, 300, 300, 128, dtype, seed=38, pad_tail=20))
         flash_cases.append(flash_case(2, 3, 50, 70, 40, dtype, seed=39, empty_row=True))
 
+    # phase 3d: the int8 kernels against their plain versions
+    mha8_cases, mlp8_cases = int8_kernel_cases()
+
     # phase 4: the serving path, counted
     launches = main_path(card)
+
+    # phase 4b: the int8 serving mode, counted
+    int8_launches = int8_path(card)
+    launches.update({k: int8_launches[k] for k in ("fused_mha_int8", "fused_mlp_int8")})
 
     # phase 5: the train path, counted (auto at B 16 and 64, then the flash
     # kernels under attn_impl='flash' at B 16)
@@ -874,6 +1177,11 @@ def main():
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"], "shape": head["shape"],
                 "dtype": head["dtype"], "cases": cases}
+
+    def int8_entry(name, source, replaces, cases):
+        e = entry(name, source, replaces, cases)
+        e.update(int_mm_ms=cases[0]["int_mm_ms"], exact_kernel_ms=cases[0]["exact_kernel_ms"])
+        return e
 
     def grid_entry(part, replaces):
         cases = [{k: v for k, v in c.items() if not k.startswith("bwd" if part == "fwd" else
@@ -905,6 +1213,10 @@ def main():
               "exoground_tpu/ops/attention.py:761", mha_cases),
         entry("fused_mlp", "exoground_tpu_torch/csrc/fused_mlp.cu",
               "exoground_tpu/ops/fused_mlp.py:244", mlp_cases),
+        int8_entry("fused_mha_int8", "exoground_tpu_torch/csrc/fused_mha_int8.cu",
+                   "exoground_tpu/ops/attention.py:777", mha8_cases),
+        int8_entry("fused_mlp_int8", "exoground_tpu_torch/csrc/fused_mlp_int8.cu",
+                   "exoground_tpu/ops/fused_mlp.py:200", mlp8_cases),
         grid_entry("fwd", "exoground_tpu/ops/milnce_grid.py:184"),
         grid_entry("bwd", "exoground_tpu/ops/milnce_grid.py:231"),
         flash_entry("fwd", "exoground_tpu/ops/attention.py:279"),

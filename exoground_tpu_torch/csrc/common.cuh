@@ -1,4 +1,5 @@
-// Shared helpers of the port's CUDA kernels: float/bf16 conversion.
+// Shared helpers of the port's CUDA kernels: float/bf16 conversion, the
+// dynamic shared-memory cap, int8 row quantization.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +22,47 @@ template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ---- int8 row quantization (the TPU kernels' _quant_rows_f32) ----
+// The sources build without --use_fast_math, so '/' is the IEEE quotient
+// and matches the port's plain versions bit for bit.
+
+// A row's scale: absmax / 127 where absmax > 0, else 1.
+__device__ __forceinline__ float row_scale(float absmax) {
+  return absmax > 0.f ? absmax / 127.f : 1.f;
+}
+
+// clip(round_half_even(v / s), -127, 127)
+__device__ __forceinline__ int quant_i8(float v, float s) {
+  return static_cast<int>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));
+}
+
+// Four consecutive values quantized with scale s, packed into one word for
+// __dp4a (the lowest address in the low byte, as int8 memory reads back).
+template <typename T>
+__device__ __forceinline__ int quant_pack4(const T* p, float s) {
+  int w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w |= (quant_i8(to_f(p[i]), s) & 0xff) << (8 * i);
+  return w;
+}
+
+// float(acc) * xs * ws + b, each step rounded on its own (no FMA
+// contraction), in the JAX kernels' order.
+__device__ __forceinline__ float dequant(int acc, float xs, float ws, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws), b);
+}
+
+// absmax of a row of n values read by the 32 lanes of a warp (all lanes
+// return it)
+template <typename T>
+__device__ __forceinline__ float warp_absmax(const T* row, int n, int lane) {
+  float m = 0.f;
+  for (int k = lane; k < n; k += 32) m = fmaxf(m, fabsf(to_f(row[k])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
 }
 
 }  // namespace exo

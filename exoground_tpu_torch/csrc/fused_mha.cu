@@ -30,23 +30,24 @@
 //   2. linear_bias_kernel: the out-projection o . W_out^T + b_out as a tiled
 //      64x64 GEMM. Heads are summed inside one dot product, so the result does
 //      not depend on scheduling (no atomics across heads).
+// The attention tail of step 1 and step 2 live in mha_tail.cuh, shared with
+// the int8 variant (fused_mha_int8.cu).
 // Head sizes: multiples of 8 up to 64 (the shared-memory budget at S = 128:
 // q/k/v and the scores take 164 KB at Dh = 64). Larger heads are not served
 // yet.
 // Accumulation and softmax are f32 for float32 and bfloat16 inputs; o_h is
 // rounded to the input type before the out-projection, as the TPU kernel casts
 // it to W_out's type.
-#include <cfloat>
 #include <cstddef>
 #include <cstdint>
 
 #include "common.cuh"
+#include "mha_tail.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kKC = 32;  // K chunk staged through shared memory
-constexpr float kNegInf = -1e30f;  // finite fill, as attention_plain's NEG_INF
 constexpr int kMaxDh = 64;         // largest head size served
 
 // RT: register-tile rows / 16 (ceil(S/16)); DH: the head size (a multiple of 8).
@@ -131,96 +132,9 @@ mha_window_head_kernel(const T* __restrict__ x, const int* __restrict__ kpad,
     for (int i = 0; i < RT; ++i) dst[(ty + 16 * i) * QP + d] = acc[i][j] + bias;
   }
   __syncthreads();  // qkv complete; the staging area becomes the score matrix
-
-  // ---- scores, masked by key padding ----
-  for (int e = tid; e < S * S; e += kThreads) {
-    const int i = e / S, j = e % S;
-    const float* q = qs + i * QP;
-    const float* k = ks + j * QP;
-    float dot = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) dot = fmaf(q[d], k[d], dot);
-    ps[e] = km[j] ? kNegInf : dot * scale;
-  }
-  __syncthreads();
-
-  // ---- row softmax, one warp per row ----
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = warp; i < S; i += kThreads / 32) {
-    float* row = ps + i * S;
-    float m = -FLT_MAX;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      float p = expf(row[j] - m);
-      row[j] = p;
-      l += p;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    for (int j = lane; j < S; j += 32) row[j] = row[j] / l;
-  }
-  __syncthreads();
-
-  // ---- o_h = p . v_h into the (B*S, C) scratch ----
-  T* ob = attn + size_t(b) * S * C + h * DH;
-  for (int e = tid; e < S * DH; e += kThreads) {
-    const int i = e / DH, d = e % DH;
-    const float* p = ps + i * S;
-    float o = 0.f;
-    for (int j = 0; j < S; ++j) o = fmaf(p[j], vs[j * QP + d], o);
-    ob[size_t(i) * C + d] = exo::from_f<T>(o);
-  }
-}
-
-// y[m, n] = sum_k a[m, k] * w[n, k] + bias[n]; one 64x64 tile per CTA.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-linear_bias_kernel(const T* __restrict__ a, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ y, int M, int N, int K) {
-  __shared__ float as[kKC][65];
-  __shared__ float bs[kKC][65];
-  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 64;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kKC) {
-    for (int e = tid; e < 64 * kKC; e += kThreads) {
-      const int r = e / kKC, kk = e % kKC, k = k0 + kk;
-      const int m = m0 + r, n = n0 + r;
-      as[kk][r] = (m < M && k < K) ? exo::to_f(a[size_t(m) * K + k]) : 0.f;
-      bs[kk][r] = (n < N && k < K) ? exo::to_f(w[size_t(n) * K + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKC; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) y[size_t(m) * N + n] = exo::from_f<T>(acc[i][j] + exo::to_f(bias[n]));
-    }
-  }
+  exo::window_attention<T, DH, kThreads>(qs, ks, vs, QP, ps, km,
+                                         attn + size_t(b) * S * C + h * DH, S, C, DH,
+                                         scale);
 }
 
 template <typename T, int RT, int DH>
@@ -269,12 +183,7 @@ cudaError_t forward(const void* x, const void* kpad, const void* w_in, const voi
   }
 #undef EXO_DH
   if (err != cudaSuccess) return err;
-  const int M = B * S;
-  dim3 grid((M + 63) / 64, (C + 63) / 64);
-  linear_bias_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(attn), static_cast<const T*>(w_out),
-      static_cast<const T*>(b_out), static_cast<T*>(out), M, C, C);
-  return cudaGetLastError();
+  return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st);
 }
 
 }  // namespace

@@ -25,20 +25,23 @@
 // every column and nothing is computed twice; above it the hidden is recomputed once per 512-column slab
 // (ceil(C/512) times), the price of keeping the accumulator in registers.
 // Shared memory at C=512: ~99 KB, two CTAs per SM.
+// The c_proj half and the store live in mlp_tail.cuh, shared with the int8
+// variant (fused_mlp_int8.cu).
 // Accumulation and the GELU are f32 for float32 and bfloat16 inputs; for
 // bfloat16 the hidden is rounded to bfloat16 before the second product, as the
 // TPU kernel casts it to c_proj's type.
 #include <cstddef>
 
 #include "common.cuh"
+#include "mlp_tail.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 32;  // rows of x per CTA
-constexpr int kHC = 64;    // hidden columns per chunk
+constexpr int kThreads = exo::kMlpThreads;
+constexpr int kRows = exo::kMlpRows;
+constexpr int kHC = exo::kMlpHC;
 constexpr int kKC = 32;    // K chunk of x and c_fc staged through shared memory
-constexpr int kPC = 8;     // hidden sub-chunk of c_proj staged through shared memory
+constexpr int kPC = exo::kMlpPC;
 constexpr int kMaxResidentC = 1024;  // widths whose x tile stays in shared memory
 
 // NJ: output columns per thread (32*NJ per CTA); XRES: x tile resident, else streamed
@@ -123,40 +126,9 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ wfc,
       }
     __syncthreads();
 
-    // acc += h . c_proj[n0 : n0 + NS, c0 : c0 + kHC]^T (columns past C read 0)
-    for (int p0 = 0; p0 < kHC; p0 += kPC) {
-      for (int e = tid; e < NS * kPC; e += kThreads) {
-        const int n = e / kPC, pp = e % kPC;
-        ps[pp * (NS + 1) + n] =
-            n0 + n < C ? exo::to_f(wpr[size_t(n0 + n) * HID + c0 + p0 + pp]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int pp = 0; pp < kPC; ++pp) {
-        float hv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) hv[i] = hs[(ty + 8 * i) * (kHC + 1) + p0 + pp];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float w = ps[pp * (NS + 1) + tx + 32 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(hv[i], w, acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
+    exo::mlp_c_proj_chunk<T, NJ>(hs, ps, wpr, acc, n0, c0, C);
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t r = r0 + ty + 8 * i;
-    if (r >= size_t(rows)) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = n0 + tx + 32 * j;
-      if (n < C) out[r * C + n] = exo::from_f<T>(acc[i][j] + exo::to_f(bpr[n]));
-    }
-  }
+  exo::mlp_store<T, NJ>(acc, bpr, out, r0, rows, n0, C);
 }
 
 template <typename T, int NJ, bool XRES, int CF = 0>

@@ -1,0 +1,134 @@
+// The parts the fused-MHA kernels share (csrc/fused_mha.cu and
+// csrc/fused_mha_int8.cu): the per-window attention tail of one (window,
+// head) CTA and the tiled out-projection. Counterpart of the TPU kernels'
+// shared _mha_attention_tail (exoground_tpu/ops/attention.py:575).
+#pragma once
+
+#include <cfloat>
+#include <cstddef>
+
+#include "common.cuh"
+
+namespace exo {
+
+constexpr float kMhaNegInf = -1e30f;  // finite fill, as attention_plain's NEG_INF
+
+// Attention of one head over one window from q, k, v (S rows of pitch qp,
+// float32, in shared memory): scores and softmax in ps (S x S floats of
+// shared memory), masked by km (nonzero at padding keys), o_h rounded to T
+// into ob (row pitch C). A window whose keys are all padding averages its own
+// S values uniformly, as attention_plain does with its finite -1e30 fill.
+// DHC: the head size when fixed at compile time, else 0 and it is dh.
+// Called by all kThreads threads of the CTA; ends without a barrier.
+template <typename T, int DHC, int kThreads>
+__device__ __forceinline__ void window_attention(const float* qs, const float* ks,
+                                                 const float* vs, int qp, float* ps,
+                                                 const int* km, T* ob, int S, int C,
+                                                 int dh, float scale) {
+  const int DH = DHC ? DHC : dh;
+  const int tid = threadIdx.x;
+  // ---- scores, masked by key padding ----
+  for (int e = tid; e < S * S; e += kThreads) {
+    const int i = e / S, j = e % S;
+    const float* q = qs + i * qp;
+    const float* k = ks + j * qp;
+    float dot = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) dot = fmaf(q[d], k[d], dot);
+    ps[e] = km[j] ? kMhaNegInf : dot * scale;
+  }
+  __syncthreads();
+
+  // ---- row softmax, one warp per row ----
+  const int warp = tid / 32, lane = tid % 32;
+  for (int i = warp; i < S; i += kThreads / 32) {
+    float* row = ps + i * S;
+    float m = -FLT_MAX;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      float p = expf(row[j] - m);
+      row[j] = p;
+      l += p;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    for (int j = lane; j < S; j += 32) row[j] = row[j] / l;
+  }
+  __syncthreads();
+
+  // ---- o_h = p . v_h into the (B*S, C) scratch ----
+  for (int e = tid; e < S * DH; e += kThreads) {
+    const int i = e / DH, d = e % DH;
+    const float* p = ps + i * S;
+    float o = 0.f;
+    for (int j = 0; j < S; ++j) o = fmaf(p[j], vs[j * qp + d], o);
+    ob[size_t(i) * C + d] = from_f<T>(o);
+  }
+}
+
+// y[m, n] = sum_k a[m, k] * w[n, k] + bias[n]; one 64x64 tile per CTA of 256
+// threads. Heads are summed inside one dot product, so the out-projection
+// does not depend on scheduling (no atomics across heads).
+template <typename T>
+__global__ void __launch_bounds__(256)
+linear_bias_kernel(const T* __restrict__ a, const T* __restrict__ w,
+                   const T* __restrict__ bias, T* __restrict__ y, int M, int N, int K) {
+  constexpr int KC = 32;
+  __shared__ float as[KC][65];
+  __shared__ float bs[KC][65];
+  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 64;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    for (int e = tid; e < 64 * KC; e += 256) {
+      const int r = e / KC, kk = e % KC, k = k0 + kk;
+      const int m = m0 + r, n = n0 + r;
+      as[kk][r] = (m < M && k < K) ? to_f(a[size_t(m) * K + k]) : 0.f;
+      bs[kk][r] = (n < N && k < K) ? to_f(w[size_t(n) * K + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < KC; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) y[size_t(m) * N + n] = from_f<T>(acc[i][j] + to_f(bias[n]));
+    }
+  }
+}
+
+// The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out.
+template <typename T>
+inline cudaError_t out_projection(const void* attn, const void* w_out, const void* b_out,
+                                  void* out, int M, int C, cudaStream_t st) {
+  const dim3 grid((M + 63) / 64, (C + 63) / 64);
+  linear_bias_kernel<T><<<grid, 256, 0, st>>>(
+      static_cast<const T*>(attn), static_cast<const T*>(w_out),
+      static_cast<const T*>(b_out), static_cast<T*>(out), M, C, C);
+  return cudaGetLastError();
+}
+
+}  // namespace exo

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.utils.shapes import round_up as _round_up
 
 NEG_FILL = -6e4
@@ -60,16 +61,18 @@ def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
 
 # field values whose code arrives with a later slice of the port
 _LATER = {
-    "transfer_dtype": ({"int8", "int4"}, "the int8 serving slice"),
-    "matmul_dtype": ({"int8"}, "the int8 serving slice"),
     "preproject": ({True}, "the resident-serving slice (preload/run_many)"),
 }
+TRANSFER_DTYPES = ("float32", "float16", "int8", "int4")
 
 
 @dataclasses.dataclass
 class AlignEvalConfig:
     """The JAX package's AlignEvalConfig, field for field (see its comments).
-    Values whose code belongs to a later slice of the port raise
+    ``transfer_dtype`` int8 / int4 quantize the features on the host and
+    dequantize them on the device; ``matmul_dtype="int8"`` runs the model
+    under ``quant.matmul_impl("int8", min_cols=int8_min_cols)``. Values
+    whose code belongs to a later slice of the port raise
     ``NotImplementedError``."""
 
     seq_len: int = 64
@@ -82,9 +85,9 @@ class AlignEvalConfig:
     global_len_bucket: int = 128
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     group_videos: int = 8
-    transfer_dtype: str = "float32"  # 'float32' | 'float16'
-    matmul_dtype: str = "default"
-    int8_min_cols: int = 0
+    transfer_dtype: str = "float32"  # 'float32' | 'float16' | 'int8' | 'int4'
+    matmul_dtype: str = "default"  # 'default' | 'int8' (ops/quant.py)
+    int8_min_cols: int = 0  # under 'int8': products narrower than this stay exact
     all_texts_active: bool = False
     eval_devices: int = 1
     preproject: bool = False
@@ -92,6 +95,12 @@ class AlignEvalConfig:
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: float32 or bfloat16")
+        if self.transfer_dtype not in TRANSFER_DTYPES:
+            raise ValueError(f"transfer_dtype {self.transfer_dtype!r}: one of "
+                             f"{TRANSFER_DTYPES}")
+        if self.matmul_dtype not in quant.VALID_IMPLS:
+            raise ValueError(f"matmul_dtype {self.matmul_dtype!r}: one of "
+                             f"{quant.VALID_IMPLS}")
         for field, (values, slice_name) in _LATER.items():
             if getattr(self, field) in values:
                 raise NotImplementedError(

@@ -14,6 +14,11 @@ Videos are packed ``group_videos`` at a time into one flat index space (one
 concatenated video buffer, one concatenated text table), so a group runs as
 one batch of a few hundred windows. Host-side active-text selection stays in
 numpy and feeds index arrays.
+
+``transfer_dtype`` int8 (per-row absmax) and int4 (group absmax, two values
+a byte) quantize the features on the host and dequantize them on the device
+after the window gather; ``matmul_dtype="int8"`` runs the model under
+``quant.matmul_impl("int8", min_cols=int8_min_cols)``.
 """
 
 from __future__ import annotations
@@ -33,14 +38,41 @@ from exoground_tpu_torch.evals.align import (
     _active_text_masks,
     roc_auc,
 )
+from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.utils.device import resolve_device
 from exoground_tpu_torch.utils.shapes import round_up as _round_up
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _process_body(model, cfg: AlignEvalConfig, dims, video, text_embed, win_start,
-                  win_len, text_idx, text_valid):
+def _dequant_int4(packed, scales):
+    """Unpack nibble-packed int4 (+8 offset) and apply the group scales:
+    packed (..., D//2) uint8, scales (..., D//group) float16 -> (..., D)
+    float32 (the JAX ``_dequant_int4``)."""
+    lo = (packed & 15).float() - 8.0
+    hi = (packed >> 4).float() - 8.0
+    d = packed.shape[-1] * 2
+    vals = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], d)
+    n_groups = scales.shape[-1]
+    vals = vals.reshape(*vals.shape[:-1], n_groups, d // n_groups)
+    vals = vals * scales.float()[..., None]
+    return vals.reshape(*vals.shape[:-2], d)
+
+
+def _gather_features(table, scale, idx, dtype):
+    """Rows ``idx`` of an uploaded feature table, dequantized when the
+    transfer type is int8 (per-row scales) or int4 (uint8 nibbles, group
+    scales), then cast to the compute type."""
+    rows = table[idx]
+    if table.dtype == torch.int8:
+        rows = rows.float() * scale[idx][..., None]
+    elif table.dtype == torch.uint8:
+        rows = _dequant_int4(rows, scale[idx])
+    return rows.to(dtype)
+
+
+def _process_body(model, cfg: AlignEvalConfig, dims, video, vscale, text_embed, tscale,
+                  win_start, win_len, text_idx, text_valid):
     """One group on the device (the JAX ``_process_body``, :75-213).
 
     Returns the packed (4, Ntot) float32 result [argmax, score, a_dual,
@@ -54,13 +86,15 @@ def _process_body(model, cfg: AlignEvalConfig, dims, video, text_embed, win_star
 
     l_idx = torch.arange(seq_len, device=dev)
     gidx = torch.clamp(win_start[:, None] + l_idx[None, :], 0, vmax - 1)  # (W, L)
-    vb = video[gidx].to(dtype)  # (W, L, Dv)
+    vb = _gather_features(video, vscale, gidx, dtype)  # (W, L, Dv)
     vmask = l_idx[None, :] >= win_len[:, None]  # (W, L) True=PAD
-    tb = text_embed[text_idx].to(dtype)  # (W, Npad, Dt)
+    tb = _gather_features(text_embed, tscale, text_idx, dtype)  # (W, Npad, Dt)
     tmask = ~text_valid
 
-    out = model.text_visual_sim(vb, tb, video_padding_mask=vmask,
-                                lang_padding_mask=tmask)
+    with quant.matmul_impl("int8" if cfg.matmul_dtype == "int8" else "default",
+                           min_cols=cfg.int8_min_cols):
+        out = model.text_visual_sim(vb, tb, video_padding_mask=vmask,
+                                    lang_padding_mask=tmask)
     out = {k: v.float() for k, v in out.items()}
     sim = out["sim"][:, -1].transpose(1, 2) * cfg.sim_scale  # (W, K, L)
     dual = out["dual-sim"][:, -1].transpose(1, 2) * cfg.sim_scale
@@ -174,9 +208,11 @@ def _plan(dataset, cfg: AlignEvalConfig):
       ('skip', idx, start, end, aligned, num_text) — a video with no active
         windows;
       ('group', dims, host_args, offsets) — host_args are the numpy arrays to
-        upload (video, text_embed, win_start, win_len, text_idx, text_valid);
-        offsets the per-video result slicing records
+        upload (video, vscale, text_embed, tscale, win_start, win_len,
+        text_idx, text_valid); offsets the per-video result slicing records
         (idx, start, end, aligned, num_text, text_offset, video_offset).
+        The scales are always shipped: per-row float32 (ones unless int8) or,
+        for int4, float16 group scales beside the nibble-packed tables.
     """
     seq_len = cfg.seq_len
     metas = []
@@ -201,7 +237,8 @@ def _plan(dataset, cfg: AlignEvalConfig):
 
     stride = seq_len // 4
     assert seq_len % 4 == 0 and cfg.global_len_bucket % stride == 0
-    tdt = np.dtype(cfg.transfer_dtype)
+    int8 = cfg.transfer_dtype == "int8"
+    int4 = cfg.transfer_dtype == "int4"
     for g0 in range(0, len(metas), cfg.group_videos):
         block = list(enumerate(metas[g0 : g0 + cfg.group_videos], start=g0))
         chunk = [im for im in block if im[1][5]]
@@ -218,8 +255,20 @@ def _plan(dataset, cfg: AlignEvalConfig):
         ntot = _round_up(sum(len(m[1]) for _, m in chunk), cfg.text_bucket)
         npad = _round_up(max((int(msk.sum()) for _, m in chunk for _, msk in m[5]),
                              default=1), cfg.text_bucket)
-        vb = np.zeros((vtot, chunk[0][1][0].shape[1]), tdt)
-        tb = np.zeros((ntot, chunk[0][1][4].shape[1]), tdt)
+        dv, dt = chunk[0][1][0].shape[1], chunk[0][1][4].shape[1]
+        if int4:
+            # nibble-packed columns; 0x88 = (q=0, q=0), so the buffer padding
+            # dequantizes to exact zeros (a zero byte would decode to -8)
+            vb = np.full((vtot, dv // 2), 0x88, np.uint8)
+            tb = np.full((ntot, dt // 2), 0x88, np.uint8)
+            vscale = np.ones((vtot, dv // _int4_group(dv)), np.float16)
+            tscale = np.ones((ntot, dt // _int4_group(dt)), np.float16)
+        else:
+            tdt = np.int8 if int8 else np.dtype(cfg.transfer_dtype)
+            vb = np.zeros((vtot, dv), tdt)
+            tb = np.zeros((ntot, dt), tdt)
+            vscale = np.ones(vtot, np.float32)
+            tscale = np.ones(ntot, np.float32)
         win_start = np.zeros(wtot, np.int64)
         win_len = np.zeros(wtot, np.int64)
         text_idx = np.zeros((wtot, npad), np.int64)
@@ -229,8 +278,16 @@ def _plan(dataset, cfg: AlignEvalConfig):
         offsets = []
         for idx, (video, start, end, aligned, text_embed, windows) in chunk:
             vlen, num_text = video.shape[0], len(start)
-            vb[v_off : v_off + vlen] = video
-            tb[t_off : t_off + num_text] = text_embed
+            vrows, trows = slice(v_off, v_off + vlen), slice(t_off, t_off + num_text)
+            if int8:
+                vb[vrows], vscale[vrows] = _quantize_rows(video)
+                tb[trows], tscale[trows] = _quantize_rows(text_embed)
+            elif int4:
+                vb[vrows], vscale[vrows] = _quantize_rows_int4(video)
+                tb[trows], tscale[trows] = _quantize_rows_int4(text_embed)
+            else:
+                vb[vrows] = video
+                tb[trows] = text_embed
             for i, (step, mask) in enumerate(windows):
                 wi = w_off + i
                 win_start[wi] = v_off + step
@@ -246,7 +303,50 @@ def _plan(dataset, cfg: AlignEvalConfig):
         # padded windows (w_off..wtot) have text_valid all False: they compute
         # on video[0:seq_len] and fold nothing
         yield ("group", (vtot, seq_len),
-               (vb, tb, win_start, win_len, text_idx, text_valid), offsets)
+               (vb, vscale, tb, tscale, win_start, win_len, text_idx, text_valid), offsets)
+
+
+def _quantize_rows(x: np.ndarray):
+    """Per-row symmetric int8 quantization: q = round(x / (absmax/127)).
+
+    Returns (int8 array, float32 per-row scale); zero rows get scale 1."""
+    absmax = np.abs(x).max(axis=1)
+    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.rint(x / scale[:, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _int4_group(dim: int) -> int:
+    """Largest power-of-two group size <= 128 that divides ``dim``."""
+    g = 128
+    while dim % g:
+        g //= 2
+    return g
+
+
+def _quantize_rows_int4(x: np.ndarray):
+    """Group-wise symmetric int4 quantization, packed two values a byte.
+
+    Each contiguous group of ``_int4_group(D)`` columns shares one float16
+    absmax/7 scale. Values are stored as unsigned nibbles q+8 in [1, 15];
+    byte j of a packed row holds columns 2j (low nibble) and 2j+1 (high
+    nibble), the layout ``_dequant_int4`` unpacks. A zero byte decodes to
+    q = -8 in both nibbles, so buffer padding uses 0x88 (q = 0).
+
+    Returns (uint8 (R, D//2) packed array, float16 (R, D//group) scales)."""
+    r, d = x.shape
+    if d % 2:
+        raise ValueError(f"int4 transfer needs an even feature dim, got {d}")
+    g = _int4_group(d)
+    grouped = x.reshape(r, d // g, g)
+    absmax = np.abs(grouped).max(axis=2)
+    scale = np.where(absmax > 0, absmax / 7.0, 1.0).astype(np.float16)
+    q = np.clip(
+        np.rint(grouped / scale.astype(np.float32)[:, :, None]), -7, 7
+    ).astype(np.int8).reshape(r, d)
+    u = (q + 8).astype(np.uint8)
+    packed = u[:, 0::2] | (u[:, 1::2] << 4)
+    return packed, scale
 
 
 def _dispatch(dataset, process, cfg: AlignEvalConfig):

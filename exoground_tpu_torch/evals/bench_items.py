@@ -18,6 +18,11 @@ BENCH_VLENS = [520, 640, 580, 700, 610, 560, 660, 590]
 # of ~370 s most HTM-Align videos stay below it, and the share at or above
 # 2048 frames is not known here (PERF.md section 4)
 GLOBAL_VLENS = [2048, 2400, 3000]
+# the JAX bench's int8 serving row (bench.py:458-464, :640-643) as
+# AlignEvalConfig fields: at width 512, int8_min_cols 1024 quantizes the
+# fused qkv (N = 1536) and c_fc (N = 2048) products and keeps the rest exact
+INT8_SERVING = dict(compute_dtype="bfloat16", transfer_dtype="float16", matmul_dtype="int8",
+                    int8_min_cols=1024)
 
 
 def make_item(seed, vlen, video_dim=1024, text_dim=512):

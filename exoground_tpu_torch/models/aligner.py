@@ -17,6 +17,9 @@ reference's ``mlp`` Linear(width, width), which its forward never uses.
 reaches every encoder block of both towers, as the JAX model's field of the
 same name: under 'auto' a long sequence on the card (sq * sk >= 2048^2, the
 global mode) takes the flash kernel.
+
+The two pre-projections go through ``quant.linear`` (exactly ``F.linear``
+outside ``quant.matmul_impl('int8')``), as the JAX model's Dense hooks.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.ops.attention import check_impl
 from exoground_tpu_torch.ops.blocks import LN_EPS, TemporalEncoder
 from exoground_tpu_torch.ops.pos_embed import (
@@ -115,7 +119,7 @@ class TemporalAligner(nn.Module):
     def preproject_video(self, video_embed):
         """Position-independent half of the video input stage:
         ``ln_video_init(video_pre_proj(x))``."""
-        return self.ln_video_init(self.video_pre_proj(video_embed))
+        return self.ln_video_init(quant.linear(video_embed, self.video_pre_proj.weight))
 
     def preproject_text(self, lang_embed):
         """Position-independent text input stage (== get_textual_feature)."""
@@ -137,7 +141,7 @@ class TemporalAligner(nn.Module):
         return _with_last(stages, self.ln_video_post_enc(stages[:, -1]))
 
     def get_textual_feature(self, lang_embed):
-        return self.ln_text_init(self.text_pre_proj(lang_embed))
+        return self.ln_text_init(quant.linear(lang_embed, self.text_pre_proj.weight))
 
     def get_textual_feature_with_time(self, lang_embed, interpolate_from=None,
                                       deterministic=True, preprojected=False,

@@ -50,6 +50,16 @@ SIGNATURES = {
         # x, c_fc w, c_fc b, c_proj w, c_proj b, out, rows, C, dtype, stream
         "fused_mlp_forward": (_P,) * 6 + (_I,) * 3 + (_P,),
     },
+    "fused_mha_int8": {
+        # x, kpad, w_in int8, w_in scales, b_in, w_out, b_out, attn scratch,
+        # out, B, S, C, H, dtype, stream
+        "fused_mha_int8_forward": (_P,) * 9 + (_I,) * 5 + (_P,),
+    },
+    "fused_mlp_int8": {
+        # x, c_fc w int8, c_fc scales, c_fc b, c_proj w, c_proj b, out, rows,
+        # C, dtype, stream
+        "fused_mlp_int8_forward": (_P,) * 7 + (_I,) * 3 + (_P,),
+    },
     "milnce_grid": {
         # video3, text3, cvalid, v_den, t_den, part_m, part_l,
         # S, St, R, Cc, C, nR, inv_temp, dtype, stream
@@ -70,8 +80,9 @@ SIGNATURES = {
 
 # one counter per wrapper
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in ("fused_mha", "fused_mlp", "milnce_grid_fwd", "milnce_grid_bwd",
-                         "flash_fwd", "flash_dq", "flash_dkv")
+    name: 0 for name in ("fused_mha", "fused_mlp", "fused_mha_int8", "fused_mlp_int8",
+                         "milnce_grid_fwd", "milnce_grid_bwd", "flash_fwd", "flash_dq",
+                         "flash_dkv")
 }
 
 _lock = threading.Lock()

@@ -21,12 +21,23 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
   * ``resolve_impl`` / ``scaled_dot_attention`` — the JAX package's
     dispatch between the two cores ('auto' | 'xla' | 'flash', None meaning
     'auto'), with ``check_impl`` its one test of an impl string.
+  * ``fused_mha_int8`` — the int8 serving mode's route (counterpart of
+    ``_fused_mha_int8``): W_in quantized per output row by
+    ``quant._quant_first_axis``, then the kernel in
+    ``csrc/fused_mha_int8.cu`` quantizes x per row inside and runs the qkv
+    projection as int8 x int8 -> int32 (attention and out-projection
+    exact); a CPU tensor takes ``mha_int8_plain``, the kernel body written
+    plainly. Inference-only.
   * ``MultiHeadAttention`` — the ``nn.MultiheadAttention`` parameter layout
     (packed ``in_proj_weight`` (3C, C), ``out_proj``) with the JAX module's
     dispatch: under 'auto' qualifying self-attention takes ``fused_mha``,
-    other self-attention (and all of it inside ``disable_fused_kernels()``)
-    ``mha_plain`` with the impl's core, cross-attention the q/kv alias
-    split, then ``scaled_dot_attention``.
+    or under ``quant.matmul_impl('int8')`` ``fused_mha_int8`` when the
+    policy quantizes the qkv product (3C >= min_cols) but not the
+    out-projection (C < min_cols); other self-attention (and all of it
+    inside ``disable_fused_kernels()``) ``mha_plain`` with the impl's core,
+    cross-attention the q/kv alias split, then ``scaled_dot_attention``.
+    Every unfused projection goes through ``quant.linear``, exactly
+    ``F.linear`` outside an int8 context.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from exoground_tpu_torch.ops import _kernels
+from exoground_tpu_torch.ops import _kernels, quant
 from exoground_tpu_torch.ops.fused_mlp import fused_kernels_disabled
 
 NEG_INF = -1e30  # finite "minus infinity": avoids NaN on fully-masked rows
@@ -269,25 +280,36 @@ def _merge_heads(o):
     return o.transpose(1, 2).reshape(b, s, h * d)
 
 
-def mha_plain(x, kpad, w_in, b_in, w_out, b_out, num_heads, impl: Optional[str] = "xla"):
+def mha_plain(x, kpad, w_in, b_in, w_out, b_out, num_heads, impl: Optional[str] = "xla",
+              linear=F.linear):
     """The composition the kernel fuses: qkv = x W_in^T + b_in, per-head
     attention under the key padding, o W_out^T + b_out (torch layout). The
     core is ``scaled_dot_attention``'s under ``impl``: ``attention_plain``
-    by default, as the kernel computes it."""
-    q, k, v = F.linear(x, w_in, b_in).chunk(3, dim=-1)
+    by default, as the kernel computes it. ``MultiHeadAttention`` passes
+    ``quant.linear`` for its unfused path (the JAX ``quant.matmul`` hooks)."""
+    q, k, v = linear(x, w_in, b_in).chunk(3, dim=-1)
     o = scaled_dot_attention(_split_heads(q, num_heads), _split_heads(k, num_heads),
                              _split_heads(v, num_heads), kpad, impl=impl)
-    return F.linear(_merge_heads(o), w_out, b_out)
+    return linear(_merge_heads(o), w_out, b_out)
 
 
-def fused_mha(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
-    """Whole-MHA window self-attention, S <= 128: x (B, S, C), weights in
-    torch layout. CPU tensors take ``mha_plain``; CUDA tensors launch the
-    kernel or raise."""
+def mha_int8_plain(x, kpad, w_in, b_in, w_out, b_out, num_heads):
+    """The int8 kernel's function written plainly (``_mha_kernel_int8``):
+    qkv as the int8 product of the per-row quantized x and the per-row
+    quantized w_in, ``float(acc) * xs * ws + b_in`` in float32; attention in
+    float32 under the key padding (per window: a fully-masked window
+    averages its own values); o cast to w_out's type; the out-projection
+    exact. Reads no context."""
+    acc, xs, ws = quant.int8_product(x, w_in)
+    q, k, v = (acc.float() * xs * ws + b_in.float()).chunk(3, dim=-1)
+    o = attention_plain(_split_heads(q, num_heads), _split_heads(k, num_heads),
+                        _split_heads(v, num_heads), kpad)
+    return F.linear(_merge_heads(o).to(w_out.dtype), w_out, b_out).to(x.dtype)
+
+
+def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
+    """The wrappers' checks before a launch; returns the int32 key padding."""
     b, s, c = x.shape
-    if x.device.type == "cpu":
-        return mha_plain(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
-    name = "fused_mha"
     if not kernel_eligible(s, c, num_heads):
         raise ValueError(f"{name}: S={s}, C={c}, H={num_heads} outside the fused test "
                          f"S <= {MAX_FUSED_S}, C % 128 == 0, (C/H) % 8 == 0")
@@ -304,20 +326,52 @@ def fused_mha(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
     _kernels.check_inference(name, x, w_in, b_in, w_out, b_out)
     _kernels.check_cuda_inputs(name, x.device, x.dtype, x=x, w_in=w_in, b_in=b_in,
                                w_out=w_out, b_out=b_out)
-    code = _kernels.dtype_code(x)
     if key_padding_mask is None:
-        kpad = torch.zeros((b, s), dtype=torch.int32, device=x.device)
-    else:
-        if key_padding_mask.shape != (b, s):
-            raise ValueError(f"{name}: key_padding_mask {tuple(key_padding_mask.shape)} "
-                             f"!= {(b, s)}")
-        kpad = key_padding_mask.to(device=x.device, dtype=torch.int32).contiguous()
+        return torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    if key_padding_mask.shape != (b, s):
+        raise ValueError(f"{name}: key_padding_mask {tuple(key_padding_mask.shape)} "
+                         f"!= {(b, s)}")
+    return key_padding_mask.to(device=x.device, dtype=torch.int32).contiguous()
+
+
+def fused_mha(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
+    """Whole-MHA window self-attention, S <= 128: x (B, S, C), weights in
+    torch layout. CPU tensors take ``mha_plain``; CUDA tensors launch the
+    kernel or raise."""
+    if x.device.type == "cpu":
+        return mha_plain(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
+    name = "fused_mha"
+    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
+    b, s, c = x.shape
     attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     rc = _kernels.library(name).fused_mha_forward(
         x.data_ptr(), kpad.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
         w_out.data_ptr(), b_out.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, s, c, num_heads, code, _kernels.stream_of(x))
+        b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
+    _kernels.check(name, rc)
+    _kernels.LAUNCHES[name] += 1
+    return out
+
+
+def fused_mha_int8(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
+    """The int8-qkv whole MHA over windows of S <= 128, inference only. CPU
+    tensors take ``mha_int8_plain``; CUDA tensors quantize w_in (plain, per
+    call) and launch the kernel or raise. An input that requires grad
+    raises on either device: the int8 product has no gradient."""
+    name = "fused_mha_int8"
+    _kernels.check_inference(name, x, w_in, b_in, w_out, b_out)
+    if x.device.type == "cpu":
+        return mha_int8_plain(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
+    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
+    b, s, c = x.shape
+    w_q, w_s = quant._quant_first_axis(w_in)
+    attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    rc = _kernels.library(name).fused_mha_int8_forward(
+        x.data_ptr(), kpad.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), b_in.data_ptr(),
+        w_out.data_ptr(), b_out.data_ptr(), attn.data_ptr(), out.data_ptr(),
+        b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
     _kernels.check(name, rc)
     _kernels.LAUNCHES[name] += 1
     return out
@@ -350,9 +404,12 @@ class MultiHeadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, query, key, value, key_padding_mask=None, impl: Optional[str] = None):
-        """``impl``: None or 'auto', 'xla' or 'flash'. The fused-MHA kernel
-        runs only under 'auto' (attention.py:1079-1085); 'xla' and 'flash'
-        take the unfused projections and that attention core."""
+        """``impl``: None or 'auto', 'xla' or 'flash'. The fused-MHA kernels
+        run only under 'auto' (attention.py:1079-1106): ``fused_mha`` in the
+        default matmul context, ``fused_mha_int8`` in an int8 one that
+        quantizes the qkv product but not the out-projection; 'xla',
+        'flash' and any other int8 policy take the unfused projections
+        (``quant.linear``) and that attention core."""
         c = query.shape[-1]
         h = self.num_heads
         w_in, b_in = self.in_proj_weight, self.in_proj_bias
@@ -360,17 +417,22 @@ class MultiHeadAttention(nn.Module):
         if query is key and key is value:
             if (impl in (None, "auto") and kernel_eligible(query.shape[1], c, h)
                     and not fused_kernels_disabled()):
-                return fused_mha(query, key_padding_mask, w_in, b_in, w_out, b_out, h)
-            return mha_plain(query, key_padding_mask, w_in, b_in, w_out, b_out, h, impl=impl)
+                if quant.current_impl() == "default":
+                    return fused_mha(query, key_padding_mask, w_in, b_in, w_out, b_out, h)
+                if quant.kernel_gate(3 * c, c):
+                    return fused_mha_int8(query, key_padding_mask, w_in, b_in, w_out, b_out,
+                                          h)
+            return mha_plain(query, key_padding_mask, w_in, b_in, w_out, b_out, h, impl=impl,
+                             linear=quant.linear)
         # cross-attention (the XLA branch of the JAX module): q and kv (or q,
         # k, v) projected apart
         if key is value:
-            q = F.linear(query, w_in[:c], b_in[:c])
-            k, v = F.linear(key, w_in[c:], b_in[c:]).chunk(2, dim=-1)
+            q = quant.linear(query, w_in[:c], b_in[:c])
+            k, v = quant.linear(key, w_in[c:], b_in[c:]).chunk(2, dim=-1)
         else:
-            q = F.linear(query, w_in[:c], b_in[:c])
-            k = F.linear(key, w_in[c:2 * c], b_in[c:2 * c])
-            v = F.linear(value, w_in[2 * c:], b_in[2 * c:])
+            q = quant.linear(query, w_in[:c], b_in[:c])
+            k = quant.linear(key, w_in[c:2 * c], b_in[c:2 * c])
+            v = quant.linear(value, w_in[2 * c:], b_in[2 * c:])
         o = scaled_dot_attention(_split_heads(q, h), _split_heads(k, h),
                                  _split_heads(v, h), key_padding_mask, impl=impl)
-        return F.linear(_merge_heads(o), w_out, b_out)
+        return quant.linear(_merge_heads(o), w_out, b_out)

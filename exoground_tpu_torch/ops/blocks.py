@@ -19,10 +19,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.ops.attention import MultiHeadAttention
 from exoground_tpu_torch.ops.fused_mlp import (
     fused_kernels_disabled,
     fused_mlp,
+    fused_mlp_int8,
     kernel_eligible,
     mlp_plain,
 )
@@ -33,8 +35,11 @@ LN_EPS = 1e-5  # torch LayerNorm default
 class MLP(nn.Module):
     """4x-expansion MLP with QuickGELU (reference tfm_model.py:23-27).
     Widths that are multiples of 128 go through ``fused_mlp`` (the JAX
-    package's test); others, and every width inside
-    ``disable_fused_kernels()``, take the plain composition."""
+    package's test), or under ``quant.matmul_impl('int8')`` through
+    ``fused_mlp_int8`` when the policy quantizes c_fc (4C >= min_cols) but
+    not c_proj (C < min_cols) (blocks.py:86-111); others, any other int8
+    policy, and every width inside ``disable_fused_kernels()``, take the
+    plain composition with ``quant.linear`` projections."""
 
     def __init__(self, width: int):
         super().__init__()
@@ -44,9 +49,13 @@ class MLP(nn.Module):
     def forward(self, x):
         args = (x, self.c_fc.weight, self.c_fc.bias, self.c_proj.weight,
                 self.c_proj.bias)
-        if kernel_eligible(x.shape[-1]) and not fused_kernels_disabled():
-            return fused_mlp(*args)
-        return mlp_plain(*args)
+        c = x.shape[-1]
+        if kernel_eligible(c) and not fused_kernels_disabled():
+            if quant.current_impl() == "default":
+                return fused_mlp(*args)
+            if quant.kernel_gate(4 * c, c):
+                return fused_mlp_int8(*args)
+        return mlp_plain(*args, linear=quant.linear)
 
 
 class ResidualAttentionBlock(nn.Module):

@@ -6,7 +6,14 @@ model/tfm_model.py:23-27). ``fused_mlp`` launches the hand-written kernel in
 ``csrc/fused_mlp.cu`` on CUDA tensors and takes ``mlp_plain``, the
 composition it fuses, only for tensors on the CPU. Inference-only, as the
 TPU kernel is (its custom VJP recomputes the XLA path): a CUDA input that
-requires grad raises. The train step differentiates inside
+requires grad raises.
+
+The int8 serving mode's route: ``fused_mlp_int8`` quantizes c_fc per output
+row (``quant._quant_first_axis``) and launches ``csrc/fused_mlp_int8.cu``,
+which quantizes x per row inside and runs c_fc as int8 x int8 -> int32
+(c_proj exact); on the CPU it takes ``mlp_int8_plain``, the kernel body
+written plainly. ``MLP`` takes it under ``quant.matmul_impl('int8')`` when
+the policy quantizes c_fc (4C >= min_cols) but not c_proj (C < min_cols). The train step differentiates inside
 ``disable_fused_kernels()``, where ``MLP`` and ``MultiHeadAttention`` take
 their plain compositions, as the JAX package's train steps trace under its
 context of the same name (exoground_tpu/ops/fused_mlp.py:37-58).
@@ -20,7 +27,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from exoground_tpu_torch.ops import _kernels
+from exoground_tpu_torch.ops import _kernels, quant
 from exoground_tpu_torch.ops.activations import quick_gelu
 
 
@@ -46,10 +53,21 @@ def disable_fused_kernels():
         _CTX.disabled = prev
 
 
-def mlp_plain(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
+def mlp_plain(x, fc_w, fc_b, pr_w, pr_b, linear=F.linear) -> torch.Tensor:
     """The straight-line composition (counterpart of ``_mlp_xla``); torch
-    weight layout: fc_w (4C, C), pr_w (C, 4C)."""
-    h = quick_gelu(F.linear(x, fc_w, fc_b))
+    weight layout: fc_w (4C, C), pr_w (C, 4C). ``MLP`` passes
+    ``quant.linear`` for its unfused path (the JAX Dense hooks)."""
+    h = quick_gelu(linear(x, fc_w, fc_b))
+    return linear(h.to(pr_w.dtype), pr_w, pr_b).to(x.dtype)
+
+
+def mlp_int8_plain(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
+    """The int8 kernel's function written plainly (``_mlp_kernel_int8``):
+    c_fc as the int8 product of the per-row quantized x and the per-row
+    quantized fc_w, ``float(acc) * xs * ws + fc_b`` in float32, QuickGELU in
+    float32, h cast to c_proj's type, c_proj exact. Reads no context."""
+    acc, xs, ws = quant.int8_product(x, fc_w)
+    h = quick_gelu(acc.float() * xs * ws + fc_b.float())
     return F.linear(h.to(pr_w.dtype), pr_w, pr_b).to(x.dtype)
 
 
@@ -60,11 +78,8 @@ def kernel_eligible(width: int) -> bool:
     return width % 128 == 0
 
 
-def fused_mlp(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
-    """QuickGELU MLP over (..., C) with the (rows, 4C) hidden kept on chip."""
-    if x.device.type == "cpu":
-        return mlp_plain(x, fc_w, fc_b, pr_w, pr_b)
-    name = "fused_mlp"
+def _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
+    """The wrappers' checks before a launch; returns x as (rows, C)."""
     c = x.shape[-1]
     if not kernel_eligible(c):
         raise ValueError(f"{name}: width {c} is not a multiple of 128")
@@ -78,11 +93,42 @@ def fused_mlp(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
     x2d = x.reshape(-1, c)
     _kernels.check_cuda_inputs(name, x.device, x.dtype, x=x2d, fc_w=fc_w,
                                fc_b=fc_b, pr_w=pr_w, pr_b=pr_b)
+    return x2d
+
+
+def fused_mlp(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
+    """QuickGELU MLP over (..., C) with the (rows, 4C) hidden kept on chip."""
+    if x.device.type == "cpu":
+        return mlp_plain(x, fc_w, fc_b, pr_w, pr_b)
+    name = "fused_mlp"
+    x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b)
     code = _kernels.dtype_code(x2d)
     out = torch.empty_like(x2d)
     rc = _kernels.library(name).fused_mlp_forward(
         x2d.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(), pr_w.data_ptr(),
-        pr_b.data_ptr(), out.data_ptr(), x2d.shape[0], c, code,
+        pr_b.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1], code,
+        _kernels.stream_of(x2d))
+    _kernels.check(name, rc)
+    _kernels.LAUNCHES[name] += 1
+    return out.reshape(x.shape)
+
+
+def fused_mlp_int8(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
+    """The int8-c_fc MLP over (..., C), inference only. CPU tensors take
+    ``mlp_int8_plain``; CUDA tensors quantize fc_w (plain, per call) and
+    launch the kernel or raise. An input that requires grad raises on
+    either device: the int8 product has no gradient."""
+    name = "fused_mlp_int8"
+    _kernels.check_inference(name, x, fc_w, fc_b, pr_w, pr_b)
+    if x.device.type == "cpu":
+        return mlp_int8_plain(x, fc_w, fc_b, pr_w, pr_b)
+    x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b)
+    code = _kernels.dtype_code(x2d)
+    fc_q, fc_s = quant._quant_first_axis(fc_w)
+    out = torch.empty_like(x2d)
+    rc = _kernels.library(name).fused_mlp_int8_forward(
+        x2d.data_ptr(), fc_q.data_ptr(), fc_s.data_ptr(), fc_b.data_ptr(), pr_w.data_ptr(),
+        pr_b.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1], code,
         _kernels.stream_of(x2d))
     _kernels.check(name, rc)
     _kernels.LAUNCHES[name] += 1

@@ -104,12 +104,16 @@ class AlignmentService:
     """TAN alignment inference (overlap-seq protocol, device-resident)."""
 
     def __init__(self, model: TemporalAligner, seq_len: int = 64,
-                 transfer_dtype: str = "float16", use_alignability_head: bool = False,
-                 device="cuda"):
+                 transfer_dtype: str = "float16", matmul_dtype: str = "default",
+                 use_alignability_head: bool = False, device="cuda"):
         self.model = model
+        # matmul_dtype='int8' serves through the int8 projections
+        # (ops/quant.py) with the JAX service's policy: int8_min_cols stays
+        # 0, so every projection is quantized on the unfused path and the
+        # fused int8 kernels, which need 3C or 4C >= min_cols > C, stay off
         self.cfg = AlignEvalConfig(
             seq_len=seq_len, transfer_dtype=transfer_dtype, group_videos=8,
-            use_alignability_head=use_alignability_head,
+            use_alignability_head=use_alignability_head, matmul_dtype=matmul_dtype,
         )
         # ONE evaluator serves both protocols: all_texts_active is a per-call
         # host-side switch

@@ -1,6 +1,6 @@
 """Where the main path's time goes on the card.
 
-    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train | --global]
+    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train | --global | --int8]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -24,6 +24,12 @@ and bfloat16: two warm-up calls, five timed calls (median), then one call
 under ``torch.profiler``; one JSON line per dtype with the device time by
 kernel, the idle share and the flash and fused-MLP shares of the busy time.
 
+``--int8`` profiles the int8 serving mode instead: the same sweeps in the
+JAX bench's int8 configuration (bfloat16 compute, float16 transfer,
+matmul_dtype='int8', int8_min_cols=1024: every encoder layer through the
+int8 fused-MHA and fused-MLP kernels), with the int8 kernels' share of the
+busy time.
+
 With ``--out`` the Chrome traces are written there. Needs a CUDA device;
 raises otherwise.
 """
@@ -42,7 +48,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
-from exoground_tpu_torch.evals.bench_items import make_bench_items, make_bench_params
+from exoground_tpu_torch.evals.bench_items import (
+    INT8_SERVING,
+    make_bench_items,
+    make_bench_params,
+)
 from exoground_tpu_torch.models import TemporalAligner
 from exoground_tpu_torch.ops import _kernels
 from exoground_tpu_torch.utils.convert import load_tan_params
@@ -65,8 +75,13 @@ def _device_rows(prof):
     return rows
 
 
-def profile_dtype(model, items, dtype: str, out_dir=None) -> dict:
-    ev = FusedAlignEvaluator(model, AlignEvalConfig(compute_dtype=dtype), device="cuda")
+def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
+    """The main path in one configuration (``cfg``: AlignEvalConfig
+    fields), labelled by its compute dtype, with '_int8' under
+    matmul_dtype='int8'."""
+    cfg = AlignEvalConfig(**cfg)
+    label = cfg.compute_dtype + ("_int8" if cfg.matmul_dtype == "int8" else "")
+    ev = FusedAlignEvaluator(model, cfg, device="cuda")
     _sweep(ev, items)  # warm-up
     times = [_sweep(ev, items) for _ in range(3)]
     frames = sum(len(it["video"]) for it in items)
@@ -75,15 +90,21 @@ def profile_dtype(model, items, dtype: str, out_dir=None) -> dict:
     rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     if out_dir:
-        prof.export_chrome_trace(os.path.join(out_dir, f"main_path_{dtype}.json"))
+        prof.export_chrome_trace(os.path.join(out_dir, f"main_path_{label}.json"))
+    int8_us = {k: sum(us for us, _, key in rows if k in key)
+               for k in ("mha_int8", "mlp_int8")}
     return {
-        "dtype": dtype,
+        "dtype": label,
+        "transfer_dtype": cfg.transfer_dtype,
+        "matmul_dtype": cfg.matmul_dtype,
+        "int8_min_cols": cfg.int8_min_cols,
         "frames": frames,
         "sweep_s": sorted(times),
         "frames_per_s": frames / statistics.median(times),
         "profiled_sweep_s": wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "int8_kernels_ms": {k: us / 1e3 for k, us in int8_us.items()},
         "top_kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
                         for us, c, k in rows[:12]],
     }
@@ -186,6 +207,8 @@ def main():
     mode.add_argument("--train", action="store_true", help="profile the train path")
     mode.add_argument("--global", dest="global_mode", action="store_true",
                       help="profile global-mode text_visual_sim at the bench shape")
+    mode.add_argument("--int8", action="store_true",
+                      help="profile the int8 serving mode (the JAX bench's int8 row)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
@@ -214,8 +237,10 @@ def main():
                   flush=True)
         return
     items = make_bench_items(4096, 4096)
-    for dtype in ("float32", "bfloat16"):
-        print(json.dumps({"card": card, **profile_dtype(model, items, dtype, args.out)}),
+    configs = ([INT8_SERVING] if args.int8
+               else [dict(compute_dtype=dtype) for dtype in ("float32", "bfloat16")])
+    for cfg in configs:
+        print(json.dumps({"card": card, **profile_sweeps(model, items, args.out, **cfg)}),
               flush=True)
 
 
