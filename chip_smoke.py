@@ -24,6 +24,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the same dtype and the bound; and at small shapes (head sizes 8, 32, 40,
      48, S 128; MLP widths 128, 640 and 4224, x streamed), float32 (<= 1e-4 of
      max|plain|) and bfloat16 (<= 1e-2);
+  3e. block kernels: fused_block_attn and fused_block_mlp, exact and int8 bodies,
+     against block_attn_plain / block_mlp_plain and their int8 twins on the
+     card (a fully-masked window, ragged lengths and a zero row in every case;
+     the output and x_norm apart), at the block path's shapes (B304 S64 and S96
+     C512 H8; 19456 and 29184 rows, C512), timed beside the plain version, the
+     per-module kernels of the same run (F.layer_norm + fused_mha / fused_mlp
+     or their int8 twins + the add; no single PyTorch call computes a block)
+     and the bound; and at small shapes (S 17 with head size 8, S 128 with
+     head size 48, head size 40; MLP widths 128, 640 and x streamed: 1280
+     exact, 4224 int8), float32 (<= 1e-4 of max|plain|, int8 bodies <= 1e-3;
+     x_norm <= 1e-5) and bfloat16 (<= 1e-2);
   4. main path: AlignmentService over TemporalAligner E6D6 (width 512, 8 heads,
      4096-d inputs, seeded random weights through the JAX->port weight bridge)
      answers align() requests, three of them concurrent through the coalescing
@@ -42,6 +53,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      sweeps, in turns) beside the exact bfloat16 run (`int8_bench {...}`);
      one AlignmentService(matmul_dtype='int8') request (no int8 launch: the
      service keeps int8_min_cols 0); one sweep each with int8 and int4 transfer.
+     Phases 4 and 4b launch no block kernel ('auto' keeps the per-module ones).
+  4c. block path: TemporalAligner(attn_impl="fused", mlp_impl="fused") in
+     FusedAlignEvaluator over the 8 bench videos in float32, bfloat16 and the
+     int8 row, each counted over one sweep (per group 12 block_attn + 12
+     block_mlp launches, or their int8 twins, and no per-module kernel while
+     the joint S <= 128); frames/s (median of 3 sweeps) in turns with the
+     'auto' per-module model, R@1 and AUC beside its (`block_bench {...}`);
+     AlignmentService.align on the card against the CPU plain path in float32
+     (score rel. error <= 1e-4) and one video through the evaluator in
+     float32 + int8 (<= 1e-3), best_second equal where the top-2 margin clears
+     the tolerance.
   3b. grid kernel: the MIL-NCE grid kernel's forward (v_den, t_den) and
      backward (dv, dt for random upstream grads) against grid_lse2_plain on
      the card, at the train path's shapes (S 6, R = B*64, Cc = B*12, C 512
@@ -354,6 +376,171 @@ def int8_kernel_cases():
     return mha, mlp
 
 
+# ---------------------------------------------------------------- phase 3e
+BLOCK_KERNELS = ("block_attn", "block_attn_int8", "block_mlp", "block_mlp_int8")
+# the int8 bodies: a last-bit LN difference may move one value across a .5
+# rounding boundary, one int8 step of one of C terms
+BLOCK_TOL = {(torch.float32, False): 1e-4, (torch.float32, True): 1e-3,
+             (torch.bfloat16, False): 1e-2, (torch.bfloat16, True): 1e-2}
+X_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _ln_params(rng, C, dtype):
+    return (torch.tensor(1.0 + 0.1 * rng.standard_normal(C), dtype=dtype, device="cuda"),
+            torch.tensor(0.1 * rng.standard_normal(C), dtype=dtype, device="cuda"))
+
+
+def _block_check(kind, case, dtype, int8):
+    print(kind, json.dumps(case), flush=True)
+    if not case["max_rel_err"] <= BLOCK_TOL[(dtype, int8)]:
+        fail(f"{kind} disagrees with its plain version: {case}")
+    if not case.get("x_norm_rel_err", 0.0) <= X_NORM_TOL[dtype]:
+        fail(f"{kind} x_norm disagrees with its plain version: {case}")
+
+
+def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False):
+    """fused_block_attn (exact or int8 body) against block_attn_plain /
+    block_attn_int8_plain on the card: one fully-masked window, ragged
+    lengths, a zero row; the output and x_norm apart. With ``timed``, beside
+    the plain version, the per-module kernels of the same run
+    (F.layer_norm + fused_mha or fused_mha_int8 + the add; no single
+    PyTorch call computes the block) and the bound."""
+    import torch.nn.functional as F
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.attention import (
+        block_attn_int8_plain, block_attn_plain, fused_block_attn, fused_mha, fused_mha_int8)
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+
+    x = _int8_inputs(rng, dtype, (B, S, C))
+    ln_w, ln_b = _ln_params(rng, C, dtype)
+    w_in, b_in = t(3 * C, C, scale=C ** -0.5), t(3 * C, scale=0.02)
+    w_out, b_out = t(C, C, scale=C ** -0.5), t(C, scale=0.02)
+    lens = rng.randint(1, S + 1, B)
+    lens[0] = 0  # a padded group window
+    lens[-1] = S
+    kpad = torch.tensor(np.arange(S)[None, :] >= lens[:, None], device="cuda")
+    name = "block_attn_int8" if int8 else "block_attn"
+    plain = block_attn_int8_plain if int8 else block_attn_plain
+    args = (x, kpad, ln_w, ln_b, w_in, b_in, w_out, b_out, H)
+    with torch.inference_mode():
+        n0 = _kernels.LAUNCHES[name]
+        out, xn = fused_block_attn(*args, int8_qkv=int8)
+        torch.cuda.synchronize()
+        if _kernels.LAUNCHES[name] != n0 + 1:
+            fail(f"{name} did not count its launch")
+        ref, ref_n = plain(*args)
+        if not (torch.isfinite(out.float()).all() and torch.isfinite(xn.float()).all()):
+            fail(f"{name} non-finite output at B{B} S{S} C{C} {dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        n_err = (xn.float() - ref_n.float()).abs().max().item()
+        case = dict(shape=f"B{B} S{S} C{C} H{H}", dtype=str(dtype).split(".")[-1],
+                    max_abs_err=err, max_rel_err=err / ref.float().abs().max().item(),
+                    x_norm_rel_err=n_err / ref_n.float().abs().max().item(), library_ms=None)
+        if timed:
+            mha = fused_mha_int8 if int8 else fused_mha
+
+            def per_module():
+                xn_ = F.layer_norm(x, (C,), ln_w, ln_b, 1e-5)
+                return x + mha(xn_, kpad, w_in, b_in, w_out, b_out, H), xn_
+
+            case.update(ms=time_ms(lambda: fused_block_attn(*args, int8_qkv=int8)),
+                        plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module))
+            nbytes = (3 * B * S * C + 4 * C * C + 6 * C) * x.element_size() + 4 * B * S
+            attn_flops = 4.0 * B * S * S * C
+            if int8:
+                bms, by = int8_bound_ms(6.0 * B * S * C * C, 2.0 * B * S * C * C + attn_flops,
+                                        nbytes, dtype)
+            else:
+                bms, by = bound_ms(8.0 * B * S * C * C + attn_flops, nbytes, dtype)
+            case.update(bound_ms=bms, bound_by=by)
+    _block_check(name, case, dtype, int8)
+    return case
+
+
+def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
+    """fused_block_mlp (exact or int8 body) against block_mlp_plain /
+    block_mlp_int8_plain on the card, a zero row included; with ``timed``,
+    beside the plain version, the per-module kernels (F.layer_norm +
+    fused_mlp or fused_mlp_int8 + the add) and the bound."""
+    import torch.nn.functional as F
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.fused_mlp import (
+        block_mlp_int8_plain, block_mlp_plain, fused_block_mlp, fused_mlp, fused_mlp_int8)
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+
+    x = _int8_inputs(rng, dtype, (rows, C))
+    ln_w, ln_b = _ln_params(rng, C, dtype)
+    fc_w, fc_b = t(4 * C, C, scale=C ** -0.5), t(4 * C, scale=0.02)
+    pr_w, pr_b = t(C, 4 * C, scale=(4 * C) ** -0.5), t(C, scale=0.02)
+    name = "block_mlp_int8" if int8 else "block_mlp"
+    plain = block_mlp_int8_plain if int8 else block_mlp_plain
+    args = (x, ln_w, ln_b, fc_w, fc_b, pr_w, pr_b)
+    with torch.inference_mode():
+        n0 = _kernels.LAUNCHES[name]
+        out = fused_block_mlp(*args, int8_cfc=int8)
+        torch.cuda.synchronize()
+        if _kernels.LAUNCHES[name] != n0 + 1:
+            fail(f"{name} did not count its launch")
+        ref = plain(*args)
+        if not torch.isfinite(out.float()).all():
+            fail(f"{name} non-finite output at rows {rows} C{C} {dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        case = dict(shape=f"rows{rows} C{C}", dtype=str(dtype).split(".")[-1],
+                    max_abs_err=err, max_rel_err=err / ref.float().abs().max().item(),
+                    library_ms=None)
+        if timed:
+            mlp = fused_mlp_int8 if int8 else fused_mlp
+
+            def per_module():
+                return x + mlp(F.layer_norm(x, (C,), ln_w, ln_b, 1e-5), fc_w, fc_b, pr_w, pr_b)
+
+            case.update(ms=time_ms(lambda: fused_block_mlp(*args, int8_cfc=int8)),
+                        plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module))
+            nbytes = (2 * rows * C + 8 * C * C + 7 * C) * x.element_size()
+            if int8:
+                bms, by = int8_bound_ms(8.0 * rows * C * C, 8.0 * rows * C * C, nbytes, dtype)
+            else:
+                bms, by = bound_ms(16.0 * rows * C * C, nbytes, dtype)
+            case.update(bound_ms=bms, bound_by=by)
+    _block_check(name, case, dtype, int8)
+    return case
+
+
+def block_kernel_cases():
+    """Phase 3e: the four block kernels at the main path's shapes (timed)
+    and at small shapes that reach their other instantiations: S 17 with
+    head size 8, S 128 (the largest shared-memory layout) with head size 48,
+    head size 40; MLP widths 128, 640 (two column slabs) and x streamed
+    (1280 exact, 4224 int8). Returns {name: cases}, float32 at B304 S64 /
+    19,456 rows first."""
+    out = {name: [] for name in BLOCK_KERNELS}
+    for int8 in (False, True):
+        sfx = "_int8" if int8 else ""
+        attn, mlp = out["block_attn" + sfx], out["block_mlp" + sfx]
+        for dtype in (torch.float32, torch.bfloat16):
+            attn.append(block_attn_case(304, 64, 512, 8, dtype, 60, int8, timed=True))
+            attn.append(block_attn_case(304, 96, 512, 8, dtype, 61, int8, timed=True))
+            attn.append(block_attn_case(3, 17, 128, 16, dtype, 62, int8))
+            attn.append(block_attn_case(2, 128, 384, 8, dtype, 63, int8))
+            attn.append(block_attn_case(4, 72, 640, 16, dtype, 64, int8))
+            mlp.append(block_mlp_case(19456, 512, dtype, 65, int8, timed=True))
+            mlp.append(block_mlp_case(29184, 512, dtype, 66, int8, timed=True))
+            mlp.append(block_mlp_case(210, 128, dtype, 67, int8))
+            mlp.append(block_mlp_case(300, 640, dtype, 68, int8))
+            mlp.append(block_mlp_case(40, 4224 if int8 else 1280, dtype, 69, int8))
+    return out
+
+
 # ---------------------------------------------------------------- phase 3b
 def grid_case(S, R, Cc, C, St, dtype, seed, n_invalid=0, timed=False):
     from exoground_tpu_torch.ops import _kernels
@@ -524,22 +711,84 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
 
 
 # ----------------------------------------------------------------- phase 4
-def _serving_aligner():
+def _serving_aligner(**impls):
     """TemporalAligner E6D6, width 512, 8 heads, 4096-d inputs, on the CPU
-    with the seeded bench weights (through the JAX->port weight bridge)."""
+    with the seeded bench weights (through the JAX->port weight bridge);
+    ``impls``: attn_impl / mlp_impl."""
     from exoground_tpu_torch.evals.bench_items import make_bench_params
     from exoground_tpu_torch.models import TemporalAligner
     from exoground_tpu_torch.utils.convert import load_tan_params
 
     model = TemporalAligner(num_encoder_layers=6, num_joint_layers=6, width=512,
-                            heads=8, input_dim=4096, device="cpu")
+                            heads=8, input_dim=4096, device="cpu", **impls)
     load_tan_params(model, make_bench_params(0))
     return model
 
 
+def _card_vs_cpu(label, gpu, cpu, cpu_ev, cfg, item, rel_tol):
+    """Score rel. error, and best_second (argmax) equality on the texts
+    whose top-2 margin in the CPU evaluator's canvas for ``item`` clears
+    rel_tol of max|score|; fails beyond rel_tol."""
+    from exoground_tpu_torch.evals.align_fused import _plan
+
+    (_, dims, host_args, _), = list(_plan([item], cfg))
+    _, canvas = cpu_ev._process(cfg, dims, host_args)
+    k, vlen = len(item["start"]), len(item["video"])
+    top2 = torch.topk(canvas[:k, :vlen], 2, dim=-1).values.numpy()
+    g_score, c_score = np.asarray(gpu["score"]), np.asarray(cpu["score"])
+    score_err = float(np.abs(g_score - c_score).max() / np.abs(c_score).max())
+    tol = rel_tol * np.abs(c_score).max()
+    clear = top2[:, 0] - top2[:, 1] > tol
+    key = "best_second" if "best_second" in gpu else "argmax"
+    same = np.asarray(gpu[key]) == np.asarray(cpu[key])
+    print(f"{label}: score rel err {score_err:.3e}, best_second equal on "
+          f"{int(same[clear].sum())}/{int(clear.sum())} texts with a top-2 margin > "
+          f"{tol:.2e}", flush=True)
+    if not score_err <= rel_tol or not same[clear].all():
+        fail(f"{label}: the card disagrees with the CPU plain path")
+
+
+def _service_vs_cpu(label, model, req, gpu):
+    """The card's align() answer ``gpu`` to ``req`` against the CPU plain
+    path's (float32, score rel. error <= 1e-4)."""
+    from exoground_tpu_torch.serve import AlignmentService
+
+    cpu_svc = AlignmentService(model, device="cpu")
+    t0 = time.perf_counter()
+    cpu = cpu_svc.align(req)
+    cpu_s = time.perf_counter() - t0
+    k = len(req.text_embeds)
+    item = {"video": req.video, "start": np.zeros(k), "end": np.full(k, float(len(req.video))),
+            "aligned": np.zeros(k, np.int64), "text_embed": req.text_embeds}
+    # all texts active: the evaluator's canvas rows are in the request's order
+    _card_vs_cpu(f"{label} ({k} texts, CPU {cpu_s:.1f} s)", gpu, cpu, cpu_svc._evaluator,
+                 cpu_svc._evaluator._cfg_for(True), item, 1e-4)
+
+
+def _int8_video_vs_cpu(label, model, item, kernels):
+    """One video in float32 + int8 (int8_min_cols 1024) through the
+    evaluator on the card and on the CPU plain path (score rel. error
+    <= 1e-3); fails unless each of ``kernels`` launched on the card."""
+    from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
+    from exoground_tpu_torch.ops import _kernels
+
+    cfg32 = AlignEvalConfig(matmul_dtype="int8", int8_min_cols=1024, all_texts_active=True)
+    _kernels.reset_launches()
+    gpu = FusedAlignEvaluator(model, cfg32, device="cuda").predict([item])[0]
+    torch.cuda.synchronize()
+    launches = {n: _kernels.LAUNCHES[n] for n in kernels}
+    cpu_ev = FusedAlignEvaluator(model, cfg32, device="cpu")
+    t0 = time.perf_counter()
+    cpu = cpu_ev.predict([item])[0]
+    cpu_s = time.perf_counter() - t0
+    _card_vs_cpu(f"{label} card vs CPU plain path (f32 + int8, {len(item['start'])} texts, CPU "
+                 f"{cpu_s:.1f} s, card launches {launches})", gpu, cpu, cpu_ev, cfg32, item, 1e-3)
+    if not all(launches.values()):
+        fail(f"the float32 {label} run launched {launches}")
+
+
 def main_path(card):
     from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
-    from exoground_tpu_torch.evals.align_fused import _plan
     from exoground_tpu_torch.evals.bench_items import make_bench_items
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.serve import AlignmentService, AlignRequest
@@ -600,8 +849,10 @@ def main_path(card):
     if sum(batches) != len(reqs) or not len(batches) < len(reqs):
         fail(f"the coalescing front served {len(reqs)} requests (3 concurrent) in "
              f"batches {batches}: no two shared a dispatch")
-    if launches["fused_mha"] != expect_mha or launches["fused_mlp"] != expect_mlp:
-        fail(f"launch counts {launches} != expected mha {expect_mha}, mlp {expect_mlp}")
+    if (launches["fused_mha"] != expect_mha or launches["fused_mlp"] != expect_mlp
+            or any(launches[k] for k in BLOCK_KERNELS)):
+        fail(f"launch counts {launches} != expected mha {expect_mha}, mlp {expect_mlp}, "
+             "no block kernel ('auto' keeps the per-module kernels)")
     for req, ans in zip(reqs, answers):
         k, vlen = len(req.text_embeds), len(req.video)
         if not (len(ans["best_second"]) == k and all(0 <= s < vlen for s in ans["best_second"])
@@ -610,28 +861,7 @@ def main_path(card):
 
     # the same request on the CPU plain path (all texts active: identity order)
     req = AlignRequest(video=items[4]["video"], text_embeds=items[4]["text_embed"])
-    gpu = svc.align(req)
-    cpu_svc = AlignmentService(model, device="cpu")
-    t0 = time.perf_counter()
-    cpu = cpu_svc.align(req)
-    cpu_s = time.perf_counter() - t0
-    k = len(req.text_embeds)
-    item = {"video": req.video, "start": np.zeros(k), "end": np.full(k, float(len(req.video))),
-            "aligned": np.zeros(k, np.int64), "text_embed": req.text_embeds}
-    cfg_all = cpu_svc._evaluator._cfg_for(True)
-    (_, dims, host_args, _), = list(_plan([item], cfg_all))
-    _, canvas = cpu_svc._evaluator._process(cfg_all, dims, host_args)
-    top2 = torch.topk(canvas[:k, :len(req.video)], 2, dim=-1).values.numpy()
-    g_score, c_score = np.asarray(gpu["score"]), np.asarray(cpu["score"])
-    score_err = np.abs(g_score - c_score).max() / np.abs(c_score).max()
-    tol = 1e-4 * np.abs(c_score).max()
-    clear = top2[:, 0] - top2[:, 1] > tol
-    same = np.asarray(gpu["best_second"]) == np.asarray(cpu["best_second"])
-    print(f"card vs CPU plain path ({k} texts, CPU {cpu_s:.1f} s): score rel err "
-          f"{score_err:.3e}, best_second equal on {int(same[clear].sum())}/"
-          f"{int(clear.sum())} texts with a top-2 margin > {tol:.2e}", flush=True)
-    if not score_err <= 1e-4 or not same[clear].all():
-        fail("the card's align() disagrees with the CPU plain path")
+    _service_vs_cpu("card vs CPU plain path", model, req, svc.align(req))
 
     # the evaluator over the 8 bench videos, float32 and bfloat16
     frames = sum(len(it["video"]) for it in items)
@@ -673,7 +903,6 @@ def int8_path(card):
     service's policy, int8_min_cols 0: no int8 kernel launch); one sweep
     each with transfer_dtype int8 and int4."""
     from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
-    from exoground_tpu_torch.evals.align_fused import _plan
     from exoground_tpu_torch.evals.bench_items import INT8_SERVING, make_bench_items
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.serve import AlignmentService, AlignRequest
@@ -698,40 +927,15 @@ def int8_path(card):
     launches = dict(_kernels.LAUNCHES)
     ev._process = inner
     want = dict(fused_mha_int8=sum(6 + (6 if s <= 128 else 0) for s in groups),
-                fused_mlp_int8=12 * len(groups), fused_mha=0, fused_mlp=0)
+                fused_mlp_int8=12 * len(groups), fused_mha=0, fused_mlp=0,
+                **{k: 0 for k in BLOCK_KERNELS})
     print(f"int8 path: {len(groups)} group dispatches (joint S {groups}), {wall:.3f} s "
           f"(first sweep), launches {launches}, {card}", flush=True)
     if {k: launches[k] for k in want} != want:
         fail(f"int8 path launches {launches} != {want}")
 
     # one video, float32 + int8, on the card and on the CPU plain path
-    item = items[4]
-    cfg32 = AlignEvalConfig(matmul_dtype="int8", int8_min_cols=1024, all_texts_active=True)
-    _kernels.reset_launches()
-    gpu = FusedAlignEvaluator(model, cfg32, device="cuda").predict([item])[0]
-    torch.cuda.synchronize()
-    card_launches = dict(_kernels.LAUNCHES)
-    cpu_ev = FusedAlignEvaluator(model, cfg32, device="cpu")
-    t0 = time.perf_counter()
-    cpu = cpu_ev.predict([item])[0]
-    cpu_s = time.perf_counter() - t0
-    (_, dims, host_args, _), = list(_plan([item], cfg32))
-    _, canvas = cpu_ev._process(cfg32, dims, host_args)
-    k, vlen = len(item["start"]), len(item["video"])
-    top2 = torch.topk(canvas[:k, :vlen], 2, dim=-1).values.numpy()
-    g_score, c_score = np.asarray(gpu["score"]), np.asarray(cpu["score"])
-    score_err = float(np.abs(g_score - c_score).max() / np.abs(c_score).max())
-    tol = 1e-3 * np.abs(c_score).max()
-    clear = top2[:, 0] - top2[:, 1] > tol
-    same = gpu["argmax"] == cpu["argmax"]
-    print(f"int8 card vs CPU plain path (f32 + int8, {k} texts, CPU {cpu_s:.1f} s, card "
-          f"launches {card_launches}): score rel err {score_err:.3e}, best_second equal on "
-          f"{int(same[clear].sum())}/{int(clear.sum())} texts with a top-2 margin > "
-          f"{tol:.2e}", flush=True)
-    if not score_err <= 1e-3 or not same[clear].all():
-        fail("the card's int8 path disagrees with the CPU plain path")
-    if card_launches["fused_mha_int8"] == 0 or card_launches["fused_mlp_int8"] == 0:
-        fail(f"the float32 int8 run launched {card_launches}")
+    _int8_video_vs_cpu("int8", model, items[4], ("fused_mha_int8", "fused_mlp_int8"))
 
     # R@1, AUC and frames/s beside the exact bfloat16 run, in turns
     exact = FusedAlignEvaluator(
@@ -784,6 +988,98 @@ def int8_path(card):
         if not (0.0 <= m["Recall"] <= 1.0 and 0.0 <= m["AUC"] <= 1.0):
             fail(f"transfer {td} metrics out of range: {m}")
     return launches
+
+
+# ---------------------------------------------------------------- phase 4c
+def block_path(card):
+    """The whole-block path at E6D6 full width: TemporalAligner(attn_impl=
+    "fused", mlp_impl="fused") in FusedAlignEvaluator over the 8 bench
+    videos in float32, bfloat16 and the JAX bench's int8 row, each counted
+    over one sweep (per group 12 block_attn + 12 block_mlp launches, or
+    their int8 twins, and no per-module kernel while the joint S <= 128);
+    frames/s (median of 3 sweeps) in turns with the 'auto' per-module model
+    of the same configuration, R@1 and AUC beside its; then the card
+    against the CPU plain path: AlignmentService.align in float32 (<= 1e-4)
+    and one video through the evaluator in float32 + int8 (<= 1e-3; the
+    service keeps int8_min_cols 0, which takes no block kernel)."""
+    from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
+    from exoground_tpu_torch.evals.bench_items import INT8_SERVING, make_bench_items
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.serve import AlignmentService, AlignRequest
+
+    block_model = _serving_aligner(attn_impl="fused", mlp_impl="fused")
+    auto_model = _serving_aligner()
+    items = make_bench_items(4096, 4096)
+    frames = sum(len(it["video"]) for it in items)
+    totals = {k: 0 for k in BLOCK_KERNELS}
+    for label, fields in (("float32", dict(compute_dtype="float32")),
+                          ("bfloat16", dict(compute_dtype="bfloat16")), ("int8", INT8_SERVING)):
+        cfg = AlignEvalConfig(**fields)
+        block_ev = FusedAlignEvaluator(block_model, cfg, device="cuda")
+        auto_ev = FusedAlignEvaluator(auto_model, cfg, device="cuda")
+        groups = []
+        inner = block_ev._process
+
+        def counting(cfg_, dims, host_args, _inner=inner, _groups=groups):
+            _groups.append(dims[1] + host_args[6].shape[1])  # joint S
+            return _inner(cfg_, dims, host_args)
+
+        block_ev._process = counting
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = {"block": block_ev(items)}
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        block_ev._process = inner
+        sfx = "_int8" if label == "int8" else ""
+        other = "" if sfx else "_int8"
+        short = sum(1 for s in groups if s <= 128)
+        # a joint S > 128 moves that group's 6 joint layers to the per-module
+        # path: the MLP kernel and the unfused attention
+        want = {"block_attn" + sfx: 6 * len(groups) + 6 * short,
+                "block_mlp" + sfx: 6 * len(groups) + 6 * short,
+                "fused_mlp" + sfx: 6 * (len(groups) - short), "fused_mha" + sfx: 0,
+                "block_attn" + other: 0, "block_mlp" + other: 0,
+                "fused_mha" + other: 0, "fused_mlp" + other: 0}
+        got = {k: launches[k] for k in want}
+        print(f"block path {label}: {len(groups)} group dispatches (joint S {groups}), "
+              f"{first:.3f} s (first sweep), launches {launches}, {card}", flush=True)
+        if got != want:
+            fail(f"block path {label} launches {got} != {want}")
+        for k in BLOCK_KERNELS:
+            totals[k] += launches[k]
+        auto_ev(items)  # warm-up
+        runs = {"block": [], "per_module": []}
+        for rep in range(3):
+            for name in (("block", "per_module") if rep % 2 == 0 else ("per_module", "block")):
+                dt, metrics[name] = _timed_sweep(block_ev if name == "block" else auto_ev, items)
+                runs[name].append(dt)
+        out = {name: dict(recall=metrics[name]["Recall"], auc=metrics[name]["AUC"],
+                          sweeps_s=runs[name], frames_per_s=frames / statistics.median(runs[name]))
+               for name in runs}
+        print("block_bench", json.dumps(dict(config=label, fields=fields, frames=frames, card=card,
+                                             **out)), flush=True)
+        for name, m in out.items():
+            if not (0.0 <= m["recall"] <= 1.0 and 0.0 <= m["auc"] <= 1.0):
+                fail(f"block path {label} {name} metrics out of range: {m}")
+        del block_ev, auto_ev
+        torch.cuda.empty_cache()
+
+    # the card against the CPU plain path: the service in float32, then one
+    # video in float32 + int8 through the evaluator
+    item = items[4]
+    req = AlignRequest(video=item["video"], text_embeds=item["text_embed"])
+    _kernels.reset_launches()
+    gpu = AlignmentService(block_model, device="cuda").align(req)
+    torch.cuda.synchronize()
+    svc_launches = {n: _kernels.LAUNCHES[n] for n in ("block_attn", "block_mlp")}
+    _service_vs_cpu(f"block path service card vs CPU plain path (card launches {svc_launches})",
+                    block_model, req, gpu)
+    if not all(svc_launches.values()):
+        fail(f"the block-path service launched {svc_launches}")
+    _int8_video_vs_cpu("block path int8", block_model, item, ("block_attn_int8", "block_mlp_int8"))
+    return totals
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1142,12 +1438,18 @@ def main():
     # phase 3d: the int8 kernels against their plain versions
     mha8_cases, mlp8_cases = int8_kernel_cases()
 
+    # phase 3e: the whole-block kernels against their plain versions
+    block_cases = block_kernel_cases()
+
     # phase 4: the serving path, counted
     launches = main_path(card)
 
     # phase 4b: the int8 serving mode, counted
     int8_launches = int8_path(card)
     launches.update({k: int8_launches[k] for k in ("fused_mha_int8", "fused_mlp_int8")})
+
+    # phase 4c: the whole-block path, counted
+    launches.update(block_path(card))
 
     # phase 5: the train path, counted (auto at B 16 and 64, then the flash
     # kernels under attn_impl='flash' at B 16)
@@ -1181,6 +1483,12 @@ def main():
     def int8_entry(name, source, replaces, cases):
         e = entry(name, source, replaces, cases)
         e.update(int_mm_ms=cases[0]["int_mm_ms"], exact_kernel_ms=cases[0]["exact_kernel_ms"])
+        return e
+
+    def block_entry(name, source, replaces):
+        e = entry(name, f"exoground_tpu_torch/csrc/{source}", replaces, block_cases[name])
+        e.update(per_module_ms=block_cases[name][0]["per_module_ms"],
+                 launches_by_path={"block path (phase 4c)": launches[name]})
         return e
 
     def grid_entry(part, replaces):
@@ -1222,6 +1530,10 @@ def main():
         flash_entry("fwd", "exoground_tpu/ops/attention.py:279"),
         flash_entry("dq", "exoground_tpu/ops/attention.py:329"),
         flash_entry("dkv", "exoground_tpu/ops/attention.py:347"),
+        block_entry("block_attn", "block_attn.cu", "exoground_tpu/ops/attention.py:891"),
+        block_entry("block_mlp", "block_mlp.cu", "exoground_tpu/ops/fused_mlp.py:336"),
+        block_entry("block_attn_int8", "block_attn_int8.cu", "exoground_tpu/ops/attention.py:927"),
+        block_entry("block_mlp_int8", "block_mlp.cu", "exoground_tpu/ops/fused_mlp.py:359"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

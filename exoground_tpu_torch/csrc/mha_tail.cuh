@@ -1,6 +1,7 @@
-// The parts the fused-MHA kernels share (csrc/fused_mha.cu and
-// csrc/fused_mha_int8.cu): the per-window attention tail of one (window,
-// head) CTA and the tiled out-projection. Counterpart of the TPU kernels'
+// The parts the fused-MHA kernels share (csrc/fused_mha.cu,
+// csrc/fused_mha_int8.cu and the block kernels of csrc/block_attn.cu): the
+// per-window attention tail of one (window, head) CTA and the tiled
+// out-projection. Counterpart of the TPU kernels'
 // shared _mha_attention_tail (exoground_tpu/ops/attention.py:575).
 #pragma once
 
@@ -69,13 +70,16 @@ __device__ __forceinline__ void window_attention(const float* qs, const float* k
   }
 }
 
-// y[m, n] = sum_k a[m, k] * w[n, k] + bias[n]; one 64x64 tile per CTA of 256
-// threads. Heads are summed inside one dot product, so the out-projection
-// does not depend on scheduling (no atomics across heads).
+// y[m, n] = sum_k a[m, k] * w[n, k] + bias[n] (+ res[m, n] when res is not
+// null: the block kernels' residual, summed in f32 before the one rounding);
+// one 64x64 tile per CTA of 256 threads. Heads are summed inside one dot
+// product, so the out-projection does not depend on scheduling (no atomics
+// across heads).
 template <typename T>
 __global__ void __launch_bounds__(256)
 linear_bias_kernel(const T* __restrict__ a, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ y, int M, int N, int K) {
+                   const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ y,
+                   int M, int N, int K) {
   constexpr int KC = 32;
   __shared__ float as[KC][65];
   __shared__ float bs[KC][65];
@@ -115,19 +119,25 @@ linear_bias_kernel(const T* __restrict__ a, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) y[size_t(m) * N + n] = from_f<T>(acc[i][j] + to_f(bias[n]));
+      if (n >= N) continue;
+      float v = acc[i][j] + to_f(bias[n]);
+      if (res) v += to_f(res[size_t(m) * N + n]);
+      y[size_t(m) * N + n] = from_f<T>(v);
     }
   }
 }
 
-// The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out.
+// The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out
+// (+ res, the block kernels' residual x, when given).
 template <typename T>
 inline cudaError_t out_projection(const void* attn, const void* w_out, const void* b_out,
-                                  void* out, int M, int C, cudaStream_t st) {
+                                  void* out, int M, int C, cudaStream_t st,
+                                  const void* res = nullptr) {
   const dim3 grid((M + 63) / 64, (C + 63) / 64);
   linear_bias_kernel<T><<<grid, 256, 0, st>>>(
       static_cast<const T*>(attn), static_cast<const T*>(w_out),
-      static_cast<const T*>(b_out), static_cast<T*>(out), M, C, C);
+      static_cast<const T*>(b_out), static_cast<const T*>(res), static_cast<T*>(out), M, C,
+      C);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// The parts the fused-MLP kernels share (csrc/fused_mlp.cu and
-// csrc/fused_mlp_int8.cu): the CTA shape, and the c_proj half of one hidden
-// chunk with the final store. A CTA of kMlpThreads threads owns kMlpRows rows
+// The parts the fused-MLP kernels share (csrc/fused_mlp.cu,
+// csrc/fused_mlp_int8.cu and the block kernels of csrc/block_mlp.cu): the
+// CTA shape, and the c_proj half of one hidden chunk with the final store.
+// A CTA of kMlpThreads threads owns kMlpRows rows
 // and 32*NJ output columns; thread (ty, tx) = (tid / 32, tid % 32) owns rows
 // ty + 8*i (i < 4) and columns n0 + tx + 32*j. Counterpart of the TPU
 // kernels' shared second product (exoground_tpu/ops/fused_mlp.py:140-146).
@@ -50,12 +51,13 @@ __device__ __forceinline__ void mlp_c_proj_chunk(const float* hs, float* ps,
   }
 }
 
-// out[r, n] = acc + b_proj[n] for the thread's rows below `rows` and
-// columns below C.
+// out[r, n] = acc + b_proj[n] (+ res[r, n] when res is not null: the block
+// kernels' residual, summed in f32 before the one rounding) for the
+// thread's rows below `rows` and columns below C.
 template <typename T, int NJ>
 __device__ __forceinline__ void mlp_store(const float (&acc)[4][NJ], const T* __restrict__ bpr,
                                           T* __restrict__ out, size_t r0, int rows, int n0,
-                                          int C) {
+                                          int C, const T* __restrict__ res = nullptr) {
   const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -64,7 +66,10 @@ __device__ __forceinline__ void mlp_store(const float (&acc)[4][NJ], const T* __
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int n = n0 + tx + 32 * j;
-      if (n < C) out[r * C + n] = from_f<T>(acc[i][j] + to_f(bpr[n]));
+      if (n >= C) continue;
+      float v = acc[i][j] + to_f(bpr[n]);
+      if (res) v += to_f(res[r * C + n]);
+      out[r * C + n] = from_f<T>(v);
     }
   }
 }

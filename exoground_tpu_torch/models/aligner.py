@@ -13,10 +13,13 @@ checkpoint (and ``tests/golden_common.py::synth_state`` of a golden
 manifest) loads with ``load_state_dict(strict=True)``. That includes the
 reference's ``mlp`` Linear(width, width), which its forward never uses.
 
-``attn_impl`` (None or 'auto', 'xla' or 'flash')
-reaches every encoder block of both towers, as the JAX model's field of the
-same name: under 'auto' a long sequence on the card (sq * sk >= 2048^2, the
-global mode) takes the flash kernel.
+``attn_impl`` (None or 'auto', 'xla', 'flash' or 'fused') and ``mlp_impl``
+(None or 'auto', 'xla' or 'fused') reach every encoder block of both towers,
+as the JAX model's fields of the same names: under 'auto' a long sequence on
+the card (sq * sk >= 2048^2, the global mode) takes the flash kernel; with
+``attn_impl="fused", mlp_impl="fused"`` every block whose window the
+fused-MHA test admits runs the whole-block path (two kernel launches a
+layer, ``ops/blocks.py``).
 
 The two pre-projections go through ``quant.linear`` (exactly ``F.linear``
 outside ``quant.matmul_impl('int8')``), as the JAX model's Dense hooks.
@@ -32,6 +35,7 @@ from torch import nn
 from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.ops.attention import check_impl
 from exoground_tpu_torch.ops.blocks import LN_EPS, TemporalEncoder
+from exoground_tpu_torch.ops.fused_mlp import MLP_IMPLS
 from exoground_tpu_torch.ops.pos_embed import (
     get_position_embedding_sine,
     random_pos_start,
@@ -64,11 +68,15 @@ class TemporalAligner(nn.Module):
         input_dim: int = 4096,
         max_pos: int = 4096,
         attn_impl: Optional[str] = None,
+        mlp_impl: Optional[str] = None,
         device="cuda",
     ):
         super().__init__()
         check_impl(attn_impl)
+        if mlp_impl is not None and mlp_impl not in MLP_IMPLS:
+            raise ValueError(f"mlp_impl {mlp_impl!r} is not one of {MLP_IMPLS}")
         self.attn_impl = attn_impl
+        self.mlp_impl = mlp_impl
         self.num_encoder_layers = num_encoder_layers
         self.pos_enc = pos_enc
         self.use_text_pos_enc = use_text_pos_enc
@@ -137,7 +145,8 @@ class TemporalAligner(nn.Module):
                                   pos_interp_len, preprojected, generator)
         if self.num_encoder_layers == 0:
             return x[:, None]
-        stages = self.video_temporal_encoder(x, video_padding_mask, impl=self.attn_impl)
+        stages = self.video_temporal_encoder(x, video_padding_mask, impl=self.attn_impl,
+                                             mlp_impl=self.mlp_impl)
         return _with_last(stages, self.ln_video_post_enc(stages[:, -1]))
 
     def get_textual_feature(self, lang_embed):
@@ -163,7 +172,8 @@ class TemporalAligner(nn.Module):
         t = x.shape[1]
         joint = torch.cat([x, lang_embed_with_time], dim=1)
         joint_mask = torch.cat([video_padding_mask, lang_padding_mask], dim=1)
-        stages = self.joint_temporal_encoder(joint, joint_mask, impl=self.attn_impl)
+        stages = self.joint_temporal_encoder(joint, joint_mask, impl=self.attn_impl,
+                                             mlp_impl=self.mlp_impl)
         stages = _with_last(stages, self.ln_joint_post_enc(stages[:, -1]))
         return stages[:, :, :t], stages[:, :, t:]
 

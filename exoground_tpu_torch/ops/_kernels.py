@@ -68,6 +68,24 @@ SIGNATURES = {
         # S, St, R, Cc, C, nsplit, inv_temp, dtype, stream
         "milnce_grid_backward": (_P,) * 10 + (_I,) * 6 + (_F, _I, _P),
     },
+    "block_attn": {
+        # x, kpad, ln w, ln b, w_in, b_in, w_out, b_out, attn scratch, out,
+        # x_norm, B, S, C, H, dtype, stream
+        "block_attn_forward": (_P,) * 11 + (_I,) * 5 + (_P,),
+    },
+    "block_attn_int8": {
+        # x, kpad, ln w, ln b, w_in int8, w_in scales, b_in, w_out, b_out,
+        # attn scratch, out, x_norm, B, S, C, H, dtype, stream
+        "block_attn_int8_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
+    },
+    "block_mlp": {
+        # x, ln w, ln b, c_fc w, c_fc b, c_proj w, c_proj b, out, rows, C,
+        # dtype, stream
+        "block_mlp_forward": (_P,) * 8 + (_I,) * 3 + (_P,),
+        # x, ln w, ln b, c_fc w int8, c_fc scales, c_fc b, c_proj w,
+        # c_proj b, out, rows, C, dtype, stream
+        "block_mlp_int8_forward": (_P,) * 9 + (_I,) * 3 + (_P,),
+    },
     "flash_attn": {
         # q, k, v, kpad, o, lse, BH, H, Sq, Sk, D, dtype, stream
         "flash_attn_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
@@ -82,7 +100,8 @@ SIGNATURES = {
 LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("fused_mha", "fused_mlp", "fused_mha_int8", "fused_mlp_int8",
                          "milnce_grid_fwd", "milnce_grid_bwd", "flash_fwd", "flash_dq",
-                         "flash_dkv")
+                         "flash_dkv", "block_attn", "block_attn_int8", "block_mlp",
+                         "block_mlp_int8")
 }
 
 _lock = threading.Lock()

@@ -20,7 +20,8 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     the uniform average of ``attention_plain``.
   * ``resolve_impl`` / ``scaled_dot_attention`` — the JAX package's
     dispatch between the two cores ('auto' | 'xla' | 'flash', None meaning
-    'auto'), with ``check_impl`` its one test of an impl string.
+    'auto'; 'fused' resolves as 'auto' there), with ``check_impl`` its one
+    test of an impl string.
   * ``fused_mha_int8`` — the int8 serving mode's route (counterpart of
     ``_fused_mha_int8``): W_in quantized per output row by
     ``quant._quant_first_axis``, then the kernel in
@@ -28,16 +29,25 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     projection as int8 x int8 -> int32 (attention and out-projection
     exact); a CPU tensor takes ``mha_int8_plain``, the kernel body written
     plainly. Inference-only.
+  * ``fused_block_attn`` — the whole-block path's first half (counterpart
+    of ``fused_block_attn``/``_block_attn``): (x + MHA(LN_1(x)), LN_1(x)) in
+    one launch of ``csrc/block_attn.cu`` (the int8-qkv body:
+    ``csrc/block_attn_int8.cu``), the LayerNorm in float32 and the residual
+    summed in float32 and rounded once; a CPU tensor takes
+    ``block_attn_plain`` / ``block_attn_int8_plain``.
+    ``block_fusion_mode`` says when a block takes it: an explicit 'fused'
+    on a kernel-eligible window, in the default context ('exact') or in an
+    int8 one whose policy quantizes 3C but not C ('int8').
   * ``MultiHeadAttention`` — the ``nn.MultiheadAttention`` parameter layout
     (packed ``in_proj_weight`` (3C, C), ``out_proj``) with the JAX module's
-    dispatch: under 'auto' qualifying self-attention takes ``fused_mha``,
-    or under ``quant.matmul_impl('int8')`` ``fused_mha_int8`` when the
-    policy quantizes the qkv product (3C >= min_cols) but not the
-    out-projection (C < min_cols); other self-attention (and all of it
-    inside ``disable_fused_kernels()``) ``mha_plain`` with the impl's core,
-    cross-attention the q/kv alias split, then ``scaled_dot_attention``.
-    Every unfused projection goes through ``quant.linear``, exactly
-    ``F.linear`` outside an int8 context.
+    dispatch: under 'auto' (outside ``disable_fused_kernels()``) or an
+    explicit 'fused' (even inside it), qualifying self-attention takes
+    ``fused_mha``, or under ``quant.matmul_impl('int8')`` ``fused_mha_int8``
+    when the policy quantizes the qkv product (3C >= min_cols) but not the
+    out-projection (C < min_cols); other self-attention ``mha_plain`` with
+    the impl's core, cross-attention the q/kv alias split, then
+    ``scaled_dot_attention``. Every unfused projection goes through
+    ``quant.linear``, exactly ``F.linear`` outside an int8 context.
 """
 
 from __future__ import annotations
@@ -50,29 +60,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from exoground_tpu_torch.ops import _kernels, quant
-from exoground_tpu_torch.ops.fused_mlp import fused_kernels_disabled
+from exoground_tpu_torch.ops.fused_mlp import fused_kernels_disabled, layernorm_f32
 
 NEG_INF = -1e30  # finite "minus infinity": avoids NaN on fully-masked rows
 MAX_FUSED_S = 128  # windows the fused kernel serves (the TPU kernel's tile)
-MAX_KERNEL_HEAD_DIM = 64  # largest head size the fused-MHA CUDA kernel serves
+MAX_KERNEL_HEAD_DIM = 64  # largest head size the fused-MHA and block CUDA kernels serve
 MAX_FLASH_HEAD_DIM = 128  # largest head size the flash CUDA kernels serve
 # 'auto' takes flash from this many scores per (batch, head) on: the JAX
 # package's gate (attention.py:77) as it stands, with "on the TPU" read as
 # "on the card". No H100 measurement has moved it yet (PERF.md §7).
 FLASH_MIN_SCORES = 2048 * 2048
 
-IMPLS = ("auto", "xla", "flash")  # None means 'auto'
+IMPLS = ("auto", "xla", "flash", "fused")  # None means 'auto'
 # values of the JAX package whose kernels wait for a later slice
 _LATER_IMPLS = {
     "small": "the window-attention kernel _small (ROADMAP.md queue 2, row 9)",
-    "fused": "the whole-block kernels (ROADMAP.md queue 2, rows 7-8)",
 }
 
 
 def check_impl(impl: Optional[str]) -> None:
-    """The one test of an attention impl: None (= 'auto'), 'auto', 'xla' or
-    'flash' pass; the JAX package's 'small' and whole-block 'fused' raise
-    ``NotImplementedError`` until their kernels are ported."""
+    """The one test of an attention impl: None (= 'auto'), 'auto', 'xla',
+    'flash' or 'fused' (the whole-block path, explicit only) pass; the JAX
+    package's 'small' raises ``NotImplementedError`` until its kernel is
+    ported."""
     if impl in _LATER_IMPLS:
         raise NotImplementedError(f"attention impl {impl!r} needs {_LATER_IMPLS[impl]}, "
                                   "which a later slice of the port brings")
@@ -82,9 +92,12 @@ def check_impl(impl: Optional[str]) -> None:
 
 def resolve_impl(impl: Optional[str], sq: int, sk: int, device) -> str:
     """'xla' (``attention_plain``) or 'flash' for an attention over sq x sk
-    scores on ``device`` (the counterpart of ``_resolve_impl``)."""
+    scores on ``device`` (the counterpart of ``_resolve_impl``). 'fused' is
+    consumed by the blocks and ``MultiHeadAttention``; an attention core
+    that reaches this dispatcher under it resolves as 'auto'
+    (attention.py:60-65)."""
     check_impl(impl)
-    if impl not in (None, "auto"):
+    if impl not in (None, "auto", "fused"):
         return impl
     if torch.device(device).type == "cuda" and sq * sk >= FLASH_MIN_SCORES:
         return "flash"
@@ -307,8 +320,9 @@ def mha_int8_plain(x, kpad, w_in, b_in, w_out, b_out, num_heads):
     return F.linear(_merge_heads(o).to(w_out.dtype), w_out, b_out).to(x.dtype)
 
 
-def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
-    """The wrappers' checks before a launch; returns the int32 key padding."""
+def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, **ln):
+    """The wrappers' checks before a launch (``ln``: the block kernels'
+    LayerNorm weight and bias); returns the int32 key padding."""
     b, s, c = x.shape
     if not kernel_eligible(s, c, num_heads):
         raise ValueError(f"{name}: S={s}, C={c}, H={num_heads} outside the fused test "
@@ -323,9 +337,11 @@ def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
     if b_in.shape != (3 * c,) or b_out.shape != (c,):
         raise ValueError(f"{name}: biases {tuple(b_in.shape)}, {tuple(b_out.shape)} "
                          f"do not fit width {c}")
-    _kernels.check_inference(name, x, w_in, b_in, w_out, b_out)
+    if any(t.shape != (c,) for t in ln.values()):
+        raise ValueError(f"{name}: LayerNorm parameters do not fit width {c}")
+    _kernels.check_inference(name, x, w_in, b_in, w_out, b_out, *ln.values())
     _kernels.check_cuda_inputs(name, x.device, x.dtype, x=x, w_in=w_in, b_in=b_in,
-                               w_out=w_out, b_out=b_out)
+                               w_out=w_out, b_out=b_out, **ln)
     if key_padding_mask is None:
         return torch.zeros((b, s), dtype=torch.int32, device=x.device)
     if key_padding_mask.shape != (b, s):
@@ -386,6 +402,96 @@ def kernel_eligible(s: int, c: int, num_heads: int) -> bool:
     return 1 <= s <= MAX_FUSED_S and c % 128 == 0 and (c // num_heads) % 8 == 0
 
 
+# ---------------------------------------------------------------------------
+# whole-block first half: (x + MHA(LN_1(x)), LN_1(x))
+# ---------------------------------------------------------------------------
+
+
+def block_fusion_mode(impl: Optional[str], s: int, c: int, num_heads: int) -> Optional[str]:
+    """The whole-block test (the counterpart of ``block_fusion_mode``,
+    attention.py:860-887): None, 'exact' or 'int8'. Only an explicit
+    'fused' on a window the fused-MHA test admits; 'exact' in the default
+    matmul context, 'int8' in an int8 one whose policy quantizes the qkv
+    product (3C >= min_cols) but not the N = C ones (C < min_cols), which
+    also selects c_fc (4C >= min_cols); any other int8 policy gives None."""
+    check_impl(impl)
+    if impl != "fused" or not kernel_eligible(s, c, num_heads):
+        return None
+    if quant.current_impl() == "default":
+        return "exact"
+    return "int8" if quant.kernel_gate(3 * c, c) else None
+
+
+def _block_attn_tail(x, xn, qkv, kpad, w_out, b_out, num_heads):
+    """Per-window attention of the float32 qkv, o rounded to W_out's type,
+    then o . W_out^T + b_out + x summed in float32 and rounded once
+    (attention.py:604-613); returns (out, xn) in x's type."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    o = attention_plain(_split_heads(q, num_heads), _split_heads(k, num_heads),
+                        _split_heads(v, num_heads), kpad)
+    o = _merge_heads(o).to(w_out.dtype).float()
+    out = F.linear(o, w_out.float(), b_out.float()) + x.float()
+    return out.to(x.dtype), xn.to(x.dtype)
+
+
+def block_attn_plain(x, kpad, ln_w, ln_b, w_in, b_in, w_out, b_out, num_heads):
+    """The block kernel's function written plainly (``_block_attn_kernel``):
+    xn = LN_1(x) in float32, rounded to x's type for the qkv product, which
+    accumulates in float32; per-window attention in float32 (a fully-masked
+    window averages its own values); then ``_block_attn_tail``.
+    Differentiable."""
+    xn = layernorm_f32(x, ln_w, ln_b).to(x.dtype)
+    qkv = F.linear(xn.float(), w_in.float(), b_in.float())
+    return _block_attn_tail(x, xn, qkv, kpad, w_out, b_out, num_heads)
+
+
+def block_attn_int8_plain(x, kpad, ln_w, ln_b, w_in, b_in, w_out, b_out, num_heads):
+    """The int8 block kernel's function written plainly
+    (``_block_attn_kernel_int8``): the float32 xn = LN_1(x), unrounded,
+    quantized per row, qkv = float(acc) * xs * ws + b_in; the rest as
+    ``block_attn_plain``. Reads no context."""
+    xn = layernorm_f32(x, ln_w, ln_b)
+    acc, xs, ws = quant.int8_product(xn, w_in)
+    qkv = acc.float() * xs * ws + b_in.float()
+    return _block_attn_tail(x, xn, qkv, kpad, w_out, b_out, num_heads)
+
+
+def fused_block_attn(x, key_padding_mask, ln_w, ln_b, w_in, b_in, w_out, b_out, num_heads,
+                     int8_qkv: bool = False):
+    """(x + MHA(LN_1(x)), LN_1(x)) over windows of S <= 128 in one pass
+    (the counterpart of ``fused_block_attn``, attention.py:927), torch
+    weight layout, both outputs in x's type. CPU tensors take
+    ``block_attn_plain`` (``block_attn_int8_plain`` with ``int8_qkv``);
+    CUDA tensors launch ``csrc/block_attn.cu`` (``block_attn_int8.cu``) or
+    raise. Inference-only on the card; the int8 body raises under grad on
+    either device."""
+    name = "block_attn_int8" if int8_qkv else "block_attn"
+    weights = (ln_w, ln_b, w_in, b_in, w_out, b_out)
+    if int8_qkv:
+        _kernels.check_inference(name, x, *weights)
+    if x.device.type == "cpu":
+        plain = block_attn_int8_plain if int8_qkv else block_attn_plain
+        return plain(x, key_padding_mask, *weights, num_heads)
+    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
+                      ln_w=ln_w, ln_b=ln_b)
+    b, s, c = x.shape
+    attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
+    out, xn = torch.empty_like(x), torch.empty_like(x)
+    lib = _kernels.library(name)
+    tail = (b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), attn.data_ptr(),
+            out.data_ptr(), xn.data_ptr(), b, s, c, num_heads, _kernels.dtype_code(x),
+            _kernels.stream_of(x))
+    head = (x.data_ptr(), kpad.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr())
+    if int8_qkv:
+        w_q, w_s = quant._quant_first_axis(w_in)
+        rc = lib.block_attn_int8_forward(*head, w_q.data_ptr(), w_s.data_ptr(), *tail)
+    else:
+        rc = lib.block_attn_forward(*head, w_in.data_ptr(), *tail)
+    _kernels.check(name, rc)
+    _kernels.LAUNCHES[name] += 1
+    return out, xn
+
+
 class MultiHeadAttention(nn.Module):
     """MHA with the packed in-projection layout of ``nn.MultiheadAttention``
     (reference model/tfm_model.py:21): ``in_proj_weight`` (3C, C) packed
@@ -404,19 +510,21 @@ class MultiHeadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, query, key, value, key_padding_mask=None, impl: Optional[str] = None):
-        """``impl``: None or 'auto', 'xla' or 'flash'. The fused-MHA kernels
-        run only under 'auto' (attention.py:1079-1106): ``fused_mha`` in the
-        default matmul context, ``fused_mha_int8`` in an int8 one that
-        quantizes the qkv product but not the out-projection; 'xla',
-        'flash' and any other int8 policy take the unfused projections
-        (``quant.linear``) and that attention core."""
+        """``impl``: None or 'auto', 'xla', 'flash' or 'fused'. The fused-MHA
+        kernels run under 'auto' outside ``disable_fused_kernels()`` and
+        under an explicit 'fused' even inside it (attention.py:1079-1106):
+        ``fused_mha`` in the default matmul context, ``fused_mha_int8`` in
+        an int8 one that quantizes the qkv product but not the
+        out-projection; 'xla', 'flash' and any other int8 policy take the
+        unfused projections (``quant.linear``) and that attention core
+        ('fused' resolving as 'auto' there)."""
         c = query.shape[-1]
         h = self.num_heads
         w_in, b_in = self.in_proj_weight, self.in_proj_bias
         w_out, b_out = self.out_proj.weight, self.out_proj.bias
         if query is key and key is value:
-            if (impl in (None, "auto") and kernel_eligible(query.shape[1], c, h)
-                    and not fused_kernels_disabled()):
+            wanted = impl == "fused" or (impl in (None, "auto") and not fused_kernels_disabled())
+            if wanted and kernel_eligible(query.shape[1], c, h):
                 if quant.current_impl() == "default":
                     return fused_mha(query, key_padding_mask, w_in, b_in, w_out, b_out, h)
                 if quant.kernel_gate(3 * c, c):

@@ -17,6 +17,14 @@ the policy quantizes c_fc (4C >= min_cols) but not c_proj (C < min_cols). The tr
 ``disable_fused_kernels()``, where ``MLP`` and ``MultiHeadAttention`` take
 their plain compositions, as the JAX package's train steps trace under its
 context of the same name (exoground_tpu/ops/fused_mlp.py:37-58).
+
+The whole-block path's second half: ``fused_block_mlp`` computes
+x + MLP(LN_2(x)) in one launch of ``csrc/block_mlp.cu`` (the LayerNorm in
+float32, the residual summed in float32 and rounded once), with an int8
+c_fc body; on the CPU it takes ``block_mlp_plain`` /
+``block_mlp_int8_plain``, the kernel bodies written plainly. The blocks
+take it when ``resolve_mlp_impl`` gives 'fused' and the attention impl is
+an explicit 'fused' (``attention.block_fusion_mode``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch.nn.functional as F
 from exoground_tpu_torch.ops import _kernels, quant
 from exoground_tpu_torch.ops.activations import quick_gelu
 
+LN_EPS = 1e-5  # torch LayerNorm default
+MLP_IMPLS = ("auto", "xla", "fused")  # None means 'auto'
 
 _CTX = threading.local()
 
@@ -78,8 +88,64 @@ def kernel_eligible(width: int) -> bool:
     return width % 128 == 0
 
 
-def _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
-    """The wrappers' checks before a launch; returns x as (rows, C)."""
+def resolve_mlp_impl(impl, width: int, device) -> str:
+    """'fused' or 'xla' (the counterpart of ``resolve_mlp_impl``,
+    fused_mlp.py:71-90). None or 'auto' gives 'fused' on a device other
+    than the CPU (a meta tensor stands for the card's in the tests) for a
+    kernel-eligible width outside ``disable_fused_kernels()``, and 'xla' on
+    the CPU, as the JAX function does off the TPU. No row gate: the TPU's
+    was a TPU measurement. An explicit 'fused' gives 'fused' for an
+    eligible width even inside ``disable_fused_kernels()``."""
+    if impl is not None and impl not in MLP_IMPLS:
+        raise ValueError(f"mlp impl {impl!r} is not one of {MLP_IMPLS}")
+    if not kernel_eligible(width) or impl == "xla":
+        return "xla"
+    if impl == "fused":
+        return "fused"
+    on_card = torch.device(device).type != "cpu"
+    return "fused" if on_card and not fused_kernels_disabled() else "xla"
+
+
+def layernorm_f32(x, ln_w, ln_b) -> torch.Tensor:
+    """Row LayerNorm in float32 as the block kernels compute it
+    (``_layernorm_f32``, fused_mlp.py:119-125): the mean, then the mean of
+    the squared deviations, rsqrt(var + 1e-5), then * w + b."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + LN_EPS) * ln_w.float() + ln_b.float()
+
+
+def _c_proj_residual(h, x, pr_w, pr_b) -> torch.Tensor:
+    """h (float32) rounded to c_proj's type, h . c_proj^T + b + x summed in
+    float32 and rounded once to x's type (fused_mlp.py:140-146)."""
+    return (F.linear(h.to(pr_w.dtype).float(), pr_w.float(), pr_b.float())
+            + x.float()).to(x.dtype)
+
+
+def block_mlp_plain(x, ln_w, ln_b, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
+    """The block MLP kernel's function written plainly
+    (``_block_mlp_kernel``): xn = LN_2(x) in float32, rounded to x's type;
+    c_fc and c_proj accumulate in float32, QuickGELU in float32, the hidden
+    rounded to c_proj's type; x + MLP(xn) rounded once. Differentiable."""
+    xn = layernorm_f32(x, ln_w, ln_b).to(x.dtype)
+    h = quick_gelu(F.linear(xn.float(), fc_w.float(), fc_b.float()))
+    return _c_proj_residual(h, x, pr_w, pr_b)
+
+
+def block_mlp_int8_plain(x, ln_w, ln_b, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
+    """The int8 block MLP kernel's function written plainly
+    (``_block_mlp_kernel_int8``): the float32 xn = LN_2(x), unrounded,
+    quantized per row; c_fc as the int8 product, ``float(acc) * xs * ws +
+    fc_b``; the rest as ``block_mlp_plain``. Reads no context."""
+    acc, xs, ws = quant.int8_product(layernorm_f32(x, ln_w, ln_b), fc_w)
+    h = quick_gelu(acc.float() * xs * ws + fc_b.float())
+    return _c_proj_residual(h, x, pr_w, pr_b)
+
+
+def _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b, **ln) -> torch.Tensor:
+    """The wrappers' checks before a launch (``ln``: the block kernels'
+    LayerNorm weight and bias); returns x as (rows, C)."""
     c = x.shape[-1]
     if not kernel_eligible(c):
         raise ValueError(f"{name}: width {c} is not a multiple of 128")
@@ -89,10 +155,12 @@ def _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
     if fc_b.shape != (4 * c,) or pr_b.shape != (c,):
         raise ValueError(f"{name}: biases {tuple(fc_b.shape)}, {tuple(pr_b.shape)} "
                          f"do not fit width {c}")
-    _kernels.check_inference(name, x, fc_w, fc_b, pr_w, pr_b)
+    if any(t.shape != (c,) for t in ln.values()):
+        raise ValueError(f"{name}: LayerNorm parameters do not fit width {c}")
+    _kernels.check_inference(name, x, fc_w, fc_b, pr_w, pr_b, *ln.values())
     x2d = x.reshape(-1, c)
     _kernels.check_cuda_inputs(name, x.device, x.dtype, x=x2d, fc_w=fc_w,
-                               fc_b=fc_b, pr_w=pr_w, pr_b=pr_b)
+                               fc_b=fc_b, pr_w=pr_w, pr_b=pr_b, **ln)
     return x2d
 
 
@@ -130,6 +198,38 @@ def fused_mlp_int8(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
         x2d.data_ptr(), fc_q.data_ptr(), fc_s.data_ptr(), fc_b.data_ptr(), pr_w.data_ptr(),
         pr_b.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1], code,
         _kernels.stream_of(x2d))
+    _kernels.check(name, rc)
+    _kernels.LAUNCHES[name] += 1
+    return out.reshape(x.shape)
+
+
+def fused_block_mlp(x, ln_w, ln_b, fc_w, fc_b, pr_w, pr_b, int8_cfc: bool = False):
+    """x + MLP(LN_2(x)) over (..., C) in one pass, torch weight layout (the
+    counterpart of ``fused_block_mlp``, fused_mlp.py:359). CPU tensors take
+    ``block_mlp_plain`` (``block_mlp_int8_plain`` with ``int8_cfc``); CUDA
+    tensors launch ``csrc/block_mlp.cu`` or raise. Inference-only on the
+    card; the int8 body raises under grad on either device."""
+    name = "block_mlp_int8" if int8_cfc else "block_mlp"
+    args = (x, ln_w, ln_b, fc_w, fc_b, pr_w, pr_b)
+    if int8_cfc:
+        _kernels.check_inference(name, *args)
+    if x.device.type == "cpu":
+        return (block_mlp_int8_plain if int8_cfc else block_mlp_plain)(*args)
+    x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b, ln_w=ln_w, ln_b=ln_b)
+    rows, c = x2d.shape
+    out = torch.empty_like(x2d)
+    lib = _kernels.library("block_mlp")
+    if int8_cfc:
+        fc_q, fc_s = quant._quant_first_axis(fc_w)
+        rc = lib.block_mlp_int8_forward(
+            x2d.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), fc_q.data_ptr(), fc_s.data_ptr(),
+            fc_b.data_ptr(), pr_w.data_ptr(), pr_b.data_ptr(), out.data_ptr(), rows, c,
+            _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
+    else:
+        rc = lib.block_mlp_forward(
+            x2d.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(),
+            pr_w.data_ptr(), pr_b.data_ptr(), out.data_ptr(), rows, c,
+            _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
     _kernels.check(name, rc)
     _kernels.LAUNCHES[name] += 1
     return out.reshape(x.shape)

@@ -1,6 +1,7 @@
 """Where the main path's time goes on the card.
 
-    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train | --global | --int8]
+    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train | --global]
+        [--block] [--int8]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -29,6 +30,12 @@ JAX bench's int8 configuration (bfloat16 compute, float16 transfer,
 matmul_dtype='int8', int8_min_cols=1024: every encoder layer through the
 int8 fused-MHA and fused-MLP kernels), with the int8 kernels' share of the
 busy time.
+
+``--block`` profiles the whole-block path instead of the per-module one:
+the model built with attn_impl="fused", mlp_impl="fused", so every encoder
+layer runs two launches, the block-attention and block-MLP kernels (their
+int8 bodies with ``--int8``), with the block kernels' share of the busy
+time.
 
 With ``--out`` the Chrome traces are written there. Needs a CUDA device;
 raises otherwise.
@@ -78,9 +85,11 @@ def _device_rows(prof):
 def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
     """The main path in one configuration (``cfg``: AlignEvalConfig
     fields), labelled by its compute dtype, with '_int8' under
-    matmul_dtype='int8'."""
+    matmul_dtype='int8' and '_block' for the whole-block model."""
     cfg = AlignEvalConfig(**cfg)
-    label = cfg.compute_dtype + ("_int8" if cfg.matmul_dtype == "int8" else "")
+    block = getattr(model, "attn_impl", None) == "fused"
+    label = (cfg.compute_dtype + ("_int8" if cfg.matmul_dtype == "int8" else "")
+             + ("_block" if block else ""))
     ev = FusedAlignEvaluator(model, cfg, device="cuda")
     _sweep(ev, items)  # warm-up
     times = [_sweep(ev, items) for _ in range(3)]
@@ -91,10 +100,15 @@ def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
     busy_us = sum(r[0] for r in rows)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"main_path_{label}.json"))
-    int8_us = {k: sum(us for us, _, key in rows if k in key)
-               for k in ("mha_int8", "mlp_int8")}
+    # by kernel name: the per-module int8 kernels and the block kernels (both
+    # bodies); the out-projection's linear_bias_kernel is in neither
+    int8_us = {k: sum(us for us, _, key in rows if name in key)
+               for k, name in (("mha_int8", "mha_int8_window"), ("mlp_int8", "fused_mlp_int8"))}
+    block_us = {k: sum(us for us, _, key in rows if k in key)
+                for k in ("block_attn", "block_mlp")}
     return {
         "dtype": label,
+        "path": "block" if block else "per_module",
         "transfer_dtype": cfg.transfer_dtype,
         "matmul_dtype": cfg.matmul_dtype,
         "int8_min_cols": cfg.int8_min_cols,
@@ -105,6 +119,8 @@ def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "int8_kernels_ms": {k: us / 1e3 for k, us in int8_us.items()},
+        "block_kernels_ms": {k: us / 1e3 for k, us in block_us.items()},
+        "block_kernels_share_of_busy": sum(block_us.values()) / max(busy_us, 1e-9),
         "top_kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
                         for us, c, k in rows[:12]],
     }
@@ -207,9 +223,13 @@ def main():
     mode.add_argument("--train", action="store_true", help="profile the train path")
     mode.add_argument("--global", dest="global_mode", action="store_true",
                       help="profile global-mode text_visual_sim at the bench shape")
-    mode.add_argument("--int8", action="store_true",
-                      help="profile the int8 serving mode (the JAX bench's int8 row)")
+    ap.add_argument("--int8", action="store_true",
+                    help="profile the int8 serving mode (the JAX bench's int8 row)")
+    ap.add_argument("--block", action="store_true",
+                    help="profile the whole-block path (attn_impl and mlp_impl 'fused')")
     args = ap.parse_args()
+    if (args.int8 or args.block) and (args.train or args.global_mode):
+        ap.error("--int8 and --block profile the serving sweeps, not --train or --global")
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -229,7 +249,8 @@ def main():
                 print(json.dumps({"card": card, **profile_train(model, b, amp, args.out)}),
                       flush=True)
         return
-    model = TemporalAligner(device="cpu")
+    impls = dict(attn_impl="fused", mlp_impl="fused") if args.block else {}
+    model = TemporalAligner(device="cpu", **impls)
     load_tan_params(model, make_bench_params(0))
     if args.global_mode:
         for dtype in ("float32", "bfloat16"):

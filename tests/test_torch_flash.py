@@ -163,19 +163,22 @@ def test_resolve_impl():
     assert tattn.resolve_impl("xla", 4096, 4096, cuda) == "xla"
     with pytest.raises(NotImplementedError, match="row 9"):
         tattn.resolve_impl("small", 64, 64, cpu)
-    with pytest.raises(NotImplementedError, match="rows 7-8"):
-        tattn.resolve_impl("fused", 2048, 2048, cuda)
+    # 'fused' is the blocks' and the MHA module's; a core under it resolves as 'auto'
+    assert tattn.resolve_impl("fused", 2048, 2048, cuda) == "flash"
+    assert tattn.resolve_impl("fused", 64, 64, cuda) == "xla"
+    assert tattn.resolve_impl("fused", 2048, 2048, cpu) == "xla"
     with pytest.raises(ValueError):
         tattn.resolve_impl("triton", 64, 64, cpu)
 
 
 @pytest.mark.parametrize("impl,error", [
     (None, None), ("auto", None), ("xla", None), ("flash", None),
-    ("small", NotImplementedError), ("fused", NotImplementedError), ("bogus", ValueError),
+    ("small", NotImplementedError), ("fused", None), ("bogus", ValueError),
 ])
 def test_check_impl(impl, error):
-    """The one test of an impl string: None means 'auto'; the JAX package's
-    'small' and whole-block 'fused' name the ROADMAP rows that bring them."""
+    """The one test of an impl string: None means 'auto'; the whole-block
+    'fused' passes; the JAX package's 'small' names the ROADMAP row that
+    brings it."""
     if error is None:
         tops.check_impl(impl)
         return
@@ -184,17 +187,22 @@ def test_check_impl(impl, error):
 
 
 def test_block_level_later_impls_raise():
+    """'small' raises at every level until its kernel is ported; 'fused'
+    (ported) builds and runs."""
     block = tblocks.ResidualAttentionBlock(128, 4)
     enc = tblocks.TemporalEncoder(128, 2, 4)
     x = torch.zeros(1, 8, 128)
-    for impl in ("small", "fused"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            block(x, impl=impl)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            enc(x, impl=impl)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TemporalAligner(num_encoder_layers=1, num_joint_layers=1, width=128, heads=4,
-                            input_dim=16, max_pos=64, attn_impl=impl, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        block(x, impl="small")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        enc(x, impl="small")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TemporalAligner(num_encoder_layers=1, num_joint_layers=1, width=128, heads=4,
+                        input_dim=16, max_pos=64, attn_impl="small", device="cpu")
+    with torch.no_grad():
+        assert enc(x, impl="fused", mlp_impl="fused").shape == (1, 2, 8, 128)
+    TemporalAligner(num_encoder_layers=1, num_joint_layers=1, width=128, heads=4,
+                    input_dim=16, max_pos=64, attn_impl="fused", device="cpu")
 
 
 @pytest.mark.parametrize("impl", [None, "auto", "xla", "flash"])
