@@ -105,6 +105,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      attention_plain ('xla'), float32 and bfloat16, median of 5 each
      (`global_bench {...}` lines).
 
+  3f. window-attention kernel: small_attention (csrc/small_attn.cu) against
+     small_attention_plain on the card (a fully-masked window and ragged
+     lengths in every case) at the grounding path's windows (B64 H8, S 64
+     and 128) and the aligner's (B304 H8, S 64 and 96), D 64, timed beside
+     the plain version, F.scaled_dot_product_attention with the boolean mask
+     (a yardstick the path never calls) and the bound, and at S 17 D 32;
+     float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2);
+  4d. the aligner under attn_impl='small': FusedAlignEvaluator over the 8
+     bench videos in float32 and bfloat16, counted (12 small_attn launches
+     per group, no fused MHA), frames/s (median of 3 sweeps) in turns with
+     'auto' (`small_bench {...}`), one video against the CPU plain path
+     (score rel. error <= 1e-4);
+  7. keystep grounding served: GroundingService over GroundingModel (the MLP
+     view-invariant pre-pass, the trunk E6D6, width 512, 8 heads, 4096-d,
+     seeded weights; scripts/train_grounding.sh's model) in float32 under
+     attn_impl 'small' and 'auto': one ground_batch of 64 requests (one
+     bucket), then 1 ground() alone and 3 concurrent, counted per forward
+     ('small': 30 small_attn + 24 fused_mlp; 'auto': 24 fused_mha + 24
+     fused_mlp), each ground() against its batch row, the card against the
+     CPU service (start/end <= 1e-4 of max|CPU|), requests/s and ms per
+     batch (median of 3, in turns; `ground_bench {...}`), and one int8 batch
+     of 16 under 'small' (30 small_attn launches and nothing else; against
+     the CPU within 2x the CPU's own change under a 1e-7 relative change of
+     the inputs, at least 1e-3: a rounding step upstream flips int8 steps).
+
 Float32 products run in full float32 (TF32 off for matmul and cuDNN). The
 line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -539,6 +564,67 @@ def block_kernel_cases():
             mlp.append(block_mlp_case(300, 640, dtype, 68, int8))
             mlp.append(block_mlp_case(40, 4224 if int8 else 1280, dtype, 69, int8))
     return out
+
+
+# ---------------------------------------------------------------- phase 3f
+def small_case(B, H, S, D, dtype, seed, timed=False):
+    """The window-attention kernel (through ``small_attention``) against
+    small_attention_plain on the card: one fully-masked window and ragged
+    lengths. With ``timed``, beside the plain version,
+    F.scaled_dot_product_attention with the boolean mask (a yardstick the
+    path never calls) and the bound max(4 BH S^2 D / peak, 4 BH S D bytes /
+    3.35 TB/s)."""
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.attention import small_attention, small_attention_plain
+
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.tensor(rng.standard_normal((B, H, S, D)), dtype=dtype, device="cuda")
+               for _ in range(3))
+    lens = rng.randint(1, S + 1, B)
+    lens[0] = 0  # a fully-masked window
+    lens[-1] = S
+    mask = torch.tensor(np.arange(S)[None, :] >= lens[:, None], device="cuda")
+    kpad = mask.to(torch.int32)
+    qs = q * (1.0 / D ** 0.5)
+    with torch.inference_mode():
+        n0 = _kernels.LAUNCHES["small_attn"]
+        out = small_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        if _kernels.LAUNCHES["small_attn"] != n0 + 1:
+            fail("small_attn did not count its launch")
+        ref = small_attention_plain(qs, k, v, kpad)
+        if not torch.isfinite(out.float()).all():
+            fail(f"small_attn non-finite output at B{B} H{H} S{S} D{D} {dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        case = dict(shape=f"B{B} H{H} S{S} D{D}", dtype=str(dtype).split(".")[-1],
+                    max_abs_err=err, max_rel_err=err / ref.float().abs().max().item())
+        if timed:
+            attend = ~mask[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            bms, by = bound_ms(4.0 * B * H * S * S * D, 4.0 * B * H * S * D * q.element_size(),
+                               dtype)
+            case.update(ms=time_ms(lambda: small_attention(q, k, v, mask)),
+                        plain_ms=time_ms(lambda: small_attention_plain(qs, k, v, kpad)),
+                        library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=attend)),
+                        bound_ms=bms, bound_by=by)
+    print("small_attn", json.dumps(case), flush=True)
+    if not case["max_rel_err"] <= TOL[dtype]:
+        fail(f"small_attn disagrees with small_attention_plain: {case}")
+    return case
+
+
+def small_kernel_cases():
+    """Phase 3f: the window kernel at the grounding path's windows (B64 H8,
+    S 64 and 128) and the aligner's (B304 H8, S 64 and 96), D 64, timed, and
+    at an odd shape (S 17, D 32), float32 and bfloat16."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(small_case(64, 8, 128, 64, dtype, seed=70, timed=True))
+        cases.append(small_case(64, 8, 64, 64, dtype, seed=71, timed=True))
+        cases.append(small_case(304, 8, 64, 64, dtype, seed=72, timed=True))
+        cases.append(small_case(304, 8, 96, 64, dtype, seed=73, timed=True))
+        cases.append(small_case(3, 2, 17, 32, dtype, seed=74))
+    return cases
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1082,6 +1168,77 @@ def block_path(card):
     return totals
 
 
+# ---------------------------------------------------------------- phase 4d
+def aligner_small_path(card):
+    """TemporalAligner(attn_impl="small") in FusedAlignEvaluator over the 8
+    bench videos in float32 and bfloat16, each counted over one sweep (per
+    group 12 small_attn launches, 6 dual S64 + 6 joint, no fused MHA);
+    frames/s (median of 3 sweeps) in turns with the 'auto' model; one video
+    in float32 on the card against the CPU plain path (score <= 1e-4)."""
+    from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
+    from exoground_tpu_torch.evals.bench_items import make_bench_items
+    from exoground_tpu_torch.ops import _kernels
+
+    small_model = _serving_aligner(attn_impl="small")
+    auto_model = _serving_aligner()
+    items = make_bench_items(4096, 4096)
+    frames = sum(len(it["video"]) for it in items)
+    total = 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = AlignEvalConfig(compute_dtype=dtype)
+        small_ev = FusedAlignEvaluator(small_model, cfg, device="cuda")
+        auto_ev = FusedAlignEvaluator(auto_model, cfg, device="cuda")
+        groups = []
+        inner = small_ev._process
+
+        def counting(cfg_, dims, host_args, _inner=inner, _groups=groups):
+            _groups.append(dims[1] + host_args[6].shape[1])  # joint S
+            return _inner(cfg_, dims, host_args)
+
+        small_ev._process = counting
+        _kernels.reset_launches()
+        metrics = {"small": small_ev(items)}
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        small_ev._process = inner
+        short = sum(1 for s in groups if s <= 128)
+        want = {"small_attn": 6 * len(groups) + 6 * short, "fused_mha": 0,
+                "fused_mlp": 12 * len(groups)}
+        got = {k: launches[k] for k in want}
+        print(f"aligner 'small' {dtype}: {len(groups)} group dispatches (joint S {groups}), "
+              f"launches {launches}, {card}", flush=True)
+        if got != want:
+            fail(f"aligner 'small' {dtype} launches {got} != {want}")
+        total += launches["small_attn"]
+        auto_ev(items)  # warm-up
+        runs = {"small": [], "auto": []}
+        for rep in range(3):
+            for name in (("small", "auto") if rep % 2 == 0 else ("auto", "small")):
+                dt, metrics[name] = _timed_sweep(small_ev if name == "small" else auto_ev, items)
+                runs[name].append(dt)
+        out = {name: dict(recall=metrics[name]["Recall"], auc=metrics[name]["AUC"],
+                          sweeps_s=runs[name], frames_per_s=frames / statistics.median(runs[name]))
+               for name in runs}
+        print("small_bench", json.dumps(dict(config=dtype, frames=frames, card=card, **out)),
+              flush=True)
+        for name, m in out.items():
+            if not (0.0 <= m["recall"] <= 1.0 and 0.0 <= m["auc"] <= 1.0):
+                fail(f"aligner 'small' {dtype} {name} metrics out of range: {m}")
+        del small_ev, auto_ev
+        torch.cuda.empty_cache()
+
+    # one video in float32 on the card and on the CPU plain path
+    item = items[4]
+    cfg = AlignEvalConfig(all_texts_active=True)
+    gpu = FusedAlignEvaluator(small_model, cfg, device="cuda").predict([item])[0]
+    cpu_ev = FusedAlignEvaluator(small_model, cfg, device="cpu")
+    t0 = time.perf_counter()
+    cpu = cpu_ev.predict([item])[0]
+    _card_vs_cpu(f"aligner 'small' card vs CPU plain path (f32, {len(item['start'])} texts, "
+                 f"CPU {time.perf_counter() - t0:.1f} s)", gpu, cpu, cpu_ev, cfg, item, 1e-4)
+    return total
+
+
 # ----------------------------------------------------------------- phase 5
 BENCH_TRAIN = dict(model="cotrain", learn_agreement=1, temporal_agreement_type="keep",
                    loss_threshold=0.7, use_alignability_head=1, momentum_m=0.999, lr=1e-4,
@@ -1368,6 +1525,154 @@ def global_path(card):
     return launches, runs
 
 
+# ----------------------------------------------------------------- phase 7
+GROUND_LAUNCHES = {"small": dict(small_attn=30, fused_mha=0, fused_mlp=24),
+                   "auto": dict(small_attn=0, fused_mha=24, fused_mlp=24)}
+
+
+def grounding_path(card):
+    """Keystep grounding served: GroundingService over GroundingModel at
+    the configuration scripts/train_grounding.sh trains (the MLP VI
+    pre-pass, the trunk E6D6, width 512, 8 heads, 4096-d; seeded weights),
+    float32, under attn_impl 'small' and 'auto': per impl one ground_batch
+    of 64 requests (one bucket: 64-frame video windows, 64 narrations),
+    then 1 ground() alone and 3 concurrent, counted per forward ('small':
+    30 small_attn, 24 fused_mlp, no fused MHA; 'auto': 24 fused_mha, 24
+    fused_mlp); each ground() against its row of ground_batch; the card
+    against the same service on the CPU (<= 1e-4 of max|CPU|); requests/s
+    (median of 3 batches, in turns); one int8 batch of 16 under 'small'
+    (only the window kernel launches) against the CPU at the int8 mode's
+    rounding-flip floor. Returns the small_attn launches of the 'small'
+    run."""
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import (
+        GROUNDING, make_grounding_params, make_grounding_requests)
+    from exoground_tpu_torch.models import GroundingModel
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.serve import GroundingService
+    from exoground_tpu_torch.utils.convert import load_grounding_params
+
+    cpu_model = GroundingModel(**GROUNDING, attn_impl="small", device="cpu")
+    load_grounding_params(cpu_model, make_grounding_params(0))
+    reqs = make_grounding_requests(0, 64)
+    svc = GroundingService(copy.deepcopy(cpu_model), device="cuda")
+    forwards = []
+    run = svc._run
+
+    def counting(*args):
+        forwards.append(args[1])  # the bucket's batch
+        return run(*args)
+
+    svc._run = counting
+
+    def as_array(answers):
+        return np.concatenate([np.stack([a["start"], a["end"]], -1) for a in answers])
+
+    def served(impl):
+        svc.model.attn_impl = impl
+        svc.ground_batch(reqs)  # warm-up
+        torch.cuda.synchronize()
+        forwards.clear()
+        _kernels.reset_launches()
+        batch = svc.ground_batch(reqs)
+        alone = [svc.ground(reqs[0]["video"], reqs[0]["narration_embeds"])]
+        concurrent = [None] * 3
+        barrier = threading.Barrier(3)
+
+        def worker(i):
+            barrier.wait()
+            r = reqs[1 + i]
+            concurrent[i] = svc.ground(r["video"], r["narration_embeds"])
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        if any(th.is_alive() for th in threads) or any(a is None for a in concurrent):
+            fail("concurrent ground() requests did not finish")
+        singles = alone + concurrent
+        n = len(forwards)
+        per_forward = {k: launches[k] / n for k in ("small_attn", "fused_mha", "fused_mlp")}
+        got = as_array(batch)
+        one = as_array(singles)
+        row_err = float(np.abs(one - got[:len(one)]).max() / np.abs(got).max())
+        print(f"grounding '{impl}': 64 + 4 requests in {n} forwards (batches {forwards}), "
+              f"launches {launches}, per forward {per_forward}, ground() vs its ground_batch "
+              f"row rel err {row_err:.2e}, {card}", flush=True)
+        if per_forward != GROUND_LAUNCHES[impl] or any(
+                launches[k] for k in ("fused_mha_int8", "fused_mlp_int8", *BLOCK_KERNELS)):
+            fail(f"grounding '{impl}' launches {launches} in {n} forwards != "
+                 f"{GROUND_LAUNCHES[impl]} per forward")
+        if not (got.shape == (sum(len(r["narration_embeds"]) for r in reqs), 2)
+                and np.isfinite(got).all()) or not row_err <= 1e-5:
+            fail(f"grounding '{impl}': malformed answers or ground() != its batch row")
+        return got, launches["small_attn"]
+
+    outs = {impl: served(impl) for impl in ("small", "auto")}
+    t0 = time.perf_counter()
+    cpu = as_array(GroundingService(cpu_model, device="cpu").ground_batch(reqs))
+    cpu_s = time.perf_counter() - t0
+    for impl, (got, _) in outs.items():
+        rel = float(np.abs(got - cpu).max() / np.abs(cpu).max())
+        print(f"grounding '{impl}' card vs CPU plain path (64 requests, CPU {cpu_s:.1f} s): "
+              f"start/end rel err {rel:.3e}", flush=True)
+        if not rel <= 1e-4:
+            fail(f"grounding '{impl}': the card disagrees with the CPU plain path")
+
+    # requests/s, median of 3 batches of 64, in turns
+    times = {"small": [], "auto": []}
+    for rep in range(3):
+        for impl in (("small", "auto") if rep % 2 == 0 else ("auto", "small")):
+            svc.model.attn_impl = impl
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.ground_batch(reqs)
+            torch.cuda.synchronize()
+            times[impl].append(time.perf_counter() - t0)
+    bench = {impl: dict(batch_ms=statistics.median(t) * 1e3, batch_ms_all=[x * 1e3 for x in t],
+                        requests_per_s=len(reqs) / statistics.median(t))
+             for impl, t in times.items()}
+    print("ground_bench", json.dumps(dict(requests=len(reqs), card=card, **bench)), flush=True)
+
+    # the int8 mode under 'small': every projection quantized (int8_min_cols
+    # 0), so of the kernels only the window core launches. Its answers move
+    # by about their int8 error when an input moves by one rounding step
+    # (~1e-7: the card's and the CPU's float32 sums differ by that much
+    # before every quantizer), so the card is held against the CPU at the
+    # CPU's own response to a 1e-7 relative change of the video features
+    # (2x that, at least 1e-3)
+    int8_reqs = reqs[:16]
+    int8_svc = GroundingService(svc.model, matmul_dtype="int8", device="cuda")
+    int8_svc.model.attn_impl = "small"
+    _kernels.reset_launches()
+    got = as_array(int8_svc.ground_batch(int8_reqs))
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    cpu_svc = GroundingService(cpu_model, matmul_dtype="int8", device="cpu")
+    cpu8 = as_array(cpu_svc.ground_batch(int8_reqs))
+    rng = np.random.RandomState(1)
+    nudged = [dict(r, video=r["video"] * (1.0 + 1e-7 * rng.standard_normal(r["video"].shape))
+                   .astype(np.float32)) for r in int8_reqs]
+    floor = float(np.abs(as_array(cpu_svc.ground_batch(nudged)) - cpu8).max()
+                  / np.abs(cpu8).max())
+    exact = float(np.abs(got - outs["small"][0][:len(got)]).max() / np.abs(cpu8).max())
+    rel = float(np.abs(got - cpu8).max() / np.abs(cpu8).max())
+    limit = max(1e-3, 2.0 * floor)
+    print(f"grounding int8 'small' ({len(int8_reqs)} requests) card vs CPU plain path (CPU "
+          f"{time.perf_counter() - t0:.1f} s): rel err {rel:.3e}, limit {limit:.3e} (the CPU's "
+          f"own change under 1e-7 input noise {floor:.3e}); card int8 vs card exact "
+          f"{exact:.3e}; launches {launches}", flush=True)
+    if not rel <= limit or launches["small_attn"] != 30 or any(
+            n for k, n in launches.items() if k != "small_attn"):
+        fail("grounding int8: the card disagrees with the CPU or launched other kernels")
+    return outs["small"][1]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs on the card only")
@@ -1441,6 +1746,9 @@ def main():
     # phase 3e: the whole-block kernels against their plain versions
     block_cases = block_kernel_cases()
 
+    # phase 3f: the window-attention kernel against its plain version
+    small_cases = small_kernel_cases()
+
     # phase 4: the serving path, counted
     launches = main_path(card)
 
@@ -1450,6 +1758,9 @@ def main():
 
     # phase 4c: the whole-block path, counted
     launches.update(block_path(card))
+
+    # phase 4d: the aligner under attn_impl='small', counted
+    small_launches = {"aligner attn_impl=small (phase 4d)": aligner_small_path(card)}
 
     # phase 5: the train path, counted (auto at B 16 and 64, then the flash
     # kernels under attn_impl='flash' at B 16)
@@ -1469,6 +1780,12 @@ def main():
         "flash_dkv": {"train attn_impl=flash (phase 5)": flash_train_launches["flash_dkv"]},
     }
     launches.update({k: sum(v.values()) for k, v in flash_launches.items()})
+
+    # phase 7: keystep grounding served, counted; its 'small' run is this
+    # slice's main path
+    launches["small_attn"] = grounding_path(card)
+    small_launches = {"grounding attn_impl=small (phase 7)": launches["small_attn"],
+                      **small_launches}
 
     def entry(name, source, replaces, cases):
         head = cases[0]  # main-path shape, float32
@@ -1534,6 +1851,9 @@ def main():
         block_entry("block_mlp", "block_mlp.cu", "exoground_tpu/ops/fused_mlp.py:336"),
         block_entry("block_attn_int8", "block_attn_int8.cu", "exoground_tpu/ops/attention.py:927"),
         block_entry("block_mlp_int8", "block_mlp.cu", "exoground_tpu/ops/fused_mlp.py:359"),
+        dict(entry("small_attn", "exoground_tpu_torch/csrc/small_attn.cu",
+                   "exoground_tpu/ops/attention.py:514", small_cases),
+             launches_by_path=small_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,50 @@ def make_global_bench_inputs(seed=0):
     return {"video": video, "text": text}
 
 
+class _Draw:
+    """Seeded numpy draws at the JAX models' init scales (the CLIP-style
+    stds of ``_init_scales``, blocks.py:127-132), in the JAX param layout:
+    Dense kernels (in, out), in_proj_kernel (C, 3C), LayerNorm
+    scale/bias."""
+
+    def __init__(self, seed, width, layers):
+        self.rng, self.w = np.random.RandomState(seed), width
+        self.attn_std = width ** -0.5
+        self.proj_std = width ** -0.5 * (2 * layers) ** -0.5
+        self.fc_std = (2 * width) ** -0.5
+
+    def n(self, *shape, std):
+        return (self.rng.standard_normal(shape) * std).astype(np.float32)
+
+    def ln(self):
+        return {"scale": 1.0 + self.n(self.w, std=0.05), "bias": self.n(self.w, std=0.02)}
+
+    def attn(self):
+        w = self.w
+        return {"in_proj_kernel": self.n(w, 3 * w, std=self.attn_std),
+                "in_proj_bias": self.n(3 * w, std=0.02),
+                "out_proj_kernel": self.n(w, w, std=self.proj_std),
+                "out_proj_bias": self.n(w, std=0.02)}
+
+    def mlp(self):
+        w = self.w
+        return {"c_fc": {"kernel": self.n(w, 4 * w, std=self.fc_std),
+                         "bias": self.n(4 * w, std=0.02)},
+                "c_proj": {"kernel": self.n(4 * w, w, std=self.proj_std),
+                           "bias": self.n(w, std=0.02)}}
+
+    def stack(self, layers, decoder=False):
+        """A TemporalEncoder's blocks, or a TemporalDecoder's (a self-
+        attention and a third LayerNorm each)."""
+        out = {}
+        for i in range(layers):
+            blk = {"attn": self.attn(), "ln_1": self.ln(), "ln_2": self.ln(), "mlp": self.mlp()}
+            if decoder:
+                blk.update(self_attn=self.attn(), ln_3=self.ln())
+            out[f"resblocks_{i}"] = blk
+        return out
+
+
 def make_bench_params(seed, layers=6, width=512, input_dim=4096, max_pos=4096,
                       binary_head=False):
     """Seeded random weights for a TemporalAligner (E6D6, width 512, 4096-d
@@ -79,30 +123,11 @@ def make_bench_params(seed, layers=6, width=512, input_dim=4096, max_pos=4096,
     with numpy at the model's init scales; ``utils/convert.py::
     load_tan_params`` loads it into the port's model. ``binary_head`` adds
     the alignability head (drawn last, so the other weights stay the same)."""
-    rng = np.random.RandomState(seed)
-    w = width
-
-    def n(*shape, std):
-        return (rng.standard_normal(shape) * std).astype(np.float32)
-
-    def ln():
-        return {"scale": 1.0 + n(w, std=0.05), "bias": n(w, std=0.02)}
-
-    attn_std, proj_std, fc_std = w ** -0.5, w ** -0.5 * (2 * layers) ** -0.5, (2 * w) ** -0.5
-
-    def stack():
-        return {f"resblocks_{i}": {
-            "attn": {"in_proj_kernel": n(w, 3 * w, std=attn_std),
-                     "in_proj_bias": n(3 * w, std=0.02),
-                     "out_proj_kernel": n(w, w, std=proj_std),
-                     "out_proj_bias": n(w, std=0.02)},
-            "ln_1": ln(), "ln_2": ln(),
-            "mlp": {"c_fc": {"kernel": n(w, 4 * w, std=fc_std), "bias": n(4 * w, std=0.02)},
-                    "c_proj": {"kernel": n(4 * w, w, std=proj_std), "bias": n(w, std=0.02)}},
-        } for i in range(layers)}
+    d = _Draw(seed, width, layers)
+    n, ln, w = d.n, d.ln, width
 
     tree = {
-        "video_temporal_encoder": stack(), "joint_temporal_encoder": stack(),
+        "video_temporal_encoder": d.stack(layers), "joint_temporal_encoder": d.stack(layers),
         "video_pre_proj": {"kernel": n(input_dim, w, std=0.01)},
         "text_pre_proj": {"kernel": n(input_dim, w, std=0.01)},
         "ln_text_init": ln(), "ln_video_init": ln(), "ln_position_init": ln(),
@@ -131,3 +156,54 @@ def make_train_batch(b, t=64, n=12, seed=0, video_dim=4096, text_dim=4096):
         "start": start, "end": end,
         "abs_text_pos": np.stack([start / t, end / t], axis=-1),
     }
+
+
+# the configuration scripts/train_grounding.sh trains (--model grounding
+# --views all; exoground_tpu/train/main.py:136-155 with the ExperimentConfig
+# defaults): GroundingModel(vi_encoder_type="mlp") over the trunk E6D6,
+# width 512, 8 heads, 4096-d video and text, single view, learned
+# positions, the decoder, (center, duration) outputs
+GROUNDING = dict(vi_encoder_type="mlp", num_encoder_layers=6, num_decoder_layers=6,
+                 feature_dim=512, video_embed_dim=4096, text_embed_dim=4096)
+
+
+def make_grounding_params(seed, layers=6, width=512, input_dim=4096, max_pos=1024):
+    """Seeded random weights for ``GroundingModel(**GROUNDING)`` (the repo
+    has no grounding checkpoint) in the JAX package's layout, {'trunk',
+    'vi_encoder'}; ``utils/convert.py::load_grounding_params`` loads it."""
+    d = _Draw(seed, width, layers)
+    n, ln = d.n, d.ln
+    trunk = {
+        "multi_modal_encoder": d.stack(layers), "video_unimodal_encoder": d.stack(layers),
+        "text_unimodal_encoder": d.stack(layers), "decoder": d.stack(layers, decoder=True),
+        "grounding_head": {"kernel": n(width, 2, std=0.01), "bias": n(2, std=0.02)},
+        "video_pre_proj": {"kernel": n(input_dim, width, std=0.01)},
+        "text_pre_proj": {"kernel": n(input_dim, width, std=0.01)},
+        "ln_text_init": ln(), "ln_video_init": ln(), "ln_position_init": ln(),
+        "ln_joint_post_enc": ln(), "ln_video_post_enc": ln(), "ln_text_post_enc": ln(),
+        "temporal_pos_embed": n(max_pos, width, std=0.01),
+        "text_temporal_pos_embed": n(input_dim, width, std=0.01),
+    }
+    vi = {"video_pre_proj": {"kernel": n(input_dim, input_dim, std=0.01)},
+          "ln_video_init": {"scale": 1.0 + n(input_dim, std=0.05),
+                            "bias": n(input_dim, std=0.02)},
+          "mlp_fc1": {"kernel": n(input_dim, input_dim, std=0.01),
+                      "bias": n(input_dim, std=0.02)},
+          "mlp_fc2": {"kernel": n(input_dim, input_dim, std=0.01),
+                      "bias": n(input_dim, std=0.02)}}
+    return {"params": {"trunk": trunk, "vi_encoder": vi}}
+
+
+def make_grounding_requests(seed, n, video_dim=4096, text_dim=4096, max_t=64, max_k=64):
+    """``n`` seeded grounding requests ({'video' (T, video_dim),
+    'narration_embeds' (K, text_dim)}, float32) with T in [16, max_t] frames
+    and K in [4, max_k] narrations, as ``GroundingService.ground_batch``
+    takes them: at the service's defaults (seq_len 64, text_bucket 64) all
+    fall in one bucket."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        t, k = int(rng.randint(16, max_t + 1)), int(rng.randint(4, max_k + 1))
+        out.append({"video": rng.randn(t, video_dim).astype(np.float32),
+                    "narration_embeds": rng.randn(k, text_dim).astype(np.float32)})
+    return out

@@ -2,3 +2,7 @@
 
 from exoground_tpu_torch.models.aligner import TemporalAligner  # noqa: F401
 from exoground_tpu_torch.models.ema import ema_init, ema_update  # noqa: F401
+from exoground_tpu_torch.models.grounding import (  # noqa: F401
+    ExoGroundingTransformer,
+    GroundingModel,
+)

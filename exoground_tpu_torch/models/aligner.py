@@ -34,7 +34,7 @@ from torch import nn
 
 from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.ops.attention import check_impl
-from exoground_tpu_torch.ops.blocks import LN_EPS, TemporalEncoder
+from exoground_tpu_torch.ops.blocks import LN_EPS, TemporalEncoder, post_ln_last
 from exoground_tpu_torch.ops.fused_mlp import MLP_IMPLS
 from exoground_tpu_torch.ops.pos_embed import (
     get_position_embedding_sine,
@@ -47,10 +47,6 @@ from exoground_tpu_torch.utils.device import resolve_device
 def _l2norm(x: torch.Tensor) -> torch.Tensor:
     # eps guards all-pad rows (exactly-zero embeddings) from 0/0 -> NaN
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-8)
-
-
-def _with_last(stages: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
-    return torch.cat([stages[:, :-1], last[:, None]], dim=1)
 
 
 class TemporalAligner(nn.Module):
@@ -147,7 +143,7 @@ class TemporalAligner(nn.Module):
             return x[:, None]
         stages = self.video_temporal_encoder(x, video_padding_mask, impl=self.attn_impl,
                                              mlp_impl=self.mlp_impl)
-        return _with_last(stages, self.ln_video_post_enc(stages[:, -1]))
+        return post_ln_last(stages, self.ln_video_post_enc)
 
     def get_textual_feature(self, lang_embed):
         return self.ln_text_init(quant.linear(lang_embed, self.text_pre_proj.weight))
@@ -174,7 +170,7 @@ class TemporalAligner(nn.Module):
         joint_mask = torch.cat([video_padding_mask, lang_padding_mask], dim=1)
         stages = self.joint_temporal_encoder(joint, joint_mask, impl=self.attn_impl,
                                              mlp_impl=self.mlp_impl)
-        stages = _with_last(stages, self.ln_joint_post_enc(stages[:, -1]))
+        stages = post_ln_last(stages, self.ln_joint_post_enc)
         return stages[:, :, :t], stages[:, :, t:]
 
     # ------------------------------------------------------------------

@@ -16,6 +16,8 @@ from exoground_tpu_torch.ops.attention import (
     mha_int8_plain,
     resolve_impl,
     scaled_dot_attention,
+    small_attention,
+    small_attention_plain,
 )
 from exoground_tpu_torch.ops.fused_mlp import (
     fused_block_mlp,
@@ -40,4 +42,6 @@ __all__ = [
     "resolve_impl",
     "resolve_mlp_impl",
     "scaled_dot_attention",
+    "small_attention",
+    "small_attention_plain",
 ]

@@ -86,6 +86,10 @@ SIGNATURES = {
         # c_proj b, out, rows, C, dtype, stream
         "block_mlp_int8_forward": (_P,) * 9 + (_I,) * 3 + (_P,),
     },
+    "small_attn": {
+        # q, k, v, kpad, o, BH, H, S, D, dtype, stream
+        "small_attn_forward": (_P,) * 5 + (_I,) * 5 + (_P,),
+    },
     "flash_attn": {
         # q, k, v, kpad, o, lse, BH, H, Sq, Sk, D, dtype, stream
         "flash_attn_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
@@ -101,7 +105,7 @@ LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("fused_mha", "fused_mlp", "fused_mha_int8", "fused_mlp_int8",
                          "milnce_grid_fwd", "milnce_grid_bwd", "flash_fwd", "flash_dq",
                          "flash_dkv", "block_attn", "block_attn_int8", "block_mlp",
-                         "block_mlp_int8")
+                         "block_mlp_int8", "small_attn")
 }
 
 _lock = threading.Lock()

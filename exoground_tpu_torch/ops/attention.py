@@ -18,10 +18,16 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     autograd Function ``FlashAttention``), on a CPU tensor
     ``flash_attention_plain``. A row with no valid key gives 0 here, not
     the uniform average of ``attention_plain``.
+  * ``small_attention`` — the window-attention core of an explicit
+    'small' (counterpart of ``small_attention``/``_small``): on a CUDA
+    tensor the kernel of ``csrc/small_attn.cu``, on a CPU tensor
+    ``small_attention_plain``, the kernel body written plainly.
+    Inference-only on the card.
   * ``resolve_impl`` / ``scaled_dot_attention`` — the JAX package's
-    dispatch between the two cores ('auto' | 'xla' | 'flash', None meaning
-    'auto'; 'fused' resolves as 'auto' there), with ``check_impl`` its one
-    test of an impl string.
+    dispatch between the cores ('auto' | 'xla' | 'flash' | 'small', None
+    meaning 'auto'; 'fused' resolves as 'auto' there; 'small' takes the
+    window core on square windows of S <= 128 only), with ``check_impl``
+    its one test of an impl string.
   * ``fused_mha_int8`` — the int8 serving mode's route (counterpart of
     ``_fused_mha_int8``): W_in quantized per output row by
     ``quant._quant_first_axis``, then the kernel in
@@ -44,9 +50,9 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     explicit 'fused' (even inside it), qualifying self-attention takes
     ``fused_mha``, or under ``quant.matmul_impl('int8')`` ``fused_mha_int8``
     when the policy quantizes the qkv product (3C >= min_cols) but not the
-    out-projection (C < min_cols); other self-attention ``mha_plain`` with
-    the impl's core, cross-attention the q/kv alias split, then
-    ``scaled_dot_attention``. Every unfused projection goes through
+    out-projection (C < min_cols); other self-attention ('xla', 'flash',
+    'small' among them) ``mha_plain`` with the impl's core, cross-attention
+    the q/kv alias split, then ``scaled_dot_attention``. Every unfused projection goes through
     ``quant.linear``, exactly ``F.linear`` outside an int8 context.
 """
 
@@ -71,28 +77,24 @@ MAX_FLASH_HEAD_DIM = 128  # largest head size the flash CUDA kernels serve
 # "on the card". No H100 measurement has moved it yet (PERF.md §7).
 FLASH_MIN_SCORES = 2048 * 2048
 
-IMPLS = ("auto", "xla", "flash", "fused")  # None means 'auto'
-# values of the JAX package whose kernels wait for a later slice
-_LATER_IMPLS = {
-    "small": "the window-attention kernel _small (ROADMAP.md queue 2, row 9)",
-}
+MAX_SMALL_S = 128  # windows the window-attention kernel serves (S == Sk)
+MAX_SMALL_HEAD_DIM = 128  # largest head size the window-attention kernel serves
+
+IMPLS = ("auto", "xla", "flash", "small", "fused")  # None means 'auto'
 
 
 def check_impl(impl: Optional[str]) -> None:
     """The one test of an attention impl: None (= 'auto'), 'auto', 'xla',
-    'flash' or 'fused' (the whole-block path, explicit only) pass; the JAX
-    package's 'small' raises ``NotImplementedError`` until its kernel is
-    ported."""
-    if impl in _LATER_IMPLS:
-        raise NotImplementedError(f"attention impl {impl!r} needs {_LATER_IMPLS[impl]}, "
-                                  "which a later slice of the port brings")
+    'flash', 'small' (the window-attention kernel, explicit only) or 'fused'
+    (the whole-block path, explicit only) pass."""
     if impl is not None and impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r} is not one of {IMPLS}")
 
 
 def resolve_impl(impl: Optional[str], sq: int, sk: int, device) -> str:
-    """'xla' (``attention_plain``) or 'flash' for an attention over sq x sk
-    scores on ``device`` (the counterpart of ``_resolve_impl``). 'fused' is
+    """'xla' (``attention_plain``), 'flash' or 'small' for an attention over
+    sq x sk scores on ``device`` (the counterpart of ``_resolve_impl``); an
+    explicit impl is returned as it is. 'fused' is
     consumed by the blocks and ``MultiHeadAttention``; an attention core
     that reaches this dispatcher under it resolves as 'auto'
     (attention.py:60-65)."""
@@ -271,10 +273,79 @@ def flash_attention(q, k, v, key_padding_mask=None):
     return o.reshape(b, h, sq, d)
 
 
+# ---------------------------------------------------------------------------
+# window attention (the 'small' core)
+# ---------------------------------------------------------------------------
+
+
+def small_attention_plain(q, k, v, kpad):
+    """The window kernel's function written plainly (``_small_kernel``, per
+    window): q (B, H, S, D) already scaled by 1/sqrt(D), k and v (B, H, S,
+    D), kpad (B, S) nonzero at PAD. s = q k^T in float32 with masked keys at
+    NEG_INF, p = exp(s - max) in float32, l = sum of the unrounded p, o =
+    (p rounded to v's type) . v in float32, then o / l in q's type: the
+    normalisation after the product, as the TPU body (attention.py:469-479).
+    A fully-masked window averages its own S values (the TPU kernel averages
+    its packed 128-column tile). Differentiable."""
+    valid = (kpad == 0)[:, None, None, :]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = torch.where(valid, s, torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype)
+
+
+def small_attention(q, k, v, key_padding_mask=None):
+    """Window attention over (B, H, S, D) with S == Sk <= 128 (the
+    counterpart of ``small_attention``/``_small``): the int32 key padding as
+    the JAX function builds it (attention.py:999-1002), q scaled by
+    1/sqrt(D) in q's type (:540), then ``small_attention_plain`` on a CPU
+    tensor and the kernel of ``csrc/small_attn.cu`` on a CUDA tensor, which
+    launches or raises. Head sizes: multiples of 8 up to 128 on every
+    device. Inference-only on the card."""
+    b, h, s, d = q.shape
+    name = "small_attn"
+    if k.shape != (b, h, s, d) or v.shape != (b, h, s, d) or s > MAX_SMALL_S:
+        raise ValueError(f"{name}: serves self-attention windows of S <= {MAX_SMALL_S}; got "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if d % 8 or d > MAX_SMALL_HEAD_DIM:
+        raise NotImplementedError(f"{name}: head size {d}; the CUDA kernel serves multiples "
+                                  f"of 8 up to {MAX_SMALL_HEAD_DIM}")
+    if key_padding_mask is None:
+        kpad = torch.zeros((b, s), dtype=torch.int32, device=q.device)
+    else:
+        if key_padding_mask.shape != (b, s):
+            raise ValueError(f"{name}: key_padding_mask {tuple(key_padding_mask.shape)} "
+                             f"!= {(b, s)}")
+        kpad = key_padding_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    q = q * (1.0 / math.sqrt(d))
+    if q.device.type == "cpu":
+        return small_attention_plain(q, k, v, kpad)
+    _kernels.check_inference(name, q, k, v)
+    qf, kf, vf = (t.reshape(b * h, s, d).contiguous() for t in (q, k, v))
+    _kernels.check_cuda_inputs(name, q.device, q.dtype, q=qf, k=kf, v=vf)
+    o = torch.empty_like(qf)
+    rc = _kernels.library(name).small_attn_forward(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), kpad.data_ptr(), o.data_ptr(),
+        b * h, h, s, d, _kernels.dtype_code(q), _kernels.stream_of(q))
+    _kernels.check(name, rc)
+    _kernels.LAUNCHES[name] += 1
+    return o.reshape(b, h, s, d)
+
+
 def scaled_dot_attention(q, k, v, key_padding_mask=None, impl: Optional[str] = None):
-    """The attention core over (B, H, S, D) under ``resolve_impl``."""
-    if resolve_impl(impl, q.shape[2], k.shape[2], q.device) == "flash":
+    """The attention core over (B, H, S, D) under ``resolve_impl``. 'small'
+    takes ``small_attention`` for a square window of S <= 128 and
+    ``attention_plain`` otherwise (decoder cross-attention of another
+    length, long sequences): the JAX dispatcher's rule
+    (attention.py:1016-1017)."""
+    sq, sk = q.shape[2], k.shape[2]
+    impl = resolve_impl(impl, sq, sk, q.device)
+    if impl == "flash":
         return flash_attention(q, k, v, key_padding_mask)
+    if impl == "small" and sq == sk <= MAX_SMALL_S:
+        return small_attention(q, k, v, key_padding_mask)
     return attention_plain(q, k, v, key_padding_mask)
 
 
@@ -510,13 +581,13 @@ class MultiHeadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, query, key, value, key_padding_mask=None, impl: Optional[str] = None):
-        """``impl``: None or 'auto', 'xla', 'flash' or 'fused'. The fused-MHA
+        """``impl``: None or 'auto', 'xla', 'flash', 'small' or 'fused'. The fused-MHA
         kernels run under 'auto' outside ``disable_fused_kernels()`` and
         under an explicit 'fused' even inside it (attention.py:1079-1106):
         ``fused_mha`` in the default matmul context, ``fused_mha_int8`` in
         an int8 one that quantizes the qkv product but not the
-        out-projection; 'xla', 'flash' and any other int8 policy take the
-        unfused projections (``quant.linear``) and that attention core
+        out-projection; 'xla', 'flash', 'small' and any other int8 policy
+        take the unfused projections (``quant.linear``) and that attention core
         ('fused' resolving as 'auto' there)."""
         c = query.shape[-1]
         h = self.num_heads

@@ -1,7 +1,7 @@
-"""Transformer encoder blocks.
+"""Transformer encoder and decoder blocks.
 
 Counterpart of ``exoground_tpu/ops/blocks.py`` (reference
-model/tfm_model.py:17-55), in (B, T, C) layout, with the two quirks the TAN
+model/tfm_model.py:17-103), in (B, T, C) layout, with the two quirks the TAN
 loss and checkpoint parity depend on:
 
   1. each block returns both its output and the pre-attention LayerNormed
@@ -16,8 +16,15 @@ attention impl and window and ``resolve_mlp_impl`` gives 'fused' for its
 MLP impl (the JAX block, blocks.py:197-205); otherwise the per-module path.
 Both read the same ``ln_1``, ``attn``, ``ln_2`` and ``mlp`` parameters.
 
+The decoder block (``ResidualDecoderBlock``, the grounding family's) is
+pre-LN self-attention, cross-attention on the memory, then the MLP; its
+stack ``TemporalDecoder`` collects stages as the encoder does. Its
+attentions and MLP take the per-module dispatch of ``MultiHeadAttention``
+and ``MLP``.
+
 Parameter names follow the reference's state dict
-(``resblocks.{i}.attn.in_proj_weight``, ``ln_1``, ``mlp.c_fc`` ...).
+(``resblocks.{i}.attn.in_proj_weight``, ``self_attn``, ``ln_1`` ..
+``ln_3``, ``mlp.c_fc`` ...).
 """
 
 from __future__ import annotations
@@ -73,9 +80,8 @@ class MLP(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN self-attention block returning (output, x_norm)
     (reference model/tfm_model.py:17-38). ``impl`` reaches the attention
-    (None or 'auto', 'xla', 'flash', 'fused'; the JAX block's 'small'
-    raises ``NotImplementedError`` until its kernel is ported), ``mlp_impl``
-    the MLP."""
+    (None or 'auto', 'xla', 'flash', 'small', 'fused'), ``mlp_impl`` the
+    MLP."""
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -108,6 +114,24 @@ class ResidualAttentionBlock(nn.Module):
         return x, x_norm
 
 
+def _collect(blocks, x, *args, **kw):
+    """Run ``blocks`` in turn and stack x_norm of layers 2..N followed by the
+    final output as (B, Stage, T, C) (tfm_model.py:48-55)."""
+    intermediate = []
+    for block in blocks:
+        x, x_norm = block(x, *args, **kw)
+        intermediate.append(x_norm)
+    intermediate.pop(0)
+    intermediate.append(x)
+    return torch.stack(intermediate, dim=1)
+
+
+def post_ln_last(stages, ln):
+    """``stages`` (B, Stage, X, C) with the caller's post-LN ``ln`` applied
+    to the last stage (reference model/tan_model.py:168)."""
+    return torch.cat([stages[:, :-1], ln(stages[:, -1])[:, None]], dim=1)
+
+
 class TemporalEncoder(nn.Module):
     """Stack of N blocks returning the collected stages (B, Stage, T, C):
     x_norm of layers 2..N followed by the final un-normed output; the caller
@@ -120,10 +144,43 @@ class TemporalEncoder(nn.Module):
         )
 
     def forward(self, x, key_padding_mask=None, impl=None, mlp_impl=None):
-        intermediate = []
-        for block in self.resblocks:
-            x, x_norm = block(x, key_padding_mask, impl=impl, mlp_impl=mlp_impl)
-            intermediate.append(x_norm)
-        intermediate.pop(0)
-        intermediate.append(x)
-        return torch.stack(intermediate, dim=1)
+        return _collect(self.resblocks, x, key_padding_mask, impl=impl, mlp_impl=mlp_impl)
+
+
+class ResidualDecoderBlock(nn.Module):
+    """Pre-LN decoder block returning (output, x_norm): self-attention, then
+    cross-attention on ``memory``, then the MLP (reference
+    model/tfm_model.py:59-86; JAX blocks.py:260-304)."""
+
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(width, heads)
+        self.ln_1 = nn.LayerNorm(width, eps=LN_EPS)
+        self.attn = MultiHeadAttention(width, heads)
+        self.mlp = MLP(width)
+        self.ln_2 = nn.LayerNorm(width, eps=LN_EPS)
+        self.ln_3 = nn.LayerNorm(width, eps=LN_EPS)
+
+    def forward(self, x, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                impl=None, mlp_impl=None):
+        x_norm = self.ln_1(x)
+        x = x + self.self_attn(x_norm, x_norm, x_norm, tgt_key_padding_mask, impl=impl)
+        x = x + self.attn(self.ln_2(x), memory, memory, memory_key_padding_mask, impl=impl)
+        x = x + self.mlp(self.ln_3(x), impl=mlp_impl)
+        return x, x_norm
+
+
+class TemporalDecoder(nn.Module):
+    """Stack of decoder blocks with the encoder's stage collection, (B,
+    Stage, N, C) (reference model/tfm_model.py:89-103)."""
+
+    def __init__(self, width: int, layers: int, heads: int):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            ResidualDecoderBlock(width, heads) for _ in range(layers)
+        )
+
+    def forward(self, x, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                impl=None, mlp_impl=None):
+        return _collect(self.resblocks, x, memory, tgt_key_padding_mask,
+                        memory_key_padding_mask, impl=impl, mlp_impl=mlp_impl)

@@ -1,28 +1,39 @@
-"""Serving layer: the TAN alignment service on the card.
+"""Serving layer: the TAN alignment and keystep grounding services on the
+card.
 
-Counterpart of ``exoground_tpu/serve.py`` for the alignment path:
+Counterpart of ``exoground_tpu/serve.py`` for these paths:
 
   * ``AlignmentService`` — holds a port ``TemporalAligner`` and the fused
     evaluator (parameters cast once, kernels built at first use); a request
     is one video plus candidate text embeddings, the response per-text best
     seconds and confidence scores.
-  * ``_CoalescingFront`` — concurrent ``align()`` calls coalesce into one
-    batched ``predict`` (the evaluator packs up to ``group_videos`` videos
-    per device pass).
+  * ``GroundingService`` — holds a port ``ExoGroundingTransformer`` or
+    ``GroundingModel``; a request is one video window plus narration
+    embeddings, the response per-narration (start, end) in [0, 1] of the
+    window. Requests are bucketed by padded narration count, one forward
+    per bucket.
+  * ``_CoalescingFront`` — concurrent ``align()`` / ``ground()`` calls
+    coalesce into one batched call (the evaluator packs up to
+    ``group_videos`` videos per device pass; a grounding bucket is one
+    forward).
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from exoground_tpu_torch.evals.align import AlignEvalConfig
 from exoground_tpu_torch.evals.align_fused import FusedAlignEvaluator
 from exoground_tpu_torch.models.aligner import TemporalAligner
+from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.utils.convert import load_reference_state
+from exoground_tpu_torch.utils.device import resolve_device
+from exoground_tpu_torch.utils.shapes import round_up
 
 
 class _CoalescingFront:
@@ -175,3 +186,108 @@ class AlignmentService:
             "score": out["score"][inv].tolist(),
             "align_score": out["align_score"][inv].tolist(),
         }
+
+
+class GroundingService:
+    """ExoGround interval prediction (the JAX ``GroundingService``,
+    serve.py:396-531): every video pads to ``seq_len`` frames and every
+    narration set to a multiple of ``text_bucket``, so the attention windows
+    of a served forward are ``seq_len``, ``text_bucket`` and their sum. The
+    model is moved to ``device`` once and served in eval mode."""
+
+    def __init__(self, model, seq_len: int = 64, text_bucket: int = 64,
+                 matmul_dtype: str = "default", device="cuda"):
+        # same serving knob as AlignmentService: 'int8' quantizes the
+        # pre-projections and the block products (ops/quant.py, the JAX
+        # service's policy: int8_min_cols 0); the head stays exact
+        if matmul_dtype not in quant.VALID_IMPLS:
+            raise ValueError(f"matmul_dtype must be one of {quant.VALID_IMPLS}, "
+                             f"got {matmul_dtype!r}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.seq_len = seq_len
+        self.text_bucket = text_bucket
+        self.matmul_dtype = matmul_dtype
+        self._lock = threading.Lock()
+        # concurrent ground() calls coalesce into bucket-batched forwards
+        self._front = _CoalescingFront(
+            lambda reqs, ucd: self.ground_batch(reqs, use_center_duration=ucd))
+
+    def _run(self, host: np.ndarray, b: int, kpad: int, dv: int, dt: int) -> np.ndarray:
+        """One forward of a bucket from its packed float32 host buffer
+        (``_pack``): one upload, the model, one download."""
+        buf = torch.from_numpy(host).to(self.device)
+        video, narr, vmask, nmask = torch.split(
+            buf, [b * self.seq_len * dv, b * kpad * dt, b * self.seq_len, b * kpad])
+        dtype = next(self.model.parameters()).dtype
+        with torch.no_grad(), quant.matmul_impl(self.matmul_dtype):
+            preds = self.model(video.view(b, self.seq_len, dv).to(dtype),
+                               narr.view(b, kpad, dt).to(dtype),
+                               vmask.view(b, self.seq_len) > 0, nmask.view(b, kpad) > 0,
+                               deterministic=True)["interval_preds"]
+        # use_decoder=False models emit per-stage (B, Stage, N, 2)
+        # predictions; serve the final stage (grounding.py:236)
+        if preds.dim() == 4:
+            preds = preds[:, -1]
+        return preds.float().cpu().numpy()
+
+    def _pack(self, requests, idxs, kpad: int):
+        """The bucket's videos and narrations zero-padded to (B, seq_len, Dv)
+        and (B, kpad, Dt), then the two padding masks (1.0 at PAD), in one
+        flat float32 buffer."""
+        b = len(idxs)
+        dv = requests[idxs[0]]["video"].shape[1]
+        dt = requests[idxs[0]]["narration_embeds"].shape[1]
+        sizes = np.cumsum([b * self.seq_len * dv, b * kpad * dt, b * self.seq_len])
+        host = np.zeros(sizes[-1] + b * kpad, np.float32)
+        vb, nb, vmask, nmask = np.split(host, sizes)
+        vb, nb = vb.reshape(b, self.seq_len, dv), nb.reshape(b, kpad, dt)
+        vmask, nmask = vmask.reshape(b, self.seq_len), nmask.reshape(b, kpad)
+        vmask[:], nmask[:] = 1.0, 1.0
+        for row, i in enumerate(idxs):
+            video, narr = requests[i]["video"], requests[i]["narration_embeds"]
+            vb[row, :video.shape[0]] = video
+            nb[row, :narr.shape[0]] = narr
+            vmask[row, :video.shape[0]] = 0.0
+            nmask[row, :narr.shape[0]] = 0.0
+        return host, dv, dt
+
+    def ground(self, video: np.ndarray, narration_embeds: np.ndarray,
+               use_center_duration: bool = True) -> Dict:
+        """(T, Dv) window features + (K, Dt) narrations -> per-narration
+        normalized (start, end). A video longer than ``seq_len`` is
+        rejected: the intervals would refer to a truncated window."""
+        t = video.shape[0]
+        if t > self.seq_len:
+            raise ValueError(f"video has {t} frames but the grounding model's window is "
+                             f"{self.seq_len}; split the video into windows upstream")
+        return self._front.submit({"video": video, "narration_embeds": narration_embeds},
+                                  use_center_duration)
+
+    def ground_batch(self, requests: Sequence[Dict],
+                     use_center_duration: bool = True) -> List[Dict]:
+        """Requests ({'video' (T, Dv), 'narration_embeds' (K, Dt)}) grouped
+        by padded narration bucket, each bucket one forward; results in
+        request order, entry i equal to ``ground()`` on request i (batch
+        rows are independent)."""
+        buckets: Dict[int, List[int]] = {}
+        for i, req in enumerate(requests):
+            t = req["video"].shape[0]
+            if t > self.seq_len:
+                raise ValueError(f"request {i}: video has {t} frames but the grounding "
+                                 f"model's window is {self.seq_len}; split upstream")
+            kpad = round_up(req["narration_embeds"].shape[0], self.text_bucket)
+            buckets.setdefault(kpad, []).append(i)
+        results: List[Optional[Dict]] = [None] * len(requests)
+        with self._lock:
+            for kpad, idxs in buckets.items():
+                host, dv, dt = self._pack(requests, idxs, kpad)
+                preds = self._run(host, len(idxs), kpad, dv, dt)
+                for row, i in enumerate(idxs):
+                    p = preds[row, :requests[i]["narration_embeds"].shape[0]]
+                    if use_center_duration:
+                        s, e = p[:, 0] - p[:, 1] / 2, p[:, 0] + p[:, 1] / 2
+                    else:
+                        s, e = p[:, 0], p[:, 1]
+                    results[i] = {"start": s.tolist(), "end": e.tolist()}
+        return results

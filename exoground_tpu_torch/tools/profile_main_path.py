@@ -1,7 +1,7 @@
 """Where the main path's time goes on the card.
 
-    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR] [--train | --global]
-        [--block] [--int8]
+    python -m exoground_tpu_torch.tools.profile_main_path [--out DIR]
+        [--train | --global | --ground] [--block] [--int8]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -36,6 +36,17 @@ the model built with attn_impl="fused", mlp_impl="fused", so every encoder
 layer runs two launches, the block-attention and block-MLP kernels (their
 int8 bodies with ``--int8``), with the block kernels' share of the busy
 time.
+
+``--ground`` profiles keystep grounding served instead: ``GroundingService``
+over ``GroundingModel`` at the configuration scripts/train_grounding.sh
+trains (``evals/bench_items.py::GROUNDING``: the MLP view-invariant
+pre-pass, the trunk E6D6, width 512, 4096-d; seeded weights), float32, one
+bucket of 64 requests (``make_grounding_requests``): one warm-up call, five
+timed ``ground_batch`` calls (median), then one call under
+``torch.profiler``; one JSON line per attention impl, 'small' (every window
+through the window-attention kernel) and 'auto' (the fused-MHA kernel on
+self-attention), in one process, with the window kernel's and the fused
+kernels' shares of the busy time.
 
 With ``--out`` the Chrome traces are written there. Needs a CUDA device;
 raises otherwise.
@@ -216,6 +227,44 @@ def profile_global(model, dtype: str, out_dir=None) -> dict:
     }
 
 
+def profile_ground(svc, requests, impl: str, out_dir=None) -> dict:
+    """``svc`` (a GroundingService on the card) under attention ``impl``."""
+    svc.model.attn_impl = impl
+
+    def call() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.ground_batch(requests)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    call()  # warm-up
+    times = [call() for _ in range(5)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = call()
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"ground_{impl}.json"))
+    share = {k: sum(us for us, _, key in rows if name in key) / max(busy_us, 1e-9)
+             for k, name in (("small_attn", "small_attn"), ("fused_mha", "mha_window_head"),
+                             ("fused_mlp", "fused_mlp"))}
+    med = statistics.median(times)
+    return {
+        "impl": impl,
+        "requests": len(requests),
+        "call_ms": med * 1e3,
+        "call_ms_all": [t * 1e3 for t in times],
+        "requests_per_s": len(requests) / med,
+        "profiled_call_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "share_of_busy": share,
+        "top_kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                        for us, c, k in rows[:12]],
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
@@ -223,13 +272,16 @@ def main():
     mode.add_argument("--train", action="store_true", help="profile the train path")
     mode.add_argument("--global", dest="global_mode", action="store_true",
                       help="profile global-mode text_visual_sim at the bench shape")
+    mode.add_argument("--ground", action="store_true",
+                      help="profile GroundingService ('small' and 'auto')")
     ap.add_argument("--int8", action="store_true",
                     help="profile the int8 serving mode (the JAX bench's int8 row)")
     ap.add_argument("--block", action="store_true",
                     help="profile the whole-block path (attn_impl and mlp_impl 'fused')")
     args = ap.parse_args()
-    if (args.int8 or args.block) and (args.train or args.global_mode):
-        ap.error("--int8 and --block profile the serving sweeps, not --train or --global")
+    if (args.int8 or args.block) and (args.train or args.global_mode or args.ground):
+        ap.error("--int8 and --block profile the serving sweeps, not --train, --global or "
+                 "--ground")
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,6 +293,21 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _kernels.build()
+    if args.ground:
+        from exoground_tpu_torch.evals.bench_items import (
+            GROUNDING, make_grounding_params, make_grounding_requests)
+        from exoground_tpu_torch.models import GroundingModel
+        from exoground_tpu_torch.serve import GroundingService
+        from exoground_tpu_torch.utils.convert import load_grounding_params
+
+        gm = GroundingModel(**GROUNDING, device="cpu")
+        load_grounding_params(gm, make_grounding_params(0))
+        svc = GroundingService(gm, device="cuda")
+        requests = make_grounding_requests(0, 64)
+        for impl in ("small", "auto"):
+            print(json.dumps({"card": card, **profile_ground(svc, requests, impl, args.out)}),
+                  flush=True)
+        return
     if args.train:
         model = TemporalAligner(use_alignability_head=1, device="cpu")
         load_tan_params(model, make_bench_params(0, binary_head=True))

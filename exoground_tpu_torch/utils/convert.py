@@ -2,7 +2,11 @@
 state dicts, and the reference checkpoint loader.
 
 ``tan_state_dict_from_jax`` is the exact inverse of the JAX package's
-``utils/convert.py::convert_tan_state_dict``:
+``utils/convert.py::convert_tan_state_dict``, ``grounding_state_dict_from_jax``
+of ``convert_exoground_state_dict`` (an ``ExoGroundingTransformer``) and
+``convert_grounding_state_dict`` (a ``GroundingModel``: its trunk at the top
+level, as the reference inlines it, and ``vi_encoder.*``, MLP or
+transformer):
 
   Dense kernel (in, out)           -> Linear weight (out, in)  [transpose]
   in_proj_kernel (C, 3C)           -> in_proj_weight (3C, C)   [transpose]
@@ -21,7 +25,8 @@ import numpy as np
 import torch
 
 # in the reference's state dict and the port's model, but in no JAX tree:
-# the reference's TemporalAligner holds an ``mlp`` Linear its forward never uses
+# the reference's TemporalAligner and ExoGroundingTransformer hold an ``mlp``
+# Linear their forwards never use
 UNUSED_REFERENCE_KEYS = ("mlp.weight", "mlp.bias")
 
 
@@ -40,21 +45,28 @@ def _ln(out, key, p):
     out[f"{key}.bias"] = _t(p["bias"])
 
 
+def _attn(out, key, p):
+    out[f"{key}.in_proj_weight"] = _t(np.asarray(p["in_proj_kernel"]).T)
+    out[f"{key}.in_proj_bias"] = _t(p["in_proj_bias"])
+    out[f"{key}.out_proj.weight"] = _t(np.asarray(p["out_proj_kernel"]).T)
+    out[f"{key}.out_proj.bias"] = _t(p["out_proj_bias"])
+
+
 def encoder_state_dict_from_jax(stack: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """One TemporalEncoder's JAX params ({"resblocks_0": ..., ...}) -> the
-    port's state dict, keys prefixed with ``prefix`` (e.g.
+    """One TemporalEncoder's or TemporalDecoder's JAX params ({"resblocks_0":
+    ..., ...}; a decoder block adds ``self_attn`` and ``ln_3``) -> the port's
+    state dict, keys prefixed with ``prefix`` (e.g.
     "video_temporal_encoder.")."""
     out: Dict[str, torch.Tensor] = {}
     i = 0
     while f"resblocks_{i}" in stack:
         blk, pre = stack[f"resblocks_{i}"], f"{prefix}resblocks.{i}"
-        attn = blk["attn"]
-        out[f"{pre}.attn.in_proj_weight"] = _t(np.asarray(attn["in_proj_kernel"]).T)
-        out[f"{pre}.attn.in_proj_bias"] = _t(attn["in_proj_bias"])
-        out[f"{pre}.attn.out_proj.weight"] = _t(np.asarray(attn["out_proj_kernel"]).T)
-        out[f"{pre}.attn.out_proj.bias"] = _t(attn["out_proj_bias"])
-        _ln(out, f"{pre}.ln_1", blk["ln_1"])
-        _ln(out, f"{pre}.ln_2", blk["ln_2"])
+        for attn in ("self_attn", "attn"):
+            if attn in blk:
+                _attn(out, f"{pre}.{attn}", blk[attn])
+        for ln in ("ln_1", "ln_2", "ln_3"):
+            if ln in blk:
+                _ln(out, f"{pre}.{ln}", blk[ln])
         _dense(out, f"{pre}.mlp.c_fc", blk["mlp"]["c_fc"])
         _dense(out, f"{pre}.mlp.c_proj", blk["mlp"]["c_proj"])
         i += 1
@@ -81,19 +93,81 @@ def tan_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_tan_params(model: torch.nn.Module, params: Mapping) -> None:
-    """Load JAX params into a port TemporalAligner. Every key of the model
-    must be filled, apart from the reference's unused ``mlp`` and a sine
-    pos table (a buffer the model computes itself)."""
-    missing, unexpected = model.load_state_dict(
-        tan_state_dict_from_jax(params), strict=False)
-    allowed = set(UNUSED_REFERENCE_KEYS)
-    if getattr(model, "pos_enc", "learned") != "learned":
-        allowed.add("temporal_pos_embed")
+def _grounding_trunk(p: Mapping) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for stack in ("multi_modal_encoder", "video_unimodal_encoder", "text_unimodal_encoder",
+                  "decoder"):
+        if stack in p:
+            out.update(encoder_state_dict_from_jax(p[stack], f"{stack}."))
+    for dense in ("video_pre_proj", "text_pre_proj", "audio_pre_proj"):
+        if dense in p:
+            _dense(out, dense, p[dense], bias=False)
+    for dense in ("grounding_head", "exo_feature_proj"):
+        if dense in p:
+            _dense(out, dense, p[dense])
+    for ln in ("ln_text_init", "ln_video_init", "ln_position_init", "ln_joint_post_enc",
+               "ln_video_post_enc", "ln_text_post_enc", "ln_audio_init"):
+        if ln in p:
+            _ln(out, ln, p[ln])
+    for table in ("temporal_pos_embed", "text_temporal_pos_embed"):
+        if table in p:  # a sine table is a buffer, absent from the JAX tree
+            out[table] = _t(p[table])
+    return out
+
+
+def _vi_encoder(p: Mapping) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _dense(out, "video_pre_proj", p["video_pre_proj"], bias=False)
+    _ln(out, "ln_video_init", p["ln_video_init"])
+    if "mlp_fc1" in p:  # ViewInvariantMLP: the reference's nn.Sequential indices
+        _dense(out, "mlp.0", p["mlp_fc1"])
+        _dense(out, "mlp.2", p["mlp_fc2"])
+        return out
+    out.update(encoder_state_dict_from_jax(p["video_unimodal_encoder"],
+                                           "video_unimodal_encoder."))
+    for ln in ("ln_position_init", "ln_video_post_enc"):
+        _ln(out, ln, p[ln])
+    if "exo_feature_proj" in p:
+        _dense(out, "exo_feature_proj", p["exo_feature_proj"])
+    if "temporal_pos_embed" in p:
+        out["temporal_pos_embed"] = _t(p["temporal_pos_embed"])
+    return out
+
+
+def grounding_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """ExoGroundingTransformer or GroundingModel JAX params (``{"params":
+    ...}`` or the bare tree; a GroundingModel's holds ``trunk`` and
+    ``vi_encoder``) -> the port's state dict of float32 CPU tensors."""
+    p = params.get("params", params)
+    if "trunk" not in p:
+        return _grounding_trunk(p)
+    out = _grounding_trunk(p["trunk"])
+    if "vi_encoder" in p:
+        out.update({f"vi_encoder.{k}": v for k, v in _vi_encoder(p["vi_encoder"]).items()})
+    return out
+
+
+def _load_checked(model: torch.nn.Module, state: Mapping) -> None:
+    """Load ``state``; every key of the model must be filled, apart from the
+    reference's unused ``mlp`` and the buffers the model computes itself (a
+    sine pos table)."""
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    allowed = set(UNUSED_REFERENCE_KEYS) | {name for name, _ in model.named_buffers()}
     bad = sorted(set(missing) - allowed)
     if bad or unexpected:
         raise KeyError(f"JAX params do not fit the model: missing {bad}, "
                        f"unexpected {sorted(unexpected)}")
+
+
+def load_tan_params(model: torch.nn.Module, params: Mapping) -> None:
+    """Load JAX params into a port TemporalAligner (``_load_checked``)."""
+    _load_checked(model, tan_state_dict_from_jax(params))
+
+
+def load_grounding_params(model: torch.nn.Module, params: Mapping) -> None:
+    """Load JAX params into a port ExoGroundingTransformer or GroundingModel
+    (``_load_checked``)."""
+    _load_checked(model, grounding_state_dict_from_jax(params))
 
 
 def strip_prefix(state: Mapping, prefix: str) -> Dict:
@@ -105,7 +179,8 @@ def strip_prefix(state: Mapping, prefix: str) -> Dict:
 
 def load_reference_state(path: str) -> Dict:
     """The reference's released ``.pth.tar`` (reference utils/utils.py +
-    main.py:532-537) as a state dict for the port's TemporalAligner: DDP
+    main.py:532-537) as a state dict for the port's model (TemporalAligner,
+    ExoGroundingTransformer, GroundingModel): DDP
     ``module.`` stripped and, for a cotrain checkpoint, the EMA twin's
     ``target.`` branch kept (the JAX package serves the same branch)."""
     blob = torch.load(path, map_location="cpu", weights_only=False)

@@ -161,8 +161,8 @@ def test_resolve_impl():
     assert tattn.resolve_impl(None, 2047, 2048, cuda) == "xla"
     assert tattn.resolve_impl("flash", 8, 8, cpu) == "flash"
     assert tattn.resolve_impl("xla", 4096, 4096, cuda) == "xla"
-    with pytest.raises(NotImplementedError, match="row 9"):
-        tattn.resolve_impl("small", 64, 64, cpu)
+    assert tattn.resolve_impl("small", 64, 64, cpu) == "small"
+    assert tattn.resolve_impl("small", 4096, 4096, cuda) == "small"
     # 'fused' is the blocks' and the MHA module's; a core under it resolves as 'auto'
     assert tattn.resolve_impl("fused", 2048, 2048, cuda) == "flash"
     assert tattn.resolve_impl("fused", 64, 64, cuda) == "xla"
@@ -173,36 +173,38 @@ def test_resolve_impl():
 
 @pytest.mark.parametrize("impl,error", [
     (None, None), ("auto", None), ("xla", None), ("flash", None),
-    ("small", NotImplementedError), ("fused", None), ("bogus", ValueError),
+    ("small", None), ("fused", None), ("bogus", ValueError),
 ])
 def test_check_impl(impl, error):
-    """The one test of an impl string: None means 'auto'; the whole-block
-    'fused' passes; the JAX package's 'small' names the ROADMAP row that
-    brings it."""
+    """The one test of an impl string: None means 'auto'; the window core
+    'small' and the whole-block 'fused' pass; anything else names the
+    impls."""
     if error is None:
         tops.check_impl(impl)
         return
-    with pytest.raises(error, match="rows? [0-9]" if error is NotImplementedError else "one of"):
+    with pytest.raises(error, match="one of"):
         tops.check_impl(impl)
 
 
 def test_block_level_later_impls_raise():
-    """'small' raises at every level until its kernel is ported; 'fused'
-    (ported) builds and runs."""
+    """'small' and 'fused', the impls of later slices, build and run at
+    every level on the CPU: the block, the encoder and TemporalAligner
+    (equal to the 'xla' path where every window keeps a valid key)."""
     block = tblocks.ResidualAttentionBlock(128, 4)
     enc = tblocks.TemporalEncoder(128, 2, 4)
-    x = torch.zeros(1, 8, 128)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        block(x, impl="small")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        enc(x, impl="small")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TemporalAligner(num_encoder_layers=1, num_joint_layers=1, width=128, heads=4,
-                        input_dim=16, max_pos=64, attn_impl="small", device="cpu")
+    x = torch.randn(1, 8, 128)
     with torch.no_grad():
+        for impl in ("small", "fused"):
+            assert block(x, impl=impl)[0].shape == (1, 8, 128)
+            torch.testing.assert_close(enc(x, impl=impl), enc(x, impl="xla"), atol=2e-5,
+                                       rtol=1e-4)
         assert enc(x, impl="fused", mlp_impl="fused").shape == (1, 2, 8, 128)
-    TemporalAligner(num_encoder_layers=1, num_joint_layers=1, width=128, heads=4,
-                    input_dim=16, max_pos=64, attn_impl="fused", device="cpu")
+    for impl in ("small", "fused"):
+        tm = TemporalAligner(num_encoder_layers=1, num_joint_layers=1, width=128, heads=4,
+                             input_dim=16, max_pos=64, attn_impl=impl, device="cpu")
+        with torch.no_grad():
+            out = tm.text_visual_sim(torch.randn(1, 8, 16), torch.randn(1, 3, 16))
+        assert out["sim"].shape == (1, 1, 8, 3) and torch.isfinite(out["sim"]).all()
 
 
 @pytest.mark.parametrize("impl", [None, "auto", "xla", "flash"])
