@@ -8,10 +8,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (one nvcc per source, started together), print the build seconds;
   3. kernels: each kernel against its plain PyTorch version on the card, on the
      same inputs, at the main-path shapes (fused MHA B=304 C=512 H=8 at S=64
-     and S=96 with one fully-masked window and ragged tails; fused MLP at
+     and S=96 with one fully-masked window and ragged tails, and B=64 S=128,
+     the window the bf16 body's 128-row tile holds whole; fused MLP at
      19456 rows, C=512; and at the global path's 2048, 2096 and 3322 rows)
      and small shapes that reach the kernels' other instantiations (head
-     sizes 8, 40, 48; MLP widths 128, 640, 1024, 1280), in
+     sizes 8, 16, 32, 40, 48; MLP widths 128, 640, 1024, 1280), in
      float32 (max error <= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); times
      by CUDA events (median of several runs after warm-up) beside the plain
      version, one PyTorch library call where one computes the same function,
@@ -91,7 +92,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the card for the same random upstream grad, at the global path's shapes
      (B1 H8 S2048 D64; Sq = Sk = 2096 with the last 48 keys padded; S4096;
      S1024 for the crossover), the train path's (B16 H8 S64 and S76), ragged
-     tails, a batch row with no valid key and head sizes 32, 40 and 128, in
+     tails, a batch row with no valid key and head sizes 16, 32, 40, 96 and
+     128, in
      float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); at the four
      long shapes each kernel's time beside the plain version's,
      attention_plain's (the 'xla' route), F.scaled_dot_product_attention's
@@ -1704,6 +1706,9 @@ def main():
         mha_cases.append(mha_case(3, 17, 128, 16, dtype, seed=6))   # head size 8
         mha_cases.append(mha_case(4, 72, 640, 16, dtype, seed=7))   # head size 40
         mha_cases.append(mha_case(3, 128, 384, 8, dtype, seed=8))   # head size 48
+        # the window the bf16 body's 128-row tile serves whole, and head size 16
+        mha_cases.append(mha_case(64, 128, 512, 8, dtype, seed=13))
+        mha_cases.append(mha_case(2, 50, 256, 16, dtype, seed=14))
         mlp_cases.append(mlp_case(19456, 512, dtype, seed=4))
         mlp_cases.append(mlp_case(210, 128, dtype, seed=5))
         mlp_cases.append(mlp_case(300, 640, dtype, seed=9))  # two column slabs
@@ -1739,6 +1744,8 @@ def main():
         flash_cases.append(flash_case(2, 2, 130, 257, 32, dtype, seed=37, empty_row=True))
         flash_cases.append(flash_case(2, 4, 300, 300, 128, dtype, seed=38, pad_tail=20))
         flash_cases.append(flash_case(2, 3, 50, 70, 40, dtype, seed=39, empty_row=True))
+        flash_cases.append(flash_case(2, 2, 70, 90, 16, dtype, seed=41, pad_tail=9))
+        flash_cases.append(flash_case(1, 2, 100, 130, 96, dtype, seed=42, empty_row=True))
 
     # phase 3d: the int8 kernels against their plain versions
     mha8_cases, mlp8_cases = int8_kernel_cases()

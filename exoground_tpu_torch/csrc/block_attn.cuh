@@ -9,9 +9,10 @@
 // What bounds it on an H100: operations. At the main-path shapes (B = 304
 // windows, S = 64 and 96, C = 512, H = 8) the projections are 8*B*S*C^2 FLOPs
 // (the int8 body: 6*B*S*C^2 int8 operations) and the attention 4*B*S^2*C,
-// against a few tens of MB of inputs and outputs. This first version runs
-// every product on the CUDA cores (f32 FMAs, __dp4a for the int8 qkv), far
-// from the tensor-core bound.
+// against a few tens of MB of inputs and outputs. The (window, head) kernel
+// runs its products on the CUDA cores (f32 FMAs, __dp4a for the int8 qkv),
+// far from the tensor-core bound; in bf16 the out-projection of mha_tail.cuh
+// runs on the tensor cores.
 //
 // Design: fused_mha.cu's and fused_mha_int8.cu's, with an LN prologue and a
 // residual epilogue; the LayerNorm and the residual add never reach device

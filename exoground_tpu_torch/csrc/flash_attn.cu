@@ -21,12 +21,15 @@
 // FLOPs against (2*BH*Sq*D + 2*BH*Sk*D)*itemsize bytes: at B1 H8 S2048 D64,
 // 8.6 GFLOP per 8.4 MB in f32 (~1000 FLOP/byte, far above the f32 balance
 // point of ~20 and the bf16 one of ~295). The backward does 7 tile products
-// against the forward's 2. This first version runs f32 math on the CUDA
-// cores for f32 and bf16 inputs alike (no tensor cores): the design keeps
-// the S x S scores out of device memory and feeds the FMAs from shared
-// memory; mma.sync/wgmma tiles come later.
+// against the forward's 2. Nothing but the tile products' rate matters, and
+// for bf16 inputs that rate is the tensor cores'.
 //
-// Design. The TPU kernel runs a sequential grid (bh, q block, k block) with
+// Two bodies, by input type.
+//
+// float32: the first design, kept as it was. f32 math on the CUDA cores (the
+// f32 limit of 1e-4 of max|plain| rules out plain TF32): the S x S scores
+// stay out of device memory and the FMAs are fed from shared memory.
+// The TPU kernel runs a sequential grid (bh, q block, k block) with
 // 512 x 1024 blocks and carries m, l and the accumulator in VMEM from one
 // key block to the next. Hopper blocks run in parallel and in no order, so
 // each CTA owns 64 rows and loops over the other axis itself:
@@ -46,13 +49,43 @@
 // constant (32, 40, 64, 128); a smaller D that is a multiple of 8 runs in
 // the next tile up with zero-filled columns.
 //
+// bfloat16: every tile product on the tensor cores (tc.cuh). The first body
+// served bf16 too, on the CUDA cores: it converted every value to f32 as it
+// staged it and fed 16 FMAs with 8 shared-memory loads, and reached 2% of the
+// card's bf16 rate. The same CTA ownership (64 rows, the other axis walked
+// in tiles of 64, no atomics), with 4 warps of 16 rows each:
+//   - every product is mma.sync m16n8k16 (bf16 operands, f32 accumulators);
+//     operands come from shared memory by ldmatrix, an operand stored
+//     k-major (V and dO and Q and K as the right-hand side of p.v, ds.k,
+//     p^T.do, ds^T.q) by ldmatrix.trans;
+//   - the walked tiles (K and V; Q and dO in dk/dv) arrive by 16-byte
+//     cp.async into a two-stage ring: tile j + 1 loads while tile j is
+//     used. Tiles keep bf16 in shared memory with a row pitch of D + 8
+//     elements, so the 8 rows an ldmatrix reads fall in distinct banks;
+//   - s (and dp) stay in the product's f32 accumulator fragments; the
+//     online max and sum run on them with quad shuffles, and p (ds) is
+//     rounded to bf16 and repacked from the C fragments into the A fragments
+//     of the next product in registers, with no shared-memory round trip.
+//     The forward keeps q's fragments in registers for the whole walk.
+//   - rows past Sq or Sk are zero-filled by cp.async and masked; head sizes
+//     that are multiples of 8 up to 128 run in a tile of 32, 48, 64 or 128
+//     columns with the rest zero-filled. 128 threads and 26-104 KB of shared
+//     memory a CTA, so three or four CTAs share an SM at D <= 64.
+// The bf16 body needs q, k, v and do 16-byte aligned (cp.async); the
+// entry points return cudaErrorMisalignedAddress otherwise.
+//
 // Rounding follows the TPU kernel for bf16 inputs: p is rounded to v's type
 // before p . v (:157), ds to k's type before ds . k (:198) and to q's type
-// before ds^T . q (:239); p^T . do runs on the unrounded f32 p (:229).
+// before ds^T . q (:239). Products of bf16 values are exact in f32, so s, dp
+// and the products round where the TPU bodies do. The f32 body runs p^T . do
+// on the unrounded f32 p (:229); the bf16 body's tensor cores take p rounded
+// to bf16 there, one more rounding of ~2^-9 per element, inside the bf16
+// limit of 1e-2 of max|plain|. flash_attention_plain keeps the TPU order.
 #include <cstddef>
 #include <math.h>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -371,6 +404,419 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   store_rows<T, NJ>(dv_acc, dv + size_t(bh) * Sk * D, Sk, D, k0);
 }
 
+// ======================================================= bf16: tensor cores
+namespace tcb {
+
+using bf16 = __nv_bfloat16;
+using exo::tc::a_col;
+using exo::tc::a_row;
+using exo::tc::b_col;
+using exo::tc::b_row;
+using exo::tc::ldsm_x4;
+using exo::tc::ldsm_x4_t;
+using exo::tc::mma;
+using exo::tc::pack_bf16;
+using exo::tc::quad_max;
+using exo::tc::quad_sum;
+
+constexpr int kWarps = 4;               // 16 rows each
+constexpr int kThreadsTc = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * log2(e))
+
+// A 64-row bf16 tile of DP columns (the head size rounded up to 16, with
+// zeros past D) at a row pitch of DP + 8 elements: 16 bytes more than the
+// row, so the 8 row addresses of an ldmatrix fall in 8 distinct 4-bank groups.
+template <int DP>
+struct TcTile {
+  static constexpr int P = DP + 8;
+  static constexpr int ELEMS = kT * P;
+  static constexpr int KS = DP / 16;  // k-steps over the head
+  static constexpr int NT = DP / 8;   // n-tiles over the head
+};
+
+// s[0..2*NP) += A (16 x 16 k-step, in registers) . B^T where B's rows (the
+// n axis) are rows n0.. of the tile t at k-step ks: NP pairs of n-tiles.
+template <int NP, int P>
+__device__ __forceinline__ void mma_rows(float (&s)[2 * NP][4], const uint32_t (&a)[4],
+                                         const bf16* t, int ks, int lane) {
+#pragma unroll
+  for (int np = 0; np < NP; ++np) {
+    uint32_t b[4];
+    ldsm_x4(b, t + (np * 16 + b_row(lane)) * P + ks * 16 + b_col(lane));
+    mma(s[2 * np], a, b[0], b[1]);
+    mma(s[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// acc += P . T where P (16 x 16 k-step kk of a row block, as C fragments of
+// the n-tiles 2 kk and 2 kk + 1) is rounded to bf16 into an A fragment and T
+// is rows kk*16.. (the k axis) of the tile t, all NT of its column n-tiles.
+template <int NT, int P, int NS>
+__device__ __forceinline__ void mma_ptile(float (&acc)[NT][4], const float (&p)[NS][4],
+                                          int kk, const bf16* t, int lane) {
+  const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                         pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                         pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                         pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+  for (int dp = 0; dp < NT / 2; ++dp) {
+    uint32_t b[4];
+    ldsm_x4_t(b, t + (kk * 16 + a_row(lane)) * P + dp * 16 + a_col(lane));
+    mma(acc[2 * dp], a, b[0], b[1]);
+    mma(acc[2 * dp + 1], a, b[2], b[3]);
+  }
+}
+
+// Rows r0 + 16 w + g and + 8 (< S), columns < D of acc, in bf16.
+template <int NT>
+__device__ __forceinline__ void store_tc(const float (&acc)[NT][4], bf16* dst, int S, int D,
+                                         int r0) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 16 * w + g + 8 * half;
+    if (r >= S) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = nt * 8 + c;
+      if (col < D) {
+        *reinterpret_cast<uint32_t*>(dst + size_t(r) * D + col) =
+            pack_bf16(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_tc(float (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
+}
+
+// K and V rows k0.. (tile `stage` of the ring) and their validity.
+template <int DP>
+__device__ __forceinline__ void load_kv_tc(bf16* ks, bf16* vs, int* valid, const bf16* k,
+                                           const bf16* v, const int* pad, int Sk, int D, int k0,
+                                           int stage) {
+  using L = TcTile<DP>;
+  exo::tc::cp_tile<kT, DP, kThreadsTc>(ks + stage * L::ELEMS, L::P, k, D, k0, Sk, 0, D);
+  exo::tc::cp_tile<kT, DP, kThreadsTc>(vs + stage * L::ELEMS, L::P, v, D, k0, Sk, 0, D);
+  if (threadIdx.x < kT) {
+    const int j = k0 + threadIdx.x;
+    valid[stage * kT + threadIdx.x] = j < Sk && pad[j] == 0;
+  }
+}
+
+// ---------------------------------------------------------------- forward
+// At D <= 64 the register cap of 4 CTAs an SM (128) costs no spill, and 4 x
+// 132 CTAs hold the 512 of B1 H8 S4096 (and the 416 of the global path's
+// longest joint tower) in one wave, where 3 an SM leave a second.
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTc, DP <= 64 ? 4 : 1)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const int* __restrict__ kpad,
+                      bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
+                      int D) {
+  using L = TcTile<DP>;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [ELEMS]
+  bf16* ks = qs + L::ELEMS;                      // [2][ELEMS]
+  bf16* vs = ks + 2 * L::ELEMS;                  // [2][ELEMS]
+  int* valid = reinterpret_cast<int*>(vs + 2 * L::ELEMS);  // [2][kT]
+  const int bh = blockIdx.y, q0 = blockIdx.x * kT;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
+  q += size_t(bh) * Sq * D;
+  k += size_t(bh) * Sk * D;
+  v += size_t(bh) * Sk * D;
+  const int* pad = kpad + size_t(bh / H) * Sk;
+
+  exo::tc::cp_tile<kT, DP, kThreadsTc>(qs, L::P, q, D, q0, Sq, 0, D);
+  load_kv_tc<DP>(ks, vs, valid, k, v, pad, Sk, D, 0, 0);
+  exo::tc::cp_async_commit();
+
+  uint32_t qf[L::KS][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[L::NT][4];
+  zero_tc(acc);
+  const int nk = (Sk + kT - 1) / kT;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j & 1;
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    if (j + 1 < nk) load_kv_tc<DP>(ks, vs, valid, k, v, pad, Sk, D, (j + 1) * kT, st ^ 1);
+    exo::tc::cp_async_commit();
+    exo::tc::cp_async_wait<1>();  // tile j (and q) have landed
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < L::KS; ++kk)
+        ldsm_x4(qf[kk], qs + (16 * w + a_row(lane)) * L::P + kk * 16 + a_col(lane));
+    }
+    // s = q . k^T, 16 rows x 64 keys per warp
+    float s[8][4];
+    zero_tc(s);
+    const bf16* kt = ks + st * L::ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < L::KS; ++kk) mma_rows<4, L::P>(s, qf[kk], kt, kk, lane);
+    // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (e = 2, 3);
+    // an invalid key gets -inf, so it adds nothing to the max and exp2
+    // gives exactly 0 (m stays finite: it starts at the finite NEG_INF)
+    const int* vld = valid + st * kT;
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!vld[nt * 8 + c + e]) {
+          s[nt][e] = -INFINITY;
+          s[nt][2 + e] = -INFINITY;
+        }
+        mt[0] = fmaxf(mt[0], s[nt][e]);
+        mt[1] = fmaxf(mt[1], s[nt][2 + e]);
+      }
+    float alpha[2], ml[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mt[r]));
+      alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      ml[r] = m_new * kLog2e;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[nt][e], kLog2e, -ml[e / 2]));
+        s[nt][e] = p;
+        rs[e / 2] += p;  // l sums the unrounded p
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];  // this thread's columns
+#pragma unroll
+    for (int nt = 0; nt < L::NT; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    // o += p . v, p rounded to bf16 in registers (TPU :157)
+    const bf16* vt = vs + st * L::ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ptile<L::NT, L::P, 8>(acc, s, kk, vt, lane);
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    const float lm = fmaxf(l[r], kTiny);
+    inv[r] = 1.f / lm;
+    const int row = q0 + 16 * w + lane / 4 + 8 * r;
+    if (lane % 4 == 0 && row < Sq)
+      lse[size_t(bh) * Sq + row] = l[r] > 0.f ? m[r] + logf(lm) : -kNegInf;
+  }
+  // o = acc / l: a multiply by the IEEE reciprocal, then one rounding to bf16
+#pragma unroll
+  for (int nt = 0; nt < L::NT; ++nt) {
+    acc[nt][0] = acc[nt][0] * inv[0];
+    acc[nt][1] = acc[nt][1] * inv[0];
+    acc[nt][2] = acc[nt][2] * inv[1];
+    acc[nt][3] = acc[nt][3] * inv[1];
+  }
+  store_tc<L::NT>(acc, o + size_t(bh) * Sq * D, Sq, D, q0);
+}
+
+// ---------------------------------------------------------------- dq
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTc)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ kpad,
+                     const bf16* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq,
+                     int Sk, int D) {
+  using L = TcTile<DP>;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [ELEMS]
+  bf16* dos = qs + L::ELEMS;                     // [ELEMS]
+  bf16* ks = dos + L::ELEMS;                     // [2][ELEMS]
+  bf16* vs = ks + 2 * L::ELEMS;                  // [2][ELEMS]
+  int* valid = reinterpret_cast<int*>(vs + 2 * L::ELEMS);  // [2][kT]
+  const int bh = blockIdx.y, q0 = blockIdx.x * kT;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
+  q += size_t(bh) * Sq * D;
+  dout += size_t(bh) * Sq * D;
+  k += size_t(bh) * Sk * D;
+  v += size_t(bh) * Sk * D;
+  const int* pad = kpad + size_t(bh / H) * Sk;
+
+  exo::tc::cp_tile<kT, DP, kThreadsTc>(qs, L::P, q, D, q0, Sq, 0, D);
+  exo::tc::cp_tile<kT, DP, kThreadsTc>(dos, L::P, dout, D, q0, Sq, 0, D);
+  load_kv_tc<DP>(ks, vs, valid, k, v, pad, Sk, D, 0, 0);
+  exo::tc::cp_async_commit();
+
+  float lse_l[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * w + lane / 4 + 8 * r;
+    lse_l[r] = row < Sq ? lse[size_t(bh) * Sq + row] * kLog2e : 0.f;
+    delta_r[r] = row < Sq ? delta[size_t(bh) * Sq + row] : 0.f;
+  }
+  float acc[L::NT][4];
+  zero_tc(acc);
+  const int nk = (Sk + kT - 1) / kT;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j & 1;
+    __syncthreads();
+    if (j + 1 < nk) load_kv_tc<DP>(ks, vs, valid, k, v, pad, Sk, D, (j + 1) * kT, st ^ 1);
+    exo::tc::cp_async_commit();
+    exo::tc::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = ks + st * L::ELEMS;
+    const bf16* vt = vs + st * L::ELEMS;
+    // s = q . k^T and dp = do . v^T, q and do read by ldmatrix per k-step
+    float s[8][4], dp[8][4];
+    zero_tc(s);
+    zero_tc(dp);
+#pragma unroll
+    for (int kk = 0; kk < L::KS; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm_x4(qa, qs + (16 * w + a_row(lane)) * L::P + kk * 16 + a_col(lane));
+      ldsm_x4(da, dos + (16 * w + a_row(lane)) * L::P + kk * 16 + a_col(lane));
+      mma_rows<4, L::P>(s, qa, kt, kk, lane);
+      mma_rows<4, L::P>(dp, da, vt, kk, lane);
+    }
+    // ds = p (dp - delta), p = exp(s - lse) at valid keys (TPU :189)
+    const int* vld = valid + st * kT;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = vld[nt * 8 + c + (e & 1)] != 0;
+        const float p = ok ? exp2f(fmaf(s[nt][e], kLog2e, -lse_l[e / 2])) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - delta_r[e / 2]);
+      }
+    // dq += ds . k, ds rounded to k's type in registers (TPU :198)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ptile<L::NT, L::P, 8>(acc, s, kk, kt, lane);
+  }
+  store_tc<L::NT>(acc, dq + size_t(bh) * Sq * D, Sq, D, q0);
+}
+
+// ---------------------------------------------------------------- dk/dv
+// Query columns handled at once: 64, or 32 at D > 64 to keep s^T, dp^T and
+// the two D-wide accumulators within the register file.
+template <int DP> struct DkvCols { static constexpr int NS = DP > 64 ? 32 : 64; };
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTc)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const int* __restrict__ kpad,
+                      const bf16* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, int Sq, int Sk, int D) {
+  using L = TcTile<DP>;
+  constexpr int NS = DkvCols<DP>::NS, NST = NS / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);  // [ELEMS], this CTA's keys
+  bf16* vs = ks + L::ELEMS;                      // [ELEMS]
+  bf16* qs = vs + L::ELEMS;                      // [2][ELEMS], the walked query tiles
+  bf16* dos = qs + 2 * L::ELEMS;                 // [2][ELEMS]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * L::ELEMS);  // [2][kT], times log2(e)
+  float* delta_s = lse_s + 2 * kT;                              // [2][kT]
+  const int bh = blockIdx.y, k0 = blockIdx.x * kT;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
+  q += size_t(bh) * Sq * D;
+  dout += size_t(bh) * Sq * D;
+  k += size_t(bh) * Sk * D;
+  v += size_t(bh) * Sk * D;
+  lse += size_t(bh) * Sq;
+  delta += size_t(bh) * Sq;
+  const int* pad = kpad + size_t(bh / H) * Sk;
+
+  auto load_q = [&](int q0, int stage) {
+    exo::tc::cp_tile<kT, DP, kThreadsTc>(qs + stage * L::ELEMS, L::P, q, D, q0, Sq, 0, D);
+    exo::tc::cp_tile<kT, DP, kThreadsTc>(dos + stage * L::ELEMS, L::P, dout, D, q0, Sq, 0, D);
+    if (threadIdx.x < kT) {
+      const int i = q0 + threadIdx.x;
+      lse_s[stage * kT + threadIdx.x] = i < Sq ? lse[i] * kLog2e : 0.f;
+      delta_s[stage * kT + threadIdx.x] = i < Sq ? delta[i] : 0.f;
+    }
+  };
+  exo::tc::cp_tile<kT, DP, kThreadsTc>(ks, L::P, k, D, k0, Sk, 0, D);
+  exo::tc::cp_tile<kT, DP, kThreadsTc>(vs, L::P, v, D, k0, Sk, 0, D);
+  load_q(0, 0);
+  exo::tc::cp_async_commit();
+
+  bool kv_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + 16 * w + lane / 4 + 8 * r;
+    kv_ok[r] = key < Sk && pad[key] == 0;
+  }
+  float dk_acc[L::NT][4], dv_acc[L::NT][4];
+  zero_tc(dk_acc);
+  zero_tc(dv_acc);
+  const int nq = (Sq + kT - 1) / kT;
+  for (int i = 0; i < nq; ++i) {
+    const int st = i & 1, q0 = i * kT;
+    __syncthreads();
+    if (i + 1 < nq) load_q(q0 + kT, st ^ 1);
+    exo::tc::cp_async_commit();
+    exo::tc::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qt = qs + st * L::ELEMS;
+    const bf16* dot = dos + st * L::ELEMS;
+#pragma unroll
+    for (int h0 = 0; h0 < kT; h0 += NS) {
+      // s^T = k . q^T and dp^T = v . do^T over query columns h0.. + NS
+      float s[NST][4], dp[NST][4];
+      zero_tc(s);
+      zero_tc(dp);
+#pragma unroll
+      for (int kk = 0; kk < L::KS; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, ks + (16 * w + a_row(lane)) * L::P + kk * 16 + a_col(lane));
+        ldsm_x4(va, vs + (16 * w + a_row(lane)) * L::P + kk * 16 + a_col(lane));
+        mma_rows<NST / 2, L::P>(s, ka, qt + h0 * L::P, kk, lane);
+        mma_rows<NST / 2, L::P>(dp, va, dot + h0 * L::P, kk, lane);
+      }
+      // p^T = exp(s^T - lse) at valid keys and queries (TPU :226); ds^T =
+      // p^T (dp^T - delta) from the unrounded p
+#pragma unroll
+      for (int nt = 0; nt < NST; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = h0 + nt * 8 + c + (e & 1);
+          const bool ok = kv_ok[e / 2] && q0 + col < Sq;
+          const float p = ok ? exp2f(fmaf(s[nt][e], kLog2e, -lse_s[st * kT + col])) : 0.f;
+          s[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - delta_s[st * kT + col]);
+        }
+      // dv += p^T . do with p^T rounded to bf16 (the f32 body and TPU :229
+      // use the unrounded p); dk += ds^T . q, ds^T rounded to q's type (:239)
+#pragma unroll
+      for (int kk = 0; kk < NST / 2; ++kk) {
+        mma_ptile<L::NT, L::P, NST>(dv_acc, s, kk, dot + h0 * L::P, lane);
+        mma_ptile<L::NT, L::P, NST>(dk_acc, dp, kk, qt + h0 * L::P, lane);
+      }
+    }
+  }
+  store_tc<L::NT>(dk_acc, dk + size_t(bh) * Sk * D, Sk, D, k0);
+  store_tc<L::NT>(dv_acc, dv + size_t(bh) * Sk * D, Sk, D, k0);
+}
+
+// Shared memory of a bf16 body: `tiles` 64-row tiles and `words` 4-byte words.
+template <int DP>
+constexpr size_t tc_bytes(int tiles, int words) {
+  return sizeof(bf16) * size_t(tiles) * TcTile<DP>::ELEMS + 4 * size_t(words);
+}
+
+// The bf16 tile that holds D columns (a multiple of 8, <= 128).
+int tc_head_tile(int D) { return D <= 32 ? 32 : D <= 48 ? 48 : D <= 64 ? 64 : 128; }
+
+}  // namespace tcb
+
 // ---------------------------------------------------------------- launch
 template <int DT>
 constexpr size_t smem_bytes(int operand_tiles) {
@@ -426,10 +872,66 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* kpad, c
   return cudaGetLastError();
 }
 
+// The bf16 bodies, on the tensor cores: the same arguments, DP the head tile.
+template <int DP>
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, const void* kpad, void* o,
+                   void* lse, Shape sh, cudaStream_t st) {
+  using tcb::bf16;
+  auto kernel = tcb::flash_fwd_bf16_kernel<DP>;
+  constexpr size_t bytes = tcb::tc_bytes<DP>(5, 2 * kT);
+  cudaError_t err = exo::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((sh.Sq + kT - 1) / kT, sh.BH), tcb::kThreadsTc, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(kpad), static_cast<bf16*>(o), static_cast<float*>(lse), sh.H,
+      sh.Sq, sh.Sk, sh.D);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dq_tc(const void* q, const void* k, const void* v, const void* kpad,
+                  const void* dout, const void* lse, const void* delta, void* dq_out, Shape sh,
+                  cudaStream_t st) {
+  using tcb::bf16;
+  auto kernel = tcb::flash_dq_bf16_kernel<DP>;
+  constexpr size_t bytes = tcb::tc_bytes<DP>(6, 2 * kT);
+  cudaError_t err = exo::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((sh.Sq + kT - 1) / kT, sh.BH), tcb::kThreadsTc, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(kpad), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq_out), sh.H, sh.Sq, sh.Sk, sh.D);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dkv_tc(const void* q, const void* k, const void* v, const void* kpad,
+                   const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                   Shape sh, cudaStream_t st) {
+  using tcb::bf16;
+  auto kernel = tcb::flash_dkv_bf16_kernel<DP>;
+  constexpr size_t bytes = tcb::tc_bytes<DP>(6, 4 * kT);
+  cudaError_t err = exo::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((sh.Sk + kT - 1) / kT, sh.BH), tcb::kThreadsTc, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(kpad), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sh.H, sh.Sq, sh.Sk, sh.D);
+  return cudaGetLastError();
+}
+
 // The smallest instantiated head size that holds D (a multiple of 8, <= 128).
 int head_tile(int D) {
   if (D < 8 || D > 128 || D % 8) return 0;
   return D <= 32 ? 32 : D <= 40 ? 40 : D <= 64 ? 64 : 128;
+}
+
+// The tensor-core bodies stage q, k, v and do by 16-byte cp.async.
+bool aligned_tc(const void* a, const void* b, const void* c, const void* d) {
+  return exo::tc::aligned16(a) && exo::tc::aligned16(b) && exo::tc::aligned16(c) &&
+         exo::tc::aligned16(d);
 }
 
 bool shape_ok(const Shape& sh) {
@@ -437,7 +939,8 @@ bool shape_ok(const Shape& sh) {
          sh.Sk >= 1 && head_tile(sh.D) != 0;
 }
 
-// Returns fn<T, DT>(args...) for the call's dtype code and head tile.
+// Returns fn<float, DT>(args...) for float32 (dtype 0) and fn_tc<DP>(args...),
+// the tensor-core body, for bfloat16 (dtype 1), by the call's head tile.
 #define EXO_FLASH_DISPATCH(fn, ...)                                   \
   do {                                                                \
     const int dt = head_tile(sh.D);                                   \
@@ -448,10 +951,11 @@ bool shape_ok(const Shape& sh) {
       return fn<float, 128>(__VA_ARGS__);                             \
     }                                                                 \
     if (dtype == 1) {                                                 \
-      if (dt == 32) return fn<__nv_bfloat16, 32>(__VA_ARGS__);        \
-      if (dt == 40) return fn<__nv_bfloat16, 40>(__VA_ARGS__);        \
-      if (dt == 64) return fn<__nv_bfloat16, 64>(__VA_ARGS__);        \
-      return fn<__nv_bfloat16, 128>(__VA_ARGS__);                     \
+      const int tt = tcb::tc_head_tile(sh.D);                         \
+      if (tt == 32) return fn##_tc<32>(__VA_ARGS__);                  \
+      if (tt == 48) return fn##_tc<48>(__VA_ARGS__);                  \
+      if (tt == 64) return fn##_tc<64>(__VA_ARGS__);                  \
+      return fn##_tc<128>(__VA_ARGS__);                               \
     }                                                                 \
     return cudaErrorInvalidValue;                                     \
   } while (0)
@@ -460,13 +964,15 @@ bool shape_ok(const Shape& sh) {
 
 // q (BH, Sq, D) pre-scaled, k and v (BH, Sk, D) of one type (dtype 0:
 // float32, 1: bfloat16), kpad (BH / H, Sk) int32; writes o (BH, Sq, D) in
-// the input type and lse (BH, Sq) float32. All contiguous. D a multiple of
-// 8 up to 128. Returns the CUDA error of the launch, or 0.
+// the input type and lse (BH, Sq) float32. All contiguous (bfloat16: q, k, v
+// and dout 16-byte aligned). D a multiple of 8 up to 128. Returns the CUDA
+// error of the launch, or 0.
 extern "C" int flash_attn_forward(const void* q, const void* k, const void* v, const void* kpad,
                                   void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
                                   int dtype, void* stream) {
   const Shape sh{BH, H, Sq, Sk, D};
   if (!shape_ok(sh)) return cudaErrorInvalidValue;
+  if (dtype == 1 && !aligned_tc(q, k, v, v)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   EXO_FLASH_DISPATCH(fwd, q, k, v, kpad, o, lse, sh, st);
 }
@@ -479,6 +985,7 @@ extern "C" int flash_attn_dq(const void* q, const void* k, const void* v, const 
                              int BH, int H, int Sq, int Sk, int D, int dtype, void* stream) {
   const Shape sh{BH, H, Sq, Sk, D};
   if (!shape_ok(sh)) return cudaErrorInvalidValue;
+  if (dtype == 1 && !aligned_tc(q, k, v, dout)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   EXO_FLASH_DISPATCH(dq, q, k, v, kpad, dout, lse, delta, dq_out, sh, st);
 }
@@ -491,6 +998,7 @@ extern "C" int flash_attn_dkv(const void* q, const void* k, const void* v, const
                               void* stream) {
   const Shape sh{BH, H, Sq, Sk, D};
   if (!shape_ok(sh)) return cudaErrorInvalidValue;
+  if (dtype == 1 && !aligned_tc(q, k, v, dout)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   EXO_FLASH_DISPATCH(dkv, q, k, v, kpad, dout, lse, delta, dk, dv, sh, st);
 }

@@ -17,10 +17,11 @@
 // windows, S = 64 and 96, C = 512, H = 8) the int8 projection is 6*B*S*C^2
 // operations (1,979 TOPS on int8 tensor cores), the out-projection 2*B*S*C^2
 // and the attention 4*B*S^2*C (f32 at 67 TFLOP/s, bf16 at 989 on tensor
-// cores); the inputs are a few tens of MB. This first version runs every
-// product on the CUDA cores: the int8 product as __dp4a (4 multiply-adds an
-// instruction, exact int32 sums), the rest in f32, far from the tensor-core
-// bound.
+// cores); the inputs are a few tens of MB. The (window, head) kernel runs
+// its products on the CUDA cores: the int8 product as __dp4a (4
+// multiply-adds an instruction, exact int32 sums), the rest in f32, far from
+// the tensor-core bound; in bf16 the out-projection of mha_tail.cuh runs on
+// the tensor cores.
 //
 // Design: fused_mha.cu's, with only the projection phase changed.
 //   1. mha_int8_window_head_kernel: one CTA per (window, head). A first pass

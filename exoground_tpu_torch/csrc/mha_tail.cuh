@@ -3,12 +3,25 @@
 // per-window attention tail of one (window, head) CTA and the tiled
 // out-projection. Counterpart of the TPU kernels'
 // shared _mha_attention_tail (exoground_tpu/ops/attention.py:575).
+//
+// The out-projection has two bodies. float32: linear_bias_kernel, a 64 x 64
+// f32 GEMM on the CUDA cores (the first design, kept as it was). bfloat16: a
+// tensor-core GEMM, linear_bias_bf16_kernel: 128 x 128 output tiles, 8 warps
+// of 64 x 32, mma.sync m16n8k16 (bf16 in, f32 accumulated) fed by ldmatrix
+// from a two-stage cp.async ring of 32-wide K chunks (row pitch 40 elements,
+// so an ldmatrix touches 8 distinct bank groups), the bias (and the block
+// kernels' residual) added to the f32 sum before the one rounding. It serves
+// all three bf16 callers: fused MHA, int8 fused MHA and the block kernels.
+// K = C spans every head, so the heads are summed inside one dot product,
+// with no atomics. It needs the attn scratch and W_out 16-byte aligned
+// (cp.async) and returns cudaErrorMisalignedAddress otherwise.
 #pragma once
 
 #include <cfloat>
 #include <cstddef>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace exo {
 
@@ -138,6 +151,105 @@ inline cudaError_t out_projection(const void* attn, const void* w_out, const voi
       static_cast<const T*>(attn), static_cast<const T*>(w_out),
       static_cast<const T*>(b_out), static_cast<const T*>(res), static_cast<T*>(out), M, C,
       C);
+  return cudaGetLastError();
+}
+
+// y = a . w^T + bias (+ res) for bf16: the tensor-core body (see the note at
+// the top). A CTA owns a 128 x 128 tile of y; warp (wm, wn) = (warp / 4,
+// warp % 4) owns its rows wm * 64.. + 64 and columns wn * 32.. + 32. Rows
+// past M, columns past N and K past its end are zero-filled as they are
+// staged (K and N multiples of 8).
+constexpr int kLinBM = 128, kLinBN = 128, kLinBK = 32, kLinPitch = kLinBK + 8;
+
+__global__ void __launch_bounds__(256)
+linear_bias_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+                        const __nv_bfloat16* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ bias,
+                        const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ y,
+                        int M, int N, int K) {
+  using tc::ldsm_x4;
+  using tc::mma;
+  __shared__ __align__(16) __nv_bfloat16 as[2][kLinBM * kLinPitch];
+  __shared__ __align__(16) __nv_bfloat16 bs[2][kLinBN * kLinPitch];
+  const int m0 = blockIdx.x * kLinBM, n0 = blockIdx.y * kLinBN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, c = 2 * (lane % 4);
+  const int ar = tc::a_row(lane), ac = tc::a_col(lane), br = tc::b_row(lane),
+            bc = tc::b_col(lane);
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nch = (K + kLinBK - 1) / kLinBK;
+  tc::cp_tile<kLinBM, kLinBK, 256>(as[0], kLinPitch, a, K, m0, M, 0, K);
+  tc::cp_tile<kLinBN, kLinBK, 256>(bs[0], kLinPitch, w, K, n0, N, 0, K);
+  tc::cp_async_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int st = ch & 1;
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    if (ch + 1 < nch) {
+      const int k0 = (ch + 1) * kLinBK;
+      tc::cp_tile<kLinBM, kLinBK, 256>(as[st ^ 1], kLinPitch, a, K, m0, M, k0, K);
+      tc::cp_tile<kLinBN, kLinBK, 256>(bs[st ^ 1], kLinPitch, w, K, n0, N, k0, K);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kLinBK / 16; ++kk) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4(af[mt], as[st] + (wm * 64 + mt * 16 + ar) * kLinPitch + kk * 16 + ac);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, bs[st] + (wn * 32 + np * 16 + br) * kLinPitch + kk * 16 + bc);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          mma(acc[mt][2 * np], af[mt], b[0], b[1]);
+          mma(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * 64 + mt * 16 + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + wn * 32 + nt * 8 + c;
+        if (n >= N) continue;
+        float v0 = acc[mt][nt][2 * half] + to_f(bias[n]);
+        float v1 = acc[mt][nt][2 * half + 1] + to_f(bias[n + 1]);
+        if (res) {
+          v0 += to_f(res[size_t(m) * N + n]);
+          v1 += to_f(res[size_t(m) * N + n + 1]);
+        }
+        *reinterpret_cast<uint32_t*>(y + size_t(m) * N + n) = tc::pack_bf16(v0, v1);
+      }
+    }
+}
+
+// bf16: the tensor-core body.
+template <>
+inline cudaError_t out_projection<__nv_bfloat16>(const void* attn, const void* w_out,
+                                                 const void* b_out, void* out, int M, int C,
+                                                 cudaStream_t st, const void* res) {
+  if (!tc::aligned16(attn) || !tc::aligned16(w_out)) return cudaErrorMisalignedAddress;
+  if (C % 8) return cudaErrorInvalidValue;
+  const dim3 grid((M + kLinBM - 1) / kLinBM, (C + kLinBN - 1) / kLinBN);
+  linear_bias_bf16_kernel<<<grid, 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(attn), static_cast<const __nv_bfloat16*>(w_out),
+      static_cast<const __nv_bfloat16*>(b_out), static_cast<const __nv_bfloat16*>(res),
+      static_cast<__nv_bfloat16*>(out), M, C, C);
   return cudaGetLastError();
 }
 

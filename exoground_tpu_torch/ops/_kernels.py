@@ -231,6 +231,17 @@ def check_inference(name: str, *tensors: torch.Tensor) -> None:
         )
 
 
+def check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """The bfloat16 tensor-core bodies stage these operands by 16-byte
+    ``cp.async``: each must start on a 16-byte boundary (a fresh allocation
+    does; a view at an odd offset may not). The kernels return
+    cudaErrorMisalignedAddress otherwise; this names the operand first."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary for the "
+                             "bfloat16 kernel (pass a fresh or .clone()d tensor)")
+
+
 def check_cuda_inputs(name: str, device: torch.device, dtype: torch.dtype,
                       **tensors: torch.Tensor) -> None:
     for arg, t in tensors.items():

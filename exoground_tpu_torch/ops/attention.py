@@ -18,6 +18,10 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     autograd Function ``FlashAttention``), on a CPU tensor
     ``flash_attention_plain``. A row with no valid key gives 0 here, not
     the uniform average of ``attention_plain``.
+  Both kernels have a float32 body on the CUDA cores and a bfloat16 body
+  on the tensor cores; the bfloat16 bodies stage their operands by 16-byte
+  ``cp.async`` and the wrappers raise on a misaligned one
+  (``_kernels.check_aligned``).
   * ``small_attention`` — the window-attention core of an explicit
     'small' (counterpart of ``small_attention``/``_small``): on a CUDA
     tensor the kernel of ``csrc/small_attn.cu``, on a CPU tensor
@@ -166,6 +170,8 @@ def _flash_check(name, q, k, v, kpad):
         raise ValueError(f"{name}: the kernels take CUDA tensors, got {q.device}")
     _kernels.check_cuda_inputs(name, q.device, q.dtype, q=q, k=k, v=v)
     _kernels.check_cuda_inputs(name, q.device, torch.int32, kpad=kpad)
+    if q.dtype == torch.bfloat16:
+        _kernels.check_aligned(name, q=q, k=k, v=v)
     return bh, bh // kpad.shape[0], sq, sk, d
 
 
@@ -188,6 +194,8 @@ def _flash_bwd_check(name, q, k, v, kpad, do, lse, delta):
     bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad)
     _kernels.check_cuda_inputs(name, q.device, q.dtype, do=do)
     _kernels.check_cuda_inputs(name, q.device, torch.float32, lse=lse, delta=delta)
+    if q.dtype == torch.bfloat16:
+        _kernels.check_aligned(name, do=do)
     if do.shape != q.shape or lse.shape != (bh, sq) or delta.shape != (bh, sq):
         raise ValueError(f"{name}: do {tuple(do.shape)}, lse {tuple(lse.shape)} or delta "
                          f"{tuple(delta.shape)} does not fit q {tuple(q.shape)}")
@@ -391,9 +399,12 @@ def mha_int8_plain(x, kpad, w_in, b_in, w_out, b_out, num_heads):
     return F.linear(_merge_heads(o).to(w_out.dtype), w_out, b_out).to(x.dtype)
 
 
-def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, **ln):
+def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
+               stages_x_and_w_in=False, **ln):
     """The wrappers' checks before a launch (``ln``: the block kernels'
-    LayerNorm weight and bias); returns the int32 key padding."""
+    LayerNorm weight and bias); returns the int32 key padding. In bf16 the
+    out-projection stages W_out by cp.async, and fused MHA's body (with
+    ``stages_x_and_w_in``) also x and W_in: each must be 16-byte aligned."""
     b, s, c = x.shape
     if not kernel_eligible(s, c, num_heads):
         raise ValueError(f"{name}: S={s}, C={c}, H={num_heads} outside the fused test "
@@ -413,6 +424,9 @@ def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, *
     _kernels.check_inference(name, x, w_in, b_in, w_out, b_out, *ln.values())
     _kernels.check_cuda_inputs(name, x.device, x.dtype, x=x, w_in=w_in, b_in=b_in,
                                w_out=w_out, b_out=b_out, **ln)
+    if x.dtype == torch.bfloat16:
+        staged = dict(x=x, w_in=w_in) if stages_x_and_w_in else {}
+        _kernels.check_aligned(name, w_out=w_out, **staged)
     if key_padding_mask is None:
         return torch.zeros((b, s), dtype=torch.int32, device=x.device)
     if key_padding_mask.shape != (b, s):
@@ -428,7 +442,8 @@ def fused_mha(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
     if x.device.type == "cpu":
         return mha_plain(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
     name = "fused_mha"
-    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
+    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
+                      stages_x_and_w_in=True)
     b, s, c = x.shape
     attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)

@@ -136,6 +136,69 @@ def test_gradients_match_jax_flash():
                                    err_msg=f"d{name}")
 
 
+def _bf16_case(b, h, sq, sk, d, seed, empty_row):
+    """bf16 inputs from numpy, a random upstream grad and a key padding with
+    a ragged tail (and batch row 0 without a valid key when asked)."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) for n in (sq, sk, sk))
+    do = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    kpad = np.zeros((b, sk), bool)
+    kpad[-1, int(sk * 0.75):] = True
+    if empty_row:
+        kpad[0] = True
+    return q, k, v, do, kpad
+
+
+BF16_CASES = [
+    (1, 2, 96, 200, 40, False),   # 64-row tiles cut unevenly on both axes
+    (1, 2, 96, 200, 128, False),
+    (2, 2, 130, 257, 64, True),   # and a batch row with no valid key
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,empty_row", BF16_CASES)
+def test_bfloat16_forward_matches_jax_flash(b, h, sq, sk, d, empty_row):
+    """In bfloat16, flash_attention on the CPU (flash_attention_plain, the
+    order the bf16 CUDA bodies are held to on the card) against the JAX
+    kernel in interpret mode. Both scale q in bf16 (JAX rounds the scalar
+    1/sqrt(D) to bf16 first, torch keeps it in f32) and round o once, so
+    they differ by one bf16 step of o where f32 sums in another order
+    round the other way (measured <= 6.5e-3 of max|JAX| over 4 seeds):
+    limit 1e-2 of max|JAX|. An empty row gives 0 on both sides."""
+    q, k, v, _, kpad = _bf16_case(b, h, sq, sk, d, 70 + d, empty_row)
+    want = jattn.flash_attention(*(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)),
+                                 jnp.asarray(kpad))
+    got = tattn.flash_attention(*(_t(a).bfloat16() for a in (q, k, v)), _t(kpad))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=1e-2 * np.abs(want).max())
+    if empty_row:
+        assert not got[0].any() and not want[0].any()
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,empty_row", BF16_CASES)
+def test_bfloat16_gradients_match_jax_flash(b, h, sq, sk, d, empty_row):
+    """In bfloat16, autograd of flash_attention_plain against the JAX
+    kernel's backward (dq and dk/dv kernels in interpret mode) for the same
+    upstream grad. The JAX kernels round ds to bf16 before ds . k and
+    ds^T . q and take delta from the bf16 o; autograd chains the f32 graph
+    of the plain version: measured <= 1.02e-2 of max|JAX| over 4 seeds,
+    limit 2e-2 of max|JAX| per gradient."""
+    q, k, v, do, kpad = _bf16_case(b, h, sq, sk, d, 80 + d, empty_row)
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jattn.flash_attention(q, k, v, jnp.asarray(kpad)),
+                     jq, jk, jv)
+    want = vjp(jdo)
+    tq, tk, tv = (_t(a).bfloat16().requires_grad_() for a in (q, k, v))
+    tattn.flash_attention(tq, tk, tv, _t(kpad)).backward(_t(do).bfloat16())
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert got.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), w, rtol=0,
+                                   atol=2e-2 * np.abs(w).max(), err_msg=f"d{name}")
+
+
 def test_kernel_wrappers_refuse_cpu_and_unserved_head_sizes():
     """The launch wrappers check before any build: CPU tensors and head
     sizes outside multiples of 8 up to 128 never reach the library."""

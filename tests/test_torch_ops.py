@@ -100,6 +100,41 @@ def test_fused_mha_matches_jax_fused_kernel(s):
     np.testing.assert_allclose(got[0], want_xla[0], atol=2e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("s", [33, 96, 128])
+def test_fused_mha_bfloat16_matches_jax_fused_kernel(s):
+    """In bfloat16, fused_mha's CPU path (mha_plain) against the JAX Pallas
+    whole-MHA kernel in interpret mode, at windows the bf16 CUDA body's
+    128-row tiles hold two of (S 33), or one with padding rows (S 96, 128).
+    mha_plain rounds q, k, v and the normalised p to bf16 where the bf16
+    CUDA body does; the JAX kernel keeps them in f32, so the two differ by
+    those roundings (measured <= 6.3e-3 of max|JAX| over 3 seeds): limit
+    1.5e-2 of max|JAX|. The fully-masked window against _mha_xla, as in the
+    float32 test."""
+    c, h, b = 128, 4, 3
+    rng = np.random.RandomState(60 + s)
+    x = _n(rng, b, s, c)
+    p = _mha_weights(rng, c)
+    kpad = np.zeros((b, s), bool)
+    kpad[0] = True
+    kpad[1, int(s * 0.7):] = True
+
+    def jbf(a):
+        return jnp.asarray(a, dtype=jnp.bfloat16)
+
+    names = ("in_proj_kernel", "in_proj_bias", "out_proj_kernel", "out_proj_bias")
+    want = np.asarray(jattn._fused_mha(jbf(x), jnp.asarray(kpad), *(jbf(p[k]) for k in names),
+                                       h).astype(jnp.float32))
+    want_xla = np.asarray(jattn._mha_xla(jbf(x), jnp.asarray(kpad),
+                                         *(jbf(p[k]) for k in names), h).astype(jnp.float32))
+    got = tattn.fused_mha(_t(x).bfloat16(), _t(kpad),
+                          *(w.bfloat16() for w in _torch_mha(p)), h)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    np.testing.assert_allclose(got[1:], want[1:], rtol=0, atol=1.5e-2 * np.abs(want).max())
+    np.testing.assert_allclose(got[0], want_xla[0], rtol=0,
+                               atol=1.5e-2 * np.abs(want_xla[0]).max())
+
+
 def test_fully_masked_window_averages_its_own_values():
     """A window whose keys are all padding attends uniformly over its OWN S
     values (attention_xla's finite -1e30 fill), never another window's."""
@@ -282,6 +317,15 @@ def test_kernel_guards_on_cpu_tensors():
         _kernels.check_cuda_inputs("k", x.device, torch.bfloat16, x=x)
     assert _kernels.dtype_code(x) == 0
     assert _kernels.dtype_code(x.bfloat16()) == 1
+
+
+def test_bfloat16_kernels_need_16_byte_aligned_operands():
+    """The bf16 tensor-core bodies stage their operands by 16-byte cp.async;
+    the wrappers name a misaligned operand before a launch."""
+    fresh = torch.zeros(4, 64, dtype=torch.bfloat16)
+    _kernels.check_aligned("flash_fwd", q=fresh, k=fresh[1:])  # a 128-byte row step
+    with pytest.raises(ValueError, match="k must start on a 16-byte boundary"):
+        _kernels.check_aligned("flash_fwd", q=fresh, k=fresh.view(-1)[4:].view(-1, 4))
 
 
 def test_kernel_libraries_are_keyed_by_source():
