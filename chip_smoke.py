@@ -9,10 +9,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. kernels: each kernel against its plain PyTorch version on the card, on the
      same inputs, at the main-path shapes (fused MHA B=304 C=512 H=8 at S=64
      and S=96 with one fully-masked window and ragged tails, and B=64 S=128,
-     the window the bf16 body's 128-row tile holds whole; fused MLP at
-     19456 rows, C=512; and at the global path's 2048, 2096 and 3322 rows)
-     and small shapes that reach the kernels' other instantiations (head
-     sizes 8, 16, 32, 40, 48; MLP widths 128, 640, 1024, 1280), in
+     the window the bf16 body's 128-row tile holds whole; fused MLP at the
+     serving towers' 19456 and 29184 rows, C=512, the global path's 2048,
+     2096 and 3322 rows, grounding's 4096 and 8192 and 1 row, each with its
+     launch plan: row tile, slab, hidden split, CTAs) and small shapes that
+     reach the kernels' other instantiations (head sizes 8, 16, 32, 40, 48;
+     MLP widths 128, 640, 1024, 1280, the last with x streamed), in
      float32 (max error <= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); times
      by CUDA events (median of several runs after warm-up) beside the plain
      version, one PyTorch library call where one computes the same function,
@@ -110,10 +112,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3f. window-attention kernel: small_attention (csrc/small_attn.cu) against
      small_attention_plain on the card (a fully-masked window and ragged
      lengths in every case) at the grounding path's windows (B64 H8, S 64
-     and 128) and the aligner's (B304 H8, S 64 and 96), D 64, timed beside
-     the plain version, F.scaled_dot_product_attention with the boolean mask
-     (a yardstick the path never calls) and the bound, and at S 17 D 32;
-     float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2);
+     and 128) and the aligner's (B304 H8, S 64 and 96), D 64, on contiguous
+     tensors and on the strided views mha_plain makes of a packed (B, S, 3C)
+     qkv, timed beside the plain version, F.scaled_dot_product_attention
+     with the boolean mask on the same tensors (a yardstick the path never
+     calls) and the bound; at S 17 D 32, and on packed views at head sizes
+     8, 40 and 128 with S 17 and 100; float32 (<= 1e-4 of max|plain|) and
+     bfloat16 (<= 1e-2);
   4d. the aligner under attn_impl='small': FusedAlignEvaluator over the 8
      bench videos in float32 and bfloat16, counted (12 small_attn launches
      per group, no fused MHA), frames/s (median of 3 sweeps) in turns with
@@ -125,14 +130,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      attn_impl 'small' and 'auto': one ground_batch of 64 requests (one
      bucket), then 1 ground() alone and 3 concurrent, counted per forward
      ('small': 30 small_attn + 24 fused_mlp; 'auto': 24 fused_mha + 24
-     fused_mlp), each ground() against its batch row, the card against the
+     fused_mlp; the fused MLP's calls of one forward by rows), each
+     ground() against its batch row, the card against the
      CPU service (start/end <= 1e-4 of max|CPU|), requests/s and ms per
      batch (median of 3, in turns; `ground_bench {...}`), and one int8 batch
      of 16 under 'small' (30 small_attn launches and nothing else; against
      the CPU within 2x the CPU's own change under a 1e-7 relative change of
      the inputs, at least 1e-3: a rounding step upstream flips int8 steps).
 
-Float32 products run in full float32 (TF32 off for matmul and cuDNN). The
+Float32 products run in full float32 (TF32 off for matmul and cuDNN); the
+fused MLP kernel's f32 body runs 3xTF32 on the tensor cores, which keeps
+float32 accuracy (csrc/fused_mlp.cu says why). The
 line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -228,9 +236,16 @@ def mha_case(B, S, C, H, dtype, seed):
     return case
 
 
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate, SXM
+
+
 def mlp_case(rows, C, dtype, seed):
+    """The fused MLP kernel against mlp_plain on the card, timed, with its
+    launch plan (row tile, slab, hidden split, CTAs). The f32 bound is the
+    lesser of two routes, the CUDA cores (FLOPs / 67 TFLOP/s) and the
+    kernel's 3xTF32 on the tensor cores (3 x FLOPs / 495 TFLOP/s)."""
     from exoground_tpu_torch.ops import _kernels
-    from exoground_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
+    from exoground_tpu_torch.ops.fused_mlp import fused_mlp, mlp_launch_plan, mlp_plain
 
     rng = np.random.RandomState(seed)
 
@@ -256,14 +271,47 @@ def mlp_case(rows, C, dtype, seed):
     flops = 16.0 * rows * C * C
     nbytes = (2 * rows * C + 8 * C * C + 5 * C) * x.element_size()
     bms, by = bound_ms(flops, nbytes, dtype)
+    extra = {}
+    if dtype == torch.float32:
+        t_cuda = flops / H100_PEAK_FLOPS[dtype] * 1e3
+        t_tf32 = 3.0 * flops / H100_TF32_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        bms = max(min(t_cuda, t_tf32), t_bytes)
+        by = "operations" if min(t_cuda, t_tf32) >= t_bytes else "bytes"
+        extra = dict(bound_cuda_cores_ms=max(t_cuda, t_bytes),
+                     bound_3xtf32_ms=max(t_tf32, t_bytes))
     rel = err / scale
     case = dict(shape=f"rows{rows} C{C}", dtype=str(dtype).split(".")[-1],
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bms, bound_by=by)
+                library_ms=None, bound_ms=bms, bound_by=by, **extra,
+                plan=mlp_launch_plan(rows, C))
     print("fused_mlp", json.dumps(case), flush=True)
     if not rel <= TOL[dtype]:
         fail(f"fused_mlp disagrees with mlp_plain: {case}")
     return case
+
+
+def mlp_kernel_cases():
+    """Phase 3's fused-MLP cases, float32 then bfloat16: the serving group's
+    dual and joint towers (19456 and 29184 rows), the widths 128, 640 (two
+    column slabs), 1024 and 1280 (x streamed, not resident), the global
+    path's rows (dual and joint tower at the bench shape, 2048 frames + 48
+    texts; joint tower of the 3000-frame video, 3072 + 250), grounding's
+    4096 and 8192 rows (phase 7 prints the rows of its calls) and 1 row."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(mlp_case(19456, 512, dtype, seed=4))
+        cases.append(mlp_case(29184, 512, dtype, seed=15))
+        cases.append(mlp_case(210, 128, dtype, seed=5))
+        cases.append(mlp_case(300, 640, dtype, seed=9))
+        cases.append(mlp_case(77, 1024, dtype, seed=10))
+        cases.append(mlp_case(40, 1280, dtype, seed=11))
+        for rows in (2048, 2096, 3322):
+            cases.append(mlp_case(rows, 512, dtype, seed=12))
+        cases.append(mlp_case(4096, 512, dtype, seed=16))
+        cases.append(mlp_case(8192, 512, dtype, seed=17))
+        cases.append(mlp_case(1, 512, dtype, seed=18))
+    return cases
 
 
 # ---------------------------------------------------------------- phase 3d
@@ -569,19 +617,27 @@ def block_kernel_cases():
 
 
 # ---------------------------------------------------------------- phase 3f
-def small_case(B, H, S, D, dtype, seed, timed=False):
+def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
     """The window-attention kernel (through ``small_attention``) against
     small_attention_plain on the card: one fully-masked window and ragged
-    lengths. With ``timed``, beside the plain version,
-    F.scaled_dot_product_attention with the boolean mask (a yardstick the
-    path never calls) and the bound max(4 BH S^2 D / peak, 4 BH S D bytes /
-    3.35 TB/s)."""
+    lengths. ``packed``: q, k and v are the strided views mha_plain's head
+    split makes of a packed (B, S, 3C) qkv, strides (S*3C, D, 3C, 1), as the
+    aligner and grounding hand them over; else contiguous (B, H, S, D)
+    tensors. With ``timed``, beside the plain version,
+    F.scaled_dot_product_attention with the boolean mask on the same
+    tensors (a yardstick the path never calls) and the bound max(4 BH S^2 D
+    / peak, 4 BH S D bytes / 3.35 TB/s)."""
     from exoground_tpu_torch.ops import _kernels
-    from exoground_tpu_torch.ops.attention import small_attention, small_attention_plain
+    from exoground_tpu_torch.ops.attention import (
+        _split_heads, small_attention, small_attention_plain)
 
     rng = np.random.RandomState(seed)
-    q, k, v = (torch.tensor(rng.standard_normal((B, H, S, D)), dtype=dtype, device="cuda")
-               for _ in range(3))
+    if packed:
+        qkv = torch.tensor(rng.standard_normal((B, S, 3 * H * D)), dtype=dtype, device="cuda")
+        q, k, v = (_split_heads(t, H) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.tensor(rng.standard_normal((B, H, S, D)), dtype=dtype, device="cuda")
+                   for _ in range(3))
     lens = rng.randint(1, S + 1, B)
     lens[0] = 0  # a fully-masked window
     lens[-1] = S
@@ -598,8 +654,10 @@ def small_case(B, H, S, D, dtype, seed, timed=False):
         if not torch.isfinite(out.float()).all():
             fail(f"small_attn non-finite output at B{B} H{H} S{S} D{D} {dtype}")
         err = (out.float() - ref.float()).abs().max().item()
-        case = dict(shape=f"B{B} H{H} S{S} D{D}", dtype=str(dtype).split(".")[-1],
-                    max_abs_err=err, max_rel_err=err / ref.float().abs().max().item())
+        case = dict(shape=f"B{B} H{H} S{S} D{D}" + (" packed qkv" if packed else ""),
+                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                    max_rel_err=err / ref.float().abs().max().item(),
+                    masked_window_err=(out[0].float() - ref[0].float()).abs().max().item())
         if timed:
             attend = ~mask[:, None, None, :]
             sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -617,15 +675,21 @@ def small_case(B, H, S, D, dtype, seed, timed=False):
 
 def small_kernel_cases():
     """Phase 3f: the window kernel at the grounding path's windows (B64 H8,
-    S 64 and 128) and the aligner's (B304 H8, S 64 and 96), D 64, timed, and
-    at an odd shape (S 17, D 32), float32 and bfloat16."""
+    S 64 and 128) and the aligner's (B304 H8, S 64 and 96), D 64, timed, on
+    contiguous tensors and on the strided views of a packed qkv; an odd
+    shape (S 17, D 32); head sizes 8, 40 and 128 at S 17 and 100 on packed
+    views; float32 and bfloat16."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        cases.append(small_case(64, 8, 128, 64, dtype, seed=70, timed=True))
-        cases.append(small_case(64, 8, 64, 64, dtype, seed=71, timed=True))
-        cases.append(small_case(304, 8, 64, 64, dtype, seed=72, timed=True))
-        cases.append(small_case(304, 8, 96, 64, dtype, seed=73, timed=True))
+        for packed in (False, True):
+            cases.append(small_case(64, 8, 128, 64, dtype, seed=70, timed=True, packed=packed))
+            cases.append(small_case(64, 8, 64, 64, dtype, seed=71, timed=True, packed=packed))
+            cases.append(small_case(304, 8, 64, 64, dtype, seed=72, timed=True, packed=packed))
+            cases.append(small_case(304, 8, 96, 64, dtype, seed=73, timed=True, packed=packed))
         cases.append(small_case(3, 2, 17, 32, dtype, seed=74))
+        for d in (8, 40, 128):
+            for s in (17, 100):
+                cases.append(small_case(3, 2, s, d, dtype, seed=75 + d + s, packed=True))
     return cases
 
 
@@ -1615,6 +1679,24 @@ def grounding_path(card):
         return got, launches["small_attn"]
 
     outs = {impl: served(impl) for impl in ("small", "auto")}
+
+    # the rows of the fused MLP's calls in one forward (phase 3 times them)
+    from exoground_tpu_torch.ops import blocks
+    mlp_rows = {}
+    real_mlp = blocks.fused_mlp
+
+    def recording(x, *weights):
+        rows = x.numel() // x.shape[-1]
+        mlp_rows[rows] = mlp_rows.get(rows, 0) + 1
+        return real_mlp(x, *weights)
+
+    blocks.fused_mlp = recording
+    try:
+        svc.ground_batch(reqs)
+        torch.cuda.synchronize()
+    finally:
+        blocks.fused_mlp = real_mlp
+    print(f"grounding: fused_mlp calls of one forward by rows {mlp_rows}", flush=True)
     t0 = time.perf_counter()
     cpu = as_array(GroundingService(cpu_model, device="cpu").ground_batch(reqs))
     cpu_s = time.perf_counter() - t0
@@ -1709,16 +1791,7 @@ def main():
         # the window the bf16 body's 128-row tile serves whole, and head size 16
         mha_cases.append(mha_case(64, 128, 512, 8, dtype, seed=13))
         mha_cases.append(mha_case(2, 50, 256, 16, dtype, seed=14))
-        mlp_cases.append(mlp_case(19456, 512, dtype, seed=4))
-        mlp_cases.append(mlp_case(210, 128, dtype, seed=5))
-        mlp_cases.append(mlp_case(300, 640, dtype, seed=9))  # two column slabs
-        mlp_cases.append(mlp_case(77, 1024, dtype, seed=10))
-        mlp_cases.append(mlp_case(40, 1280, dtype, seed=11))  # x streamed, not resident
-        # the global path's rows: dual and joint tower at the bench shape (2048
-        # frames + 48 texts), joint tower of the 3000-frame video (3072 + 250):
-        # 64 to 104 CTAs of 32 rows, the last one partly empty at 2096 and 3322
-        for rows in (2048, 2096, 3322):
-            mlp_cases.append(mlp_case(rows, 512, dtype, seed=12))
+    mlp_cases += mlp_kernel_cases()
 
     # phase 3b: the grid kernel against its plain version
     grid_cases = []

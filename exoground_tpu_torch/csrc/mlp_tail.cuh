@@ -1,6 +1,7 @@
-// The parts the fused-MLP kernels share (csrc/fused_mlp.cu,
-// csrc/fused_mlp_int8.cu and the block kernels of csrc/block_mlp.cu): the
-// CTA shape, and the c_proj half of one hidden chunk with the final store.
+// The parts the CUDA-core MLP kernels share (csrc/fused_mlp_int8.cu and the
+// block kernels of csrc/block_mlp.cu; csrc/fused_mlp.cu used them until its
+// tensor-core redesign and no longer includes this header): the CTA shape,
+// and the c_proj half of one hidden chunk with the final store.
 // A CTA of kMlpThreads threads owns kMlpRows rows
 // and 32*NJ output columns; thread (ty, tx) = (tid / 32, tid % 32) owns rows
 // ty + 8*i (i < 4) and columns n0 + tx + 32*j. Counterpart of the TPU

@@ -39,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points, by source
 SIGNATURES = {
     "fused_mha": {
@@ -47,8 +48,9 @@ SIGNATURES = {
         "fused_mha_forward": (_P,) * 8 + (_I,) * 5 + (_P,),
     },
     "fused_mlp": {
-        # x, c_fc w, c_fc b, c_proj w, c_proj b, out, rows, C, dtype, stream
-        "fused_mlp_forward": (_P,) * 6 + (_I,) * 3 + (_P,),
+        # x, c_fc w, c_fc b, c_proj w, c_proj b, out, f32 workspace, rows, C,
+        # slab, split, dtype, stream
+        "fused_mlp_forward": (_P,) * 7 + (_I,) * 5 + (_P,),
     },
     "fused_mha_int8": {
         # x, kpad, w_in int8, w_in scales, b_in, w_out, b_out, attn scratch,
@@ -87,8 +89,9 @@ SIGNATURES = {
         "block_mlp_int8_forward": (_P,) * 9 + (_I,) * 3 + (_P,),
     },
     "small_attn": {
-        # q, k, v, kpad, o, BH, H, S, D, dtype, stream
-        "small_attn_forward": (_P,) * 5 + (_I,) * 5 + (_P,),
+        # q, k, v, kpad (bool, or null), o, B, H, S, D, the (batch, head, row) element
+        # strides of q, k, v and o, scale, dtype, stream
+        "small_attn_forward": (_P,) * 5 + (_I,) * 4 + (_L,) * 12 + (_F, _I, _P),
     },
     "flash_attn": {
         # q, k, v, kpad, o, lse, BH, H, Sq, Sk, D, dtype, stream
@@ -232,14 +235,14 @@ def check_inference(name: str, *tensors: torch.Tensor) -> None:
 
 
 def check_aligned(name: str, **tensors: torch.Tensor) -> None:
-    """The bfloat16 tensor-core bodies stage these operands by 16-byte
-    ``cp.async``: each must start on a 16-byte boundary (a fresh allocation
-    does; a view at an odd offset may not). The kernels return
+    """The tensor-core bodies stage these operands by 16-byte ``cp.async``:
+    each must start on a 16-byte boundary (a fresh allocation does; a view
+    at an odd offset may not). The kernels return
     cudaErrorMisalignedAddress otherwise; this names the operand first."""
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must start on a 16-byte boundary for the "
-                             "bfloat16 kernel (pass a fresh or .clone()d tensor)")
+                             "kernel's 16-byte copies (pass a fresh or .clone()d tensor)")
 
 
 def check_cuda_inputs(name: str, device: torch.device, dtype: torch.dtype,

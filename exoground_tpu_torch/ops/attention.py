@@ -306,11 +306,14 @@ def small_attention_plain(q, k, v, kpad):
 
 def small_attention(q, k, v, key_padding_mask=None):
     """Window attention over (B, H, S, D) with S == Sk <= 128 (the
-    counterpart of ``small_attention``/``_small``): the int32 key padding as
-    the JAX function builds it (attention.py:999-1002), q scaled by
+    counterpart of ``small_attention``/``_small``): the key padding as the
+    JAX function builds it (attention.py:999-1002; bool on the card), q scaled by
     1/sqrt(D) in q's type (:540), then ``small_attention_plain`` on a CPU
-    tensor and the kernel of ``csrc/small_attn.cu`` on a CUDA tensor, which
-    launches or raises. Head sizes: multiples of 8 up to 128 on every
+    tensor. A CUDA tensor launches the kernel of ``csrc/small_attn.cu`` or
+    raises: it reads q, k and v where they lie (``_window_strides``: the
+    strided views of a packed qkv need no copy) and scales q as it loads it,
+    to the same q * scale in q's type; o comes back as a (B, H, S, D) view
+    of (B, S, H, D) memory. Head sizes: multiples of 8 up to 128 on every
     device. Inference-only on the card."""
     b, h, s, d = q.shape
     name = "small_attn"
@@ -320,26 +323,63 @@ def small_attention(q, k, v, key_padding_mask=None):
     if d % 8 or d > MAX_SMALL_HEAD_DIM:
         raise NotImplementedError(f"{name}: head size {d}; the CUDA kernel serves multiples "
                                   f"of 8 up to {MAX_SMALL_HEAD_DIM}")
-    if key_padding_mask is None:
-        kpad = torch.zeros((b, s), dtype=torch.int32, device=q.device)
-    else:
-        if key_padding_mask.shape != (b, s):
-            raise ValueError(f"{name}: key_padding_mask {tuple(key_padding_mask.shape)} "
-                             f"!= {(b, s)}")
-        kpad = key_padding_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    q = q * (1.0 / math.sqrt(d))
+    if key_padding_mask is not None and key_padding_mask.shape != (b, s):
+        raise ValueError(f"{name}: key_padding_mask {tuple(key_padding_mask.shape)} "
+                         f"!= {(b, s)}")
+    scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
-        return small_attention_plain(q, k, v, kpad)
+        if key_padding_mask is None:
+            kpad = torch.zeros((b, s), dtype=torch.int32, device=q.device)
+        else:
+            kpad = key_padding_mask.to(device=q.device, dtype=torch.int32).contiguous()
+        return small_attention_plain(q * scale, k, v, kpad)
     _kernels.check_inference(name, q, k, v)
-    qf, kf, vf = (t.reshape(b * h, s, d).contiguous() for t in (q, k, v))
-    _kernels.check_cuda_inputs(name, q.device, q.dtype, q=qf, k=kf, v=vf)
-    o = torch.empty_like(qf)
+    dev = q.get_device()
+    for arg, t in (("k", k), ("v", v)):
+        if t.get_device() != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, q {q.dtype} on "
+                             f"{q.device}")
+    # the kernel reads the mask as bool (a contiguous bool mask as it is) or none
+    kpad = key_padding_mask
+    if kpad is not None and not (kpad.dtype == torch.bool and kpad.get_device() == dev
+                                 and kpad.is_contiguous()):
+        kpad = kpad.to(device=q.device, dtype=torch.bool).contiguous()
+    # o in (B, S, H, D) memory, so that merging the heads back is a view; its
+    # strides are known and aligned (D % 8 == 0)
+    o = torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1), dtype=q.dtype,
+                            device=q.device)
+    strides = (_window_strides(q, name) + _window_strides(k, name) + _window_strides(v, name)
+               + (s * h * d, d, h * d))
     rc = _kernels.library(name).small_attn_forward(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), kpad.data_ptr(), o.data_ptr(),
-        b * h, h, s, d, _kernels.dtype_code(q), _kernels.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kpad is None else kpad.data_ptr(),
+        o.data_ptr(), b, h, s, d,
+        *strides, scale, _kernels.dtype_code(q), _kernels.stream_of(q))
     _kernels.check(name, rc)
     _kernels.LAUNCHES[name] += 1
-    return o.reshape(b, h, s, d)
+    return o
+
+
+def _window_strides(t, name="small_attn"):
+    """The (batch, head, row) element strides under which the window kernel
+    reads or writes the (B, H, S, D) tensor ``t`` where it lies: the views
+    of ``mha_plain``'s head split, strides (S*3C, D, 3C, 1), as well as
+    contiguous tensors. The last dimension must be contiguous and the base
+    and every stride 16-byte aligned (the kernel's 16-byte copies); anything
+    else raises ``ValueError``, with no hidden copy. The stride of a
+    dimension of size 1 is never used and is given as 0."""
+    shape, st = t.shape, t.stride()
+    if len(shape) != 4:
+        raise ValueError(f"{name}: expected a (B, H, S, D) tensor, got {tuple(shape)}")
+    if shape[3] > 1 and st[3] != 1:
+        raise ValueError(f"{name}: the head dimension must be contiguous (stride "
+                         f"{st[3]}); pass a view whose last dimension is dense")
+    out = (st[0] if shape[0] > 1 else 0, st[1] if shape[1] > 1 else 0,
+           st[2] if shape[2] > 1 else 0)
+    size = t.element_size()
+    if (t.data_ptr() | out[0] * size | out[1] * size | out[2] * size) % 16:
+        raise ValueError(f"{name}: base or batch/head/row pitch of a {tuple(shape)} view "
+                         f"with strides {st} is not 16-byte aligned")
+    return out
 
 
 def scaled_dot_attention(q, k, v, key_padding_mask=None, impl: Optional[str] = None):

@@ -4,7 +4,9 @@ activation reaching device memory.
 Counterpart of ``exoground_tpu/ops/fused_mlp.py`` (reference
 model/tfm_model.py:23-27). ``fused_mlp`` launches the hand-written kernel in
 ``csrc/fused_mlp.cu`` on CUDA tensors and takes ``mlp_plain``, the
-composition it fuses, only for tensors on the CPU. Inference-only, as the
+composition it fuses, only for tensors on the CPU. The kernel's CTA shape
+and its split of the hidden dimension over CTAs at few rows come from
+``mlp_launch_plan``, a pure function of (rows, C). Inference-only, as the
 TPU kernel is (its custom VJP recomputes the XLA path): a CUDA input that
 requires grad raises.
 
@@ -164,18 +166,62 @@ def _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b, **ln) -> torch.Tensor:
     return x2d
 
 
+MLP_ROW_TILE = 64  # rows a CTA of csrc/fused_mlp.cu owns
+MLP_MAX_SLAB = 512  # output columns a CTA accumulates: 64 x 512 f32 is 128 floats a thread
+MLP_HIDDEN_CHUNK = 128  # hidden columns of one step of the kernel's walk
+H100_SMS = 132
+
+
+def mlp_launch_plan(rows: int, c: int, sms: int = H100_SMS) -> dict:
+    """The fused MLP kernel's launch: row tiles of ``MLP_ROW_TILE``, output
+    slabs of min(C, 512) columns (above C = 512 each slab recomputes the
+    hidden), and ``split``, the number of CTAs the 4C / 128 hidden chunks are
+    shared over (a divisor of the chunk count). One CTA fits an SM (its
+    registers), so the time goes as the waves of CTAs over the split:
+    - tiles and slabs below one wave of ``sms``: the least split that
+      reaches a full wave, every chunk its own CTA where none does;
+    - a wave or more: the split of at most 4 with the fewest waves per
+      split, where it saves at least a tenth on one CTA per tile (19,456
+      rows: 304 CTAs in 3 waves, or 608 half-CTAs in 5, 2.5 waves' time),
+      else 1.
+    With ``split`` > 1 each CTA writes a float32 partial and a second kernel
+    sums them in order."""
+    if rows < 1 or c < 128 or c % 128:
+        raise ValueError(f"fused_mlp: rows {rows}, width {c}: rows >= 1 and a width that is "
+                         "a multiple of 128")
+    tiles = -(-rows // MLP_ROW_TILE)
+    slab = min(c, MLP_MAX_SLAB)
+    slabs = -(-c // slab)
+    chunks = 4 * c // MLP_HIDDEN_CHUNK
+    work = tiles * slabs
+    splits = [d for d in range(1, chunks + 1) if chunks % d == 0]
+    if work < sms:
+        split = next((d for d in splits if work * d >= sms), chunks)
+    else:
+        def cost(d):
+            return -(-work * d // sms) / d
+        best = min((d for d in splits if d <= 4), key=cost)
+        split = best if cost(best) <= 0.9 * cost(1) else 1
+    return dict(row_tile=MLP_ROW_TILE, slab=slab, slabs=slabs, split=split,
+                ctas=work * split)
+
+
 def fused_mlp(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
     """QuickGELU MLP over (..., C) with the (rows, 4C) hidden kept on chip."""
     if x.device.type == "cpu":
         return mlp_plain(x, fc_w, fc_b, pr_w, pr_b)
     name = "fused_mlp"
     x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b)
-    code = _kernels.dtype_code(x2d)
+    _kernels.check_aligned(name, x=x2d, fc_w=fc_w, pr_w=pr_w)
+    rows, c = x2d.shape
+    plan = mlp_launch_plan(rows, c)
     out = torch.empty_like(x2d)
+    ws = (torch.empty((plan["split"], rows, c), dtype=torch.float32, device=x2d.device)
+          if plan["split"] > 1 else None)
     rc = _kernels.library(name).fused_mlp_forward(
         x2d.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(), pr_w.data_ptr(),
-        pr_b.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1], code,
-        _kernels.stream_of(x2d))
+        pr_b.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), rows, c,
+        plan["slab"], plan["split"], _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
     _kernels.check(name, rc)
     _kernels.LAUNCHES[name] += 1
     return out.reshape(x.shape)

@@ -250,6 +250,87 @@ def test_mlp_module_routes_by_width(monkeypatch):
     assert routed == [128, 640]
 
 
+# ------------------------------------------------- fused MLP kernel: the plan
+@pytest.mark.parametrize("rows,c", [
+    (19456, 512), (29184, 512),  # the serving groups' dual and joint towers
+    (2048, 512), (2096, 512), (3322, 512),  # the global path
+    (4096, 512), (8192, 512),  # grounding's video, text and decoder calls
+    (1, 512), (1, 1280), (40, 1280), (300, 640), (210, 128), (77, 1024)])
+def test_mlp_launch_plan(rows, c):
+    """Row tiles of 64, slabs of min(C, 512), and a hidden split (a divisor
+    of the 4C / 128 chunks): below a wave of 132 SMs the least split that
+    reaches one, so at least a full wave wherever rows >= 2,048; from a wave
+    up a split of at most 4 only where it cuts the waves per split by a
+    tenth; 1 row and C 1280 are served."""
+    plan = tmlp.mlp_launch_plan(rows, c, sms=132)
+    chunks = 4 * c // 128
+    tiles = -(-rows // plan["row_tile"])
+    assert plan["row_tile"] == 64 and plan["slab"] == min(c, 512)
+    assert plan["slabs"] * plan["slab"] >= c > (plan["slabs"] - 1) * plan["slab"]
+    assert chunks % plan["split"] == 0
+    assert plan["ctas"] == tiles * plan["slabs"] * plan["split"]
+    if rows >= 2048:
+        assert plan["ctas"] >= 132
+    work = tiles * plan["slabs"]
+    if work >= 132:
+        waves = [-(-work * d // 132) / d for d in (1, plan["split"])]
+        assert plan["split"] <= 4 and (plan["split"] == 1 or waves[1] <= 0.9 * waves[0])
+    else:
+        assert all(work * d < 132 for d in range(1, plan["split"]) if chunks % d == 0)
+
+
+@pytest.mark.parametrize("rows,c", [(0, 512), (8, 500), (8, 64)])
+def test_mlp_launch_plan_refuses_what_the_kernel_does_not_serve(rows, c):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tmlp.mlp_launch_plan(rows, c)
+
+
+def _tf32(a):
+    """float32 truncated to TF32 (10 mantissa bits): the kernel's bit mask
+    for a_hi, and what the tensor core reads of an f32 operand."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a . b^T as the f32 kernel body computes it: each operand split as
+    a_hi = a truncated to TF32, a_lo = a - a_hi truncated by the tensor core,
+    a_lo b_hi + a_hi b_lo + a_hi b_hi (TF32 products are exact in float32),
+    summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return sum((torch.from_numpy(x) @ torch.from_numpy(y).T).numpy()
+               for x, y in ((al, bh), (ah, bl), (ah, bh)))
+
+
+@pytest.mark.parametrize("c", [128, 512])
+def test_three_tf32_mlp_keeps_float32_accuracy(c):
+    """The numerics of the fused MLP's f32 body, emulated: both products in
+    3xTF32 with the f32 bias and QuickGELU between them, against the MLP in
+    float64. Its error is that of a float32 MLP, far below the 1e-4 limit
+    of max|ref|; plain TF32 (a_hi b_hi alone) is not."""
+    rng = np.random.RandomState(c)
+    x = _n(rng, 64, c)
+    fcw, fcb = _n(rng, 4 * c, c, scale=c ** -0.5), _n(rng, 4 * c, scale=0.02)
+    prw, prb = _n(rng, c, 4 * c, scale=(4 * c) ** -0.5), _n(rng, c, scale=0.02)
+
+    def gelu(h):
+        return h / (1 + np.exp(-1.702 * h))
+
+    ref = gelu(x.astype(np.float64) @ fcw.T.astype(np.float64) + fcb) @ prw.T.astype(
+        np.float64) + prb
+    h = gelu(_mm_3xtf32(x, fcw) + fcb).astype(np.float32)
+    got = _mm_3xtf32(h, prw) + prb
+    h1 = gelu((torch.from_numpy(_tf32(x)) @ torch.from_numpy(_tf32(fcw)).T).numpy() + fcb)
+    tf32 = (torch.from_numpy(_tf32(h1.astype(np.float32)))
+            @ torch.from_numpy(_tf32(prw)).T).numpy() + prb
+    f32 = tmlp.mlp_plain(_t(x), _t(fcw), _t(fcb), _t(prw), _t(prb)).numpy()
+    scale = np.abs(ref).max()
+    err_3x, err_tf32, err_f32 = (np.abs(a - ref).max() / scale for a in (got, tf32, f32))
+    assert err_3x <= 2e-6 and err_3x <= 4 * err_f32, (err_3x, err_f32)
+    assert err_tf32 > 50 * err_3x, (err_tf32, err_3x)
+
+
 # --------------------------------------------------------------------- blocks
 @pytest.fixture(scope="module")
 def encoder_pair():

@@ -248,3 +248,74 @@ def test_aligner_small_text_visual_sim_matches_jax():
     for key in ("sim", "dual-sim"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=2e-5,
                                    rtol=1e-4, err_msg=key)
+
+
+# ------------------------------------------ strided windows of a packed qkv
+def _packed_views(qkv, h):
+    """mha_plain's head split of a packed (B, S, 3C) qkv: three (B, H, S, D)
+    views with strides (S*3C, D, 3C, 1), no copy."""
+    return tuple(tattn._split_heads(t, h) for t in qkv.chunk(3, dim=-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,s,d", [(2, 4, 64, 32), (3, 2, 17, 8), (2, 8, 100, 40),
+                                     (1, 2, 96, 64)])
+def test_window_strides_of_packed_and_contiguous_tensors(b, h, s, d, dtype):
+    """The strides the window kernel is handed: the packed views where they
+    lie, a contiguous (B, H, S, D) tensor, the (B, S, H, D) memory of the
+    kernel's output; the stride of a size-1 dimension is 0."""
+    c = h * d
+    qkv = torch.zeros(b, s, 3 * c, dtype=getattr(torch, dtype))
+    for t in _packed_views(qkv, h):
+        assert not t.is_contiguous()
+        assert list(tattn._window_strides(t)) == [s * 3 * c if b > 1 else 0, d, 3 * c]
+    dense = torch.zeros(b, h, s, d, dtype=getattr(torch, dtype))
+    assert list(tattn._window_strides(dense)) == [h * s * d if b > 1 else 0, s * d, d]
+    out = torch.zeros(b, s, h, d, dtype=getattr(torch, dtype)).transpose(1, 2)
+    assert list(tattn._window_strides(out)) == [s * h * d if b > 1 else 0, d, h * d]
+
+
+@pytest.mark.parametrize("case", ["strided_head_dim", "unaligned_base", "unaligned_row_pitch",
+                                  "unaligned_head_pitch", "not_4d"])
+def test_window_strides_reject_what_the_kernel_cannot_read(case):
+    """A view whose last dimension is strided, or whose base or pitches are
+    not 16-byte aligned, raises ValueError: no hidden copy on the card."""
+    if case == "strided_head_dim":
+        t = torch.zeros(2, 2, 64, 16).transpose(2, 3)
+        match = "head dimension must be contiguous"
+    elif case == "unaligned_base":
+        t = torch.zeros(2 * 2 * 16 * 64 + 1)[1:].view(2, 2, 16, 64)
+        match = "16-byte aligned"
+    elif case == "unaligned_row_pitch":
+        t = torch.zeros(2, 2, 16, 66)[..., :64]  # 264-byte rows
+        match = "16-byte aligned"
+    elif case == "unaligned_head_pitch":
+        t = torch.zeros(2, 16, 2 * 12, dtype=torch.bfloat16).reshape(2, 16, 2, 12).transpose(1, 2)
+        match = "16-byte aligned"
+    else:
+        t = torch.zeros(2, 16, 64)
+        match = r"\(B, H, S, D\)"
+    with pytest.raises(ValueError, match=match):
+        tattn._window_strides(t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,d", [(64, 32), (17, 8), (100, 40), (33, 128)])
+def test_dispatcher_on_packed_qkv_views_matches_jax(s, d, dtype):
+    """scaled_dot_attention(impl='small') on the non-contiguous views of a
+    packed qkv (what mha_plain hands the window core) against the JAX
+    dispatcher on the same values: a fully-masked window is left out, where
+    the two differ by design (test above); ragged key tails are in."""
+    b, h = 2, 2
+    c = h * d
+    qkv = _rand(b, s, 3 * c, seed=s + d)
+    parts = [qkv[..., i * c:(i + 1) * c].reshape(b, s, h, d).transpose(0, 2, 1, 3)
+             for i in range(3)]
+    kpad = _kpad(b, s, s // 3)
+    want = jattn.scaled_dot_attention(*(_j(p, dtype) for p in parts), jnp.asarray(kpad),
+                                      impl="small")
+    views = _packed_views(_t(qkv, dtype), h)
+    assert not any(t.is_contiguous() for t in views)
+    got = tattn.scaled_dot_attention(*views, _t(kpad), impl="small")
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, h, s, d)
+    assert _rel(got, want) <= TOL[dtype], _rel(got, want)
