@@ -24,9 +24,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      row in every case), at the int8 path's shapes (MHA B304 S64 and S96 C512 H8;
      MLP 19456 and 29184 rows, C512), timed beside the plain version,
      torch._int_mm of the int8 product alone (a yardstick), the exact kernel of
-     the same dtype and the bound; and at small shapes (head sizes 8, 32, 40,
-     48, S 128; MLP widths 128, 640 and 4224, x streamed), float32 (<= 1e-4 of
-     max|plain|) and bfloat16 (<= 1e-2);
+     the same dtype and the bound (float32: both routes of the exact product,
+     the CUDA cores and 3xTF32); and at small shapes (head sizes 8, 32, 40,
+     48, S 128; MLP widths 128, 640 and 4224, x streamed, and 1 row, the hidden
+     split 16 ways), float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2);
+     each MLP case with its launch plan;
   3e. block kernels: fused_block_attn and fused_block_mlp, exact and int8 bodies,
      against block_attn_plain / block_mlp_plain and their int8 twins on the
      card (a fully-masked window, ragged lengths and a zero row in every case;
@@ -34,10 +36,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      C512 H8; 19456 and 29184 rows, C512), timed beside the plain version, the
      per-module kernels of the same run (F.layer_norm + fused_mha / fused_mlp
      or their int8 twins + the add; no single PyTorch call computes a block)
-     and the bound; and at small shapes (S 17 with head size 8, S 128 with
-     head size 48, head size 40; MLP widths 128, 640 and x streamed: 1280
-     exact, 4224 int8), float32 (<= 1e-4 of max|plain|, int8 bodies <= 1e-3;
-     x_norm <= 1e-5) and bfloat16 (<= 1e-2);
+     and the bound (float32 MLP: both routes, as in 3d); and at small shapes
+     (S 17 with head size 8, S 128 with head size 48, head size 40; MLP widths
+     128, 640 and x streamed: 1280 exact, 4224 int8; 4096 rows and 1 row, where
+     the hidden is split over CTAs and the reduction adds the residual),
+     float32 (<= 1e-4 of max|plain|, int8 bodies <= 1e-3; x_norm <= 1e-5) and
+     bfloat16 (<= 1e-2); each MLP case with its launch plan;
   4. main path: AlignmentService over TemporalAligner E6D6 (width 512, 8 heads,
      4096-d inputs, seeded random weights through the JAX->port weight bridge)
      answers align() requests, three of them concurrent through the coalescing
@@ -237,6 +241,27 @@ def mha_case(B, S, C, H, dtype, seed):
 
 
 H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate, SXM
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core rate, SXM
+
+
+def mlp_family_bound(int8_ops: float, exact_flops: float, nbytes: float, dtype) -> dict:
+    """The bound of a kernel of the MLP family: its int8 product at the int8
+    rate plus its exact products at the dtype's rate, or its bytes at the
+    memory rate, whichever is larger. In float32 the exact products take the
+    lesser of two routes, the CUDA cores (FLOPs / 67 TFLOP/s) and the
+    kernels' 3xTF32 (3 x FLOPs / 495 TFLOP/s); both bounds are returned."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_int8 = int8_ops / H100_INT8_OPS * 1e3
+    if dtype != torch.float32:
+        t_ops = t_int8 + exact_flops / H100_PEAK_FLOPS[dtype] * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+    t_cuda = t_int8 + exact_flops / H100_PEAK_FLOPS[dtype] * 1e3
+    t_tf32 = t_int8 + 3.0 * exact_flops / H100_TF32_FLOPS * 1e3
+    t_ops = min(t_cuda, t_tf32)
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_cuda_cores_ms=max(t_cuda, t_bytes), bound_3xtf32_ms=max(t_tf32, t_bytes))
 
 
 def mlp_case(rows, C, dtype, seed):
@@ -268,22 +293,11 @@ def mlp_case(rows, C, dtype, seed):
             fail(f"fused_mlp non-finite output at rows {rows} C{C} {dtype}")
         ms = time_ms(lambda: fused_mlp(x, fc_w, fc_b, pr_w, pr_b))
         plain_ms = time_ms(lambda: mlp_plain(x, fc_w, fc_b, pr_w, pr_b))
-    flops = 16.0 * rows * C * C
     nbytes = (2 * rows * C + 8 * C * C + 5 * C) * x.element_size()
-    bms, by = bound_ms(flops, nbytes, dtype)
-    extra = {}
-    if dtype == torch.float32:
-        t_cuda = flops / H100_PEAK_FLOPS[dtype] * 1e3
-        t_tf32 = 3.0 * flops / H100_TF32_FLOPS * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        bms = max(min(t_cuda, t_tf32), t_bytes)
-        by = "operations" if min(t_cuda, t_tf32) >= t_bytes else "bytes"
-        extra = dict(bound_cuda_cores_ms=max(t_cuda, t_bytes),
-                     bound_3xtf32_ms=max(t_tf32, t_bytes))
     rel = err / scale
     case = dict(shape=f"rows{rows} C{C}", dtype=str(dtype).split(".")[-1],
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bms, bound_by=by, **extra,
+                library_ms=None, **mlp_family_bound(0.0, 16.0 * rows * C * C, nbytes, dtype),
                 plan=mlp_launch_plan(rows, C))
     print("fused_mlp", json.dumps(case), flush=True)
     if not rel <= TOL[dtype]:
@@ -315,8 +329,6 @@ def mlp_kernel_cases():
 
 
 # ---------------------------------------------------------------- phase 3d
-H100_INT8_OPS = 1979e12  # dense int8 tensor-core rate, SXM
-
 
 def int8_bound_ms(int8_ops: float, rest_flops: float, nbytes: float, dtype) -> tuple:
     """The int8 product at the int8 rate plus the rest at the dtype's rate,
@@ -327,9 +339,12 @@ def int8_bound_ms(int8_ops: float, rest_flops: float, nbytes: float, dtype) -> t
 
 
 def _int8_inputs(rng, dtype, x_shape):
-    """Random x with its second row zero (a zero row quantizes with scale 1)."""
+    """Random x with its second row, where there is one, zero (a zero row
+    quantizes with scale 1)."""
     x = torch.tensor(rng.standard_normal(x_shape), dtype=dtype, device="cuda")
-    x.view(-1, x_shape[-1])[1].zero_()
+    rows = x.view(-1, x_shape[-1])
+    if len(rows) > 1:
+        rows[1].zero_()
     return x
 
 
@@ -388,11 +403,13 @@ def mha_int8_case(B, S, C, H, dtype, seed, timed=False):
 
 
 def mlp_int8_case(rows, C, dtype, seed, timed=False):
-    """fused_mlp_int8 against mlp_int8_plain on the card; with ``timed``,
-    beside the plain version, torch._int_mm of the int8 c_fc product alone,
-    the exact fused_mlp in the same dtype and the bound."""
+    """fused_mlp_int8 against mlp_int8_plain on the card, with its launch
+    plan; with ``timed``, beside the plain version, torch._int_mm of the int8
+    c_fc product alone, the exact fused_mlp in the same dtype and the bound
+    (both routes of the exact part in float32)."""
     from exoground_tpu_torch.ops import _kernels, quant
-    from exoground_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_int8, mlp_int8_plain
+    from exoground_tpu_torch.ops.fused_mlp import (
+        fused_mlp, fused_mlp_int8, mlp_int8_plain, mlp_launch_plan)
 
     rng = np.random.RandomState(seed)
 
@@ -415,7 +432,8 @@ def mlp_int8_case(rows, C, dtype, seed, timed=False):
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         case = dict(shape=f"rows{rows} C{C}", dtype=str(dtype).split(".")[-1],
-                    max_abs_err=err, max_rel_err=err / scale, library_ms=None)
+                    max_abs_err=err, max_rel_err=err / scale, library_ms=None,
+                    plan=mlp_launch_plan(rows, C))
         if timed:
             xq, _ = quant._quant_last_axis(x)
             wq, _ = quant._quant_first_axis(fc_w)
@@ -424,8 +442,7 @@ def mlp_int8_case(rows, C, dtype, seed, timed=False):
                         int_mm_ms=time_ms(lambda: quant._int_mm(xq, wq)),
                         exact_kernel_ms=time_ms(lambda: fused_mlp(*args)))
             nbytes = (2 * rows * C + 8 * C * C + 5 * C) * x.element_size()
-            bms, by = int8_bound_ms(8.0 * rows * C * C, 8.0 * rows * C * C, nbytes, dtype)
-            case.update(bound_ms=bms, bound_by=by)
+            case.update(mlp_family_bound(8.0 * rows * C * C, 8.0 * rows * C * C, nbytes, dtype))
     print("fused_mlp_int8", json.dumps(case), flush=True)
     if not case["max_rel_err"] <= TOL[dtype]:
         fail(f"fused_mlp_int8 disagrees with mlp_int8_plain: {case}")
@@ -448,6 +465,7 @@ def int8_kernel_cases():
         mlp.append(mlp_int8_case(210, 128, dtype, seed=48))
         mlp.append(mlp_int8_case(300, 640, dtype, seed=49))  # two column slabs
         mlp.append(mlp_int8_case(40, 4224, dtype, seed=50))  # x streamed, not resident
+        mlp.append(mlp_int8_case(1, 512, dtype, seed=51))  # the hidden split 16 ways
     return mha, mlp
 
 
@@ -539,14 +557,16 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False):
 
 def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
     """fused_block_mlp (exact or int8 body) against block_mlp_plain /
-    block_mlp_int8_plain on the card, a zero row included; with ``timed``,
-    beside the plain version, the per-module kernels (F.layer_norm +
-    fused_mlp or fused_mlp_int8 + the add) and the bound."""
+    block_mlp_int8_plain on the card, a zero row included, with its launch
+    plan; with ``timed``, beside the plain version, the per-module kernels
+    (F.layer_norm + fused_mlp or fused_mlp_int8 + the add) and the bound
+    (both routes of the exact part in float32)."""
     import torch.nn.functional as F
 
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.ops.fused_mlp import (
-        block_mlp_int8_plain, block_mlp_plain, fused_block_mlp, fused_mlp, fused_mlp_int8)
+        block_mlp_int8_plain, block_mlp_plain, fused_block_mlp, fused_mlp, fused_mlp_int8,
+        mlp_launch_plan)
 
     rng = np.random.RandomState(seed)
 
@@ -572,7 +592,7 @@ def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
         err = (out.float() - ref.float()).abs().max().item()
         case = dict(shape=f"rows{rows} C{C}", dtype=str(dtype).split(".")[-1],
                     max_abs_err=err, max_rel_err=err / ref.float().abs().max().item(),
-                    library_ms=None)
+                    library_ms=None, plan=mlp_launch_plan(rows, C))
         if timed:
             mlp = fused_mlp_int8 if int8 else fused_mlp
 
@@ -582,11 +602,9 @@ def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
             case.update(ms=time_ms(lambda: fused_block_mlp(*args, int8_cfc=int8)),
                         plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module))
             nbytes = (2 * rows * C + 8 * C * C + 7 * C) * x.element_size()
-            if int8:
-                bms, by = int8_bound_ms(8.0 * rows * C * C, 8.0 * rows * C * C, nbytes, dtype)
-            else:
-                bms, by = bound_ms(16.0 * rows * C * C, nbytes, dtype)
-            case.update(bound_ms=bms, bound_by=by)
+            int8_ops = 8.0 * rows * C * C if int8 else 0.0
+            case.update(mlp_family_bound(int8_ops, 16.0 * rows * C * C - int8_ops, nbytes,
+                                         dtype))
     _block_check(name, case, dtype, int8)
     return case
 
@@ -596,8 +614,9 @@ def block_kernel_cases():
     and at small shapes that reach their other instantiations: S 17 with
     head size 8, S 128 (the largest shared-memory layout) with head size 48,
     head size 40; MLP widths 128, 640 (two column slabs) and x streamed
-    (1280 exact, 4224 int8). Returns {name: cases}, float32 at B304 S64 /
-    19,456 rows first."""
+    (1280 exact, 4224 int8), and 4,096 rows and 1 row, where the hidden is
+    split over CTAs and the reduction adds the residual. Returns {name:
+    cases}, float32 at B304 S64 / 19,456 rows first."""
     out = {name: [] for name in BLOCK_KERNELS}
     for int8 in (False, True):
         sfx = "_int8" if int8 else ""
@@ -613,6 +632,9 @@ def block_kernel_cases():
             mlp.append(block_mlp_case(210, 128, dtype, 67, int8))
             mlp.append(block_mlp_case(300, 640, dtype, 68, int8))
             mlp.append(block_mlp_case(40, 4224 if int8 else 1280, dtype, 69, int8))
+            # the hidden split (4 and 16 ways) with the residual in the reduction
+            mlp.append(block_mlp_case(4096, 512, dtype, 70, int8))
+            mlp.append(block_mlp_case(1, 512, dtype, 71, int8))
     return out
 
 

@@ -39,8 +39,9 @@ __device__ __forceinline__ int quant_i8(float v, float s) {
   return static_cast<int>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));
 }
 
-// Four consecutive values quantized with scale s, packed into one word for
-// __dp4a (the lowest address in the low byte, as int8 memory reads back).
+// Four consecutive values quantized with scale s, packed into one word (the
+// lowest address in the low byte, as int8 memory reads back): a __dp4a
+// operand, or four values of an int8 tile in shared memory.
 template <typename T>
 __device__ __forceinline__ int quant_pack4(const T* p, float s) {
   int w = 0;
@@ -115,7 +116,7 @@ __device__ __forceinline__ float warp_ln_absmax(const T* row, const T* g, const 
 }
 
 // Four consecutive f32 LayerNorm outputs quantized with scale s and packed
-// for __dp4a, as quant_pack4 (p, g, b point at the same column; g and b in
+// as quant_pack4 (p, g, b point at the same column; g and b in
 // T or already in f32)
 template <typename T, typename P>
 __device__ __forceinline__ int ln_quant_pack4(const T* p, const P* g, const P* b, float mean,

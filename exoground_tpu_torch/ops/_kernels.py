@@ -58,9 +58,9 @@ SIGNATURES = {
         "fused_mha_int8_forward": (_P,) * 9 + (_I,) * 5 + (_P,),
     },
     "fused_mlp_int8": {
-        # x, c_fc w int8, c_fc scales, c_fc b, c_proj w, c_proj b, out, rows,
-        # C, dtype, stream
-        "fused_mlp_int8_forward": (_P,) * 7 + (_I,) * 3 + (_P,),
+        # x, c_fc w int8, c_fc scales, c_fc b, c_proj w, c_proj b, out, f32
+        # workspace, rows, C, slab, split, dtype, stream
+        "fused_mlp_int8_forward": (_P,) * 8 + (_I,) * 5 + (_P,),
     },
     "milnce_grid": {
         # video3, text3, cvalid, v_den, t_den, part_m, part_l,
@@ -81,12 +81,12 @@ SIGNATURES = {
         "block_attn_int8_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
     },
     "block_mlp": {
-        # x, ln w, ln b, c_fc w, c_fc b, c_proj w, c_proj b, out, rows, C,
-        # dtype, stream
-        "block_mlp_forward": (_P,) * 8 + (_I,) * 3 + (_P,),
+        # x, ln w, ln b, c_fc w, c_fc b, c_proj w, c_proj b, out, f32
+        # workspace, rows, C, slab, split, dtype, stream
+        "block_mlp_forward": (_P,) * 9 + (_I,) * 5 + (_P,),
         # x, ln w, ln b, c_fc w int8, c_fc scales, c_fc b, c_proj w,
-        # c_proj b, out, rows, C, dtype, stream
-        "block_mlp_int8_forward": (_P,) * 9 + (_I,) * 3 + (_P,),
+        # c_proj b, out, f32 workspace, rows, C, slab, split, dtype, stream
+        "block_mlp_int8_forward": (_P,) * 10 + (_I,) * 5 + (_P,),
     },
     "small_attn": {
         # q, k, v, kpad (bool, or null), o, B, H, S, D, the (batch, head, row) element

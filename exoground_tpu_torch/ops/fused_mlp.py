@@ -4,21 +4,20 @@ activation reaching device memory.
 Counterpart of ``exoground_tpu/ops/fused_mlp.py`` (reference
 model/tfm_model.py:23-27). ``fused_mlp`` launches the hand-written kernel in
 ``csrc/fused_mlp.cu`` on CUDA tensors and takes ``mlp_plain``, the
-composition it fuses, only for tensors on the CPU. The kernel's CTA shape
-and its split of the hidden dimension over CTAs at few rows come from
-``mlp_launch_plan``, a pure function of (rows, C). Inference-only, as the
+composition it fuses, only for tensors on the CPU. Inference-only, as the
 TPU kernel is (its custom VJP recomputes the XLA path): a CUDA input that
 requires grad raises.
 
-The int8 serving mode's route: ``fused_mlp_int8`` quantizes c_fc per output
-row (``quant._quant_first_axis``) and launches ``csrc/fused_mlp_int8.cu``,
-which quantizes x per row inside and runs c_fc as int8 x int8 -> int32
-(c_proj exact); on the CPU it takes ``mlp_int8_plain``, the kernel body
-written plainly. ``MLP`` takes it under ``quant.matmul_impl('int8')`` when
-the policy quantizes c_fc (4C >= min_cols) but not c_proj (C < min_cols). The train step differentiates inside
-``disable_fused_kernels()``, where ``MLP`` and ``MultiHeadAttention`` take
-their plain compositions, as the JAX package's train steps trace under its
-context of the same name (exoground_tpu/ops/fused_mlp.py:37-58).
+The int8 serving mode's route: ``fused_mlp_int8`` launches
+``csrc/fused_mlp_int8.cu``, which quantizes x per row inside and runs c_fc
+as int8 x int8 -> int32 (c_proj exact), with c_fc quantized per output row
+once per weight version (``quant.quantized_weight``); on the CPU it takes
+``mlp_int8_plain``, the kernel body written plainly. ``MLP`` takes it under
+``quant.matmul_impl('int8')`` when the policy quantizes c_fc (4C >=
+min_cols) but not c_proj (C < min_cols). The train step differentiates
+inside ``disable_fused_kernels()``, where ``MLP`` and ``MultiHeadAttention``
+take their plain compositions, as the JAX package's train steps trace under
+its context of the same name (exoground_tpu/ops/fused_mlp.py:37-58).
 
 The whole-block path's second half: ``fused_block_mlp`` computes
 x + MLP(LN_2(x)) in one launch of ``csrc/block_mlp.cu`` (the LayerNorm in
@@ -27,6 +26,11 @@ c_fc body; on the CPU it takes ``block_mlp_plain`` /
 ``block_mlp_int8_plain``, the kernel bodies written plainly. The blocks
 take it when ``resolve_mlp_impl`` gives 'fused' and the attention impl is
 an explicit 'fused' (``attention.block_fusion_mode``).
+
+All four kernel bodies are one tile (``csrc/mlp_tile.cuh``) on the tensor
+cores, launched by ``_launch`` with the plan of ``mlp_launch_plan``, a pure
+function of (rows, C): row tiles, column slabs and the split of the hidden
+over CTAs at few rows, whose float32 partials go to ``mlp_workspace``.
 """
 
 from __future__ import annotations
@@ -166,17 +170,17 @@ def _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b, **ln) -> torch.Tensor:
     return x2d
 
 
-MLP_ROW_TILE = 64  # rows a CTA of csrc/fused_mlp.cu owns
+MLP_ROW_TILE = 64  # rows a CTA of csrc/mlp_tile.cuh owns
 MLP_MAX_SLAB = 512  # output columns a CTA accumulates: 64 x 512 f32 is 128 floats a thread
 MLP_HIDDEN_CHUNK = 128  # hidden columns of one step of the kernel's walk
 H100_SMS = 132
 
 
 def mlp_launch_plan(rows: int, c: int, sms: int = H100_SMS) -> dict:
-    """The fused MLP kernel's launch: row tiles of ``MLP_ROW_TILE``, output
-    slabs of min(C, 512) columns (above C = 512 each slab recomputes the
-    hidden), and ``split``, the number of CTAs the 4C / 128 hidden chunks are
-    shared over (a divisor of the chunk count). One CTA fits an SM (its
+    """The launch of the MLP family's tile (all four bodies): row tiles of
+    ``MLP_ROW_TILE``, output slabs of min(C, 512) columns (above C = 512
+    each slab recomputes the hidden), and ``split``, the number of CTAs the
+    4C / 128 hidden chunks are shared over (a divisor of the chunk count). One CTA fits an SM (its
     registers), so the time goes as the waves of CTAs over the split:
     - tiles and slabs below one wave of ``sms``: the least split that
       reaches a full wave, every chunk its own CTA where none does;
@@ -206,47 +210,60 @@ def mlp_launch_plan(rows: int, c: int, sms: int = H100_SMS) -> dict:
                 ctas=work * split)
 
 
+def mlp_workspace(plan: dict, rows: int, c: int, device) -> torch.Tensor | None:
+    """The float32 workspace of a launch that splits the hidden: one (rows,
+    C) partial per CTA of the split, summed in split order by the reduction;
+    None without a split."""
+    if plan["split"] == 1:
+        return None
+    return torch.empty((plan["split"], rows, c), dtype=torch.float32, device=device)
+
+
+def _launch(name, lib, fn, x, fc_w, fc_b, pr_w, pr_b, *, ln=None, int8=False):
+    """One launch of the MLP family's tile: the checks, c_fc (quantized and
+    cached with ``int8``), the operands read by 16-byte copies checked for
+    alignment (c_fc and c_proj; x too, which the exact bodies copy and the
+    block bodies' reduction reads as vectors, but not the int8 MLP's, which
+    it quantizes), the plan and its workspace; then the C function ``fn`` of
+    library ``lib`` (built at first use, after the checks) and the count.
+    ``ln``: the block bodies' LayerNorm weight and bias, by name."""
+    ln = ln or {}
+    x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b, **ln)
+    cfc = quant.quantized_weight(fc_w) if int8 else (fc_w,)
+    aligned = dict(fc_w=cfc[0], pr_w=pr_w)
+    if ln or not int8:
+        aligned["x"] = x2d
+    _kernels.check_aligned(name, **aligned)
+    rows, c = x2d.shape
+    plan = mlp_launch_plan(rows, c)
+    ws = mlp_workspace(plan, rows, c, x2d.device)
+    out = torch.empty_like(x2d)
+    entry = getattr(_kernels.library(lib), fn)
+    ptrs = [t.data_ptr() for t in (x2d, *ln.values(), *cfc, fc_b, pr_w, pr_b, out)]
+    rc = entry(*ptrs, None if ws is None else ws.data_ptr(), rows, c, plan["slab"],
+               plan["split"], _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
+    _kernels.check(name, rc)
+    _kernels.LAUNCHES[name] += 1
+    return out.reshape(x.shape)
+
+
 def fused_mlp(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
     """QuickGELU MLP over (..., C) with the (rows, 4C) hidden kept on chip."""
     if x.device.type == "cpu":
         return mlp_plain(x, fc_w, fc_b, pr_w, pr_b)
-    name = "fused_mlp"
-    x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b)
-    _kernels.check_aligned(name, x=x2d, fc_w=fc_w, pr_w=pr_w)
-    rows, c = x2d.shape
-    plan = mlp_launch_plan(rows, c)
-    out = torch.empty_like(x2d)
-    ws = (torch.empty((plan["split"], rows, c), dtype=torch.float32, device=x2d.device)
-          if plan["split"] > 1 else None)
-    rc = _kernels.library(name).fused_mlp_forward(
-        x2d.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(), pr_w.data_ptr(),
-        pr_b.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), rows, c,
-        plan["slab"], plan["split"], _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
-    _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
-    return out.reshape(x.shape)
+    return _launch("fused_mlp", "fused_mlp", "fused_mlp_forward", x, fc_w, fc_b, pr_w, pr_b)
 
 
 def fused_mlp_int8(x, fc_w, fc_b, pr_w, pr_b) -> torch.Tensor:
     """The int8-c_fc MLP over (..., C), inference only. CPU tensors take
-    ``mlp_int8_plain``; CUDA tensors quantize fc_w (plain, per call) and
-    launch the kernel or raise. An input that requires grad raises on
-    either device: the int8 product has no gradient."""
+    ``mlp_int8_plain``; CUDA tensors launch the kernel or raise, with fc_w
+    quantized once per weight version. An input that requires grad raises
+    on either device: the int8 product has no gradient."""
     name = "fused_mlp_int8"
     _kernels.check_inference(name, x, fc_w, fc_b, pr_w, pr_b)
     if x.device.type == "cpu":
         return mlp_int8_plain(x, fc_w, fc_b, pr_w, pr_b)
-    x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b)
-    code = _kernels.dtype_code(x2d)
-    fc_q, fc_s = quant._quant_first_axis(fc_w)
-    out = torch.empty_like(x2d)
-    rc = _kernels.library(name).fused_mlp_int8_forward(
-        x2d.data_ptr(), fc_q.data_ptr(), fc_s.data_ptr(), fc_b.data_ptr(), pr_w.data_ptr(),
-        pr_b.data_ptr(), out.data_ptr(), x2d.shape[0], x2d.shape[1], code,
-        _kernels.stream_of(x2d))
-    _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
-    return out.reshape(x.shape)
+    return _launch(name, name, "fused_mlp_int8_forward", x, fc_w, fc_b, pr_w, pr_b, int8=True)
 
 
 def fused_block_mlp(x, ln_w, ln_b, fc_w, fc_b, pr_w, pr_b, int8_cfc: bool = False):
@@ -261,21 +278,5 @@ def fused_block_mlp(x, ln_w, ln_b, fc_w, fc_b, pr_w, pr_b, int8_cfc: bool = Fals
         _kernels.check_inference(name, *args)
     if x.device.type == "cpu":
         return (block_mlp_int8_plain if int8_cfc else block_mlp_plain)(*args)
-    x2d = _check_mlp(name, x, fc_w, fc_b, pr_w, pr_b, ln_w=ln_w, ln_b=ln_b)
-    rows, c = x2d.shape
-    out = torch.empty_like(x2d)
-    lib = _kernels.library("block_mlp")
-    if int8_cfc:
-        fc_q, fc_s = quant._quant_first_axis(fc_w)
-        rc = lib.block_mlp_int8_forward(
-            x2d.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), fc_q.data_ptr(), fc_s.data_ptr(),
-            fc_b.data_ptr(), pr_w.data_ptr(), pr_b.data_ptr(), out.data_ptr(), rows, c,
-            _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
-    else:
-        rc = lib.block_mlp_forward(
-            x2d.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), fc_w.data_ptr(), fc_b.data_ptr(),
-            pr_w.data_ptr(), pr_b.data_ptr(), out.data_ptr(), rows, c,
-            _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
-    _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
-    return out.reshape(x.shape)
+    return _launch(name, "block_mlp", f"{name}_forward", x, fc_w, fc_b, pr_w, pr_b,
+                   ln=dict(ln_w=ln_w, ln_b=ln_b), int8=int8_cfc)

@@ -20,7 +20,8 @@ columns instead
 The fused int8 kernels (``attention.fused_mha_int8``,
 ``fused_mlp.fused_mlp_int8``) engage where the policy quantizes their wide
 product but not their width-C one (:func:`kernel_gate`); they share these
-quantizers.
+quantizers. The MLP family's int8 kernels take their c_fc through
+:func:`quantized_weight`, which quantizes a weight once per version.
 
 The scales are IEEE quotients ``absmax / 127``, computed against a tensor
 divisor: PyTorch's CUDA division by a Python scalar multiplies by the
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Optional
 
 import torch
@@ -120,6 +122,41 @@ def _quant_first_axis(w: torch.Tensor):
     wf = w.float()
     scale = _absmax_scale(wf, 1)
     return _quantize(wf, scale), scale[:, 0]
+
+
+# id(weight) -> (weakref to it, its stamp, its quantization); see quantized_weight
+_WEIGHT_CACHE: dict = {}
+# reentrant: a weakref callback may run inside a locked section (a collection
+# triggered there) on the same thread
+_WEIGHT_LOCK = threading.RLock()
+
+
+def quantized_weight(w: torch.Tensor):
+    """``_quant_first_axis(w)``, computed once per weight and version.
+
+    The entry is keyed on ``id(w)`` and holds a weakref to w. It is used
+    only while that weakref still gives w and w's ``_version`` (bumped by
+    every in-place update), ``data_ptr``, shape, dtype and device are those
+    it was made from; it is dropped when w dies. An inference tensor has no
+    version counter, so it is quantized on every call and never cached."""
+    if w.is_inference():
+        return _quant_first_axis(w)
+    key = id(w)
+    stamp = (w._version, w.data_ptr(), tuple(w.shape), w.dtype, w.device)
+    with _WEIGHT_LOCK:
+        entry = _WEIGHT_CACHE.get(key)
+    if entry is not None and entry[0]() is w and entry[1] == stamp:
+        return entry[2]
+    quantized = _quant_first_axis(w)
+
+    def drop(ref, key=key):
+        with _WEIGHT_LOCK:
+            if _WEIGHT_CACHE.get(key, (None,))[0] is ref:
+                del _WEIGHT_CACHE[key]
+
+    with _WEIGHT_LOCK:
+        _WEIGHT_CACHE[key] = (weakref.ref(w, drop), stamp, quantized)
+    return quantized
 
 
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
