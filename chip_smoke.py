@@ -41,7 +41,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      128, 640 and x streamed: 1280 exact, 4224 int8; 4096 rows and 1 row, where
      the hidden is split over CTAs and the reduction adds the residual),
      float32 (<= 1e-4 of max|plain|, int8 bodies <= 1e-3; x_norm <= 1e-5) and
-     bfloat16 (<= 1e-2); each MLP case with its launch plan;
+     bfloat16 (<= 1e-2); each MLP case with its launch plan; the int8
+     block-attention cases also beside the exact fused_mha of the same call;
+     then one `bar ✓/✗` line for each time bar of the attention kernels
+     (attention_bars: printed, not failed on; judged on back-to-back launches,
+     single calls beside);
   4. main path: AlignmentService over TemporalAligner E6D6 (width 512, 8 heads,
      4096-d inputs, seeded random weights through the JAX->port weight bridge)
      answers align() requests, three of them concurrent through the coalescing
@@ -184,6 +188,15 @@ def time_ms(fn, warmup=3, reps=10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def b2b_ms(fn, launches=30) -> float:
+    """Mean ms of ``launches`` back-to-back calls between two CUDA events,
+    after one warm-up call: the device's time, without the Python work
+    before a single call's first launch."""
+    from exoground_tpu_torch.tools.mlp_bench import _events_ms
+
+    return _events_ms(fn, launches)
 
 
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
@@ -390,7 +403,9 @@ def mha_int8_case(B, S, C, H, dtype, seed, timed=False):
             case.update(ms=time_ms(lambda: fused_mha_int8(*args)),
                         plain_ms=time_ms(lambda: mha_int8_plain(*args)),
                         int_mm_ms=time_ms(lambda: quant._int_mm(xq2, wq)),
-                        exact_kernel_ms=time_ms(lambda: fused_mha(*args)))
+                        exact_kernel_ms=time_ms(lambda: fused_mha(*args)),
+                        ms_b2b=b2b_ms(lambda: fused_mha_int8(*args)),
+                        exact_kernel_ms_b2b=b2b_ms(lambda: fused_mha(*args)))
             item = x.element_size()
             nbytes = (2 * B * S * C + 4 * C * C + 4 * C) * item + 4 * B * S
             bms, by = int8_bound_ms(6.0 * B * S * C * C,
@@ -497,7 +512,8 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False):
     lengths, a zero row; the output and x_norm apart. With ``timed``, beside
     the plain version, the per-module kernels of the same run
     (F.layer_norm + fused_mha or fused_mha_int8 + the add; no single
-    PyTorch call computes the block) and the bound."""
+    PyTorch call computes the block), for the int8 body the exact fused_mha
+    on the same x, and the bound."""
     import torch.nn.functional as F
 
     from exoground_tpu_torch.ops import _kernels
@@ -542,7 +558,12 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False):
                 return x + mha(xn_, kpad, w_in, b_in, w_out, b_out, H), xn_
 
             case.update(ms=time_ms(lambda: fused_block_attn(*args, int8_qkv=int8)),
-                        plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module))
+                        plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module),
+                        ms_b2b=b2b_ms(lambda: fused_block_attn(*args, int8_qkv=int8)),
+                        per_module_ms_b2b=b2b_ms(per_module))
+            if int8:  # the exact fused MHA of the same call, the int8 MHA's yardstick
+                case["exact_kernel_ms"] = time_ms(
+                    lambda: fused_mha(x, kpad, w_in, b_in, w_out, b_out, H))
             nbytes = (3 * B * S * C + 4 * C * C + 6 * C) * x.element_size() + 4 * B * S
             attn_flops = 4.0 * B * S * S * C
             if int8:
@@ -607,6 +628,51 @@ def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
                                          dtype))
     _block_check(name, case, dtype, int8)
     return case
+
+
+# The bars the attention kernels are held to (printed as checks, not
+# failures: they compare times). The float32 int8 bodies' times of the
+# (window, head) design they replaced, H100 80GB HBM3 at 700 W (PERF.md §6,
+# row 5 and row 7's int8 body), at B304 S64 / S96.
+INT8_F32_EARLIER_MS = {"fused_mha_int8": (1.665, 2.378), "block_attn_int8": (1.860, 2.683)}
+
+
+def attention_bars(mha8_cases, block_cases):
+    """One ✓/✗ line a bar, at B304 S64 and S96: the block attention within
+    1.05x its per-module kernels (float32, bfloat16, and the int8 body in
+    bfloat16) and the int8 MHA in bfloat16 at most the exact fused MHA, each
+    judged on back-to-back launches (the device's time) with the single
+    calls beside; and the float32 int8 bodies' single calls no slower than
+    the design they replaced (single calls, as those times were taken)."""
+    def timed(cases):
+        return [c for c in cases if "ms" in c]
+
+    def line(bar, ok, detail):
+        print(f"bar {'✓' if ok else '✗'} {bar}: {detail}", flush=True)
+
+    def versus(c, key, limit):
+        b2b, single = c["ms_b2b"] / c[f"{key}_b2b"], c["ms"] / c[key]
+        return b2b <= limit, (f"back to back {c['ms_b2b']:.3f} / {c[key + '_b2b']:.3f} ms = "
+                              f"{b2b:.3f}; single call {c['ms']:.3f} / {c[key]:.3f} ms = "
+                              f"{single:.3f} ({'✓' if single <= limit else '✗'})")
+
+    for name, cases in (("block_attn", block_cases["block_attn"]),
+                        ("block_attn_int8", block_cases["block_attn_int8"])):
+        for c in timed(cases):
+            if name == "block_attn_int8" and c["dtype"] == "float32":
+                continue
+            line(f"{name} {c['dtype']} {c['shape']} <= 1.05 x per-module",
+                 *versus(c, "per_module_ms", 1.05))
+    for c in timed(mha8_cases):
+        if c["dtype"] == "bfloat16":
+            line(f"fused_mha_int8 bfloat16 {c['shape']} <= exact fused_mha",
+                 *versus(c, "exact_kernel_ms", 1.0))
+    for name, cases in (("fused_mha_int8", mha8_cases),
+                        ("block_attn_int8", block_cases["block_attn_int8"])):
+        f32 = [c for c in timed(cases) if c["dtype"] == "float32"]
+        for c, earlier in zip(f32, INT8_F32_EARLIER_MS[name]):
+            line(f"{name} float32 {c['shape']} <= {earlier} ms (the (window, head) design)",
+                 c["ms"] <= earlier, f"single call {c['ms']:.3f} ms")
 
 
 def block_kernel_cases():
@@ -1847,6 +1913,7 @@ def main():
 
     # phase 3e: the whole-block kernels against their plain versions
     block_cases = block_kernel_cases()
+    attention_bars(mha8_cases, block_cases)
 
     # phase 3f: the window-attention kernel against its plain version
     small_cases = small_kernel_cases()
@@ -1908,6 +1975,8 @@ def main():
         e = entry(name, f"exoground_tpu_torch/csrc/{source}", replaces, block_cases[name])
         e.update(per_module_ms=block_cases[name][0]["per_module_ms"],
                  launches_by_path={"block path (phase 4c)": launches[name]})
+        if "exact_kernel_ms" in block_cases[name][0]:
+            e["exact_kernel_ms"] = block_cases[name][0]["exact_kernel_ms"]
         return e
 
     def grid_entry(part, replaces):

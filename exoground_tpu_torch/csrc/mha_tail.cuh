@@ -1,8 +1,8 @@
-// The parts the fused-MHA kernels share (csrc/fused_mha.cu,
-// csrc/fused_mha_int8.cu and the block kernels of csrc/block_attn.cu): the
-// per-window attention tail of one (window, head) CTA and the tiled
-// out-projection. Counterpart of the TPU kernels'
-// shared _mha_attention_tail (exoground_tpu/ops/attention.py:575).
+// The tail the fused-MHA family shares (mha_tile.cuh's bodies, under
+// csrc/fused_mha.cu, fused_mha_int8.cu, block_attn.cu and block_attn_int8.cu):
+// the per-window attention of the f32 (window, head) CTAs and the tiled
+// out-projection. Counterpart of the TPU kernels' shared
+// _mha_attention_tail (exoground_tpu/ops/attention.py:575).
 //
 // The out-projection has two bodies. float32: linear_bias_kernel, a 64 x 64
 // f32 GEMM on the CUDA cores (the first design, kept as it was). bfloat16: a
@@ -10,11 +10,12 @@
 // of 64 x 32, mma.sync m16n8k16 (bf16 in, f32 accumulated) fed by ldmatrix
 // from a two-stage cp.async ring of 32-wide K chunks (row pitch 40 elements,
 // so an ldmatrix touches 8 distinct bank groups), the bias (and the block
-// kernels' residual) added to the f32 sum before the one rounding. It serves
-// all three bf16 callers: fused MHA, int8 fused MHA and the block kernels.
-// K = C spans every head, so the heads are summed inside one dot product,
-// with no atomics. It needs the attn scratch and W_out 16-byte aligned
-// (cp.async) and returns cudaErrorMisalignedAddress otherwise.
+// bodies' residual, read as bf16 pairs: x 4-byte aligned) added to the f32
+// sum before the one rounding. It serves
+// every bf16 body of the family. K = C spans every head, so the heads are
+// summed inside one dot product, with no atomics. It needs the attn scratch
+// and W_out 16-byte aligned (cp.async) and returns cudaErrorMisalignedAddress
+// otherwise.
 #pragma once
 
 #include <cfloat>
@@ -84,7 +85,7 @@ __device__ __forceinline__ void window_attention(const float* qs, const float* k
 }
 
 // y[m, n] = sum_k a[m, k] * w[n, k] + bias[n] (+ res[m, n] when res is not
-// null: the block kernels' residual, summed in f32 before the one rounding);
+// null: the block bodies' residual, summed in f32 before the one rounding);
 // one 64x64 tile per CTA of 256 threads. Heads are summed inside one dot
 // product, so the out-projection does not depend on scheduling (no atomics
 // across heads).
@@ -141,7 +142,7 @@ linear_bias_kernel(const T* __restrict__ a, const T* __restrict__ w,
 }
 
 // The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out
-// (+ res, the block kernels' residual x, when given).
+// (+ res, the block bodies' residual x, when given).
 template <typename T>
 inline cudaError_t out_projection(const void* attn, const void* w_out, const void* b_out,
                                   void* out, int M, int C, cudaStream_t st,
@@ -161,6 +162,9 @@ inline cudaError_t out_projection(const void* attn, const void* w_out, const voi
 // staged (K and N multiples of 8).
 constexpr int kLinBM = 128, kLinBN = 128, kLinBK = 32, kLinPitch = kLinBK + 8;
 
+// RES: the block bodies' residual res (row pitch N, 4-byte aligned), read
+// as bf16 pairs; without it the epilogue is the plain bias add.
+template <bool RES>
 __global__ void __launch_bounds__(256)
 linear_bias_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                         const __nv_bfloat16* __restrict__ w,
@@ -229,9 +233,11 @@ linear_bias_bf16_kernel(const __nv_bfloat16* __restrict__ a,
         if (n >= N) continue;
         float v0 = acc[mt][nt][2 * half] + to_f(bias[n]);
         float v1 = acc[mt][nt][2 * half + 1] + to_f(bias[n + 1]);
-        if (res) {
-          v0 += to_f(res[size_t(m) * N + n]);
-          v1 += to_f(res[size_t(m) * N + n + 1]);
+        if constexpr (RES) {
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(res + size_t(m) * N + n));
+          v0 += r.x;
+          v1 += r.y;
         }
         *reinterpret_cast<uint32_t*>(y + size_t(m) * N + n) = tc::pack_bf16(v0, v1);
       }
@@ -244,9 +250,11 @@ inline cudaError_t out_projection<__nv_bfloat16>(const void* attn, const void* w
                                                  const void* b_out, void* out, int M, int C,
                                                  cudaStream_t st, const void* res) {
   if (!tc::aligned16(attn) || !tc::aligned16(w_out)) return cudaErrorMisalignedAddress;
+  if (res && reinterpret_cast<uintptr_t>(res) % 4) return cudaErrorMisalignedAddress;
   if (C % 8) return cudaErrorInvalidValue;
   const dim3 grid((M + kLinBM - 1) / kLinBM, (C + kLinBN - 1) / kLinBN);
-  linear_bias_bf16_kernel<<<grid, 256, 0, st>>>(
+  auto kernel = res ? linear_bias_bf16_kernel<true> : linear_bias_bf16_kernel<false>;
+  kernel<<<grid, 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(attn), static_cast<const __nv_bfloat16*>(w_out),
       static_cast<const __nv_bfloat16*>(b_out), static_cast<const __nv_bfloat16*>(res),
       static_cast<__nv_bfloat16*>(out), M, C, C);

@@ -53,9 +53,9 @@ SIGNATURES = {
         "fused_mlp_forward": (_P,) * 7 + (_I,) * 5 + (_P,),
     },
     "fused_mha_int8": {
-        # x, kpad, w_in int8, w_in scales, b_in, w_out, b_out, attn scratch,
-        # out, B, S, C, H, dtype, stream
-        "fused_mha_int8_forward": (_P,) * 9 + (_I,) * 5 + (_P,),
+        # x, kpad, w_in int8, w_in scales, b_in, w_out, b_out, x int8, x scales,
+        # attn scratch, out, B, S, C, H, dtype, stream
+        "fused_mha_int8_forward": (_P,) * 11 + (_I,) * 5 + (_P,),
     },
     "fused_mlp_int8": {
         # x, c_fc w int8, c_fc scales, c_fc b, c_proj w, c_proj b, out, f32
@@ -77,8 +77,9 @@ SIGNATURES = {
     },
     "block_attn_int8": {
         # x, kpad, ln w, ln b, w_in int8, w_in scales, b_in, w_out, b_out,
-        # attn scratch, out, x_norm, B, S, C, H, dtype, stream
-        "block_attn_int8_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
+        # x_norm int8, x_norm scales, attn scratch, out, x_norm, B, S, C, H,
+        # dtype, stream
+        "block_attn_int8_forward": (_P,) * 14 + (_I,) * 5 + (_P,),
     },
     "block_mlp": {
         # x, ln w, ln b, c_fc w, c_fc b, c_proj w, c_proj b, out, f32

@@ -33,21 +33,27 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     window core on square windows of S <= 128 only), with ``check_impl``
     its one test of an impl string.
   * ``fused_mha_int8`` — the int8 serving mode's route (counterpart of
-    ``_fused_mha_int8``): W_in quantized per output row by
-    ``quant._quant_first_axis``, then the kernel in
-    ``csrc/fused_mha_int8.cu`` quantizes x per row inside and runs the qkv
-    projection as int8 x int8 -> int32 (attention and out-projection
-    exact); a CPU tensor takes ``mha_int8_plain``, the kernel body written
-    plainly. Inference-only.
+    ``_fused_mha_int8``): W_in quantized per output row once per weight
+    version (``quant.quantized_weight``), then ``csrc/fused_mha_int8.cu``
+    quantizes x once per row into the wrapper's scratch (``mha_scratch``)
+    and runs the qkv projection as int8 x int8 -> int32 (attention and
+    out-projection exact); a CPU tensor takes ``mha_int8_plain``, the
+    kernel body written plainly. Inference-only.
   * ``fused_block_attn`` — the whole-block path's first half (counterpart
     of ``fused_block_attn``/``_block_attn``): (x + MHA(LN_1(x)), LN_1(x)) in
-    one launch of ``csrc/block_attn.cu`` (the int8-qkv body:
-    ``csrc/block_attn_int8.cu``), the LayerNorm in float32 and the residual
-    summed in float32 and rounded once; a CPU tensor takes
-    ``block_attn_plain`` / ``block_attn_int8_plain``.
+    one call of ``csrc/block_attn.cu`` (the int8-qkv body:
+    ``csrc/block_attn_int8.cu``): the LayerNorm once per row in float32,
+    written as x_norm, then fused MHA's body on it (the int8 fused MHA's on
+    its quantized float32 form) and the residual summed in float32 and
+    rounded once; a CPU tensor takes ``block_attn_plain`` /
+    ``block_attn_int8_plain``.
     ``block_fusion_mode`` says when a block takes it: an explicit 'fused'
     on a kernel-eligible window, in the default context ('exact') or in an
     int8 one whose policy quantizes 3C but not C ('int8').
+  The four kernels share ``csrc/mha_tile.cuh``: a float32 body per
+  (window, head) on the CUDA cores and a bfloat16 body per (128-row tile,
+  head) on the tensor cores (the int8 qkv as ``mma.sync`` .s8); every launch
+  goes through ``_launch_mha``.
   * ``MultiHeadAttention`` — the ``nn.MultiheadAttention`` parameter layout
     (packed ``in_proj_weight`` (3C, C), ``out_proj``) with the JAX module's
     dispatch: under 'auto' (outside ``disable_fused_kernels()``) or an
@@ -439,12 +445,13 @@ def mha_int8_plain(x, kpad, w_in, b_in, w_out, b_out, num_heads):
     return F.linear(_merge_heads(o).to(w_out.dtype), w_out, b_out).to(x.dtype)
 
 
-def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
-               stages_x_and_w_in=False, **ln):
+def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, staged=(),
+               **ln):
     """The wrappers' checks before a launch (``ln``: the block kernels'
     LayerNorm weight and bias); returns the int32 key padding. In bf16 the
-    out-projection stages W_out by cp.async, and fused MHA's body (with
-    ``stages_x_and_w_in``) also x and W_in: each must be 16-byte aligned."""
+    out-projection stages W_out by cp.async, and the tensor-core body the
+    operands named in ``staged`` ('x', 'w_in'): each must be 16-byte
+    aligned."""
     b, s, c = x.shape
     if not kernel_eligible(s, c, num_heads):
         raise ValueError(f"{name}: S={s}, C={c}, H={num_heads} outside the fused test "
@@ -465,8 +472,8 @@ def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
     _kernels.check_cuda_inputs(name, x.device, x.dtype, x=x, w_in=w_in, b_in=b_in,
                                w_out=w_out, b_out=b_out, **ln)
     if x.dtype == torch.bfloat16:
-        staged = dict(x=x, w_in=w_in) if stages_x_and_w_in else {}
-        _kernels.check_aligned(name, w_out=w_out, **staged)
+        operands = dict(x=x, w_in=w_in)
+        _kernels.check_aligned(name, w_out=w_out, **{k: operands[k] for k in staged})
     if key_padding_mask is None:
         return torch.zeros((b, s), dtype=torch.int32, device=x.device)
     if key_padding_mask.shape != (b, s):
@@ -475,48 +482,68 @@ def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
     return key_padding_mask.to(device=x.device, dtype=torch.int32).contiguous()
 
 
+def mha_scratch(x, int8: bool):
+    """The device scratch of one launch of the MHA family, for x (B, S, C):
+    with ``int8`` the row prologue's output, xq (B*S, C) int8 and its
+    scales xs (B*S,) float32, then the (B*S, C) o scratch in x's type that
+    the out-projection reads. Fresh allocations: 16-byte aligned."""
+    b, s, c = x.shape
+    attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
+    if not int8:
+        return (attn,)
+    return (torch.empty((b * s, c), dtype=torch.int8, device=x.device),
+            torch.empty((b * s,), dtype=torch.float32, device=x.device), attn)
+
+
+def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, *, ln=None,
+                int8=False):
+    """One call of the MHA family: the checks, W_in (quantized and cached
+    with ``int8``), the scratch, then the C function ``<name>_forward`` of
+    library ``name`` (built at first use, after the checks) and the count. Its
+    pointers: x, the key padding, the LayerNorm (``ln``, by name: the block
+    bodies), W_in or its int8 values and scales, b_in, W_out, b_out, the
+    scratch, out (and x_norm with ``ln``). In bf16 the exact bodies' tile
+    copies W_in by cp.async (the int8 bodies' tile the fresh int8 W_in and
+    xq), fused MHA's tile x (the block bodies' tile the fresh x_norm), and
+    the block bodies' out-projection reads x, its residual, as pairs: those
+    operands are checked for alignment. Returns out, or (out, x_norm)."""
+    ln = ln or {}
+    staged = tuple(k for k, on in (("x", bool(ln) or not int8), ("w_in", not int8)) if on)
+    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
+                      staged=staged, **ln)
+    b, s, c = x.shape
+    w = quant.quantized_weight(w_in) if int8 else (w_in,)
+    outs = (torch.empty_like(x), torch.empty_like(x)) if ln else (torch.empty_like(x),)
+    entry = getattr(_kernels.library(name), f"{name}_forward")
+    ptrs = [t.data_ptr() for t in (x, kpad, *ln.values(), *w, b_in, w_out, b_out,
+                                   *mha_scratch(x, int8), *outs)]
+    rc = entry(*ptrs, b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
+    _kernels.check(name, rc)
+    _kernels.LAUNCHES[name] += 1
+    return outs if ln else outs[0]
+
+
 def fused_mha(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
     """Whole-MHA window self-attention, S <= 128: x (B, S, C), weights in
     torch layout. CPU tensors take ``mha_plain``; CUDA tensors launch the
     kernel or raise."""
     if x.device.type == "cpu":
         return mha_plain(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
-    name = "fused_mha"
-    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
-                      stages_x_and_w_in=True)
-    b, s, c = x.shape
-    attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    rc = _kernels.library(name).fused_mha_forward(
-        x.data_ptr(), kpad.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-        w_out.data_ptr(), b_out.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
-    _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
-    return out
+    return _launch_mha("fused_mha", x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
 
 
 def fused_mha_int8(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads):
     """The int8-qkv whole MHA over windows of S <= 128, inference only. CPU
-    tensors take ``mha_int8_plain``; CUDA tensors quantize w_in (plain, per
-    call) and launch the kernel or raise. An input that requires grad
-    raises on either device: the int8 product has no gradient."""
+    tensors take ``mha_int8_plain``; CUDA tensors launch the kernel or
+    raise, with w_in quantized once per weight version. An input that
+    requires grad raises on either device: the int8 product has no
+    gradient."""
     name = "fused_mha_int8"
     _kernels.check_inference(name, x, w_in, b_in, w_out, b_out)
     if x.device.type == "cpu":
         return mha_int8_plain(x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
-    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads)
-    b, s, c = x.shape
-    w_q, w_s = quant._quant_first_axis(w_in)
-    attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    rc = _kernels.library(name).fused_mha_int8_forward(
-        x.data_ptr(), kpad.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), b_in.data_ptr(),
-        w_out.data_ptr(), b_out.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
-    _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
-    return out
+    return _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
+                       int8=True)
 
 
 def kernel_eligible(s: int, c: int, num_heads: int) -> bool:
@@ -584,13 +611,14 @@ def block_attn_int8_plain(x, kpad, ln_w, ln_b, w_in, b_in, w_out, b_out, num_hea
 
 def fused_block_attn(x, key_padding_mask, ln_w, ln_b, w_in, b_in, w_out, b_out, num_heads,
                      int8_qkv: bool = False):
-    """(x + MHA(LN_1(x)), LN_1(x)) over windows of S <= 128 in one pass
+    """(x + MHA(LN_1(x)), LN_1(x)) over windows of S <= 128 in one call
     (the counterpart of ``fused_block_attn``, attention.py:927), torch
     weight layout, both outputs in x's type. CPU tensors take
     ``block_attn_plain`` (``block_attn_int8_plain`` with ``int8_qkv``);
-    CUDA tensors launch ``csrc/block_attn.cu`` (``block_attn_int8.cu``) or
-    raise. Inference-only on the card; the int8 body raises under grad on
-    either device."""
+    CUDA tensors call ``csrc/block_attn.cu`` (``block_attn_int8.cu``): the
+    row prologue, the attention body and the out-projection with the
+    residual, or raise. Inference-only on the card; the int8 body raises
+    under grad on either device."""
     name = "block_attn_int8" if int8_qkv else "block_attn"
     weights = (ln_w, ln_b, w_in, b_in, w_out, b_out)
     if int8_qkv:
@@ -598,24 +626,8 @@ def fused_block_attn(x, key_padding_mask, ln_w, ln_b, w_in, b_in, w_out, b_out, 
     if x.device.type == "cpu":
         plain = block_attn_int8_plain if int8_qkv else block_attn_plain
         return plain(x, key_padding_mask, *weights, num_heads)
-    kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
-                      ln_w=ln_w, ln_b=ln_b)
-    b, s, c = x.shape
-    attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
-    out, xn = torch.empty_like(x), torch.empty_like(x)
-    lib = _kernels.library(name)
-    tail = (b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), attn.data_ptr(),
-            out.data_ptr(), xn.data_ptr(), b, s, c, num_heads, _kernels.dtype_code(x),
-            _kernels.stream_of(x))
-    head = (x.data_ptr(), kpad.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr())
-    if int8_qkv:
-        w_q, w_s = quant._quant_first_axis(w_in)
-        rc = lib.block_attn_int8_forward(*head, w_q.data_ptr(), w_s.data_ptr(), *tail)
-    else:
-        rc = lib.block_attn_forward(*head, w_in.data_ptr(), *tail)
-    _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
-    return out, xn
+    return _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,
+                       ln=dict(ln_w=ln_w, ln_b=ln_b), int8=int8_qkv)
 
 
 class MultiHeadAttention(nn.Module):

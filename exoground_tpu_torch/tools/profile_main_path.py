@@ -9,7 +9,9 @@ warm-up sweep, three timed sweeps (host clock around work that ends in
 ``torch.cuda.synchronize()``), then one sweep under ``torch.profiler``.
 Prints, per dtype, one JSON line: frames/s (frames over the median timed
 sweep, as chip_smoke.py reports it), the device busy share of the
-profiled sweep (sum of kernel times over its wall time), and the kernels
+profiled sweep (sum of kernel times over its wall time), the MHA family's
+device time by kernel (row prologue, bf16 tile, f32 (window, head)
+kernels, out-projection) and its share of the busy time, and the kernels
 that took the most device time.
 
 ``--train`` profiles the train path instead: TANTrainer cotrain steps at
@@ -28,14 +30,13 @@ kernel, the idle share and the flash and fused-MLP shares of the busy time.
 ``--int8`` profiles the int8 serving mode instead: the same sweeps in the
 JAX bench's int8 configuration (bfloat16 compute, float16 transfer,
 matmul_dtype='int8', int8_min_cols=1024: every encoder layer through the
-int8 fused-MHA and fused-MLP kernels), with the int8 kernels' share of the
-busy time.
+int8 fused-MHA and fused-MLP kernels), with the int8 MLP's device time.
 
 ``--block`` profiles the whole-block path instead of the per-module one:
 the model built with attn_impl="fused", mlp_impl="fused", so every encoder
 layer runs two launches, the block-attention and block-MLP kernels (their
-int8 bodies with ``--int8``), with the block kernels' share of the busy
-time.
+int8 bodies with ``--int8``), with the block MLP's share of the busy time
+(the block attention's kernels are the MHA family's, counted there).
 
 ``--ground`` profiles keystep grounding served instead: ``GroundingService``
 over ``GroundingModel`` at the configuration scripts/train_grounding.sh
@@ -111,12 +112,17 @@ def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
     busy_us = sum(r[0] for r in rows)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"main_path_{label}.json"))
-    # by kernel name: the per-module int8 kernels and the block kernels (both
-    # bodies); the out-projection's linear_bias_kernel is in neither
-    int8_us = {k: sum(us for us, _, key in rows if name in key)
-               for k, name in (("mha_int8", "mha_int8_window"), ("mlp_int8", "fused_mlp_int8"))}
-    block_us = {k: sum(us for us, _, key in rows if k in key)
-                for k in ("block_attn", "block_mlp")}
+    # by kernel name: the MHA family's (csrc/mha_tile.cuh, shared by fused
+    # MHA, the int8 MHA and both block-attention bodies: the row prologue,
+    # the bf16 tensor-core tile, the f32 (window, head) kernels, the
+    # out-projection), the int8 MLP and the block MLP (both bodies)
+    attn_us = {k: sum(us for us, _, key in rows if name in key)
+               for k, name in (("row_prologue", "row_prologue_kernel"),
+                               ("tile_bf16", "mha_tc_kernel"),
+                               ("window_head_f32", "window_head_kernel"),
+                               ("out_projection", "linear_bias"))}
+    int8_us = {"mlp_int8": sum(us for us, _, key in rows if "fused_mlp_int8" in key)}
+    block_us = {"block_mlp": sum(us for us, _, key in rows if "block_mlp" in key)}
     return {
         "dtype": label,
         "path": "block" if block else "per_module",
@@ -129,6 +135,8 @@ def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
         "profiled_sweep_s": wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "attention_kernels_ms": {k: us / 1e3 for k, us in attn_us.items()},
+        "attention_share_of_busy": sum(attn_us.values()) / max(busy_us, 1e-9),
         "int8_kernels_ms": {k: us / 1e3 for k, us in int8_us.items()},
         "block_kernels_ms": {k: us / 1e3 for k, us in block_us.items()},
         "block_kernels_share_of_busy": sum(block_us.values()) / max(busy_us, 1e-9),
