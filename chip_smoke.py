@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      float32 (max error <= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); times
      by CUDA events (median of several runs after warm-up) beside the plain
      version, one PyTorch library call where one computes the same function,
-     and the card's bound;
+     and the card's bound (float32: both routes, the CUDA cores and 3xTF32);
+     fused MHA at B304 S64 and S96 also back to back (30 calls between two
+     events) beside the plain version and F.multi_head_attention_forward;
   3d. int8 kernels: fused_mha_int8 and fused_mlp_int8 against mha_int8_plain and
      mlp_int8_plain on the card (a fully-masked window, ragged lengths and a zero
      row in every case), at the int8 path's shapes (MHA B304 S64 and S96 C512 H8;
@@ -44,8 +46,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bfloat16 (<= 1e-2); each MLP case with its launch plan; the int8
      block-attention cases also beside the exact fused_mha of the same call;
      then one `bar ✓/✗` line for each time bar of the attention kernels
-     (attention_bars: printed, not failed on; judged on back-to-back launches,
-     single calls beside);
+     (attention_bars: the float32 fused MHA against F.multi_head_attention_forward
+     and the float32 flash forward against SDPA among them; printed, not
+     failed on; judged on back-to-back launches, single calls beside);
   4. main path: AlignmentService over TemporalAligner E6D6 (width 512, 8 heads,
      4096-d inputs, seeded random weights through the JAX->port weight bridge)
      answers align() requests, three of them concurrent through the coalescing
@@ -107,7 +110,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); at the four
      long shapes each kernel's time beside the plain version's,
      attention_plain's (the 'xla' route), F.scaled_dot_product_attention's
-     (a yardstick the port never calls) and the bound;
+     (a yardstick the port never calls) and the bound (float32: both
+     routes), and the forward and SDPA back to back;
   6. global mode: test_alignment_htm(method='global') over three long videos
      (evals/bench_items.py::GLOBAL_VLENS) at E6D6 full width, auto dispatch,
      counted (12 flash forward and 12 fused MLP launches per video, no fused
@@ -146,9 +150,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the CPU within 2x the CPU's own change under a 1e-7 relative change of
      the inputs, at least 1e-3: a rounding step upstream flips int8 steps).
 
-Float32 products run in full float32 (TF32 off for matmul and cuDNN); the
-fused MLP kernel's f32 body runs 3xTF32 on the tensor cores, which keeps
-float32 accuracy (csrc/fused_mlp.cu says why). The
+Float32 products of the plain versions and library calls run in full
+float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
+family, the MHA family (but the int8 qkv product's) and the flash forward
+run 3xTF32 on the tensor cores, which keeps float32 accuracy (csrc/tc.cuh
+says why). The
 line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -205,8 +211,37 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate, SXM
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core rate, SXM
+
+
+def routes_bound(int8_ops: float, exact_flops: float, nbytes: float, dtype) -> dict:
+    """The bound of a kernel: its int8 product (if any) at the int8 rate
+    plus its exact products at the dtype's rate, or its bytes at the memory
+    rate, whichever is larger. In float32 the exact products take the lesser
+    of two routes, the CUDA cores (FLOPs / 67 TFLOP/s) and 3xTF32 on the
+    tensor cores (3 x FLOPs / 495 TFLOP/s); both bounds are returned. The
+    MLP and MHA families and the flash kernels take it."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_int8 = int8_ops / H100_INT8_OPS * 1e3
+    if dtype != torch.float32:
+        t_ops = t_int8 + exact_flops / H100_PEAK_FLOPS[dtype] * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+    t_cuda = t_int8 + exact_flops / H100_PEAK_FLOPS[dtype] * 1e3
+    t_tf32 = t_int8 + 3.0 * exact_flops / H100_TF32_FLOPS * 1e3
+    t_ops = min(t_cuda, t_tf32)
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_cuda_cores_ms=max(t_cuda, t_bytes), bound_3xtf32_ms=max(t_tf32, t_bytes))
+
+
 # ----------------------------------------------------------------- phase 3
-def mha_case(B, S, C, H, dtype, seed):
+def mha_case(B, S, C, H, dtype, seed, b2b=False):
+    """fused_mha against mha_plain on the card, timed beside the plain
+    version, F.multi_head_attention_forward (a yardstick the port never
+    calls) and the bound (float32: both routes); with ``b2b`` each also
+    back to back (30 calls between two events: the device's time)."""
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.ops.attention import fused_mha, mha_plain
 
@@ -236,45 +271,30 @@ def mha_case(B, S, C, H, dtype, seed):
             fail(f"fused_mha non-finite output at B{B} S{S} C{C} {dtype}")
         ms = time_ms(lambda: fused_mha(x, kpad, w_in, b_in, w_out, b_out, H))
         plain_ms = time_ms(lambda: mha_plain(x, kpad, w_in, b_in, w_out, b_out, H))
-        lib_ms = time_ms(lambda: torch.nn.functional.multi_head_attention_forward(
-            x.transpose(0, 1), x.transpose(0, 1), x.transpose(0, 1), C, H, w_in, b_in,
-            None, None, False, 0.0, w_out, b_out, training=False,
-            key_padding_mask=kpad, need_weights=False))
+
+        def library():
+            return torch.nn.functional.multi_head_attention_forward(
+                x.transpose(0, 1), x.transpose(0, 1), x.transpose(0, 1), C, H, w_in, b_in,
+                None, None, False, 0.0, w_out, b_out, training=False,
+                key_padding_mask=kpad, need_weights=False)
+
+        lib_ms = time_ms(library)
+        times = {}
+        if b2b:
+            times = dict(ms_b2b=b2b_ms(lambda: fused_mha(x, kpad, w_in, b_in, w_out, b_out, H)),
+                         plain_ms_b2b=b2b_ms(
+                             lambda: mha_plain(x, kpad, w_in, b_in, w_out, b_out, H)),
+                         library_ms_b2b=b2b_ms(library))
     flops = 8.0 * B * S * C * C + 4.0 * B * S * S * C
     nbytes = (2 * B * S * C + 4 * C * C + 4 * C) * x.element_size() + B * S
-    bms, by = bound_ms(flops, nbytes, dtype)
     rel = err / scale
     case = dict(shape=f"B{B} S{S} C{C} H{H}", dtype=str(dtype).split(".")[-1],
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                library_ms=lib_ms, **times, **routes_bound(0.0, flops, nbytes, dtype))
     print("fused_mha", json.dumps(case), flush=True)
     if not rel <= TOL[dtype]:
         fail(f"fused_mha disagrees with mha_plain: {case}")
     return case
-
-
-H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate, SXM
-H100_INT8_OPS = 1979e12  # dense int8 tensor-core rate, SXM
-
-
-def mlp_family_bound(int8_ops: float, exact_flops: float, nbytes: float, dtype) -> dict:
-    """The bound of a kernel of the MLP family: its int8 product at the int8
-    rate plus its exact products at the dtype's rate, or its bytes at the
-    memory rate, whichever is larger. In float32 the exact products take the
-    lesser of two routes, the CUDA cores (FLOPs / 67 TFLOP/s) and the
-    kernels' 3xTF32 (3 x FLOPs / 495 TFLOP/s); both bounds are returned."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_int8 = int8_ops / H100_INT8_OPS * 1e3
-    if dtype != torch.float32:
-        t_ops = t_int8 + exact_flops / H100_PEAK_FLOPS[dtype] * 1e3
-        return dict(bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes")
-    t_cuda = t_int8 + exact_flops / H100_PEAK_FLOPS[dtype] * 1e3
-    t_tf32 = t_int8 + 3.0 * exact_flops / H100_TF32_FLOPS * 1e3
-    t_ops = min(t_cuda, t_tf32)
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_cuda_cores_ms=max(t_cuda, t_bytes), bound_3xtf32_ms=max(t_tf32, t_bytes))
 
 
 def mlp_case(rows, C, dtype, seed):
@@ -310,7 +330,7 @@ def mlp_case(rows, C, dtype, seed):
     rel = err / scale
     case = dict(shape=f"rows{rows} C{C}", dtype=str(dtype).split(".")[-1],
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=None, **mlp_family_bound(0.0, 16.0 * rows * C * C, nbytes, dtype),
+                library_ms=None, **routes_bound(0.0, 16.0 * rows * C * C, nbytes, dtype),
                 plan=mlp_launch_plan(rows, C))
     print("fused_mlp", json.dumps(case), flush=True)
     if not rel <= TOL[dtype]:
@@ -342,14 +362,6 @@ def mlp_kernel_cases():
 
 
 # ---------------------------------------------------------------- phase 3d
-
-def int8_bound_ms(int8_ops: float, rest_flops: float, nbytes: float, dtype) -> tuple:
-    """The int8 product at the int8 rate plus the rest at the dtype's rate,
-    or the bytes at the memory rate, whichever is larger."""
-    t_ops = (int8_ops / H100_INT8_OPS + rest_flops / H100_PEAK_FLOPS[dtype]) * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
 
 def _int8_inputs(rng, dtype, x_shape):
     """Random x with its second row, where there is one, zero (a zero row
@@ -408,9 +420,8 @@ def mha_int8_case(B, S, C, H, dtype, seed, timed=False):
                         exact_kernel_ms_b2b=b2b_ms(lambda: fused_mha(*args)))
             item = x.element_size()
             nbytes = (2 * B * S * C + 4 * C * C + 4 * C) * item + 4 * B * S
-            bms, by = int8_bound_ms(6.0 * B * S * C * C,
-                                    2.0 * B * S * C * C + 4.0 * B * S * S * C, nbytes, dtype)
-            case.update(bound_ms=bms, bound_by=by)
+            case.update(routes_bound(6.0 * B * S * C * C,
+                                     2.0 * B * S * C * C + 4.0 * B * S * S * C, nbytes, dtype))
     print("fused_mha_int8", json.dumps(case), flush=True)
     if not case["max_rel_err"] <= TOL[dtype]:
         fail(f"fused_mha_int8 disagrees with mha_int8_plain: {case}")
@@ -457,7 +468,7 @@ def mlp_int8_case(rows, C, dtype, seed, timed=False):
                         int_mm_ms=time_ms(lambda: quant._int_mm(xq, wq)),
                         exact_kernel_ms=time_ms(lambda: fused_mlp(*args)))
             nbytes = (2 * rows * C + 8 * C * C + 5 * C) * x.element_size()
-            case.update(mlp_family_bound(8.0 * rows * C * C, 8.0 * rows * C * C, nbytes, dtype))
+            case.update(routes_bound(8.0 * rows * C * C, 8.0 * rows * C * C, nbytes, dtype))
     print("fused_mlp_int8", json.dumps(case), flush=True)
     if not case["max_rel_err"] <= TOL[dtype]:
         fail(f"fused_mlp_int8 disagrees with mlp_int8_plain: {case}")
@@ -566,12 +577,9 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False):
                     lambda: fused_mha(x, kpad, w_in, b_in, w_out, b_out, H))
             nbytes = (3 * B * S * C + 4 * C * C + 6 * C) * x.element_size() + 4 * B * S
             attn_flops = 4.0 * B * S * S * C
-            if int8:
-                bms, by = int8_bound_ms(6.0 * B * S * C * C, 2.0 * B * S * C * C + attn_flops,
-                                        nbytes, dtype)
-            else:
-                bms, by = bound_ms(8.0 * B * S * C * C + attn_flops, nbytes, dtype)
-            case.update(bound_ms=bms, bound_by=by)
+            int8_ops = 6.0 * B * S * C * C if int8 else 0.0
+            case.update(routes_bound(int8_ops, 8.0 * B * S * C * C + attn_flops - int8_ops,
+                                     nbytes, dtype))
     _block_check(name, case, dtype, int8)
     return case
 
@@ -624,7 +632,7 @@ def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
                         plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module))
             nbytes = (2 * rows * C + 8 * C * C + 7 * C) * x.element_size()
             int8_ops = 8.0 * rows * C * C if int8 else 0.0
-            case.update(mlp_family_bound(int8_ops, 16.0 * rows * C * C - int8_ops, nbytes,
+            case.update(routes_bound(int8_ops, 16.0 * rows * C * C - int8_ops, nbytes,
                                          dtype))
     _block_check(name, case, dtype, int8)
     return case
@@ -637,25 +645,36 @@ def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
 INT8_F32_EARLIER_MS = {"fused_mha_int8": (1.665, 2.378), "block_attn_int8": (1.860, 2.683)}
 
 
-def attention_bars(mha8_cases, block_cases):
-    """One ✓/✗ line a bar, at B304 S64 and S96: the block attention within
-    1.05x its per-module kernels (float32, bfloat16, and the int8 body in
-    bfloat16) and the int8 MHA in bfloat16 at most the exact fused MHA, each
-    judged on back-to-back launches (the device's time) with the single
-    calls beside; and the float32 int8 bodies' single calls no slower than
-    the design they replaced (single calls, as those times were taken)."""
-    def timed(cases):
-        return [c for c in cases if "ms" in c]
+def attention_bars(mha_cases, flash_cases, mha8_cases, block_cases):
+    """One ✓/✗ line a bar, at B304 S64 and S96 (flash: S2048, S2096 padded,
+    S4096 and S1024): the float32 fused MHA at most F.multi_head_attention_forward
+    and the float32 flash forward at most SDPA, both with TF32 off; the block
+    attention within 1.05x its per-module kernels (float32, bfloat16, and the
+    int8 body in bfloat16) and the int8 MHA in bfloat16 at most the exact
+    fused MHA, each judged on back-to-back launches (the device's time) with
+    the single calls beside; and the float32 int8 bodies' single calls no
+    slower than the design they replaced (single calls, as those times were
+    taken)."""
+    def timed(cases, key="ms_b2b"):
+        return [c for c in cases if key in c]
 
     def line(bar, ok, detail):
         print(f"bar {'✓' if ok else '✗'} {bar}: {detail}", flush=True)
 
-    def versus(c, key, limit):
-        b2b, single = c["ms_b2b"] / c[f"{key}_b2b"], c["ms"] / c[key]
-        return b2b <= limit, (f"back to back {c['ms_b2b']:.3f} / {c[key + '_b2b']:.3f} ms = "
-                              f"{b2b:.3f}; single call {c['ms']:.3f} / {c[key]:.3f} ms = "
+    def versus(c, key, limit, own="ms"):
+        b2b, single = c[f"{own}_b2b"] / c[f"{key}_b2b"], c[own] / c[key]
+        return b2b <= limit, (f"back to back {c[own + '_b2b']:.3f} / {c[key + '_b2b']:.3f} ms = "
+                              f"{b2b:.3f}; single call {c[own]:.3f} / {c[key]:.3f} ms = "
                               f"{single:.3f} ({'✓' if single <= limit else '✗'})")
 
+    for c in timed(mha_cases):
+        if c["dtype"] == "float32":
+            line(f"fused_mha float32 {c['shape']} <= F.multi_head_attention_forward",
+                 *versus(c, "library_ms", 1.0))
+    for c in timed(flash_cases, "fwd_ms_b2b"):
+        if c["dtype"] == "float32":
+            line(f"flash_fwd float32 {c['shape']} <= SDPA",
+                 *versus(c, "fwd_library_ms", 1.0, own="fwd_ms"))
     for name, cases in (("block_attn", block_cases["block_attn"]),
                         ("block_attn_int8", block_cases["block_attn_int8"])):
         for c in timed(cases):
@@ -910,9 +929,13 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
         nvalid = (kp == 0).sum(axis=1)  # the work this data needs: valid keys only
         pairs = float(H * Sq * nvalid.sum())
         io_q, io_k = B * H * Sq * D * item, B * H * Sk * D * item
-        fb = bound_ms(4 * pairs * D, 2 * io_q + 2 * io_k + 4 * B * Sk + 4 * B * H * Sq, dtype)
-        qb = bound_ms(6 * pairs * D, 3 * io_q + 2 * io_k + 12 * B * H * Sq + 4 * B * Sk, dtype)
-        kb = bound_ms(8 * pairs * D, 2 * io_q + 4 * io_k + 8 * B * H * Sq + 4 * B * Sk, dtype)
+        bounds = {}
+        for part, flops, nbytes in (
+                ("fwd", 4 * pairs * D, 2 * io_q + 2 * io_k + 4 * B * Sk + 4 * B * H * Sq),
+                ("dq", 6 * pairs * D, 3 * io_q + 2 * io_k + 12 * B * H * Sq + 4 * B * Sk),
+                ("dkv", 8 * pairs * D, 2 * io_q + 4 * io_k + 8 * B * H * Sq + 4 * B * Sk)):
+            bounds.update({f"{part}_{k}": v
+                           for k, v in routes_bound(0.0, flops, nbytes, dtype).items()})
         q4, k4, v4 = (x.view(B, H, -1, D) for x in (q, k, v))
         mask = torch.tensor(kp != 0, device="cuda")
         attend = ~mask[:, None, None, :]
@@ -922,6 +945,8 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
             plain_fwd = time_ms(lambda: flash_attention_plain(q, k, v, kpad))
             xla_fwd = time_ms(lambda: attention_plain(q4, k4, v4, mask, scale=1.0))
             lib_fwd = time_ms(lambda: sdpa(q4, k4, v4, attn_mask=attend, scale=1.0))
+            fwd_b2b = b2b_ms(lambda: flash_forward(q, k, v, kpad))
+            lib_fwd_b2b = b2b_ms(lambda: sdpa(q4, k4, v4, attn_mask=attend, scale=1.0))
         dq_ms = time_ms(lambda: flash_dq(q, k, v, kpad, do, lse, delta))
         dkv_ms = time_ms(lambda: flash_dkv(q, k, v, kpad, do, lse, delta))
         do4 = do.view(B, H, Sq, D)
@@ -939,10 +964,10 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
         del po, xo, lo
         case.update(
             fwd_ms=fwd_ms, fwd_plain_ms=plain_fwd, fwd_library_ms=lib_fwd,
-            fwd_bound_ms=fb[0], fwd_bound_by=fb[1], fwd_attention_plain_ms=xla_fwd,
-            dq_ms=dq_ms, dq_plain_ms=plain_dq, dq_library_ms=lib_dq, dq_bound_ms=qb[0],
-            dq_bound_by=qb[1], dkv_ms=dkv_ms, dkv_plain_ms=plain_dkv, dkv_library_ms=lib_dkv,
-            dkv_bound_ms=kb[0], dkv_bound_by=kb[1], bwd_attention_plain_ms=xla_bwd)
+            fwd_ms_b2b=fwd_b2b, fwd_library_ms_b2b=lib_fwd_b2b, fwd_attention_plain_ms=xla_fwd,
+            dq_ms=dq_ms, dq_plain_ms=plain_dq, dq_library_ms=lib_dq, dkv_ms=dkv_ms,
+            dkv_plain_ms=plain_dkv, dkv_library_ms=lib_dkv, bwd_attention_plain_ms=xla_bwd,
+            **bounds)
         torch.cuda.empty_cache()
     print("flash", json.dumps(case), flush=True)
     if not rel <= TOL[dtype] or not empty_exact or not lse_err <= 1e-3:
@@ -1870,8 +1895,8 @@ def main():
     # phase 3: kernels against their plain versions
     mha_cases, mlp_cases = [], []
     for dtype in (torch.float32, torch.bfloat16):
-        mha_cases.append(mha_case(304, 64, 512, 8, dtype, seed=1))
-        mha_cases.append(mha_case(304, 96, 512, 8, dtype, seed=2))
+        mha_cases.append(mha_case(304, 64, 512, 8, dtype, seed=1, b2b=True))
+        mha_cases.append(mha_case(304, 96, 512, 8, dtype, seed=2, b2b=True))
         mha_cases.append(mha_case(5, 33, 128, 4, dtype, seed=3))
         mha_cases.append(mha_case(3, 17, 128, 16, dtype, seed=6))   # head size 8
         mha_cases.append(mha_case(4, 72, 640, 16, dtype, seed=7))   # head size 40
@@ -1913,7 +1938,7 @@ def main():
 
     # phase 3e: the whole-block kernels against their plain versions
     block_cases = block_kernel_cases()
-    attention_bars(mha8_cases, block_cases)
+    attention_bars(mha_cases, flash_cases, mha8_cases, block_cases)
 
     # phase 3f: the window-attention kernel against its plain version
     small_cases = small_kernel_cases()
@@ -1996,7 +2021,8 @@ def main():
         for c in flash_cases:
             c = {k: v for k, v in c.items()
                  if not any(k.startswith(f"{p}_") for p in parts if p != part)}
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "ms_b2b",
+                      "library_ms_b2b", "bound_cuda_cores_ms", "bound_3xtf32_ms"):
                 if f"{part}_{k}" in c:
                     c[k] = c.pop(f"{part}_{k}")
             cases.append(c)

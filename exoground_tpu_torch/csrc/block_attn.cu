@@ -17,8 +17,8 @@
 // Design: the TPU kernel is fused MHA's product on xn, so this is fused
 // MHA's (mha_tile.cuh) after the kRowLn prologue: one warp a row takes the
 // LN statistics once and writes xn in x's type into the x_norm output, which
-// the attention kernel then reads as fused MHA reads x (f32: the (window,
-// head) kernel; bf16: the tensor-core tile); the out-projection of
+// the attention kernel then reads as fused MHA reads x (f32: the 3xTF32
+// tile; bf16: the bf16 tile, both on the tensor cores); the out-projection of
 // mha_tail.cuh adds the residual x in f32 before its one rounding. The
 // sources build without fast math: the LN root and quotients are IEEE
 // operations, as in the plain version.
@@ -28,8 +28,9 @@
 // (3C, C), b_in (3C), w_out (C, C), b_out (C), attn scratch (B*S, C), out and
 // x_norm (B, S, C); all contiguous, of one type (dtype 0: float32, 1:
 // bfloat16) apart from kpad; S <= 128, C a multiple of 128, head size C/H a
-// multiple of 8 up to 64; bfloat16: w_in, w_out, attn and x_norm 16-byte
-// aligned. Returns the first CUDA error of the launches, or 0.
+// multiple of 8 up to 64; w_in, w_out, attn and x_norm 16-byte aligned (x
+// 8-byte aligned in f32, 4-byte in bf16). Returns the first CUDA error of
+// the launches, or 0.
 extern "C" int block_attn_forward(const void* x, const void* kpad, const void* ln_w,
                                   const void* ln_b, const void* w_in, const void* b_in,
                                   const void* w_out, const void* b_out, void* attn, void* out,

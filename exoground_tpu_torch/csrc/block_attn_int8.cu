@@ -23,7 +23,7 @@
 
 // As block_attn_forward (csrc/block_attn.cu), with W_in quantized per row
 // (wq (3C, C) int8, wsc (3C) float32) and the prologue's xq (B*S, C) int8 and
-// xs (B*S) float32; bfloat16: wq, xq, w_out and attn 16-byte aligned.
+// xs (B*S) float32; w_out and attn 16-byte aligned (bfloat16: wq and xq too).
 extern "C" int block_attn_int8_forward(const void* x, const void* kpad, const void* ln_w,
                                        const void* ln_b, const void* wq, const void* wsc,
                                        const void* b_in, const void* w_out, const void* b_out,

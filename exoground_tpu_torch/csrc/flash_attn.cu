@@ -21,33 +21,40 @@
 // FLOPs against (2*BH*Sq*D + 2*BH*Sk*D)*itemsize bytes: at B1 H8 S2048 D64,
 // 8.6 GFLOP per 8.4 MB in f32 (~1000 FLOP/byte, far above the f32 balance
 // point of ~20 and the bf16 one of ~295). The backward does 7 tile products
-// against the forward's 2. Nothing but the tile products' rate matters, and
-// for bf16 inputs that rate is the tensor cores'.
+// against the forward's 2. Nothing but the tile products' rate matters: the
+// tensor cores' for bf16 and, in 3xTF32 (3 x 8.6 GFLOP / 495 TFLOP/s = 0.052
+// ms against 8.6 / 67 = 0.128 on the CUDA cores), for f32 too.
 //
-// Two bodies, by input type.
+// Three bodies. The TPU kernel runs a sequential grid (bh, q block, k block)
+// with 512 x 1024 blocks and carries m, l and the accumulator in VMEM from
+// one key block to the next. Hopper blocks run in parallel and in no order,
+// so each CTA owns 64 rows and loops over the other axis itself: the
+// forward and dq own 64 query rows and walk the key tiles of 64; dk/dv own
+// 64 key rows and walk the query tiles, so there are no atomics and the
+// result does not vary from run to run.
 //
-// float32: the first design, kept as it was. f32 math on the CUDA cores (the
-// f32 limit of 1e-4 of max|plain| rules out plain TF32): the S x S scores
-// stay out of device memory and the FMAs are fed from shared memory.
-// The TPU kernel runs a sequential grid (bh, q block, k block) with
-// 512 x 1024 blocks and carries m, l and the accumulator in VMEM from one
-// key block to the next. Hopper blocks run in parallel and in no order, so
-// each CTA owns 64 rows and loops over the other axis itself:
-//   forward and dq: one CTA per (64 query rows, bh) walks the key tiles of
-//     64; q (and do) stay in shared memory, K and V tiles are staged there,
-//     the row statistics and the accumulator live in registers;
-//   dk/dv: one CTA per (64 key rows, bh) walks the query tiles; each CTA
-//     owns its dk/dv rows, so there are no atomics and the result does not
-//     vary from run to run.
+// float32 dq and dk/dv: the first design, on the CUDA cores. The S x S
+// scores stay out of device memory and the FMAs are fed from shared memory.
 // 256 threads hold a 64 x 64 score tile as 4 x 4 per thread: thread (ty,
-// tx) = (tid / 16, tid % 16) holds rows ty + 16 i and columns tx + 16 j, so
-// a row lives on one half-warp and its max and sum are shuffle reductions.
-// The same thread owns output columns tx + 16 j of the same rows. Operand
+// tx) = (tid / 16, tid % 16) holds rows ty + 16 i and columns tx + 16 j, and
+// the same thread owns output columns tx + 16 j of the same rows. Operand
 // tiles are staged transposed, [d][row] with a pitch of 65 floats, so every
 // product reads shared memory without bank conflicts. Rows past Sq or Sk
 // are masked in place: no padding copies. The head size is a template
 // constant (32, 40, 64, 128); a smaller D that is a multiple of 8 runs in
 // the next tile up with zero-filled columns.
+//
+// float32 forward (flash_fwd_tf32_kernel): the bf16 forward's design below
+// with every product in 3xTF32 (tc.cuh: m16n8k8 .tf32, each operand split
+// into a TF32 hi half and the rest; plain TF32 would miss the f32 limit of
+// 1e-4 of max|plain|, 3xTF32 keeps float32 accuracy). The tiles stay f32 in
+// shared memory at a row pitch of D + 4 floats (4 mod 8: conflict-free
+// fragment reads); q's hi/lo fragments stay in registers for the walk at
+// head tiles <= 64 (from shared memory at 128, where they would take 128
+// registers); p stays f32, as the f32 TPU body keeps it, and goes from the
+// score C fragments to the A fragments of p . v in registers by reading
+// k-column t as key 2t and t + 4 as key 2t + 1 (v's rows read to match).
+// Head tiles 32, 48, 64, 128; 87 KB of shared memory at 64, two CTAs an SM.
 //
 // bfloat16: every tile product on the tensor cores (tc.cuh). The first body
 // served bf16 too, on the CUDA cores: it converted every value to f32 as it
@@ -71,8 +78,9 @@
 //     that are multiples of 8 up to 128 run in a tile of 32, 48, 64 or 128
 //     columns with the rest zero-filled. 128 threads and 26-104 KB of shared
 //     memory a CTA, so three or four CTAs share an SM at D <= 64.
-// The bf16 body needs q, k, v and do 16-byte aligned (cp.async); the
-// entry points return cudaErrorMisalignedAddress otherwise.
+// The tensor-core bodies (the forward in both types, dq and dk/dv in bf16)
+// need q, k, v (and do) 16-byte aligned (cp.async); the entry points return
+// cudaErrorMisalignedAddress otherwise.
 //
 // Rounding follows the TPU kernel for bf16 inputs: p is rounded to v's type
 // before p . v (:157), ds to k's type before ds . k (:198) and to q's type
@@ -81,6 +89,7 @@
 // on the unrounded f32 p (:229); the bf16 body's tensor cores take p rounded
 // to bf16 there, one more rounding of ~2^-9 per element, inside the bf16
 // limit of 1e-2 of max|plain|. flash_attention_plain keeps the TPU order.
+// In f32 nothing is rounded between products, in any body.
 #include <cstddef>
 #include <math.h>
 
@@ -158,18 +167,6 @@ __device__ __forceinline__ void tile_times(const float* w, const float* b,
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off >= 1; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off >= 1; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return exo::to_f(exo::from_f<T>(x));
@@ -198,80 +195,6 @@ __device__ __forceinline__ void zero(float (&acc)[4][NJ]) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-}
-
-// ---------------------------------------------------------------- forward
-template <typename T, int DT>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ kpad, T* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Sk, int D) {
-  constexpr int NJ = Cols<DT>::NJ, DP = Cols<DT>::DP;
-  extern __shared__ float smem[];
-  float* qt = smem;          // [DP][kP]
-  float* kt = qt + DP * kP;  // [DP][kP]
-  float* vt = kt + DP * kP;  // [DP][kP]
-  float* ps = vt + DP * kP;  // [kT][kP]
-  __shared__ int valid[kT];
-  const int bh = blockIdx.y, q0 = blockIdx.x * kT;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  q += size_t(bh) * Sq * D;
-  k += size_t(bh) * Sk * D;
-  v += size_t(bh) * Sk * D;
-  const int* pad = kpad + size_t(bh / H) * Sk;
-
-  load_t<T, DP>(q, Sq, D, q0, qt);
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  zero<NJ>(acc);
-  for (int k0 = 0; k0 < Sk; k0 += kT) {
-    __syncthreads();  // the previous tile's readers are done
-    load_t<T, DP>(k, Sk, D, k0, kt);
-    load_t<T, DP>(v, Sk, D, k0, vt);
-    if (tid < kT) valid[tid] = k0 + tid < Sk && pad[k0 + tid] == 0;
-    __syncthreads();
-    float s[4][4];
-    rows_dot<DP>(qt, kt, s);
-    bool ok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ok[j] = valid[tx + 16 * j] != 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (ok[j]) mt = fmaxf(mt, s[i][j]);
-      const float m_new = fmaxf(m[i], half_warp_max(mt));
-      float st = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        st += p;
-        ps[(ty + 16 * i) * kP + tx + 16 * j] = round_to<T>(p);
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + half_warp_sum(st);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-    tile_times<NJ>(ps, vt, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lm = fmaxf(l[i], kTiny);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] /= lm;
-    const int r = q0 + ty + 16 * i;
-    if (tx == 0 && r < Sq)
-      lse[size_t(bh) * Sq + r] = l[i] > 0.f ? m[i] + logf(lm) : -kNegInf;
-  }
-  store_rows<T, NJ>(acc, o + size_t(bh) * Sq * D, Sq, D, q0);
 }
 
 // ---------------------------------------------------------------- dq
@@ -817,6 +740,206 @@ int tc_head_tile(int D) { return D <= 32 ? 32 : D <= 48 ? 48 : D <= 64 ? 64 : 12
 
 }  // namespace tcb
 
+// ==================================================== float32: 3xTF32 forward
+namespace tf {
+
+using exo::tc::load_a_tf32;
+using exo::tc::load_b_tf32;
+using exo::tc::load_bk_tf32;
+using exo::tc::mma_3xtf32;
+using exo::tc::quad_max;
+using exo::tc::quad_sum;
+using exo::tc::Tf32A;
+using exo::tc::Tf32B;
+
+using tcb::kLog2e;
+
+constexpr int kThreadsTf = 128;  // 4 warps of 16 query rows
+
+// A 64-row f32 tile of DP columns (the head tile, zeros past D) at a row
+// pitch of DP + 4 floats: 4 (mod 8), so the A and B fragment reads of q and
+// k (row g, column t) and the k-major B reads of v (rows 2t, 2t + 1, column
+// g) each touch 32 distinct banks. QREG: q's hi/lo fragments stay in
+// registers for the whole walk (64 registers at DP 64); at DP 128 they
+// would take 128, so q is read from shared memory each k-step there.
+template <int DP>
+struct Tf32Tile {
+  static constexpr int P = DP + 4;
+  static constexpr int ELEMS = kT * P;
+  static constexpr int KS = DP / 8;  // k-steps over the head (m16n8k8)
+  static constexpr int NT = DP / 8;  // n-tiles over the head
+  static constexpr bool QREG = DP <= 64;
+  static constexpr size_t bytes = sizeof(float) * 5 * ELEMS + sizeof(int) * 2 * kT;
+};
+
+// K and V rows k0.. (tile `stage` of the ring) and their validity.
+template <int DP>
+__device__ __forceinline__ void load_kv(float* ks, float* vs, int* valid, const float* k,
+                                        const float* v, const int* pad, int Sk, int D, int k0,
+                                        int stage) {
+  using L = Tf32Tile<DP>;
+  exo::tc::cp_tile<kT, DP, kThreadsTf>(ks + stage * L::ELEMS, L::P, k, D, k0, Sk, 0, D);
+  exo::tc::cp_tile<kT, DP, kThreadsTf>(vs + stage * L::ELEMS, L::P, v, D, k0, Sk, 0, D);
+  if (threadIdx.x < kT) {
+    const int j = k0 + threadIdx.x;
+    valid[stage * kT + threadIdx.x] = j < Sk && pad[j] == 0;
+  }
+}
+
+// The bf16 forward's walk (64 query rows a CTA, key tiles of 64 in a
+// two-stage cp.async ring, the online max and sum on the fragments) with
+// every product in 3xTF32 and p kept in float32 (the f32 TPU body and
+// flash_attention_plain do not round it): p goes from the score C fragments
+// to the A fragments of o += p . v in registers (tc::c_to_a_tf32), v read
+// k-major to match. Two CTAs an SM at DP <= 64 (87 KB of shared memory).
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTf, DP <= 64 ? 2 : 1)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ kpad,
+                      float* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
+                      int D) {
+  using L = Tf32Tile<DP>;
+  extern __shared__ __align__(16) unsigned char smem_tf[];
+  float* qs = reinterpret_cast<float*>(smem_tf);  // [ELEMS]
+  float* ks = qs + L::ELEMS;                        // [2][ELEMS]
+  float* vs = ks + 2 * L::ELEMS;                    // [2][ELEMS]
+  int* valid = reinterpret_cast<int*>(vs + 2 * L::ELEMS);  // [2][kT]
+  const int bh = blockIdx.y, q0 = blockIdx.x * kT;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
+  q += size_t(bh) * Sq * D;
+  k += size_t(bh) * Sk * D;
+  v += size_t(bh) * Sk * D;
+  const int* pad = kpad + size_t(bh / H) * Sk;
+
+  exo::tc::cp_tile<kT, DP, kThreadsTf>(qs, L::P, q, D, q0, Sq, 0, D);
+  load_kv<DP>(ks, vs, valid, k, v, pad, Sk, D, 0, 0);
+  exo::tc::cp_async_commit();
+
+  const float* qw = qs + 16 * w * L::P;  // this warp's 16 query rows
+  Tf32A qf[L::QREG ? L::KS : 1];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[L::NT][4];
+#pragma unroll
+  for (int i = 0; i < L::NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const int nk = (Sk + kT - 1) / kT;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j & 1;
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    if (j + 1 < nk) load_kv<DP>(ks, vs, valid, k, v, pad, Sk, D, (j + 1) * kT, st ^ 1);
+    exo::tc::cp_async_commit();
+    exo::tc::cp_async_wait<1>();  // tile j (and q) have landed
+    __syncthreads();
+    if constexpr (L::QREG) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < L::KS; ++kk) qf[kk] = load_a_tf32(qw + kk * 8, L::P, lane);
+      }
+    }
+    // s = q . k^T, 16 rows x 64 keys per warp
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+    const float* kt = ks + st * L::ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < L::KS; ++kk) {
+      Tf32A a;
+      if constexpr (L::QREG) {
+        a = qf[kk];
+      } else {
+        a = load_a_tf32(qw + kk * 8, L::P, lane);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const Tf32B b = load_b_tf32(kt + nt * 8 * L::P + kk * 8, L::P, lane);
+        mma_3xtf32(s[nt], a, b);
+      }
+    }
+    // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (e = 2, 3);
+    // an invalid key gets -inf, so it adds nothing to the max and exp2
+    // gives exactly 0 (m stays finite: it starts at the finite NEG_INF)
+    const int* vld = valid + st * kT;
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!vld[nt * 8 + c + e]) {
+          s[nt][e] = -INFINITY;
+          s[nt][2 + e] = -INFINITY;
+        }
+        mt[0] = fmaxf(mt[0], s[nt][e]);
+        mt[1] = fmaxf(mt[1], s[nt][2 + e]);
+      }
+    float alpha[2], ml[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mt[r]));
+      alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      ml[r] = m_new * kLog2e;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[nt][e], kLog2e, -ml[e / 2]));
+        s[nt][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];  // this thread's columns
+#pragma unroll
+    for (int nt = 0; nt < L::NT; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    // o += p . v, p in float32 from the score fragments
+    const float* vt = vs + st * L::ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const Tf32A a = exo::tc::c_to_a_tf32(s[kk]);
+#pragma unroll
+      for (int dn = 0; dn < L::NT; ++dn) {
+        const Tf32B b = load_bk_tf32(vt + kk * 8 * L::P + dn * 8, L::P, lane);
+        mma_3xtf32(acc[dn], a, b);
+      }
+    }
+  }
+  float lm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    lm[r] = fmaxf(l[r], kTiny);
+    const int row = q0 + 16 * w + lane / 4 + 8 * r;
+    if (lane % 4 == 0 && row < Sq)
+      lse[size_t(bh) * Sq + row] = l[r] > 0.f ? m[r] + logf(lm[r]) : -kNegInf;
+  }
+  // o = acc / l (an empty row: 0 / 1e-30 = 0)
+  float* ob = o + size_t(bh) * Sq * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + 16 * w + lane / 4 + 8 * half;
+    if (r >= Sq) continue;
+#pragma unroll
+    for (int nt = 0; nt < L::NT; ++nt) {
+      const int col = nt * 8 + c;
+      if (col < D) {
+        *reinterpret_cast<float2*>(ob + size_t(r) * D + col) =
+            make_float2(acc[nt][2 * half] / lm[half], acc[nt][2 * half + 1] / lm[half]);
+      }
+    }
+  }
+}
+
+}  // namespace tf
+
 // ---------------------------------------------------------------- launch
 template <int DT>
 constexpr size_t smem_bytes(int operand_tiles) {
@@ -826,20 +949,6 @@ constexpr size_t smem_bytes(int operand_tiles) {
 struct Shape {
   int BH, H, Sq, Sk, D;
 };
-
-template <typename T, int DT>
-cudaError_t fwd(const void* q, const void* k, const void* v, const void* kpad, void* o,
-                void* lse, Shape sh, cudaStream_t st) {
-  auto kernel = flash_fwd_kernel<T, DT>;
-  constexpr size_t bytes = smem_bytes<DT>(3);
-  cudaError_t err = exo::allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((sh.Sq + kT - 1) / kT, sh.BH), kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kpad), static_cast<T*>(o), static_cast<float*>(lse), sh.H, sh.Sq,
-      sh.Sk, sh.D);
-  return cudaGetLastError();
-}
 
 template <typename T, int DT>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* kpad, const void* dout,
@@ -869,6 +978,21 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* kpad, c
       static_cast<const int*>(kpad), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
       static_cast<T*>(dv), sh.H, sh.Sq, sh.Sk, sh.D);
+  return cudaGetLastError();
+}
+
+// The f32 forward in 3xTF32, DP the head tile.
+template <int DP>
+cudaError_t fwd_tf32(const void* q, const void* k, const void* v, const void* kpad, void* o,
+                     void* lse, Shape sh, cudaStream_t st) {
+  auto kernel = tf::flash_fwd_tf32_kernel<DP>;
+  constexpr size_t bytes = tf::Tf32Tile<DP>::bytes;
+  cudaError_t err = exo::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((sh.Sq + kT - 1) / kT, sh.BH), tf::kThreadsTf, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(kpad), static_cast<float*>(o), static_cast<float*>(lse), sh.H,
+      sh.Sq, sh.Sk, sh.D);
   return cudaGetLastError();
 }
 
@@ -939,8 +1063,19 @@ bool shape_ok(const Shape& sh) {
          sh.Sk >= 1 && head_tile(sh.D) != 0;
 }
 
-// Returns fn<float, DT>(args...) for float32 (dtype 0) and fn_tc<DP>(args...),
-// the tensor-core body, for bfloat16 (dtype 1), by the call's head tile.
+// Returns fn<DP>(args...) for the tensor-core head tile DP that holds sh.D.
+#define EXO_TC_TILE(fn, ...)                        \
+  do {                                              \
+    const int tt = tcb::tc_head_tile(sh.D);         \
+    if (tt == 32) return fn<32>(__VA_ARGS__);       \
+    if (tt == 48) return fn<48>(__VA_ARGS__);       \
+    if (tt == 64) return fn<64>(__VA_ARGS__);       \
+    return fn<128>(__VA_ARGS__);                    \
+  } while (0)
+
+// Returns fn<float, DT>(args...), the CUDA-core body, for float32 (dtype 0)
+// and fn_tc<DP>(args...), the tensor-core body, for bfloat16 (dtype 1), by
+// the call's head tile.
 #define EXO_FLASH_DISPATCH(fn, ...)                                   \
   do {                                                                \
     const int dt = head_tile(sh.D);                                   \
@@ -950,13 +1085,7 @@ bool shape_ok(const Shape& sh) {
       if (dt == 64) return fn<float, 64>(__VA_ARGS__);                \
       return fn<float, 128>(__VA_ARGS__);                             \
     }                                                                 \
-    if (dtype == 1) {                                                 \
-      const int tt = tcb::tc_head_tile(sh.D);                         \
-      if (tt == 32) return fn##_tc<32>(__VA_ARGS__);                  \
-      if (tt == 48) return fn##_tc<48>(__VA_ARGS__);                  \
-      if (tt == 64) return fn##_tc<64>(__VA_ARGS__);                  \
-      return fn##_tc<128>(__VA_ARGS__);                               \
-    }                                                                 \
+    if (dtype == 1) EXO_TC_TILE(fn##_tc, __VA_ARGS__);                \
     return cudaErrorInvalidValue;                                     \
   } while (0)
 
@@ -964,17 +1093,19 @@ bool shape_ok(const Shape& sh) {
 
 // q (BH, Sq, D) pre-scaled, k and v (BH, Sk, D) of one type (dtype 0:
 // float32, 1: bfloat16), kpad (BH / H, Sk) int32; writes o (BH, Sq, D) in
-// the input type and lse (BH, Sq) float32. All contiguous (bfloat16: q, k, v
-// and dout 16-byte aligned). D a multiple of 8 up to 128. Returns the CUDA
-// error of the launch, or 0.
+// the input type and lse (BH, Sq) float32. All contiguous, q, k and v
+// 16-byte aligned. D a multiple of 8 up to 128. Returns the CUDA error of
+// the launch, or 0.
 extern "C" int flash_attn_forward(const void* q, const void* k, const void* v, const void* kpad,
                                   void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
                                   int dtype, void* stream) {
   const Shape sh{BH, H, Sq, Sk, D};
   if (!shape_ok(sh)) return cudaErrorInvalidValue;
-  if (dtype == 1 && !aligned_tc(q, k, v, v)) return cudaErrorMisalignedAddress;
+  if (!aligned_tc(q, k, v, v)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  EXO_FLASH_DISPATCH(fwd, q, k, v, kpad, o, lse, sh, st);
+  if (dtype == 0) EXO_TC_TILE(fwd_tf32, q, k, v, kpad, o, lse, sh, st);
+  if (dtype == 1) EXO_TC_TILE(fwd_tc, q, k, v, kpad, o, lse, sh, st);
+  return cudaErrorInvalidValue;
 }
 
 // dq (BH, Sq, D) in the input type from the forward's inputs, the upstream

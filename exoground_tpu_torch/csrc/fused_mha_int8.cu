@@ -16,8 +16,9 @@
 // What bounds it on an H100: operations. At the main-path shapes (B = 304
 // windows, S = 64 and 96, C = 512, H = 8) the int8 projection is 6*B*S*C^2
 // operations (1,979 TOPS on the int8 tensor cores), the out-projection
-// 2*B*S*C^2 and the attention 4*B*S^2*C FLOPs (f32 at 67 TFLOP/s, bf16 at
-// 989 on the tensor cores); the inputs are a few tens of MB.
+// 2*B*S*C^2 and the attention 4*B*S^2*C FLOPs (bf16 at 989 TFLOP/s on the
+// tensor cores, f32 at the lesser of 67 on the CUDA cores and 495 / 3 in
+// 3xTF32); the inputs are a few tens of MB.
 //
 // Design: mha_tile.cuh's bodies with the kRowQuant prologue, which quantizes
 // each row once into xq (B*S, C) int8 and xs (B*S) f32 (the wrapper's
@@ -26,7 +27,9 @@
 // true>, the fused MHA's tensor-core tile with the qkv product as mma.sync
 // m16n8k32 .s8 (half the K steps of bf16) and q, k, v, p rounded to bf16 as
 // fused MHA rounds them. Both dequantize in the plain version's order; the
-// out-projection of mha_tail.cuh follows.
+// out-projection of mha_tail.cuh follows (f32: 3xTF32 on the tensor cores,
+// shared with the exact body). The f32 (window, head) kernel keeps its
+// CUDA-core design: only chip_smoke's f32 + int8 agreement check runs it.
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, wq (3C, C) int8 and wsc
@@ -34,8 +37,9 @@
 // xq (B*S, C) int8 and xs (B*S) float32 (the prologue's output), attn scratch
 // (B*S, C), out (B, S, C); all contiguous; x, b_in, w_out, b_out, attn and
 // out of one type (dtype 0: float32, 1: bfloat16); S <= 128, C a multiple of
-// 128, head size C/H a multiple of 8 up to 64; bfloat16: wq, xq, w_out and
-// attn 16-byte aligned. Returns the first CUDA error of the launches, or 0.
+// 128, head size C/H a multiple of 8 up to 64; w_out and attn 16-byte
+// aligned (bfloat16: wq and xq too). Returns the first CUDA error of the
+// launches, or 0.
 extern "C" int fused_mha_int8_forward(const void* x, const void* kpad, const void* wq,
                                       const void* wsc, const void* b_in, const void* w_out,
                                       const void* b_out, void* xq, void* xs, void* attn,

@@ -1,12 +1,15 @@
 // The tail the fused-MHA family shares (mha_tile.cuh's bodies, under
 // csrc/fused_mha.cu, fused_mha_int8.cu, block_attn.cu and block_attn_int8.cu):
-// the per-window attention of the f32 (window, head) CTAs and the tiled
-// out-projection. Counterpart of the TPU kernels' shared
+// the per-window attention of the int8 f32 body's (window, head) CTAs and the
+// tiled out-projection. Counterpart of the TPU kernels' shared
 // _mha_attention_tail (exoground_tpu/ops/attention.py:575).
 //
-// The out-projection has two bodies. float32: linear_bias_kernel, a 64 x 64
-// f32 GEMM on the CUDA cores (the first design, kept as it was). bfloat16: a
-// tensor-core GEMM, linear_bias_bf16_kernel: 128 x 128 output tiles, 8 warps
+// What bounds the out-projection on an H100: operations (2*M*C^2 FLOPs,
+// 10.2 GFLOP at B304 S64 C512, against M*C*8 + C^2*4 bytes in f32). Both
+// bodies are tensor-core GEMMs of 128 x 128 output tiles. float32:
+// linear_bias_tf32_kernel, 3xTF32 (see below; plain TF32 would miss the f32
+// limit of 1e-4), every body's f32 out-projection. bfloat16:
+// linear_bias_bf16_kernel: 128 x 128 output tiles, 8 warps
 // of 64 x 32, mma.sync m16n8k16 (bf16 in, f32 accumulated) fed by ldmatrix
 // from a two-stage cp.async ring of 32-wide K chunks (row pitch 40 elements,
 // so an ldmatrix touches 8 distinct bank groups), the bias (and the block
@@ -84,74 +87,108 @@ __device__ __forceinline__ void window_attention(const float* qs, const float* k
   }
 }
 
-// y[m, n] = sum_k a[m, k] * w[n, k] + bias[n] (+ res[m, n] when res is not
-// null: the block bodies' residual, summed in f32 before the one rounding);
-// one 64x64 tile per CTA of 256 threads. Heads are summed inside one dot
-// product, so the out-projection does not depend on scheduling (no atomics
-// across heads).
-template <typename T>
-__global__ void __launch_bounds__(256)
-linear_bias_kernel(const T* __restrict__ a, const T* __restrict__ w,
-                   const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ y,
-                   int M, int N, int K) {
-  constexpr int KC = 32;
-  __shared__ float as[KC][65];
-  __shared__ float bs[KC][65];
-  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 64;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
+// y = a . w^T + bias (+ res) for float32: the same 128 x 128 tile and warp
+// layout as the bf16 body below, every product in 3xTF32 (tc.cuh) from a
+// two-stage cp.async ring of 32-wide f32 K chunks at a row pitch of 36
+// floats (4 more than the data: conflict-free fragment reads); each warp
+// splits its four B fragments once a k-step and reuses them over its four
+// m-tiles. The bias (and the residual, read as float2: res 8-byte aligned)
+// is added to the f32 sum once.
+constexpr int kLinPf = 32 + 4;  // f32 row pitch, floats
+constexpr size_t kLinTf32Bytes = sizeof(float) * 2 * (128 + 128) * kLinPf;
+
+template <bool RES>
+__global__ void __launch_bounds__(256, 2)
+linear_bias_tf32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                        const float* __restrict__ bias, const float* __restrict__ res,
+                        float* __restrict__ y, int M, int N, int K) {
+  constexpr int BM = 128, BN = 128, BK = 32;
+  extern __shared__ __align__(16) unsigned char smem_lin[];
+  float* as = reinterpret_cast<float*>(smem_lin);  // [2][BM * kLinPf]
+  float* bs = as + 2 * BM * kLinPf;                // [2][BN * kLinPf]
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, c = 2 * (lane % 4);
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    for (int e = tid; e < 64 * KC; e += 256) {
-      const int r = e / KC, kk = e % KC, k = k0 + kk;
-      const int m = m0 + r, n = n0 + r;
-      as[kk][r] = (m < M && k < K) ? to_f(a[size_t(m) * K + k]) : 0.f;
-      bs[kk][r] = (n < N && k < K) ? to_f(w[size_t(n) * K + k]) : 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nch = (K + BK - 1) / BK;
+  tc::cp_tile<BM, BK, 256>(as, kLinPf, a, K, m0, M, 0, K);
+  tc::cp_tile<BN, BK, 256>(bs, kLinPf, w, K, n0, N, 0, K);
+  tc::cp_async_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int st = ch & 1;
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    if (ch + 1 < nch) {
+      const int k0 = (ch + 1) * BK;
+      tc::cp_tile<BM, BK, 256>(as + (st ^ 1) * BM * kLinPf, kLinPf, a, K, m0, M, k0, K);
+      tc::cp_tile<BN, BK, 256>(bs + (st ^ 1) * BN * kLinPf, kLinPf, w, K, n0, N, k0, K);
     }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      float av[4], bv[4];
+    const float* at = as + st * BM * kLinPf + wm * 64 * kLinPf;
+    const float* bt = bs + st * BN * kLinPf + wn * 32 * kLinPf;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      tc::Tf32B b[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
+      for (int nt = 0; nt < 4; ++nt)
+        b[nt] = tc::load_b_tf32(bt + nt * 8 * kLinPf + kk * 8, kLinPf, lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int mt = 0; mt < 4; ++mt) {
+        const tc::Tf32A af = tc::load_a_tf32(at + mt * 16 * kLinPf + kk * 8, kLinPf, lane);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int nt = 0; nt < 4; ++nt) tc::mma_3xtf32(acc[mt][nt], af, b[nt]);
+      }
     }
-    __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      float v = acc[i][j] + to_f(bias[n]);
-      if (res) v += to_f(res[size_t(m) * N + n]);
-      y[size_t(m) * N + n] = from_f<T>(v);
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * 64 + mt * 16 + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + wn * 32 + nt * 8 + c;
+        if (n >= N) continue;
+        float v0 = acc[mt][nt][2 * half] + bias[n];
+        float v1 = acc[mt][nt][2 * half + 1] + bias[n + 1];
+        if constexpr (RES) {
+          const float2 r = *reinterpret_cast<const float2*>(res + size_t(m) * N + n);
+          v0 += r.x;
+          v1 += r.y;
+        }
+        *reinterpret_cast<float2*>(y + size_t(m) * N + n) = make_float2(v0, v1);
+      }
     }
-  }
 }
 
 // The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out
-// (+ res, the block bodies' residual x, when given).
+// (+ res, the block bodies' residual x, when given). The primary template is
+// the f32 body; bf16 is specialized below. attn and W_out 16-byte aligned
+// (cp.async), res 8-byte aligned.
 template <typename T>
 inline cudaError_t out_projection(const void* attn, const void* w_out, const void* b_out,
                                   void* out, int M, int C, cudaStream_t st,
                                   const void* res = nullptr) {
-  const dim3 grid((M + 63) / 64, (C + 63) / 64);
-  linear_bias_kernel<T><<<grid, 256, 0, st>>>(
-      static_cast<const T*>(attn), static_cast<const T*>(w_out),
-      static_cast<const T*>(b_out), static_cast<const T*>(res), static_cast<T*>(out), M, C,
-      C);
+  if (!tc::aligned16(attn) || !tc::aligned16(w_out)) return cudaErrorMisalignedAddress;
+  if (res && reinterpret_cast<uintptr_t>(res) % 8) return cudaErrorMisalignedAddress;
+  if (C % 8) return cudaErrorInvalidValue;
+  const dim3 grid((M + 127) / 128, (C + 127) / 128);
+  auto kernel = res ? linear_bias_tf32_kernel<true> : linear_bias_tf32_kernel<false>;
+  cudaError_t err = allow_smem(kernel, kLinTf32Bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 256, kLinTf32Bytes, st>>>(
+      static_cast<const float*>(attn), static_cast<const float*>(w_out),
+      static_cast<const float*>(b_out), static_cast<const float*>(res), static_cast<float*>(out),
+      M, C, C);
   return cudaGetLastError();
 }
 

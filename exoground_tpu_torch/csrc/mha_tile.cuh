@@ -13,10 +13,18 @@
 // its operands and the residual differ.
 //
 // Order of work, every body: (1) the row prologue, where there is one, once
-// per row; (2) the attention kernel, one CTA per (window, head) in f32 or
-// per (128-row tile, head) in bf16, writing o in the input type to a
-// (B*S, C) scratch; (3) the out-projection of mha_tail.cuh, with x as its
-// residual in the block bodies.
+// per row; (2) the attention kernel, one CTA per (tile of packed windows,
+// head) on the tensor cores (the int8 f32 body: per (window, head) on the
+// CUDA cores), writing o in the input type to a (B*S, C) scratch; (3) the
+// out-projection of mha_tail.cuh, with x as its residual in the block
+// bodies.
+//
+// What bounds them on an H100: operations (8*B*S*C^2 + 4*B*S^2*C FLOPs,
+// 43.4 GFLOP at B304 S64 C512, against a few tens of MB). The TPU kernel
+// (exoground_tpu/ops/attention.py::_mha_kernel) keeps both weights and a
+// (128, 3C) qkv tile in VMEM; a Hopper CTA cannot, so it owns one head of a
+// row tile and streams that head's 3*Dh W_in rows once for the whole tile:
+// the more rows a tile packs, the less weight traffic from L2.
 //
 // 1. row_prologue_kernel: one warp a row of C. kRowLn: the LN mean and rstd
 //    in two passes (f32, IEEE root and quotient), xn written in x's type
@@ -28,22 +36,37 @@
 //    are bit for bit quant._quant_last_axis of the same f32 values. The
 //    head CTAs do none of this work: at H = 8 each row's statistics were
 //    taken 8 times when every head CTA took them.
-// 2a. float32, exact (mha_window_head_kernel): one CTA per (window, head)
-//    streams W_in's 3*Dh rows of head h through shared memory in K chunks of
-//    32, accumulating q_h, k_h, v_h (S x Dh each) in registers (a register
-//    tile of ceil(S/16) x 3*Dhp/16 a thread, Dhp = Dh rounded up to 16;
-//    the columns past Dh read zero weights and are dropped; S and Dh are
-//    template parameters, so the index math is compile-time), keeps them and
-//    the S x S f32 scores in shared memory, and the tail of mha_tail.cuh
-//    writes o_h. A window whose keys are all padding averages its own S
-//    values uniformly, as attention_plain does with its finite -1e30 fill.
-// 2b. float32, int8 qkv (int8_window_head_kernel): the same CTA with the
-//    product as __dp4a over the prologue's xq words (4 values a word) and
-//    this head's int8 W_in rows, exact int32 sums, dequantized as
+// 2a. float32, exact (mha_tf32_kernel<DHP>): every product in 3xTF32 on
+//    the tensor cores (tc.cuh: m16n8k8 .tf32, each operand split into a
+//    TF32 hi half and the rest, lo.hi + hi.lo + hi.hi, float32 accuracy; plain
+//    TF32 misses the f32 limit of 1e-4 of max|plain|), one CTA of 8 warps per
+//    (row tile, head). Windows are packed at RW = round16(S) rows, 128 / RW a
+//    tile (two at S = 64, as the TPU kernel packs them (:660-664); one
+//    96-row tile at S = 96, a quarter fewer rows than the bf16 tile's 128).
+//    - qkv_h: x and W_in in K chunks of 32 floats by 16-byte cp.async in a
+//      two-stage ring at a row pitch of 36 floats (4 mod 8: the fragment
+//      reads hit 32 distinct banks). Warp w owns column half w % 2 and the
+//      m-tiles w / 2 and w / 2 + 4, so with 5-7 m-tiles (S 65-112) the two
+//      warps of each SM sub-partition still share the products evenly; each
+//      B fragment is split once and used for both m-tiles. + b_in, then q,
+//      k, v stay float32 in shared memory (over the ring), pitch Dhp + 4.
+//    - each warp owns 16 query rows: s = q . k^T over its window's keys in
+//      3xTF32, times 1/sqrt(Dh); padding keys at -1e30 and keys past S (the
+//      packed neighbour's among them) at -inf; the softmax on the fragments
+//      with quad shuffles; p / l in float32 goes from the score C fragments
+//      to the A fragments of o = p . v in registers (tc::c_to_a_tf32, v read
+//      k-major by tc::load_bk_tf32), o into the scratch in float32.
+//    Two CTAs an SM (104 KB of shared memory each at Dh 64; the cap of 128
+//    registers spills ~300 bytes a thread there, and one CTA an SM without
+//    the spill was slower). Operands 16-byte aligned, C a multiple of 32.
+// 2b. float32, int8 qkv (int8_window_head_kernel): one CTA per (window,
+//    head) on the CUDA cores: __dp4a over the prologue's xq words (4 values
+//    a word) and this head's int8 W_in rows, exact int32 sums, dequantized as
 //    float(acc) * xs[row] * wsc[col] + b_in[col], each step rounded on its
-//    own (exo::dequant, the plain version's order).
+//    own (exo::dequant, the plain version's order), then the tail of
+//    mha_tail.cuh. Only the f32 + int8 agreement check runs it.
 // 2c. bfloat16 (mha_tc_kernel<DHP, Q8>): every product on the tensor cores
-//    (tc.cuh), one CTA of 8 warps per (128-row tile, head). The tile holds
+//    (mma.sync m16n8k16), one CTA of 8 warps per (128-row tile, head). The tile holds
 //    two windows of S <= 64 (each at rows 64 w..) or one of S <= 128, as the
 //    TPU kernel packs them (:660-664): each CTA streams its head's 3*Dh W_in
 //    rows once for 128 rows, which halves the weight traffic from L2 at the
@@ -66,9 +89,10 @@
 //    The template covers the head tile (Dhp = 16, 32, 48, 64) and the product
 //    kind; S and Dh are run-time values. Its operands must be 16-byte aligned
 //    (cp.async), C a multiple of 16.
-// Head sizes: multiples of 8 up to 64 in every body (the f32 bodies'
+// Head sizes: multiples of 8 up to 64 in every body (the int8 f32 body's
 // shared-memory budget at S = 128: q/k/v and the scores take 164 KB at
-// Dh = 64). Larger heads are not served yet.
+// Dh = 64); a head tile past Dh reads zero columns. Larger heads are not
+// served yet.
 #pragma once
 
 #include <cstddef>
@@ -86,7 +110,9 @@ namespace mha {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kKC = 32;     // f32 bodies: K chunk (32 values, or 32 words of int8)
+constexpr int kTh = 256;    // the tensor-core tiles: 8 warps
+constexpr int kRows = 128;  // their row tile: packed windows of S <= 64, or one of S <= 128
+constexpr int kKC = 32;     // the int8 f32 body: K chunk (32 words of int8)
 constexpr int kMaxDh = 64;  // largest head size served
 
 // The entry points' shape checks: B, S <= 128 and H positive, C a multiple
@@ -170,134 +196,259 @@ inline cudaError_t row_prologue(const void* x, const void* lnw, const void* lnb,
 }
 
 // ===================================================== 2a. float32, exact
-// RT: register-tile rows / 16 (ceil(S/16)); DH: the head size (a multiple of 8).
-template <int RT, int DH>
-struct MhaLayout {
-  static constexpr int DHP = (DH + 15) / 16 * 16;  // tile columns per q/k/v part
-  static constexpr int SP = RT * 16;     // rows covered by the register tile
-  static constexpr int QP = DHP + 1;     // q/k/v row pitch (odd: conflict-free)
-  static constexpr int XP = SP + 1;      // staged x chunk pitch, [kKC][XP]
-  static constexpr int WP = 3 * DHP + 1; // staged W_in chunk pitch, [kKC][WP]
-  __host__ __device__ static int union_floats(int S) {
-    int stage = kKC * (XP + WP);
-    return stage > S * S ? stage : S * S;
-  }
-  __host__ __device__ static size_t bytes(int S) {
-    return (size_t(3) * SP * QP + union_floats(S)) * sizeof(float) + SP * sizeof(int);
-  }
+constexpr int kKCf = 32;        // K chunk of the projection, floats (128 bytes a row)
+constexpr int kXPf = kKCf + 4;  // staged row pitch: 4 (mod 8) floats, conflict-free fragments
+
+// DHP: the head size rounded up to 16.
+template <int DHP>
+struct Tf32Mha {
+  static constexpr int N = 3 * DHP;                 // projection columns [q | k | v]
+  static constexpr int NTW = N / 16;                // n-tiles per warp (2 warp columns)
+  static constexpr int QP = DHP + 4;                // q/k/v row pitch, 4 (mod 8) floats
+  static constexpr int STAGE = (kRows + N) * kXPf;  // one ring stage: x chunk, W chunk
+  static constexpr int QKV = 3 * kRows * QP;        // q, k, v (over the ring)
+  static constexpr int FLOATS = 2 * STAGE > QKV ? 2 * STAGE : QKV;
+  // the ring / q, k, v; key-padding flags
+  static constexpr size_t bytes = sizeof(float) * FLOATS + sizeof(int) * kRows;
 };
 
-template <typename T, int RT, int DH>
-__global__ void __launch_bounds__(kThreads)
-mha_window_head_kernel(const T* __restrict__ x, const int* __restrict__ kpad,
-                       const T* __restrict__ w_in, const T* __restrict__ b_in,
-                       T* __restrict__ attn, int S, int C, int H, float scale) {
-  using L = MhaLayout<RT, DH>;
-  constexpr int DHP = L::DHP, SP = L::SP, QP = L::QP, XP = L::XP, WP = L::WP;
-  constexpr int CT = 3 * DHP / 16;  // tile column r: part r / DHP, d = r % DHP < DH
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + SP * QP;
-  float* vs = ks + SP * QP;
-  float* uni = vs + SP * QP;
-  float* xs = uni;             // projection phase: x chunk, transposed
-  float* ws = uni + kKC * XP;  // projection phase: W_in chunk, transposed
-  float* ps = uni;             // attention phase: S x S scores / probabilities
-  int* km = reinterpret_cast<int*>(uni + L::union_floats(S));
+// Windows a tile holds: each takes round16(S) rows, as many as fit in 128.
+__host__ __device__ inline int tf32_windows(int S) { return kRows / ((S + 15) / 16 * 16); }
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int j = tid; j < SP; j += kThreads) km[j] = j < S ? kpad[size_t(b) * S + j] : 1;
+// Tile row r holds token r % RW of window b0 + r / RW (RW = round16(S)); it
+// is real when the token is < S and the window < B. Every product in 3xTF32
+// (tc.cuh), q, k, v and p in float32 as the plain versions keep them.
+// Projection: warp w owns column half w % 2 and the m-tiles w / 2 and
+// w / 2 + 4 (the second where the tile has it), so that with 5-7 m-tiles the
+// two warps of each SM sub-partition (w, w + 4) still share the work evenly.
+template <int DHP>
+__global__ void __launch_bounds__(kTh, 2)
+mha_tf32_kernel(const float* __restrict__ x, const int* __restrict__ kpad,
+                const float* __restrict__ w_in, const float* __restrict__ b_in,
+                float* __restrict__ attn, int B, int S, int C, int H, float scale) {
+  using L = Tf32Mha<DHP>;
+  using tc::load_a_tf32;
+  using tc::load_b_tf32;
+  using tc::load_bk_tf32;
+  using tc::mma_3xtf32;
+  using tc::quad_max;
+  using tc::quad_sum;
+  using tc::Tf32A;
+  using tc::Tf32B;
+  extern __shared__ __align__(16) unsigned char smem_f[];
+  float* ring = reinterpret_cast<float*>(smem_f);
+  int* km = reinterpret_cast<int*>(ring + L::FLOATS);
+  const int DH = C / H;
+  const int RW = (S + 15) / 16 * 16, wpc = kRows / RW, rows = wpc * RW, MT = rows / 16;
+  const int b0 = (blockIdx.x / H) * wpc, h = blockIdx.x % H;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, c = 2 * (lane % 4);
 
-  // ---- q_h, k_h, v_h = x_b . W_in[rows of head h]^T + b_in ----
-  const T* xb = x + size_t(b) * S * C;
-  float acc[RT][CT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < C; k0 += kKC) {
-    for (int e = tid; e < SP * kKC; e += kThreads) {
-      int s = e / kKC, kk = e % kKC;
-      xs[kk * XP + s] = s < S ? to_f(xb[size_t(s) * C + k0 + kk]) : 0.f;
-    }
-    for (int e = tid; e < 3 * DHP * kKC; e += kThreads) {
-      int r = e / kKC, kk = e % kKC, d = r % DHP;
-      size_t row = size_t(r / DHP) * C + h * DH + d;
-      ws[kk * WP + r] = (DHP == DH || d < DH) ? to_f(w_in[row * C + k0 + kk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kKC; ++kk) {
-      float a[RT], w[CT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) a[i] = xs[kk * XP + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) w[j] = ws[kk * WP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int r = tid; r < rows; r += kTh) {
+    const int b = b0 + r / RW, t = r % RW;
+    km[r] = t < S && b < B ? kpad[size_t(b) * S + t] : 1;
   }
+
+  // ---- 1. qkv_h = x . W_in,h^T + b_in ----
+  auto stage_chunk = [&](int k0, int st) {
+    float* xs = ring + st * L::STAGE;
+    float* ws = xs + kRows * kXPf;
+    constexpr int kCh = kKCf / 4;  // 16-byte chunks a row
+    for (int e = tid; e < rows * kCh; e += kTh) {
+      const int r = e / kCh, cc = (e % kCh) * 4;
+      const int b = b0 + r / RW, t = r % RW;
+      const bool in = t < S && b < B;
+      tc::cp_async16(xs + r * kXPf + cc, in ? x + (size_t(b) * S + t) * C + k0 + cc : x, in);
+    }
+    for (int e = tid; e < L::N * kCh; e += kTh) {
+      const int n = e / kCh, cc = (e % kCh) * 4;
+      const int part = n / DHP, d = n % DHP;
+      const bool in = d < DH;
+      tc::cp_async16(ws + n * kXPf + cc,
+                     in ? w_in + (size_t(part) * C + size_t(h) * DH + d) * C + k0 + cc : w_in,
+                     in);
+    }
+  };
+  const int wn = warp % 2, m0 = warp / 2;
+  const bool two = m0 + 4 < MT;  // the warp's second m-tile (warp-uniform)
+  float acc[2][L::NTW][4];
 #pragma unroll
-  for (int j = 0; j < CT; ++j) {
-    const int r = tx + 16 * j, part = r / DHP, d = r % DHP;
-    if (DHP != DH && d >= DH) continue;  // padding column (compile-time when DH % 16 == 0)
-    const float bias = to_f(b_in[part * C + h * DH + d]);
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < L::NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int nch = C / kKCf;
+  stage_chunk(0, 0);
+  tc::cp_async_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int st = ch & 1;
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    if (ch + 1 < nch) stage_chunk((ch + 1) * kKCf, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const float* xs = ring + st * L::STAGE;
+    const float* ws = xs + kRows * kXPf + wn * L::NTW * 8 * kXPf;
+#pragma unroll
+    for (int kk = 0; kk < kKCf / 8; ++kk) {
+      const Tf32A a0 = load_a_tf32(xs + 16 * m0 * kXPf + kk * 8, kXPf, lane);
+      Tf32A a1 = a0;
+      if (two) a1 = load_a_tf32(xs + 16 * (m0 + 4) * kXPf + kk * 8, kXPf, lane);
+#pragma unroll
+      for (int j = 0; j < L::NTW; ++j) {
+        const Tf32B b = load_b_tf32(ws + j * 8 * kXPf + kk * 8, kXPf, lane);
+        mma_3xtf32(acc[0][j], a0, b);
+        if (two) mma_3xtf32(acc[1][j], a1, b);
+      }
+    }
+  }
+  __syncthreads();  // the ring becomes q, k, v
+  float* qs = ring;
+  float* ks = qs + kRows * L::QP;
+  float* vs = ks + kRows * L::QP;
+#pragma unroll
+  for (int j = 0; j < L::NTW; ++j) {
+    const int n = (wn * L::NTW + j) * 8 + c, part = n / DHP, d = n % DHP;
     float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
+    const bool col_in = d < DH;  // padding columns stay 0
+    float b_lo = 0.f, b_hi = 0.f;
+    if (col_in) {
+      const size_t col = size_t(part) * C + h * DH + d;
+      b_lo = b_in[col];
+      b_hi = b_in[col + 1];
+    }
 #pragma unroll
-    for (int i = 0; i < RT; ++i) dst[(ty + 16 * i) * QP + d] = acc[i][j] + bias;
+    for (int i = 0; i < 2; ++i) {
+      if (i == 1 && !two) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * (m0 + 4 * i) + g + 8 * half;
+        *reinterpret_cast<float2*>(dst + r * L::QP + d) =
+            col_in ? make_float2(acc[i][j][2 * half] + b_lo, acc[i][j][2 * half + 1] + b_hi)
+                   : make_float2(0.f, 0.f);
+      }
+    }
   }
-  __syncthreads();  // qkv complete; the staging area becomes the score matrix
-  window_attention<T, DH, kThreads>(qs, ks, vs, QP, ps, km, attn + size_t(b) * S * C + h * DH,
-                                    S, C, DH, scale);
+  __syncthreads();
+
+  // ---- 2. attention: warp w owns query rows 16 w.. of the tile ----
+  const int win = 16 * warp / RW, kb = win * RW, t0 = 16 * warp - kb;
+  if (warp >= MT || t0 >= S || b0 + win >= B) return;  // padding rows: no barrier follows
+  const int nk8 = (S + 7) / 8;                          // key n-tiles of 8
+  float s[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DHP / 8; ++kk) {
+    const Tf32A a = load_a_tf32(qs + 16 * warp * L::QP + kk * 8, L::QP, lane);
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      if (nt < nk8) {
+        const Tf32B b = load_b_tf32(ks + (kb + nt * 8) * L::QP + kk * 8, L::QP, lane);
+        mma_3xtf32(s[nt], a, b);
+      }
+    }
+  }
+  // scores times 1/sqrt(Dh); padding keys at -1e30 (a window whose keys are
+  // all padding averages its own S values), keys past S (and so the packed
+  // neighbour's) excluded
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    if (nt < nk8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = nt * 8 + c + (e & 1);
+        const float v = t >= S ? -INFINITY : (km[kb + t] ? kMhaNegInf : s[nt][e] * scale);
+        s[nt][e] = v;
+        mx[e / 2] = fmaxf(mx[e / 2], v);
+      }
+    }
+  }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) mx[r] = quad_max(mx[r]);
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    if (nt < nk8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[nt][e] - mx[e / 2]);
+        s[nt][e] = p;
+        l[e / 2] += p;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+  // o = (p / l) . v, p from the score fragments in registers (tc::c_to_a_tf32)
+  float o[DHP / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DHP / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    if (kk < nk8) {
+      const float pn[4] = {s[kk][0] / l[0], s[kk][1] / l[0], s[kk][2] / l[1], s[kk][3] / l[1]};
+      const Tf32A a = tc::c_to_a_tf32(pn);
+#pragma unroll
+      for (int dn = 0; dn < DHP / 8; ++dn) {
+        const Tf32B b = load_bk_tf32(vs + (kb + kk * 8) * L::QP + dn * 8, L::QP, lane);
+        mma_3xtf32(o[dn], a, b);
+      }
+    }
+  }
+  // o_h into the (B*S, C) scratch, columns h*Dh..
+  float* ob = attn + size_t(b0 + win) * S * C + size_t(h) * DH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = t0 + g + 8 * half;
+    if (t >= S) continue;
+#pragma unroll
+    for (int dn = 0; dn < DHP / 8; ++dn) {
+      const int d = dn * 8 + c;
+      if (d < DH) {
+        *reinterpret_cast<float2*>(ob + size_t(t) * C + d) =
+            make_float2(o[dn][2 * half], o[dn][2 * half + 1]);
+      }
+    }
+  }
 }
 
-template <typename T, int RT, int DH>
-cudaError_t launch_window_head(const void* x, const void* kpad, const void* w_in,
-                               const void* b_in, void* attn, int B, int S, int C, int H,
-                               cudaStream_t stream) {
-  auto kernel = mha_window_head_kernel<T, RT, DH>;
-  const size_t smem = MhaLayout<RT, DH>::bytes(S);
+template <int DHP>
+cudaError_t launch_tf32(const void* x, const void* kpad, const void* w_in, const void* b_in,
+                        void* attn, int B, int S, int C, int H, cudaStream_t st) {
+  auto kernel = mha_tf32_kernel<DHP>;
+  constexpr size_t smem = Tf32Mha<DHP>::bytes;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int*>(kpad),
-      static_cast<const T*>(w_in), static_cast<const T*>(b_in), static_cast<T*>(attn),
-      S, C, H, 1.0f / sqrtf(static_cast<float>(DH)));
+  const int wpc = tf32_windows(S);
+  kernel<<<((B + wpc - 1) / wpc) * H, kTh, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const int*>(kpad),
+      static_cast<const float*>(w_in), static_cast<const float*>(b_in),
+      static_cast<float*>(attn), B, S, C, H, 1.0f / sqrtf(static_cast<float>(C / H)));
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t window_head_by_rows(const void* x, const void* kpad, const void* w_in,
-                                const void* b_in, void* attn, int B, int S, int C, int H,
-                                cudaStream_t st) {
-#define EXO_RT(n) \
-  case n: return launch_window_head<float, n, DH>(x, kpad, w_in, b_in, attn, B, S, C, H, st);
-  switch ((S + 15) / 16) {
-    EXO_RT(1) EXO_RT(2) EXO_RT(3) EXO_RT(4) EXO_RT(5) EXO_RT(6) EXO_RT(7) EXO_RT(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef EXO_RT
-}
-
-// o of the f32 exact body into attn (B*S, C): x (B, S, C), W_in (3C, C),
-// b_in. T is float; a template so that only the sources that call it build
-// its 64 instantiations.
+// o of the f32 exact body into attn (B*S, C): x (B*S, C) and W_in (3C, C),
+// both 16-byte aligned (cp.async), C a multiple of 32. T is float; a
+// template so that only the sources that call it build its kernels.
 template <typename T>
 cudaError_t attention_f32(const void* x, const void* kpad, const void* w_in,
-                                 const void* b_in, void* attn, int B, int S, int C, int H,
-                                 cudaStream_t st) {
-#define EXO_DH(dh) \
-  case dh: return window_head_by_rows<dh>(x, kpad, w_in, b_in, attn, B, S, C, H, st);
-  switch (C / H) {
-    EXO_DH(8) EXO_DH(16) EXO_DH(24) EXO_DH(32) EXO_DH(40) EXO_DH(48) EXO_DH(56) EXO_DH(64)
+                          const void* b_in, void* attn, int B, int S, int C, int H,
+                          cudaStream_t st) {
+  if (!tc::aligned16(x) || !tc::aligned16(w_in)) return cudaErrorMisalignedAddress;
+  switch ((C / H + 15) / 16) {
+    case 1: return launch_tf32<16>(x, kpad, w_in, b_in, attn, B, S, C, H, st);
+    case 2: return launch_tf32<32>(x, kpad, w_in, b_in, attn, B, S, C, H, st);
+    case 3: return launch_tf32<48>(x, kpad, w_in, b_in, attn, B, S, C, H, st);
+    case 4: return launch_tf32<64>(x, kpad, w_in, b_in, attn, B, S, C, H, st);
     default: return cudaErrorInvalidValue;
   }
-#undef EXO_DH
 }
 
 // ================================================= 2b. float32, int8 qkv
@@ -450,8 +601,6 @@ cudaError_t attention_int8_f32(const void* xq, const void* xs, const void* kpad,
 }
 
 // ============================================== 2c. bfloat16, tensor cores
-constexpr int kTh = 256;        // 8 warps
-constexpr int kRows = 128;      // CTA row tile: two windows of S <= 64 or one of S <= 128
 constexpr int kKCt = 64;        // K chunk of the projection, in b16 units (128 bytes a row)
 constexpr int kXPt = kKCt + 8;  // staged row pitch (72 b16 units)
 

@@ -6,7 +6,9 @@
 //   16-byte cp.async copies into shared memory (zero-filled past the data);
 //   mma.sync m16n8k32 .s8 (int32 sums), whose fragments are the bf16 ones
 //   with each b16 holding two int8 values; and 3xTF32 (m16n8k8 .tf32 with
-//   hi/lo operand splits), float32 accuracy on the tensor cores.
+//   hi/lo operand splits), float32 accuracy on the tensor cores, with the
+//   fragments attention's p . v needs (p from the score C fragments, v read
+//   k-major) for the float32 bodies of flash and the MHA family.
 //
 // Fragment layout of one m16n8k16 product (lane = threadIdx.x % 32,
 // g = lane / 4, c = 2 * (lane % 4)):
@@ -141,6 +143,33 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Tf32A& a, const 
   mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
 }
 
+// Attention's second product, o += p . v, without a shared-memory trip for p.
+// An m16n8 C fragment of scores (rows g, g + 8; keys 2t, 2t + 1 as its
+// columns) is taken as the A fragment of one k-step of 8 keys: the sum runs
+// over keys, so their order is free as long as v's rows follow it. A column t
+// is read as key 2t and column t + 4 as key 2t + 1, so the C registers are
+// the A registers (a0 = c0, a1 = c2, a2 = c1, a3 = c3), split into TF32
+// halves: p stays float32, as the plain versions keep it.
+__device__ __forceinline__ Tf32A c_to_a_tf32(const float (&c)[4]) {
+  Tf32A a;
+  split_tf32(c[0], a.hi[0], a.lo[0]);
+  split_tf32(c[2], a.hi[1], a.lo[1]);
+  split_tf32(c[1], a.hi[2], a.lo[2]);
+  split_tf32(c[3], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// The matching B fragment of v, stored k-major (rows = keys 0.. of the
+// k-step, columns n) at pitch p: b0 = v[2t][g], b1 = v[2t + 1][g]. At a pitch
+// of 4 (mod 8) floats the 32 lanes read 32 distinct banks.
+__device__ __forceinline__ Tf32B load_bk_tf32(const float* t, int p, int lane) {
+  const float* w = t + 2 * (lane % 4) * p + lane / 4;
+  Tf32B b;
+  split_tf32(w[0], b.hi[0], b.lo[0]);
+  split_tf32(w[p], b.hi[1], b.lo[1]);
+  return b;
+}
+
 // This lane's ldmatrix row and column inside a 16 x 16 block of a row-major
 // tile: as the A operand (rows 0-7 / 8-15 by lane bit 3, columns 0-7 / 8-15
 // by bit 4; the same offsets serve a transposed B operand stored k-major,
@@ -201,6 +230,19 @@ __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, int pitch,
     const int r = e / kChunks, c = (e % kChunks) * 8;
     const bool in = r0 + r < n_rows && c0 + c < n_cols;
     const __nv_bfloat16* s = in ? src + size_t(r0 + r) * ld + c0 + c : src;
+    cp_async16(dst + r * pitch + c, s, in);
+  }
+}
+
+// The same for float32 tiles (width and n_cols multiples of 4).
+template <int rows, int width, int nthreads>
+__device__ __forceinline__ void cp_tile(float* dst, int pitch, const float* src, int ld, int r0,
+                                        int n_rows, int c0, int n_cols) {
+  constexpr int kChunks = width / 4;
+  for (int e = threadIdx.x; e < rows * kChunks; e += nthreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 4;
+    const bool in = r0 + r < n_rows && c0 + c < n_cols;
+    const float* s = in ? src + size_t(r0 + r) * ld + c0 + c : src;
     cp_async16(dst + r * pitch + c, s, in);
   }
 }

@@ -18,10 +18,11 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     autograd Function ``FlashAttention``), on a CPU tensor
     ``flash_attention_plain``. A row with no valid key gives 0 here, not
     the uniform average of ``attention_plain``.
-  Both kernels have a float32 body on the CUDA cores and a bfloat16 body
-  on the tensor cores; the bfloat16 bodies stage their operands by 16-byte
-  ``cp.async`` and the wrappers raise on a misaligned one
-  (``_kernels.check_aligned``).
+  Both kernels run their products on the tensor cores, bfloat16 as
+  ``mma.sync`` bf16 and float32 in 3xTF32 (float32 accuracy), apart from
+  flash's float32 dq and dk/dv, which stay on the CUDA cores; the tensor-core
+  bodies stage their operands by 16-byte ``cp.async`` and the wrappers raise
+  on a misaligned one (``_kernels.check_aligned``).
   * ``small_attention`` — the window-attention core of an explicit
     'small' (counterpart of ``small_attention``/``_small``): on a CUDA
     tensor the kernel of ``csrc/small_attn.cu``, on a CPU tensor
@@ -50,10 +51,10 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     ``block_fusion_mode`` says when a block takes it: an explicit 'fused'
     on a kernel-eligible window, in the default context ('exact') or in an
     int8 one whose policy quantizes 3C but not C ('int8').
-  The four kernels share ``csrc/mha_tile.cuh``: a float32 body per
-  (window, head) on the CUDA cores and a bfloat16 body per (128-row tile,
-  head) on the tensor cores (the int8 qkv as ``mma.sync`` .s8); every launch
-  goes through ``_launch_mha``.
+  The four kernels share ``csrc/mha_tile.cuh``: tiles of packed windows
+  per head on the tensor cores, bfloat16 (the int8 qkv as ``mma.sync`` .s8)
+  and float32 exact in 3xTF32, and the int8 float32 body per (window,
+  head) on the CUDA cores; every launch goes through ``_launch_mha``.
   * ``MultiHeadAttention`` — the ``nn.MultiheadAttention`` parameter layout
     (packed ``in_proj_weight`` (3C, C), ``out_proj``) with the JAX module's
     dispatch: under 'auto' (outside ``disable_fused_kernels()``) or an
@@ -156,7 +157,10 @@ def flash_attention_plain(q, k, v, kpad):
     return o.to(q.dtype), lse[..., 0]
 
 
-def _flash_check(name, q, k, v, kpad):
+def _flash_check(name, q, k, v, kpad, staged):
+    """The flash wrappers' checks; ``staged``: the kernel stages q, k and v
+    by 16-byte cp.async (the forward in both types, the backward in bf16),
+    so each must be 16-byte aligned."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"{name}: q, k, v must be (BH, S, D)")
     bh, sq, d = q.shape
@@ -176,7 +180,7 @@ def _flash_check(name, q, k, v, kpad):
         raise ValueError(f"{name}: the kernels take CUDA tensors, got {q.device}")
     _kernels.check_cuda_inputs(name, q.device, q.dtype, q=q, k=k, v=v)
     _kernels.check_cuda_inputs(name, q.device, torch.int32, kpad=kpad)
-    if q.dtype == torch.bfloat16:
+    if staged:
         _kernels.check_aligned(name, q=q, k=k, v=v)
     return bh, bh // kpad.shape[0], sq, sk, d
 
@@ -185,9 +189,9 @@ def flash_forward(q, k, v, kpad):
     """Launch the forward kernel: (o, lse) as ``flash_attention_plain``,
     from contiguous CUDA tensors (kpad int32)."""
     name = "flash_fwd"
-    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad)
+    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad, staged=True)
     o = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    lse = q.new_empty((bh, sq), dtype=torch.float32)
     rc = _kernels.library("flash_attn").flash_attn_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpad.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, h, sq, sk, d, _kernels.dtype_code(q), _kernels.stream_of(q))
@@ -197,7 +201,8 @@ def flash_forward(q, k, v, kpad):
 
 
 def _flash_bwd_check(name, q, k, v, kpad, do, lse, delta):
-    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad)
+    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad,
+                                    staged=q.dtype == torch.bfloat16)
     _kernels.check_cuda_inputs(name, q.device, q.dtype, do=do)
     _kernels.check_cuda_inputs(name, q.device, torch.float32, lse=lse, delta=delta)
     if q.dtype == torch.bfloat16:
@@ -448,10 +453,10 @@ def mha_int8_plain(x, kpad, w_in, b_in, w_out, b_out, num_heads):
 def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, staged=(),
                **ln):
     """The wrappers' checks before a launch (``ln``: the block kernels'
-    LayerNorm weight and bias); returns the int32 key padding. In bf16 the
-    out-projection stages W_out by cp.async, and the tensor-core body the
+    LayerNorm weight and bias); returns the int32 key padding. The
+    out-projection stages W_out by cp.async, and the attention body the
     operands named in ``staged`` ('x', 'w_in'): each must be 16-byte
-    aligned."""
+    aligned, in both types."""
     b, s, c = x.shape
     if not kernel_eligible(s, c, num_heads):
         raise ValueError(f"{name}: S={s}, C={c}, H={num_heads} outside the fused test "
@@ -471,9 +476,8 @@ def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, s
     _kernels.check_inference(name, x, w_in, b_in, w_out, b_out, *ln.values())
     _kernels.check_cuda_inputs(name, x.device, x.dtype, x=x, w_in=w_in, b_in=b_in,
                                w_out=w_out, b_out=b_out, **ln)
-    if x.dtype == torch.bfloat16:
-        operands = dict(x=x, w_in=w_in)
-        _kernels.check_aligned(name, w_out=w_out, **{k: operands[k] for k in staged})
+    operands = dict(x=x, w_in=w_in)
+    _kernels.check_aligned(name, w_out=w_out, **{k: operands[k] for k in staged})
     if key_padding_mask is None:
         return torch.zeros((b, s), dtype=torch.int32, device=x.device)
     if key_padding_mask.shape != (b, s):
@@ -502,11 +506,12 @@ def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, 
     library ``name`` (built at first use, after the checks) and the count. Its
     pointers: x, the key padding, the LayerNorm (``ln``, by name: the block
     bodies), W_in or its int8 values and scales, b_in, W_out, b_out, the
-    scratch, out (and x_norm with ``ln``). In bf16 the exact bodies' tile
-    copies W_in by cp.async (the int8 bodies' tile the fresh int8 W_in and
-    xq), fused MHA's tile x (the block bodies' tile the fresh x_norm), and
-    the block bodies' out-projection reads x, its residual, as pairs: those
-    operands are checked for alignment. Returns out, or (out, x_norm)."""
+    scratch, out (and x_norm with ``ln``). In both types the exact bodies'
+    tile copies W_in by cp.async (the int8 bodies' bf16 tile the fresh int8
+    W_in and xq; their f32 body reads plainly), fused MHA's tile x (the
+    block bodies' tile the fresh x_norm), and the block bodies'
+    out-projection reads x, its residual, as pairs: those operands are
+    checked for alignment. Returns out, or (out, x_norm)."""
     ln = ln or {}
     staged = tuple(k for k, on in (("x", bool(ln) or not int8), ("w_in", not int8)) if on)
     kpad = _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads,

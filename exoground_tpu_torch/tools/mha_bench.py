@@ -15,9 +15,12 @@ whose order alternates; one ``BENCH`` JSON line per shape with the medians
 and every round. Back-to-back launches time the device, not the Python work
 of a single call (the timing helpers are mlp_bench's).
 
-``--hash``: the fused MHA at phase 3's shapes of chip_smoke.py, the sha256 of
-each output and the median of 20 single timed calls (``MHACMP`` line), to
-hold one checkout's kernel against another's bit for bit.
+``--hash``: the four kernels of the family (fused MHA, the int8 MHA and both
+block-attention bodies) at phase 3's shapes of chip_smoke.py and the flash
+forward at the global path's (S 2048, 2096 with 48 padding keys) and at head
+size 128, float32 and bfloat16: the sha256 of each output and the fused MHA's
+median of 20 single timed calls (``MHACMP`` line), to hold one checkout's
+kernels against another's bit for bit.
 
 Needs a CUDA device.
 """
@@ -89,8 +92,13 @@ def bench(rounds: int = 5, launches: int = 30) -> None:
                   json.dumps({k: [round(u, 4) for u in v] for k, v in res.items()}), flush=True)
 
 
+def _sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
 def hashes(tag: str) -> None:
-    from exoground_tpu_torch.ops.attention import fused_mha
+    from exoground_tpu_torch.ops.attention import (
+        flash_forward, fused_block_attn, fused_mha, fused_mha_int8)
     from exoground_tpu_torch.tools.mlp_bench import _time_ms
 
     res = []
@@ -98,14 +106,27 @@ def hashes(tag: str) -> None:
         for b, s, c, h in ((304, 64, 512, 8), (304, 96, 512, 8), (5, 33, 128, 4),
                            (3, 17, 128, 16), (4, 72, 640, 16), (3, 128, 384, 8),
                            (64, 128, 512, 8), (2, 50, 256, 16)):
-            x, kpad, _, w = _inputs(b, s, c, dtype, b * 7 + s + c)
+            x, kpad, (lw, lb), w = _inputs(b, s, c, dtype, b * 7 + s + c)
             with torch.inference_mode():
-                out = fused_mha(x, kpad, *w, h)
+                outs = {"fused_mha": fused_mha(x, kpad, *w, h),
+                        "fused_mha_int8": fused_mha_int8(x, kpad, *w, h),
+                        "block_attn": fused_block_attn(x, kpad, lw, lb, *w, h)[0],
+                        "block_attn_int8": fused_block_attn(x, kpad, lw, lb, *w, h,
+                                                            int8_qkv=True)[0]}
                 torch.cuda.synchronize()
-                sha = hashlib.sha256(out.cpu().contiguous().view(torch.uint8).numpy().tobytes())
                 ms = _time_ms(lambda: fused_mha(x, kpad, *w, h)) if b >= 64 else None
             res.append(dict(shape=f"B{b} S{s} C{c} H{h}", dtype=str(dtype).split(".")[-1],
-                            sha=sha.hexdigest()[:16], ms=ms))
+                            sha={k: _sha(v) for k, v in outs.items()}, ms=ms))
+        for bh, sq, d, pad in ((8, 2048, 64, 0), (8, 2096, 64, 48), (8, 300, 128, 20)):
+            g = torch.Generator(device="cuda").manual_seed(sq + d)
+            q, k, v = (torch.randn(bh, sq, d, generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            kpad = torch.zeros(1, sq, dtype=torch.int32, device="cuda")
+            kpad[:, sq - pad:] = 1
+            o, lse = flash_forward(q * d ** -0.5, k, v, kpad)
+            res.append(dict(shape=f"flash BH{bh} S{sq} D{d} pad{pad}",
+                            dtype=str(dtype).split(".")[-1],
+                            sha={"flash_fwd": _sha(o) + "/" + _sha(lse)}, ms=None))
     print("MHACMP", tag, json.dumps(res), flush=True)
 
 

@@ -10,9 +10,9 @@ warm-up sweep, three timed sweeps (host clock around work that ends in
 Prints, per dtype, one JSON line: frames/s (frames over the median timed
 sweep, as chip_smoke.py reports it), the device busy share of the
 profiled sweep (sum of kernel times over its wall time), the MHA family's
-device time by kernel (row prologue, bf16 tile, f32 (window, head)
-kernels, out-projection) and its share of the busy time, and the kernels
-that took the most device time.
+device time by kernel (row prologue, bf16 tile, f32 tile, the int8 f32
+body's (window, head) kernel, out-projection) and its share of the busy
+time, and the kernels that took the most device time.
 
 ``--train`` profiles the train path instead: TANTrainer cotrain steps at
 the JAX package's train-bench configuration (E6D6 with the alignability
@@ -114,11 +114,12 @@ def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
         prof.export_chrome_trace(os.path.join(out_dir, f"main_path_{label}.json"))
     # by kernel name: the MHA family's (csrc/mha_tile.cuh, shared by fused
     # MHA, the int8 MHA and both block-attention bodies: the row prologue,
-    # the bf16 tensor-core tile, the f32 (window, head) kernels, the
-    # out-projection), the int8 MLP and the block MLP (both bodies)
+    # the bf16 tile, the f32 3xTF32 tile, the int8 f32 body's (window, head)
+    # kernel, the out-projection), the int8 MLP and the block MLP (both bodies)
     attn_us = {k: sum(us for us, _, key in rows if name in key)
                for k, name in (("row_prologue", "row_prologue_kernel"),
                                ("tile_bf16", "mha_tc_kernel"),
+                               ("tile_tf32", "mha_tf32_kernel"),
                                ("window_head_f32", "window_head_kernel"),
                                ("out_projection", "linear_bias"))}
     int8_us = {"mlp_int8": sum(us for us, _, key in rows if "fused_mlp_int8" in key)}
@@ -254,9 +255,12 @@ def profile_ground(svc, requests, impl: str, out_dir=None) -> dict:
     busy_us = sum(r[0] for r in rows)
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"ground_{impl}.json"))
-    share = {k: sum(us for us, _, key in rows if name in key) / max(busy_us, 1e-9)
-             for k, name in (("small_attn", "small_attn"), ("fused_mha", "mha_window_head"),
-                             ("fused_mlp", "fused_mlp"))}
+    # fused MHA: the f32 tile and its out-projection
+    share = {k: sum(us for us, _, key in rows if any(n in key for n in names))
+             / max(busy_us, 1e-9)
+             for k, names in (("small_attn", ("small_attn",)),
+                              ("fused_mha", ("mha_tf32_kernel", "linear_bias")),
+                              ("fused_mlp", ("fused_mlp",)))}
     med = statistics.median(times)
     return {
         "impl": impl,

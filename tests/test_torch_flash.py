@@ -37,6 +37,7 @@ from exoground_tpu_torch.ops import blocks as tblocks
 from exoground_tpu_torch.parallel import make_tan_train_step
 from exoground_tpu_torch.train import ExperimentConfig, FusedAdamWEMA, TANTrainer
 from exoground_tpu_torch.utils.convert import load_tan_params, tan_state_dict_from_jax
+from tests.test_torch_mha_family import _product
 from tests.test_torch_train import LOSS, SMALL, _batch, _numpy_params
 
 
@@ -212,6 +213,116 @@ def test_kernel_wrappers_refuse_cpu_and_unserved_head_sizes():
             tattn.flash_forward(x, x, x, kpad)
     with pytest.raises(ValueError, match="kpad"):
         tattn.flash_forward(q, q, q, torch.zeros(3, 8, dtype=torch.int32))
+
+
+# ------------------------------------------- the float32 forward, 3xTF32
+def _fwd_tiles_tf32(q, k, v, kpad, tile=64):
+    """flash_fwd_tf32_kernel's order of work on float32 (BH, S, D) tensors
+    (q pre-scaled): key tiles of 64 walked in order, s = q . k^T in 3xTF32,
+    invalid keys at -inf, the online max m (from the finite -1e30) and sum
+    l, acc = alpha acc + p . v in 3xTF32 with p in float32; then o = acc / l
+    and lse = m + log l, an empty row at o = 0 and lse = +1e30."""
+    bh, sq, _ = q.shape
+    b, sk = kpad.shape
+    valid = (kpad == 0).repeat_interleave(bh // b, dim=0)[:, None, :]
+    m = torch.full((bh, sq, 1), tattn.NEG_INF)
+    l = torch.zeros(bh, sq, 1)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, sk, tile):
+        sl = slice(k0, k0 + tile)
+        sc = torch.where(valid[..., sl], _product(q, k[:, sl]), torch.tensor(-np.inf))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + _product(p, v[:, sl].transpose(1, 2))
+        m = m_new
+    lm = torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(lm), torch.full_like(m, -tattn.NEG_INF))
+    return acc / lm, lse[..., 0]
+
+
+def test_float32_forward_tiles_in_3xtf32_match_jax_and_plain():
+    """The f32 forward's order of work at the global path's padded length
+    (Sq = Sk = 2096, the last 48 keys padding: 33 key tiles, the last one
+    ragged) against flash_attention_plain (o and lse) and the JAX kernel in
+    interpret mode, within 1e-4 of max|ref| (chip_smoke's float32 limit)."""
+    b, h, s, d = 1, 2, 2096, 64
+    q, k, v = _qkv(b, h, s, s, d, seed=50)
+    kpad = np.zeros((b, s), bool)
+    kpad[:, s - 48:] = True
+    qs = torch.from_numpy(q.reshape(b * h, s, d) * np.float32(1.0 / np.sqrt(d)))
+    kf, vf = (torch.from_numpy(a.reshape(b * h, s, d)) for a in (k, v))
+    o, lse = _fwd_tiles_tf32(qs, kf, vf, _t(kpad).int())
+    po, plse = tattn.flash_attention_plain(qs, kf, vf, _t(kpad).int())
+    assert (o - po).abs().max() <= 1e-4 * po.abs().max()
+    assert (lse - plse).abs().max() <= 1e-4 * plse.abs().max()
+    want = np.asarray(jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            jnp.asarray(kpad))).reshape(b * h, s, d)
+    assert np.abs(o.numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_float32_forward_tiles_keep_the_empty_row_rule():
+    """A batch row with no valid key: o = 0 and lse = +1e30 exactly, as
+    flash_attention_plain and the JAX kernel give; the other rows agree."""
+    b, h, sq, sk, d = 2, 2, 130, 257, 32
+    q, k, v = _qkv(b, h, sq, sk, d, seed=51)
+    kpad = np.zeros((b, sk), np.int32)
+    kpad[0] = 1
+    kpad[1, 200:] = 1
+    qs = torch.from_numpy(q.reshape(b * h, sq, d) * np.float32(1.0 / np.sqrt(d)))
+    kf, vf = (torch.from_numpy(a.reshape(b * h, sk, d)) for a in (k, v))
+    o, lse = _fwd_tiles_tf32(qs, kf, vf, _t(kpad))
+    po, plse = tattn.flash_attention_plain(qs, kf, vf, _t(kpad))
+    assert not o[:h].any() and bool((lse[:h] == np.float32(1e30)).all())
+    assert torch.equal(plse[:h], lse[:h])
+    assert (o - po).abs().max() <= 1e-4 * po.abs().max()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so that the flash wrappers'
+    checks run and a stand-in library takes the call."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_float32_forward_refuses_an_unaligned_operand(monkeypatch):
+    """The f32 forward stages q, k and v by 16-byte cp.async, as the bf16
+    one does: an offset view of any of them raises ValueError before a
+    launch. The f32 dq and dk/dv (CUDA cores) read value by value and take
+    any offset."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            return lambda *args: calls.append(fn) or 0
+
+    monkeypatch.setattr(tattn._kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(tattn._kernels, "stream_of", lambda t: 0)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        monkeypatch.setitem(tattn._kernels.LAUNCHES, name, 0)
+
+    def card(t):
+        return t.as_subclass(_OnCard)
+
+    def offset(t):
+        buf = torch.zeros(t.numel() + 4)
+        return card(buf[1:1 + t.numel()].view(t.shape))
+
+    q = card(torch.zeros(2, 64, 32))
+    kpad = card(torch.zeros(1, 64, dtype=torch.int32))
+    lse, delta = card(torch.zeros(2, 64)), card(torch.zeros(2, 64))
+    tattn.flash_forward(q, q, q, kpad)
+    for arg in range(3):
+        qkv = [q, q, q]
+        qkv[arg] = offset(q)
+        with pytest.raises(ValueError, match=f"{'qkv'[arg]} must start on a 16-byte boundary"):
+            tattn.flash_forward(*qkv, kpad)
+        tattn.flash_dq(*qkv, kpad, offset(q), lse, delta)
+        tattn.flash_dkv(*qkv, kpad, offset(q), lse, delta)
+    assert calls == ["flash_attn_forward"] + ["flash_attn_dq", "flash_attn_dkv"] * 3
 
 
 # ---------------------------------------------------------------- dispatch

@@ -23,6 +23,7 @@ from exoground_tpu.ops import attention as jattn
 from exoground_tpu_torch.ops import _kernels, quant
 from exoground_tpu_torch.ops import attention as tattn
 from exoground_tpu_torch.ops.fused_mlp import LN_EPS, layernorm_f32
+from tests.test_torch_mlp_family import _tf32
 
 BODIES = ("mha_int8", "block", "block_int8")
 # max error / max|reference|: float32 summation order (the int8 block body: a
@@ -302,6 +303,150 @@ def test_fully_masked_window_averages_its_own_values(body, dtype):
     assert _rel(o1[0], mean.to(tx.dtype)) <= (1e-6 if dtype == "float32" else 1e-2)
 
 
+# ------------------------------------------ the float32 exact body, 3xTF32
+def _product(a, b, terms=3):
+    """a . b^T over the last two axes as the tensor cores compute it on
+    float32: 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi, each TF32 product
+    exact in float32), or with ``terms=1`` plain TF32 (a_hi b_hi alone)."""
+    ah, bh = _tf32(a), _tf32(b)
+    hh = ah @ bh.transpose(-1, -2)
+    if terms == 1:
+        return hh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh.transpose(-1, -2) + ah @ bl.transpose(-1, -2) + hh
+
+
+def _tiles(b, s):
+    """The float32 tile's packing: each window takes RW = round16(S) rows,
+    128 // RW windows a tile."""
+    rw = -(-s // 16) * 16
+    wpc = 128 // rw
+    return rw, wpc, -(-b // wpc)
+
+
+def _emulate_tf32(x, kpad, w_in, b_in, w_out, b_out, num_heads, res=None, terms=3):
+    """mha_tf32_kernel, then the out-projection (linear_bias_tf32_kernel),
+    in their order of work on float32: the windows packed into tiles, per
+    head the tile's qkv product (+ b_in) in 3xTF32, scores over the whole
+    tile in 3xTF32 times 1/sqrt(Dh) with the keys of the packed neighbours
+    and past S at -inf and padding keys at -1e30, p = exp(s - max) / l in
+    float32, o = p . v in 3xTF32; then o . W_out^T in 3xTF32 + b_out (+ res),
+    summed in float32. Returns out (B, S, C)."""
+    b, s, c = x.shape
+    dh = c // num_heads
+    rw, wpc, nt = _tiles(b, s)
+    rows = wpc * rw
+    xt = torch.zeros(nt * wpc, rw, c)
+    xt[:b, :s] = x
+    xt = xt.reshape(nt, rows, c)
+    flag = torch.ones(nt * wpc, rw, dtype=torch.bool)  # padding keys
+    flag[:b, :s] = kpad.bool()
+    flag = flag.reshape(nt, rows)
+    win = torch.arange(rows) // rw
+    tok = torch.arange(rows) % rw
+    own = (win[:, None] == win[None, :]) & (tok[None, :] < s)  # (query, key) of one window
+    qkv = _product(xt, w_in, terms) + b_in
+    q, k, v = (t.reshape(nt, rows, num_heads, dh).transpose(1, 2) for t in qkv.chunk(3, -1))
+    sc = _product(q, k, terms) * np.float32(1.0 / np.sqrt(dh))
+    sc = torch.where(flag[:, None, None, :], torch.tensor(tattn.NEG_INF), sc)
+    sc = torch.where(own, sc, torch.tensor(-np.inf))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    o = _product(p, v.transpose(-1, -2), terms)  # (nt, H, rows, dh)
+    o = o.transpose(1, 2).reshape(nt * wpc, rw, c)[:b, :s].reshape(b * s, c)
+    out = _product(o, w_out, terms) + b_out
+    if res is not None:
+        out = out + res.reshape(b * s, c)
+    return out.reshape(b, s, c)
+
+
+def _jax_exact(body, x, kpad, ln, w, h):
+    """The JAX kernel of the exact body (interpret mode) on float32 inputs."""
+    g, bb = (jnp.asarray(a) for a in ln)
+    wi, bi, wo, bo = w
+    if body == "mha":
+        return _f32(jattn._fused_mha(jnp.asarray(x), jnp.asarray(kpad.astype(np.int32)),
+                                     jnp.asarray(wi.T), jnp.asarray(bi), jnp.asarray(wo.T),
+                                     jnp.asarray(bo), h))
+    out, _ = jattn.fused_block_attn(jnp.asarray(x), jnp.asarray(kpad), g, bb, jnp.asarray(wi.T),
+                                    jnp.asarray(bi), jnp.asarray(wo.T), jnp.asarray(bo), h)
+    return _f32(out)
+
+
+def _exact_case(body, s, dh, seed, masked_window=False):
+    """(the emulated float32 tile's output, plain TF32's, the plain version's,
+    the inputs) for fused MHA ('mha') or the exact block body ('block'),
+    which reads the prologue's x_norm as fused MHA reads x and adds x."""
+    x, kpad, ln, w, h = _inputs(s, dh, seed, masked_window)
+    tx, tk, g, bb, wi, bi, wo, bo = _torch_args(x, kpad, ln, w, "float32")
+    if body == "mha":
+        a, res = tx, None
+        want = tattn.mha_plain(tx, tk, wi, bi, wo, bo, h)
+    else:
+        a, res = _prologue(tx, g, bb)[0].reshape(tx.shape), tx
+        want = tattn.block_attn_plain(tx, tk, g, bb, wi, bi, wo, bo, h)[0]
+    got, tf32 = (_emulate_tf32(a, tk, wi, bi, wo, bo, h, res=res, terms=t) for t in (3, 1))
+    return got, tf32, want, (x, kpad, ln, w, h)
+
+
+@pytest.mark.parametrize("body,s,dh", [("mha", s, dh) for s in (17, 64, 96, 128)
+                                       for dh in (8, 40, 64)]
+                         + [("block", s, 64) for s in (17, 64, 96, 128)])
+def test_float32_tile_in_3xtf32_matches_plain_and_jax(body, s, dh):
+    """The float32 exact body's order of work (windows packed at round16(S)
+    rows, 128 // round16(S) a tile: two at S 64, one 96-row tile at S 96;
+    every product in 3xTF32; the out-projection in 3xTF32 with b_out and, in
+    the block body, the residual) against the plain version and the JAX
+    kernel in interpret mode, within 1e-4 of max|ref| (chip_smoke's float32
+    limit)."""
+    got, _, want, (x, kpad, ln, w, h) = _exact_case(body, s, dh, seed=9 * s + dh)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel(got, want) <= 1e-4
+    assert _rel(got, _jax_exact(body, x, kpad, ln, w, h)) <= 1e-4
+
+
+@pytest.mark.parametrize("body", ["mha", "block"])
+@pytest.mark.parametrize("s", [64, 96])
+def test_plain_tf32_misses_the_float32_bar(body, s):
+    """What the 3xTF32 split buys: at the main path's windows the tile with
+    a_hi b_hi alone (plain TF32, operands truncated to 10 mantissa bits)
+    misses 1e-4 of max|plain| by far, while 3xTF32 sits at float32's own
+    summation-order level."""
+    got, tf32, want, _ = _exact_case(body, s, 64, seed=s + 5)
+    assert _rel(got, want) <= 1e-5
+    assert _rel(tf32, want) > 1e-3
+
+
+def test_float32_out_projection_in_3xtf32():
+    """The out-projection alone in 3xTF32 (heads summed inside one dot
+    product over K = C), with the bias and residual added to the float32 sum
+    once, against float64: float32 accuracy; plain TF32 misses 1e-4."""
+    rng = np.random.RandomState(3)
+    a, wo = torch.from_numpy(_n(rng, 300, 512)), torch.from_numpy(_n(rng, 512, 512, scale=0.05))
+    bo, res = torch.from_numpy(_n(rng, 512, scale=0.02)), torch.from_numpy(_n(rng, 300, 512))
+    ref = a.double() @ wo.double().T + bo.double() + res.double()
+    scale = ref.abs().max()
+    err = ((_product(a, wo) + bo + res).double() - ref).abs().max() / scale
+    err1 = ((_product(a, wo, terms=1) + bo + res).double() - ref).abs().max() / scale
+    assert err <= 1e-6 and err1 > 1e-4
+
+
+def test_float32_tile_packs_a_fully_masked_window_beside_a_real_one():
+    """Window 1 (every key padding) shares its 128-row tile with window 0 at
+    S 64: it averages its own S values (its neighbour's keys take -inf, its
+    own -1e30), as the plain version does, and window 0 is as it is alone."""
+    got, _, want, (x, kpad, ln, w, h) = _exact_case("mha", 64, 64, 13, masked_window=True)
+    assert kpad[1].all() and _tiles(3, 64)[:2] == (64, 2)
+    assert _rel(got, want) <= 1e-4
+    tx, tk, _, _, wi, bi, wo, bo = _torch_args(x, kpad, ln, w, "float32")
+    alone = _emulate_tf32(tx[:1], tk[:1], wi, bi, wo, bo, h)
+    assert torch.equal(got[:1], alone)
+    qkv = _product(tx[1], wi) + bi
+    mean = qkv[:, 2 * 128:].mean(0)  # v of window 1, averaged over its 64 rows
+    o = _product(mean[None], wo) + bo
+    assert _rel(got[1], o.expand(64, -1)) <= 1e-5
+
+
 # ----------------------------------------------------- the wrappers' calls
 def _fake_library(monkeypatch, calls):
     """Stand in for the kernel libraries: record each C call and return 0."""
@@ -403,28 +548,31 @@ def _offset(t):
 
 @pytest.mark.parametrize("name,block,int8", WRAPPERS)
 def test_wrappers_refuse_an_unaligned_operand(monkeypatch, name, block, int8):
-    """In bfloat16 an offset view of W_out (every body: the out-projection
-    copies it by 16-byte cp.async), of W_in (the exact bodies' tile copies
-    it) or of x (fused MHA's tile copies it; the block bodies' out-projection
-    reads it, the residual, as pairs) raises ValueError before any launch;
-    the int8 bodies' tile copies only the fresh int8 W_in and xq, and the
+    """In bfloat16 and float32 alike an offset view of W_out (every body:
+    the out-projection copies it by 16-byte cp.async), of W_in (the exact
+    bodies' tile copies it) or of x (fused MHA's tile copies it; the block
+    bodies' out-projection reads it, the residual, as pairs) raises
+    ValueError before any launch; the int8 bodies' tile copies only the
+    fresh int8 W_in and xq (their float32 body reads them plainly), and the
     int8 MHA reads x value by value, so those take any offset."""
     calls = []
     _fake_library(monkeypatch, calls)
-    x, ln, (wi, bi, wo, bo) = _wrapper_args(2, 64, 128)
-    with pytest.raises(ValueError, match="w_out must start on a 16-byte boundary"):
-        _call(name, block, int8, x, ln, [wi, bi, _offset(wo), bo], 2)
-    if int8:
-        _call(name, block, int8, x, ln, [_offset(wi), bi, wo, bo], 2)
-    else:
-        with pytest.raises(ValueError, match="w_in must start on a 16-byte boundary"):
+    for dtype in (torch.bfloat16, torch.float32):
+        x, ln, (wi, bi, wo, bo) = _wrapper_args(2, 64, 128, dtype)
+        with pytest.raises(ValueError, match="w_out must start on a 16-byte boundary"):
+            _call(name, block, int8, x, ln, [wi, bi, _offset(wo), bo], 2)
+        if int8:
             _call(name, block, int8, x, ln, [_offset(wi), bi, wo, bo], 2)
-    if name == "fused_mha_int8":
-        _call(name, block, int8, _offset(x), ln, [wi, bi, wo, bo], 2)
-    else:
-        with pytest.raises(ValueError, match="x must start on a 16-byte boundary"):
+        else:
+            with pytest.raises(ValueError, match="w_in must start on a 16-byte boundary"):
+                _call(name, block, int8, x, ln, [_offset(wi), bi, wo, bo], 2)
+        if name == "fused_mha_int8":
             _call(name, block, int8, _offset(x), ln, [wi, bi, wo, bo], 2)
-    assert len(calls) == {"fused_mha_int8": 2, "block_attn_int8": 1}.get(name, 0)
-    # float32 stages nothing by cp.async: any offset serves
-    x32, ln32, w32 = _wrapper_args(2, 64, 128, torch.float32)
-    _call(name, block, int8, _offset(x32), ln32, [_offset(t) for t in w32], 2)
+        else:
+            with pytest.raises(ValueError, match="x must start on a 16-byte boundary"):
+                _call(name, block, int8, _offset(x), ln, [wi, bi, wo, bo], 2)
+    assert len(calls) == {"fused_mha_int8": 4, "block_attn_int8": 2}.get(name, 0)
+    # the biases and the LayerNorm are read value by value: any offset serves
+    x32, ln32, (wi, bi, wo, bo) = _wrapper_args(2, 64, 128, torch.float32)
+    ln32 = {k: _offset(v) for k, v in ln32.items()}
+    _call(name, block, int8, x32, ln32, [wi, _offset(bi), wo, _offset(bo)], 2)
