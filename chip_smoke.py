@@ -82,10 +82,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      backward (dv, dt for random upstream grads) against grid_lse2_plain on
      the card, at the train path's shapes (S 6, R = B*64, Cc = B*12, C 512
      for B 16 and 64, dual St = 1 and joint St = 6), a ragged (2, 36, 15,
-     128) with three invalid columns and a column space above the TPU
-     kernel's cap (1, 512, 3072, 512), in float32 (<= 1e-4 of max|plain|)
-     and bfloat16 (<= 1e-2); forward and backward times beside the plain
-     version's and the bound;
+     128) with three invalid columns, a column space above the TPU
+     kernel's cap (1, 512, 3072, 512) and two output slabs (2, 100, 70,
+     640), in float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); the
+     backward run twice must give the same bytes; forward and backward
+     times (single calls and 30 back to back) beside the plain version's
+     and the bound (float32: both routes); then one `bar ✓/✗` line a B64
+     case (grid_bars: the kernel's forward + backward back to back at most
+     the plain version's);
   5. train path: TANTrainer at the JAX package's train-bench configuration
      (TemporalAligner E6D6, width 512, 4096-d, alignability head, cotrain
      with keep agreement, loss threshold 0.7, EMA 0.999): one float32 step
@@ -152,9 +156,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
-family, the MHA family (but the int8 qkv product's) and the flash forward
-run 3xTF32 on the tensor cores, which keeps float32 accuracy (csrc/tc.cuh
-says why). The
+family, the MHA family (but the int8 qkv product's), the flash forward and
+the grid kernel run 3xTF32 on the tensor cores, which keeps float32
+accuracy (csrc/tc.cuh says why). The
 line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -849,29 +853,65 @@ def grid_case(S, R, Cc, C, St, dtype, seed, n_invalid=0, timed=False):
     case = dict(shape=f"S{S} R{R} Cc{Cc} C{C} St{St}", dtype=str(dtype).split(".")[-1],
                 max_abs_err=max(e for e, _ in errs.values()), max_rel_err=rel,
                 rel_err={k: r for k, (_, r) in errs.items()})
+    # the backward twice on the same inputs: the same bytes (no atomics)
+    cv32 = valid.to(torch.int32)
+    vden, tden = grid_lse2_forward(v, t, cv32, inv)
+    first = grid_lse2_backward(v, t, cv32, vden, tden, g_v, g_t, inv)
+    again = grid_lse2_backward(v, t, cv32, vden, tden, g_v, g_t, inv)
+    torch.cuda.synchronize()
+    case["bwd_bit_identical"] = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                                    for x, y in zip(first, again))
+    if not case["bwd_bit_identical"]:
+        fail(f"grid backward differs between two runs at {case['shape']} {case['dtype']}")
     if timed:
-        cv32 = valid.to(torch.int32)
-        vden, tden = grid_lse2_forward(v, t, cv32, inv)
-        fwd_ms = time_ms(lambda: grid_lse2_forward(v, t, cv32, inv))
-        bwd_ms = time_ms(lambda: grid_lse2_backward(v, t, cv32, vden, tden, g_v, g_t, inv))
-        with torch.no_grad():
-            plain_fwd = time_ms(lambda: grid_lse2_plain(v, t, valid, inv))
+        def fwd():
+            return grid_lse2_forward(v, t, cv32, inv)
+
+        def bwd():
+            return grid_lse2_backward(v, t, cv32, vden, tden, g_v, g_t, inv)
+
+        def plain_fwd():
+            with torch.no_grad():
+                return grid_lse2_plain(v, t, valid, inv)
+
         a, b = v.clone().requires_grad_(), t.clone().requires_grad_()
         pvd, ptd = grid_lse2_plain(a, b, valid, inv)
-        plain_bwd = time_ms(lambda: torch.autograd.grad([pvd, ptd], [a, b], [g_v, g_t],
-                                                        retain_graph=True))
+
+        def plain_bwd():
+            return torch.autograd.grad([pvd, ptd], [a, b], [g_v, g_t], retain_graph=True)
+
         item = v.element_size()
         work = 2.0 * S * R * Cc * C
         io = (S * R + St * Cc) * C * item
-        fb, fby = bound_ms(work, io + 4 * (S * R + S * Cc + Cc), dtype)
-        bb, bby = bound_ms(3 * work, 2 * io + 4 * (2 * S * R + 2 * S * Cc + Cc), dtype)
-        case.update(fwd_ms=fwd_ms, fwd_plain_ms=plain_fwd, fwd_bound_ms=fb, fwd_bound_by=fby,
-                    bwd_ms=bwd_ms, bwd_plain_ms=plain_bwd, bwd_bound_ms=bb, bwd_bound_by=bby,
-                    library_ms=None)
+        fb = routes_bound(0.0, work, io + 4 * (S * R + S * Cc + Cc), dtype)
+        bb = routes_bound(0.0, 3 * work, 2 * io + 4 * (2 * S * R + 2 * S * Cc + Cc), dtype)
+        case.update(fwd_ms=time_ms(fwd), fwd_ms_b2b=b2b_ms(fwd), fwd_plain_ms=time_ms(plain_fwd),
+                    fwd_plain_ms_b2b=b2b_ms(plain_fwd),
+                    **{f"fwd_{k}": x for k, x in fb.items()},
+                    bwd_ms=time_ms(bwd), bwd_ms_b2b=b2b_ms(bwd), bwd_plain_ms=time_ms(plain_bwd),
+                    bwd_plain_ms_b2b=b2b_ms(plain_bwd),
+                    **{f"bwd_{k}": x for k, x in bb.items()}, library_ms=None)
     print("milnce_grid", json.dumps(case), flush=True)
     if not rel <= TOL[dtype]:
         fail(f"the grid kernel disagrees with grid_lse2_plain: {case}")
     return case
+
+
+def grid_bars(grid_cases):
+    """One ✓/✗ line for each B64 case (R 4096: joint and dual, float32 and
+    bfloat16): the kernel's forward + backward back to back at most
+    grid_lse2_plain's forward + autograd backward back to back, so that
+    'auto' never pays more than the plain path there (printed, not failed
+    on; single calls beside)."""
+    for c in grid_cases:
+        if "fwd_ms_b2b" not in c or " R4096 " not in f" {c['shape']} ":
+            continue
+        own, plain = c["fwd_ms_b2b"] + c["bwd_ms_b2b"], c["fwd_plain_ms_b2b"] + c["bwd_plain_ms_b2b"]
+        single = (c["fwd_ms"] + c["bwd_ms"]) / (c["fwd_plain_ms"] + c["bwd_plain_ms"])
+        print(f"bar {'✓' if own <= plain else '✗'} milnce_grid {c['dtype']} {c['shape']} "
+              f"fwd+bwd <= grid_lse2_plain: back to back {own:.3f} / {plain:.3f} ms = "
+              f"{own / plain:.3f}; single call {single:.3f} ({'✓' if single <= 1 else '✗'})",
+              flush=True)
 
 
 # ---------------------------------------------------------------- phase 3c
@@ -1915,6 +1955,8 @@ def main():
         grid_cases.append(grid_case(6, 4096, 768, 512, 1, dtype, seed=23, timed=True))
         grid_cases.append(grid_case(2, 36, 15, 128, 1, dtype, seed=24, n_invalid=3))
         grid_cases.append(grid_case(1, 512, 3072, 512, 1, dtype, seed=25, n_invalid=5))
+        grid_cases.append(grid_case(2, 100, 70, 640, 2, dtype, seed=26, n_invalid=2))
+    grid_bars(grid_cases)
 
     # phase 3c: the flash kernels against their plain version
     flash_cases = []
@@ -2009,7 +2051,8 @@ def main():
                                                                   "fwd")}
                  for c in grid_cases]
         for c in cases:
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "ms_b2b", "plain_ms_b2b",
+                      "bound_cuda_cores_ms", "bound_3xtf32_ms"):
                 if f"{part}_{k}" in c:
                     c[k] = c.pop(f"{part}_{k}")
         return entry(f"milnce_grid_{part}", "exoground_tpu_torch/csrc/milnce_grid.cu",

@@ -67,8 +67,8 @@ SIGNATURES = {
         # S, St, R, Cc, C, nR, inv_temp, dtype, stream
         "milnce_grid_forward": (_P,) * 7 + (_I,) * 6 + (_F, _I, _P),
         # video3, text3, cvalid, v_den, t_den, g_v, g_t, dv, dt, dt_part,
-        # S, St, R, Cc, C, nsplit, inv_temp, dtype, stream
-        "milnce_grid_backward": (_P,) * 10 + (_I,) * 6 + (_F, _I, _P),
+        # S, St, R, Cc, C, nsplit, slab, inv_temp, dtype, stream
+        "milnce_grid_backward": (_P,) * 10 + (_I,) * 7 + (_F, _I, _P),
     },
     "block_attn": {
         # x, kpad, ln w, ln b, w_in, b_in, w_out, b_out, attn scratch, out,

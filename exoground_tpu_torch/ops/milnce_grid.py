@@ -21,6 +21,9 @@ tower's text, shared by every stage); col_valid (Cc,) bool.
     raises; a CUDA tensor that fails the test takes the plain composition,
     as the JAX package's scan branch does; a CPU tensor takes the plain
     version.
+
+The kernels stage video3 and text3 by 16-byte ``cp.async``: both must start
+on a 16-byte boundary (``_kernels.check_aligned`` raises first).
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ import torch
 from exoground_tpu_torch.ops import _kernels
 
 NEG_FILL = -6e4  # as losses/milnce.py: exp(NEG_FILL - m) underflows to exactly 0
-FWD_ROWS = 32  # rows per CTA of the forward kernel (kFwdRows in csrc/milnce_grid.cu)
-DT_ROWS = 64  # rows per z tile of the dt kernel (kDtRows)
-DT_COLS = 32  # text columns per CTA of the dt kernel
+FWD_ROWS = 64  # video rows per CTA of the forward and dv kernels (kTile in csrc/milnce_grid.cu)
+DT_ROWS = 64  # video rows per walked tile of the dt kernel (kTile)
+DT_COLS = 64  # text columns per CTA of the dt kernel (kTile)
+COL_SPLITS = 2  # column splits of the forward (kColSplits): its per-row partials
 
 
 def grid_lse2_plain(video3, text3, col_valid, inv_temp: float):
@@ -68,27 +72,44 @@ def _check(name, video3, text3):
     return s, st, r, cc, c
 
 
-def _nsplit(device, cc: int, st: int, s: int, r: int, c: int) -> int:
-    """Splits of the dt kernel's (stage, row block) work list: enough CTAs
-    for two per SM, never more splits than work items."""
+def bwd_slab(c: int, dtype: torch.dtype) -> int:
+    """Width of the backward kernels' output slab: C itself up to 256, else
+    512 (128 f32 accumulators a thread; a 256-column slab computes z twice at
+    C 512 and ran 1.6-1.8x slower); above 512 columns f32 takes 256, where 512
+    spills. The kernels have instances for these widths alone."""
+    if c <= 256:
+        return c
+    return 256 if c > 512 and dtype == torch.float32 else 512
+
+
+def _nsplit(device, cc: int, st: int, s: int, r: int, c: int, slab: int) -> int:
+    """Splits of the dt kernel's (stage, row block) work list. The kernel
+    runs one CTA an SM, so a split count costs ceil(CTAs / SMs) waves of
+    ceil(items / splits) items; among the counts that give at least two
+    CTAs an SM (where the list allows), take the fewest splits (the least
+    partial traffic) within 5% of the cheapest."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    slabs = -(-c // 512)
-    ctas = -(-cc // DT_COLS) * st * slabs
+    ctas = -(-cc // DT_COLS) * st * -(-c // slab)
     items = (s if st == 1 else 1) * -(-r // DT_ROWS)
-    return max(1, min(items, -(-2 * sms // ctas)))
+    first = max(1, min(items, -(-2 * sms // ctas)))
+    cost = {n: -(-ctas * n // sms) * -(-items // n) for n in range(first, items + 1)}
+    best = min(cost.values())
+    return min(n for n, x in cost.items() if x <= 1.05 * best)
 
 
 def grid_lse2_forward(video3, text3, cvalid, inv_temp: float):
     """Launch the forward kernel: cvalid (Cc,) int32 on the same card."""
     name = "milnce_grid_fwd"
     s, st, r, cc, c = _check(name, video3, text3)
+    _kernels.check_aligned(name, video3=video3, text3=text3)
     code = _kernels.dtype_code(video3)
     f32 = dict(dtype=torch.float32, device=video3.device)
     nr = -(-r // FWD_ROWS)
     vden = torch.empty((s, r), **f32)
     tden = torch.empty((s, cc), **f32)
-    part_m = torch.empty((s, nr, cc), **f32)
-    part_l = torch.empty((s, nr, cc), **f32)
+    # per-column partials (S, nR, Cc), then per-row partials (COL_SPLITS, S, R)
+    part_m = torch.empty(s * nr * cc + COL_SPLITS * s * r, **f32)
+    part_l = torch.empty(s * nr * cc + COL_SPLITS * s * r, **f32)
     rc = _kernels.library("milnce_grid").milnce_grid_forward(
         video3.data_ptr(), text3.data_ptr(), cvalid.data_ptr(), vden.data_ptr(),
         tden.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), s, st, r, cc, c, nr,
@@ -109,15 +130,17 @@ def grid_lse2_backward(video3, text3, cvalid, vden, tden, g_v, g_t, inv_temp: fl
             raise ValueError(f"{name}: {arg} {tuple(t.shape)} != {shape}")
     _kernels.check_cuda_inputs(name, video3.device, torch.float32, v_den=vden,
                                t_den=tden, g_v=g_v, g_t=g_t)
+    _kernels.check_aligned(name, video3=video3, text3=text3)
     code = _kernels.dtype_code(video3)
-    nsplit = _nsplit(video3.device, cc, st, s, r, c)
+    slab = bwd_slab(c, video3.dtype)
+    nsplit = _nsplit(video3.device, cc, st, s, r, c, slab)
     dv = torch.empty_like(video3)
     dt = torch.empty_like(text3)
     dt_part = torch.empty((nsplit, st, cc, c), dtype=torch.float32, device=video3.device)
     rc = _kernels.library("milnce_grid").milnce_grid_backward(
         video3.data_ptr(), text3.data_ptr(), cvalid.data_ptr(), vden.data_ptr(),
         tden.data_ptr(), g_v.data_ptr(), g_t.data_ptr(), dv.data_ptr(), dt.data_ptr(),
-        dt_part.data_ptr(), s, st, r, cc, c, nsplit, float(inv_temp), code,
+        dt_part.data_ptr(), s, st, r, cc, c, nsplit, slab, float(inv_temp), code,
         _kernels.stream_of(video3))
     _kernels.check(name, rc)
     _kernels.LAUNCHES[name] += 1
