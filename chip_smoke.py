@@ -78,6 +78,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (score rel. error <= 1e-4) and one video through the evaluator in
      float32 + int8 (<= 1e-3), best_second equal where the top-2 margin clears
      the tolerance.
+  4e. resident serving: FusedAlignEvaluator over the 8 bench videos (one
+     group) in float32 and bfloat16: preload (median of 3), run_preloaded in
+     turns with the streaming sweep (median of 3 each), 16 dispatch_preloaded
+     sweeps queued before the first reduce, run_many over 4 seeded
+     checkpoints in turns with 4 x (update_params; run_preloaded),
+     run_queries over 4 make_query_batch batches, preproject and preproject
+     + int8 (int8_min_cols 1024); frames/s of each (`resident_bench {...}`).
+     Fails unless the resident and streaming packed results agree (score
+     rows within 1e-5 of max|score| in float32, 1e-2 in bfloat16; R@1 and AUC
+     equal in float32), run_many row i equals the sequential run (also in
+     float32 + int8, each checkpoint quantizing its own weights), each query
+     batch equals its lone run, preproject is within 1e-4 (float32) of the
+     unsplit run, and every counted run launched 12 fused MHA + 12 fused MLP
+     kernels a group per sweep, checkpoint and query (rows 5 and 6 under
+     int8); then the whole-block model in float32: one counted resident
+     sweep (12 block_attn + 12 block_mlp launches) equal to its streaming
+     sweep.
   3b. grid kernel: the MIL-NCE grid kernel's forward (v_den, t_den) and
      backward (dv, dt for random upstream grads) against grid_lse2_plain on
      the card, at the train path's shapes (S 6, R = B*64, Cc = B*12, C 512
@@ -1034,10 +1051,10 @@ def _card_vs_cpu(label, gpu, cpu, cpu_ev, cfg, item, rel_tol):
     """Score rel. error, and best_second (argmax) equality on the texts
     whose top-2 margin in the CPU evaluator's canvas for ``item`` clears
     rel_tol of max|score|; fails beyond rel_tol."""
-    from exoground_tpu_torch.evals.align_fused import _plan
+    from exoground_tpu_torch.evals.align_fused import _placed_plan
 
-    (_, dims, host_args, _), = list(_plan([item], cfg))
-    _, canvas = cpu_ev._process(cfg, dims, host_args)
+    (_, dims, args, _), = list(_placed_plan([item], cfg, "cpu"))
+    _, canvas = cpu_ev._process(cfg, dims, args)
     k, vlen = len(item["start"]), len(item["video"])
     top2 = torch.topk(canvas[:k, :vlen], 2, dim=-1).values.numpy()
     g_score, c_score = np.asarray(gpu["score"]), np.asarray(cpu["score"])
@@ -1190,12 +1207,17 @@ def main_path(card):
 
 
 # ---------------------------------------------------------------- phase 4b
-def _timed_sweep(ev, items) -> tuple:
+def _wall(run) -> tuple:
+    """(host seconds, result) of ``run()`` between two synchronizes."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics = ev(items)
+    out = run()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, metrics
+    return time.perf_counter() - t0, out
+
+
+def _timed_sweep(ev, items) -> tuple:
+    return _wall(lambda: ev(items))
 
 
 def int8_path(card):
@@ -1456,6 +1478,273 @@ def aligner_small_path(card):
     _card_vs_cpu(f"aligner 'small' card vs CPU plain path (f32, {len(item['start'])} texts, "
                  f"CPU {time.perf_counter() - t0:.1f} s)", gpu, cpu, cpu_ev, cfg, item, 1e-4)
     return total
+
+
+# ---------------------------------------------------------------- phase 4e
+def _counted(run, kernels):
+    """``run()`` with the launch counters set to 0 just before and read just
+    after; returns (its result, the counts of ``kernels``)."""
+    from exoground_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: _kernels.LAUNCHES[k] for k in kernels}
+
+
+def _packed(pending) -> np.ndarray:
+    """The (4, Ntot) packed results of a dispatched sweep, group by group."""
+    seen, out = set(), []
+    for rec in pending:
+        if rec[-1] is not None and id(rec[-1]) not in seen:
+            seen.add(id(rec[-1]))
+            out.append(np.asarray(rec[-1]))
+    return np.concatenate(out, axis=1)
+
+
+def _agree(label, got, want, tol) -> float:
+    """max|got - want| over the score rows, relative to max|want score|;
+    fails beyond ``tol``."""
+    err = float(np.abs(got[1:] - want[1:]).max() / np.abs(want[1]).max())
+    if not err <= tol:
+        fail(f"{label}: packed results differ by {err:.3e} of max|score| (> {tol})")
+    return err
+
+
+def _expect(pre, per_sweep, int8):
+    """Launches of ``per_sweep`` sweeps (k checkpoints or q batches) of a
+    resident handle: per group 6 dual + 6 joint MHA launches (the joint
+    tower while its S = seq_len + Npad <= 128) and 12 MLP launches."""
+    sfx = "_int8" if int8 else ""
+    mha = mlp = 0
+    for entry in pre.entries:
+        if entry[0] == "group":
+            joint_s = entry[1][1] + entry[2][6].shape[-1]
+            mha += 6 + (6 if joint_s <= 128 else 0)
+            mlp += 12
+    other = "" if int8 else "_int8"
+    return {"fused_mha" + sfx: mha * per_sweep, "fused_mlp" + sfx: mlp * per_sweep,
+            "fused_mha" + other: 0, "fused_mlp" + other: 0}
+
+
+def _check_counts(label, got, want):
+    if got != want:
+        fail(f"{label}: launches {got} != {want}")
+
+
+def resident_path(card):
+    """Resident serving at E6D6 full width over the 8 bench videos (one group),
+    float32 and bfloat16: preload (median of 3), run_preloaded in turns with
+    the streaming sweep (median of 3 each), 16 dispatch_preloaded sweeps
+    queued before the first reduce; run_many over 4 seeded checkpoints
+    against 4 x (update_params; run_preloaded); run_queries over 4
+    make_query_batch batches against each batch alone; preproject, and
+    preproject + int8 (int8_min_cols 1024). Each counted run has its counts
+    set to 0 just before and read just after (12 fused MHA + 12 fused MLP
+    launches a group per sweep, checkpoint and query; rows 5 and 6 under
+    int8). Fails unless resident == streaming (score rows within 1e-5 of
+    max|score| in float32, 1e-2 in bfloat16; R@1 and AUC equal in float32),
+    run_many row i == the sequential run (also under int8, where each
+    checkpoint quantizes its own weights), each query batch == its lone run
+    (R@1 equal, AUC within 1e-4, scores within the same bars) and
+    preproject within 1e-4 (float32; 1e-2 bfloat16) of the unsplit run.
+    Prints one `resident_bench {...}` line a dtype. Then the whole-block
+    model in float32: one counted resident sweep (12 block_attn + 12
+    block_mlp launches) equal to its streaming sweep. Returns the launch
+    totals."""
+    from exoground_tpu_torch.evals import AlignEvalConfig, FusedAlignEvaluator
+    from exoground_tpu_torch.evals.align_fused import _dispatch, _placed_plan
+    from exoground_tpu_torch.evals.bench_items import (
+        make_bench_items, make_bench_params, make_query_batch)
+    from exoground_tpu_torch.utils.convert import load_tan_params
+
+    kernels = ("fused_mha", "fused_mlp", "fused_mha_int8", "fused_mlp_int8")
+    model = _serving_aligner()
+    items = make_bench_items(4096, 4096)
+    frames = sum(len(it["video"]) for it in items)
+    state_dicts = []
+    for seed in (1, 2, 3, 4):
+        m = _serving_aligner()
+        load_tan_params(m, make_bench_params(seed))
+        state_dicts.append(m.state_dict())
+    base_sd = model.state_dict()
+    queries = [make_query_batch(items, seed) for seed in range(4)]
+    totals = {k: 0 for k in kernels}
+
+    def count(label, run, want):
+        out, got = _counted(run, kernels)
+        _check_counts(label, got, want)
+        for k in kernels:
+            totals[k] += got[k]
+        return out
+
+    for dtype in ("float32", "bfloat16"):
+        tol = 1e-5 if dtype == "float32" else TOL[torch.bfloat16]
+        pp_tol = 1e-4 if dtype == "float32" else TOL[torch.bfloat16]
+        cfg = AlignEvalConfig(compute_dtype=dtype)
+        ev = FusedAlignEvaluator(model, cfg, device="cuda")
+        ev(items)  # warm-up: allocator, cuBLAS handles
+        pre_s = []
+        for _ in range(3):
+            dt, pre = _wall(lambda: ev.preload(items))
+            pre_s.append(dt)
+        res = {}
+        res["resident"] = count(f"resident {dtype} run_preloaded", lambda: ev.run_preloaded(pre),
+                                _expect(pre, 1, False))
+        # resident against streaming, packed result by packed result
+        resident = _packed(ev.dispatch_preloaded(pre))
+        streaming = _packed(_dispatch(_placed_plan(items, cfg, ev.device), ev._process, cfg))
+        res["streaming"] = ev(items)
+        errs = {"resident_vs_streaming": _agree(f"resident vs streaming {dtype}", resident,
+                                                streaming, tol)}
+        if dtype == "float32" and res["resident"] != res["streaming"]:
+            fail(f"resident metrics {res['resident']} != streaming {res['streaming']}")
+        runs = {"streaming": [], "resident": []}
+        for rep in range(3):
+            for name in (("streaming", "resident") if rep % 2 == 0 else ("resident", "streaming")):
+                dt, _ = _wall(lambda: ev(items) if name == "streaming" else ev.run_preloaded(pre))
+                runs[name].append(dt)
+        # 16 sweeps queued before the first reduce
+        n_pipe = 16
+
+        def pipelined():
+            pend = [ev.dispatch_preloaded(pre) for _ in range(n_pipe)]
+            return [ev.reduce_preloaded(p, pre) for p in pend]
+
+        pipelined()  # warm-up
+        dt_pipe, piped = _wall(pipelined)
+        if any(m != res["resident"] for m in piped):
+            fail(f"a pipelined {dtype} sweep reduced to other metrics")
+
+        # run_many over 4 checkpoints against 4 x (update_params; run_preloaded)
+        stacked = ev.stack_checkpoints(state_dicts)
+        k = stacked.k
+        many = count(f"run_many {dtype}", lambda: ev.run_many(pre, stacked), _expect(pre, k, False))
+
+        def sequential():
+            out = []
+            for sd in state_dicts:
+                ev.update_params(sd)
+                out.append(ev.run_preloaded(pre))
+            return out
+
+        seq = sequential()
+        many_packed = [_packed(p) for p in ev.dispatch_many(pre, stacked)]
+        errs["run_many_vs_sequential"] = 0.0
+        for i, sd in enumerate(state_dicts):
+            ev.update_params(sd)
+            errs["run_many_vs_sequential"] = max(errs["run_many_vs_sequential"], _agree(
+                f"run_many row {i} {dtype}", many_packed[i], _packed(ev.dispatch_preloaded(pre)),
+                tol))
+        if many != seq:
+            fail(f"run_many {dtype} {many} != sequential {seq}")
+        runs["run_many"], runs["sequential"] = [], []
+        for rep in range(3):
+            for name in (("run_many", "sequential") if rep % 2 == 0 else ("sequential", "run_many")):
+                dt, _ = _wall(lambda: ev.run_many(pre, stacked) if name == "run_many"
+                              else sequential())
+                runs[name].append(dt)
+        ev.update_params(base_sd)
+        del stacked
+
+        # q query batches over the resident corpus against each batch alone
+        q = len(queries)
+        dt_pq, pq = _wall(lambda: ev.preload_queries(queries))
+        got_q = count(f"run_queries {dtype}", lambda: ev.run_queries(pq), _expect(pq, q, False))
+        preds_q = ev.predict_queries(pq)
+        errs["queries_vs_lone"] = 0.0
+        for i, batch in enumerate(queries):
+            lone = ev(batch)
+            if (got_q[i]["Recall"] != lone["Recall"]
+                    or abs(got_q[i]["AUC"] - lone["AUC"]) > 1e-4):
+                fail(f"query batch {i} {dtype}: {got_q[i]} against its lone run {lone}")
+            score_q = np.concatenate([p["score"] for p in preds_q[i]])
+            score_l = np.concatenate([p["score"] for p in ev.predict(batch)])
+            err = float(np.abs(score_q - score_l).max() / np.abs(score_l).max())
+            if not err <= tol:
+                fail(f"query batch {i} {dtype}: scores differ by {err:.3e} of max|score|")
+            errs["queries_vs_lone"] = max(errs["queries_vs_lone"], err)
+        runs["run_queries"] = [_wall(lambda: ev.run_queries(pq))[0] for _ in range(3)]
+        del pq
+
+        # preproject, and preproject + int8 (int8_min_cols 1024)
+        pp_runs = {}
+        for name, fields in (("preproject", {}),
+                             ("preproject_int8", dict(matmul_dtype="int8", int8_min_cols=1024))):
+            pev = FusedAlignEvaluator(
+                model, AlignEvalConfig(compute_dtype=dtype, preproject=True, **fields),
+                device="cuda")
+            dt_pre, ppre = _wall(lambda: pev.preload(items))
+            res[name] = count(f"{name} {dtype}", lambda: pev.run_preloaded(ppre),
+                              _expect(ppre, 1, bool(fields)))
+            if not fields:
+                errs["preproject_vs_unsplit"] = _agree(
+                    f"preproject vs unsplit {dtype}", _packed(pev.dispatch_preloaded(ppre)),
+                    resident, pp_tol)
+            pev.run_preloaded(ppre)
+            pp_runs[name] = dict(preload_s=dt_pre,
+                                 sweeps_s=[_wall(lambda: pev.run_preloaded(ppre))[0]
+                                           for _ in range(3)])
+            del pev, ppre
+
+        if dtype == "float32":
+            # the int8 weight cache under run_many: each checkpoint
+            # quantizes its own weights (rows 5 and 6 on the card)
+            qev = FusedAlignEvaluator(
+                model, AlignEvalConfig(matmul_dtype="int8", int8_min_cols=1024), device="cuda")
+            qpre = qev.preload(items)
+            qstack = qev.stack_checkpoints(state_dicts)
+            many8 = count("run_many float32 + int8", lambda: qev.run_many(qpre, qstack),
+                          _expect(qpre, k, True))
+            seq8 = []
+            for sd in state_dicts:
+                qev.update_params(sd)
+                seq8.append(qev.run_preloaded(qpre))
+            if many8 != seq8 or len({(m["Recall"], m["AUC"]) for m in many8}) < 2:
+                fail(f"run_many float32 + int8 {many8} != sequential {seq8}")
+            print(f"resident float32 + int8: run_many over {k} checkpoints == sequential "
+                  f"{many8}", flush=True)
+            del qev, qpre, qstack
+
+        med = {name: statistics.median(v) for name, v in runs.items()}
+        out = dict(
+            dtype=dtype, frames=frames, card=card, preload_s=pre_s,
+            streaming=dict(sweeps_s=runs["streaming"], frames_per_s=frames / med["streaming"]),
+            resident=dict(sweeps_s=runs["resident"], frames_per_s=frames / med["resident"]),
+            pipelined=dict(sweeps=n_pipe, wall_s=dt_pipe, frames_per_s=n_pipe * frames / dt_pipe),
+            run_many=dict(k=k, sweeps_s=runs["run_many"], frames_per_s=k * frames / med["run_many"]),
+            sequential=dict(k=k, sweeps_s=runs["sequential"],
+                            frames_per_s=k * frames / med["sequential"]),
+            run_queries=dict(q=q, preload_s=dt_pq, sweeps_s=runs["run_queries"],
+                             frames_per_s=q * frames / med["run_queries"]),
+            **{name: dict(v, frames_per_s=frames / statistics.median(v["sweeps_s"]))
+               for name, v in pp_runs.items()},
+            errors_of_max_score=errs,
+            metrics={name: res[name] for name in ("streaming", "resident", "preproject",
+                                                  "preproject_int8")})
+        print("resident_bench", json.dumps(out), flush=True)
+        del ev, pre
+        torch.cuda.empty_cache()
+    # the whole-block model (rows 7 and 8): resident == streaming, counted
+    block_model = _serving_aligner(attn_impl="fused", mlp_impl="fused")
+    cfg = AlignEvalConfig()
+    bev = FusedAlignEvaluator(block_model, cfg, device="cuda")
+    bpre = bev.preload(items)
+    block_kernels = ("block_attn", "block_mlp", "fused_mha", "fused_mlp")
+    bres, got = _counted(lambda: bev.run_preloaded(bpre), block_kernels)
+    want = {"block_attn": 12, "block_mlp": 12, "fused_mha": 0, "fused_mlp": 0}
+    _check_counts("resident block path float32", got, want)
+    totals.update(block_attn=got["block_attn"], block_mlp=got["block_mlp"])
+    err = _agree("resident vs streaming, block path float32", _packed(bev.dispatch_preloaded(bpre)),
+                 _packed(_dispatch(_placed_plan(items, cfg, bev.device), bev._process, cfg)), 1e-5)
+    if bres != bev(items):
+        fail(f"resident block-path metrics {bres} != streaming {bev(items)}")
+    print(f"resident block path float32: launches {got}, resident vs streaming {err:.3e} of "
+          f"max|score|, {bres}", flush=True)
+    missing = [k for k, n in totals.items() if not n]
+    if missing:
+        fail(f"the resident path launched no {missing}")
+    return totals
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1995,6 +2284,9 @@ def main():
     # phase 4c: the whole-block path, counted
     launches.update(block_path(card))
 
+    # phase 4e: resident serving, counted
+    resident_launches = resident_path(card)
+
     # phase 4d: the aligner under attn_impl='small', counted
     small_launches = {"aligner attn_impl=small (phase 4d)": aligner_small_path(card)}
 
@@ -2042,6 +2334,8 @@ def main():
         e = entry(name, f"exoground_tpu_torch/csrc/{source}", replaces, block_cases[name])
         e.update(per_module_ms=block_cases[name][0]["per_module_ms"],
                  launches_by_path={"block path (phase 4c)": launches[name]})
+        if name in resident_launches:
+            e["launches_by_path"]["resident path (phase 4e)"] = resident_launches[name]
         if "exact_kernel_ms" in block_cases[name][0]:
             e["exact_kernel_ms"] = block_cases[name][0]["exact_kernel_ms"]
         return e
@@ -2073,15 +2367,22 @@ def main():
         e["launches_by_path"] = flash_launches[f"flash_{part}"]
         return e
 
+    def by_path(e, first_path):
+        e["launches_by_path"] = {first_path: launches[e["name"]],
+                                 "resident path (phase 4e)": resident_launches[e["name"]]}
+        return e
+
     print(json.dumps({"kernels": [
-        entry("fused_mha", "exoground_tpu_torch/csrc/fused_mha.cu",
-              "exoground_tpu/ops/attention.py:761", mha_cases),
-        entry("fused_mlp", "exoground_tpu_torch/csrc/fused_mlp.cu",
-              "exoground_tpu/ops/fused_mlp.py:244", mlp_cases),
-        int8_entry("fused_mha_int8", "exoground_tpu_torch/csrc/fused_mha_int8.cu",
-                   "exoground_tpu/ops/attention.py:777", mha8_cases),
-        int8_entry("fused_mlp_int8", "exoground_tpu_torch/csrc/fused_mlp_int8.cu",
-                   "exoground_tpu/ops/fused_mlp.py:200", mlp8_cases),
+        by_path(entry("fused_mha", "exoground_tpu_torch/csrc/fused_mha.cu",
+                      "exoground_tpu/ops/attention.py:761", mha_cases), "main path (phase 4)"),
+        by_path(entry("fused_mlp", "exoground_tpu_torch/csrc/fused_mlp.cu",
+                      "exoground_tpu/ops/fused_mlp.py:244", mlp_cases), "main path (phase 4)"),
+        by_path(int8_entry("fused_mha_int8", "exoground_tpu_torch/csrc/fused_mha_int8.cu",
+                           "exoground_tpu/ops/attention.py:777", mha8_cases),
+                "int8 path (phase 4b)"),
+        by_path(int8_entry("fused_mlp_int8", "exoground_tpu_torch/csrc/fused_mlp_int8.cu",
+                           "exoground_tpu/ops/fused_mlp.py:200", mlp8_cases),
+                "int8 path (phase 4b)"),
         grid_entry("fwd", "exoground_tpu/ops/milnce_grid.py:184"),
         grid_entry("bwd", "exoground_tpu/ops/milnce_grid.py:231"),
         flash_entry("fwd", "exoground_tpu/ops/attention.py:279"),

@@ -59,10 +59,6 @@ def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
     return float(u / (n_pos * n_neg))
 
 
-# field values whose code arrives with a later slice of the port
-_LATER = {
-    "preproject": ({True}, "the resident-serving slice (preload/run_many)"),
-}
 TRANSFER_DTYPES = ("float32", "float16", "int8", "int4")
 
 
@@ -71,8 +67,9 @@ class AlignEvalConfig:
     """The JAX package's AlignEvalConfig, field for field (see its comments).
     ``transfer_dtype`` int8 / int4 quantize the features on the host and
     dequantize them on the device; ``matmul_dtype="int8"`` runs the model
-    under ``quant.matmul_impl("int8", min_cols=int8_min_cols)``. Values
-    whose code belongs to a later slice of the port raise
+    under ``quant.matmul_impl("int8", min_cols=int8_min_cols)``;
+    ``preproject`` is a resident-serving mode (``FusedAlignEvaluator.preload``).
+    ``eval_devices > 1`` waits for the multi-device slice and raises
     ``NotImplementedError``."""
 
     seq_len: int = 64
@@ -101,11 +98,6 @@ class AlignEvalConfig:
         if self.matmul_dtype not in quant.VALID_IMPLS:
             raise ValueError(f"matmul_dtype {self.matmul_dtype!r}: one of "
                              f"{quant.VALID_IMPLS}")
-        for field, (values, slice_name) in _LATER.items():
-            if getattr(self, field) in values:
-                raise NotImplementedError(
-                    f"AlignEvalConfig.{field}={getattr(self, field)!r} arrives "
-                    f"with {slice_name} of the PyTorch port")
         if self.eval_devices > 1:
             raise NotImplementedError(
                 "AlignEvalConfig.eval_devices > 1 arrives with the multi-device "

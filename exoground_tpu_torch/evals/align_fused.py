@@ -19,6 +19,19 @@ numpy and feeds index arrays.
 a byte) quantize the features on the host and dequantize them on the device
 after the window gather; ``matmul_dtype="int8"`` runs the model under
 ``quant.matmul_impl("int8", min_cols=int8_min_cols)``.
+
+Two ways to run it:
+
+  * streaming (``__call__``, ``predict``): plan, upload and run each group;
+  * resident (``preload`` and what takes its handle): the group buffers are
+    uploaded once and swept many times, against one checkpoint
+    (``run_preloaded``), k checkpoints (``run_many``) or q query batches
+    over one video corpus (``preload_queries`` / ``run_queries``).
+    ``cfg.preproject`` runs the position-independent input stages once at
+    preload.
+
+Both queue every group's work with no host sync; a group's packed result
+stays on the device until a reducer reads it (``_Result``).
 """
 
 from __future__ import annotations
@@ -26,7 +39,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,15 +72,22 @@ def _dequant_int4(packed, scales):
     return vals.reshape(*vals.shape[:-2], d)
 
 
+def _dequant(rows, scale):
+    """Feature rows as float32 when the transfer type is int8 (per-row
+    scales) or int4 (uint8 nibbles, group scales); float rows as they are."""
+    if rows.dtype == torch.int8:
+        return rows.float() * scale[..., None]
+    if rows.dtype == torch.uint8:
+        return _dequant_int4(rows, scale)
+    return rows
+
+
 def _gather_features(table, scale, idx, dtype):
-    """Rows ``idx`` of an uploaded feature table, dequantized when the
-    transfer type is int8 (per-row scales) or int4 (uint8 nibbles, group
-    scales), then cast to the compute type."""
+    """Rows ``idx`` of an uploaded feature table, dequantized, then cast to
+    the compute type."""
     rows = table[idx]
-    if table.dtype == torch.int8:
-        rows = rows.float() * scale[idx][..., None]
-    elif table.dtype == torch.uint8:
-        rows = _dequant_int4(rows, scale[idx])
+    if table.dtype in (torch.int8, torch.uint8):
+        rows = _dequant(rows, scale[idx])
     return rows.to(dtype)
 
 
@@ -77,7 +97,9 @@ def _process_body(model, cfg: AlignEvalConfig, dims, video, vscale, text_embed, 
 
     Returns the packed (4, Ntot) float32 result [argmax, score, a_dual,
     a_joint] and the (Ntot, Vmax) overlap-averaged canvas it was reduced
-    from. ``model`` already holds its parameters in ``cfg.compute_dtype``."""
+    from. ``model`` already holds its parameters in ``cfg.compute_dtype``.
+    Under ``cfg.preproject`` the video and text tables hold the outputs of
+    the input stages (``FusedAlignEvaluator._preproject``)."""
     dtype = _DTYPES[cfg.compute_dtype]
     vmax, seq_len = dims
     w, npad = text_idx.shape
@@ -94,7 +116,8 @@ def _process_body(model, cfg: AlignEvalConfig, dims, video, vscale, text_embed, 
     with quant.matmul_impl("int8" if cfg.matmul_dtype == "int8" else "default",
                            min_cols=cfg.int8_min_cols):
         out = model.text_visual_sim(vb, tb, video_padding_mask=vmask,
-                                    lang_padding_mask=tmask)
+                                    lang_padding_mask=tmask,
+                                    preprojected=cfg.preproject)
     out = {k: v.float() for k, v in out.items()}
     sim = out["sim"][:, -1].transpose(1, 2) * cfg.sim_scale  # (W, K, L)
     dual = out["dual-sim"][:, -1].transpose(1, 2) * cfg.sim_scale
@@ -154,6 +177,19 @@ def _process_body(model, cfg: AlignEvalConfig, dims, video, vscale, text_embed, 
     return result, sim_avg
 
 
+class _Body(torch.nn.Module):
+    """``_process_body`` as a module over the evaluator's model, so that
+    ``torch.func.functional_call`` can run it with another checkpoint's
+    tensors in place of the model's (``_process_many``)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, cfg, dims, *args):
+        return _process_body(self.model, cfg, dims, *args)
+
+
 class FusedAlignEvaluator:
     """Reusable fused evaluator over a port ``TemporalAligner``.
 
@@ -168,40 +204,294 @@ class FusedAlignEvaluator:
                 "use_alignability_head=1 (the binary head emits the scores)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._model = copy.deepcopy(model).to(
-            device=self.device, dtype=_DTYPES[cfg.compute_dtype]).eval()
+        self._body = _Body(copy.deepcopy(model).to(
+            device=self.device, dtype=_DTYPES[cfg.compute_dtype]).eval())
+        self._model = self._body.model
+        # bumped by update_params; a preprojected handle is pinned to the
+        # generation whose input stages it holds
+        self._params_gen = 0
 
     def update_params(self, state_dict) -> None:
         """Swap in fresh weights (e.g. a training snapshot); they are cast to
         the evaluator's compute dtype and device on the way in."""
         self._model.load_state_dict(state_dict)
+        self._params_gen += 1
 
     def _cfg_for(self, all_texts_active: Optional[bool]) -> AlignEvalConfig:
         if all_texts_active is None or all_texts_active == self.cfg.all_texts_active:
             return self.cfg
         return dataclasses.replace(self.cfg, all_texts_active=all_texts_active)
 
-    def _process(self, cfg, dims, host_args):
-        """Upload one planned group and run it; returns (packed, canvas)."""
-        args = [torch.from_numpy(a).to(self.device) for a in host_args]
+    def _process(self, cfg, dims, args):
+        """Run one uploaded group (``_upload``); returns (packed, canvas)."""
         with torch.inference_mode():
             return _process_body(self._model, cfg, dims, *args)
 
+    def _process_many(self, cfg, dims, stacked: "StackedCheckpoints", args):
+        """The same body once per stacked checkpoint over one group's
+        resident buffers -> one (k, 4, Ntot) device tensor."""
+        with torch.inference_mode():
+            return torch.stack([
+                torch.func.functional_call(self._body, sd, (cfg, dims, *args))[0]
+                for sd in stacked.state_dicts])
+
+    def _process_queries(self, cfg, dims, args):
+        """The same body once per query batch: the video buffers are shared,
+        the text-side args carry a leading (q,) axis -> (q, 4, Ntot)."""
+        video, vscale, *text_side = args
+        with torch.inference_mode():
+            return torch.stack([
+                _process_body(self._model, cfg, dims, video, vscale, *(a[i] for a in text_side))[0]
+                for i in range(text_side[0].shape[0])])
+
+    def _preproject(self, args):
+        """The index-time half of the serving split (the JAX
+        ``_preproject_fn``): dequantize the uploaded video and text tables
+        and run the position-independent input stages over them once
+        (``preproject_video`` / ``preproject_text``; any leading dims, so a
+        (q, Ntot, D) text stack goes in one call). It runs under the default
+        matmul context whatever ``cfg.matmul_dtype`` says, so the input
+        stages stay exact under int8. The scale args stay in place (a float
+        table ignores them)."""
+        dtype = _DTYPES[self.cfg.compute_dtype]
+        video, vscale, text, tscale = args[:4]
+        with torch.inference_mode(), quant.matmul_impl("default"):
+            zv = self._model.preproject_video(_dequant(video, vscale).to(dtype))
+            zt = self._model.preproject_text(_dequant(text, tscale).to(dtype))
+        return (zv, vscale, zt, tscale) + tuple(args[4:])
+
+    def _check_not_preproject(self, what: str):
+        if self.cfg.preproject:
+            raise ValueError(
+                f"cfg.preproject is a resident-serving mode; {what} has no preload to "
+                "amortize the input stages into: build this evaluator with "
+                "preproject=False, or use preload/run_preloaded or "
+                "preload_queries/run_queries")
+
+    def _check_params_pin(self, pre):
+        if pre.params_gen is not None and pre.params_gen != self._params_gen:
+            raise ValueError(
+                "this preload was preprojected with other weights (cfg.preproject "
+                "holds the input stages' outputs in the resident buffers): preload "
+                "again after update_params")
+
     def __call__(self, dataset: Iterable[Dict],
                  all_texts_active: Optional[bool] = None) -> Dict[str, float]:
+        self._check_not_preproject("streaming evaluation")
         cfg = self._cfg_for(all_texts_active)
-        return _reduce_metrics(_dispatch(dataset, self._process, cfg), cfg)
+        return _reduce_metrics(
+            _dispatch(_placed_plan(dataset, cfg, self.device), self._process, cfg), cfg)
 
     def predict(self, dataset: Iterable[Dict],
                 all_texts_active: Optional[bool] = None) -> List[Dict]:
         """Raw per-video predictions (serving path): per text the best second
         'argmax' (video-relative, clamped to >= 0) and max-sim 'score' /
         'align_score' (NEG_FILL sentinel = the text had no covered window)."""
+        self._check_not_preproject("predict() (one-shot streaming)")
         cfg = self._cfg_for(all_texts_active)
-        return _reduce_predictions(_dispatch(dataset, self._process, cfg))
+        return _reduce_predictions(
+            _dispatch(_placed_plan(dataset, cfg, self.device), self._process, cfg))
+
+    # ------------------------------------------------------------------
+    # resident serving: upload once, sweep many times
+    # ------------------------------------------------------------------
+
+    def preload(self, dataset: Iterable[Dict],
+                all_texts_active: Optional[bool] = None) -> "PreloadedEval":
+        """Upload a dataset's planned group buffers to the device once and
+        return a handle for repeated sweeps (``run_preloaded``,
+        ``run_many``). Under ``cfg.preproject`` the input stages run here,
+        once, and the handle is pinned to the current weights."""
+        cfg = self._cfg_for(all_texts_active)
+        entries = []
+        for entry in _placed_plan(dataset, cfg, self.device):
+            if entry[0] == "group" and cfg.preproject:
+                _, dims, args, offsets = entry
+                entry = ("group", dims, self._preproject(args), offsets)
+            entries.append(entry)
+        return PreloadedEval(tuple(entries), cfg,
+                             self._params_gen if cfg.preproject else None)
+
+    def dispatch_preloaded(self, pre: "PreloadedEval") -> List:
+        """Queue one sweep over the resident buffers with no host sync. Pair
+        with ``reduce_preloaded``; under continuous load, queue sweep k+1
+        before reducing sweep k and the card does not idle between sweeps."""
+        self._check_params_pin(pre)
+        return _dispatch(pre.entries, self._process, pre.cfg)
+
+    @staticmethod
+    def reduce_preloaded(pending: List, pre) -> Dict[str, float]:
+        """Fetch and metric-reduce one dispatched sweep (any handle's cfg)."""
+        return _reduce_metrics(pending, pre.cfg)
+
+    def run_preloaded(self, pre: "PreloadedEval") -> Dict[str, float]:
+        """One metric sweep over the resident buffers (see ``preload``)."""
+        return _reduce_metrics(self.dispatch_preloaded(pre), pre.cfg)
+
+    def stack_checkpoints(self, state_dicts) -> "StackedCheckpoints":
+        """k state dicts of this evaluator's model (one key set, one set of
+        shapes), each cast once to the compute dtype and moved once to the
+        device, for ``run_many`` / ``dispatch_many``. Build it once and reuse
+        it across sweeps: each checkpoint keeps its own tensors, so the int8
+        weight cache (``quant.quantized_weight``) keeps one entry each."""
+        if not state_dicts:
+            raise ValueError("stack_checkpoints needs at least one state dict")
+        ref = self._body.state_dict()
+        for i, sd in enumerate(state_dicts):
+            keys = {f"model.{k}" for k in sd}
+            shapes_ok = keys == set(ref) and all(
+                tuple(v.shape) == tuple(ref[f"model.{k}"].shape) for k, v in sd.items())
+            if not shapes_ok:
+                raise ValueError(
+                    f"checkpoint {i} does not match the evaluator's model: run_many needs "
+                    "state dicts with its key set and shapes (one model config)")
+        with torch.no_grad():
+            dicts = tuple(
+                {f"model.{k}": torch.as_tensor(v).to(
+                    device=self.device, dtype=ref[f"model.{k}"].dtype, copy=True)
+                 for k, v in sd.items()}
+                for sd in state_dicts)
+        return StackedCheckpoints(dicts, len(dicts))
+
+    def run_many(self, pre: "PreloadedEval", state_dicts) -> List[Dict[str, float]]:
+        """Score many checkpoints against one resident corpus, one packed
+        result and one D2H copy a group for all of them. Entry i equals
+        ``update_params(state_dicts[i]); run_preloaded(pre)``.
+        ``state_dicts``: a sequence of state dicts, or a
+        ``StackedCheckpoints`` from ``stack_checkpoints``."""
+        if isinstance(state_dicts, StackedCheckpoints):
+            stacked = state_dicts
+        elif not state_dicts:
+            return []
+        else:
+            stacked = self.stack_checkpoints(state_dicts)
+        return [_reduce_metrics(p, pre.cfg) for p in self.dispatch_many(pre, stacked)]
+
+    def dispatch_many(self, pre: "PreloadedEval",
+                      stacked: "StackedCheckpoints") -> List[List]:
+        """Queue one k-checkpoint sweep with no host sync: k pending lists,
+        each reducible with ``reduce_preloaded``."""
+        if pre.params_gen is not None:
+            raise ValueError(
+                "run_many/dispatch_many need a preload without cfg.preproject: its "
+                "resident buffers hold one checkpoint's input stages")
+        pendings: List[List] = [[] for _ in range(stacked.k)]
+        for entry in pre.entries:
+            if entry[0] == "skip":
+                for p in pendings:
+                    p.append(_skip_record(entry))
+                continue
+            _, dims, args, offsets = entry
+            outs = _Result(self._process_many(pre.cfg, dims, stacked, args))
+            for i, p in enumerate(pendings):
+                row = _StackRow(outs, i)
+                p.extend(rec + (row,) for rec in offsets)
+        return pendings
+
+    def preload_queries(self, query_batches: Sequence[Iterable[Dict]],
+                        all_texts_active: Optional[bool] = None) -> "PreloadedQueries":
+        """Upload ONE video corpus and q query batches over it.
+
+        ``query_batches``: q datasets over the same videos in the same order
+        (identical ``video`` features; only ``text_embed`` / ``start`` /
+        ``end`` / ``aligned`` may differ), checked here: the same group
+        count, the same dims and bitwise-equal video buffers, else
+        ``ValueError``. Each group's text-side args are padded to the
+        largest dims of the batches (text tables with 0, or 0x88 for int4;
+        scales with 1) and stacked on a leading (q,) axis, uploaded once
+        with the corpus. ``run_queries`` entry i equals evaluating batch i
+        alone."""
+        cfg = self._cfg_for(all_texts_active)
+        plans = [list(_plan(ds, cfg, keep_empty=True)) for ds in query_batches]
+        if not plans:
+            raise ValueError("preload_queries needs at least one query batch")
+        if any(len(p) != len(plans[0]) for p in plans):
+            raise ValueError("query batches plan different group counts: the batches must "
+                             "cover the same videos in the same order")
+        pad_table = 0x88 if cfg.transfer_dtype == "int4" else 0
+        entries = []
+        for g, (_, dims, base, _) in enumerate(plans[0]):
+            rows = [p[g] for p in plans]
+            for i, (_, dims_i, args, _) in enumerate(rows):
+                if dims_i != dims or args[2].shape[1:] != base[2].shape[1:]:
+                    raise ValueError(f"group {g}: query batch {i} has other dims "
+                                     f"({dims_i} against {dims})")
+                if not (np.array_equal(args[0], base[0]) and np.array_equal(args[1], base[1])):
+                    raise ValueError(f"group {g}: query batch {i} packs other video "
+                                     "buffers: preload_queries serves one corpus")
+            ntot = max(r[2][2].shape[0] for r in rows)
+            wtot = max(r[2][4].shape[0] for r in rows)
+            npad = max(r[2][6].shape[1] for r in rows)
+            stacked = tuple(np.stack(x) for x in zip(*[
+                (_pad_rows(a[2], ntot, pad_table), _pad_rows(a[3], ntot, 1),
+                 _pad_rows(a[4], wtot), _pad_rows(a[5], wtot),
+                 _pad_2d(a[6], wtot, npad), _pad_2d(a[7], wtot, npad))
+                for a in (r[2] for r in rows)]))
+            args = _upload(base[:2] + stacked, self.device)
+            if cfg.preproject:
+                args = self._preproject(args)
+            entries.append(("group", dims, args, tuple(r[3] for r in rows)))
+        return PreloadedQueries(tuple(entries), cfg, len(plans),
+                                self._params_gen if cfg.preproject else None)
+
+    def dispatch_queries(self, pq: "PreloadedQueries") -> List[List]:
+        """Queue one q-batch sweep with no host sync: q pending lists, each
+        reducible with ``reduce_preloaded``."""
+        self._check_params_pin(pq)
+        pendings: List[List] = [[] for _ in range(pq.q)]
+        for _, dims, args, offsets_list in pq.entries:
+            outs = _Result(self._process_queries(pq.cfg, dims, args))
+            for i, p in enumerate(pendings):
+                row = _StackRow(outs, i)
+                p.extend(rec + (row,) for rec in offsets_list[i])
+        return pendings
+
+    def run_queries(self, pq: "PreloadedQueries") -> List[Dict[str, float]]:
+        """Metrics of every preloaded query batch (see ``preload_queries``)."""
+        return [_reduce_metrics(p, pq.cfg) for p in self.dispatch_queries(pq)]
+
+    def predict_queries(self, pq: "PreloadedQueries") -> List[List[Dict]]:
+        """``predict``-shaped results of every preloaded query batch. Entry i
+        equals ``predict(batch_i)``, with one edge: a video none of whose
+        texts activates a window reports align_score 0 (the uncovered-text
+        value of the device canvas) where ``predict`` reports NEG_FILL;
+        'score' carries the sentinel on both paths."""
+        return [_reduce_predictions(p) for p in self.dispatch_queries(pq)]
 
 
-def _plan(dataset, cfg: AlignEvalConfig):
+@dataclasses.dataclass(frozen=True)
+class StackedCheckpoints:
+    """k checkpoints on the device (``FusedAlignEvaluator.stack_checkpoints``):
+    one dict of tensors each, keyed for ``functional_call`` on the
+    evaluator's ``_Body``."""
+    state_dicts: tuple
+    k: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PreloadedEval:
+    """Resident eval handle (``FusedAlignEvaluator.preload``): the uploaded
+    group buffers and the result-slicing records. The weights are not part
+    of it (one preload serves many checkpoints) except under
+    ``cfg.preproject``, where ``params_gen`` pins it to the evaluator's
+    weights generation whose input stages it holds."""
+    entries: tuple
+    cfg: AlignEvalConfig
+    params_gen: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PreloadedQueries:
+    """q query batches resident against one uploaded video corpus
+    (``FusedAlignEvaluator.preload_queries``): per group the video buffers,
+    the (q, ...)-stacked text-side args and each batch's slicing records."""
+    entries: tuple
+    cfg: AlignEvalConfig
+    q: int
+    params_gen: Optional[int] = None
+
+
+def _plan(dataset, cfg: AlignEvalConfig, keep_empty: bool = False):
     """Host-side planner (the JAX ``_plan``, :690-844).
 
     Yields ordered entries:
@@ -213,6 +503,11 @@ def _plan(dataset, cfg: AlignEvalConfig):
         (idx, start, end, aligned, num_text, text_offset, video_offset).
         The scales are always shipped: per-row float32 (ones unless int8) or,
         for int4, float16 group scales beside the nibble-packed tables.
+
+    ``keep_empty`` (``preload_queries``): a video with no active window stays
+    in its group with no valid window, so every query batch over one corpus
+    packs the same groups. Its canvas stays uncovered: every text scores the
+    NEG_FILL sentinel and argmaxes to 0, as the 'skip' entry reports it.
     """
     seq_len = cfg.seq_len
     metas = []
@@ -241,10 +536,11 @@ def _plan(dataset, cfg: AlignEvalConfig):
     int4 = cfg.transfer_dtype == "int4"
     for g0 in range(0, len(metas), cfg.group_videos):
         block = list(enumerate(metas[g0 : g0 + cfg.group_videos], start=g0))
-        chunk = [im for im in block if im[1][5]]
+        chunk = block if keep_empty else [im for im in block if im[1][5]]
         # skips are yielded before their group; every record carries the
         # video's dataset index so reducers restore dataset order
-        for idx, (_, start, end, aligned, _, _) in (im for im in block if not im[1][5]):
+        for idx, (_, start, end, aligned, _, _) in (im for im in block
+                                                    if not keep_empty and not im[1][5]):
             yield ("skip", idx, start, end, aligned, len(start))
         if not chunk:
             continue
@@ -349,37 +645,132 @@ def _quantize_rows_int4(x: np.ndarray):
     return packed, scale
 
 
-def _dispatch(dataset, process, cfg: AlignEvalConfig):
-    """Run every planned group; returns one record per video:
-    (idx, start, end, aligned, num_text, text_offset, video_offset, packed)
-    where ``packed`` is the group's (4, Ntot) numpy result (None for a video
-    with no active windows)."""
-    pending = []
+def _upload(host_args, device) -> tuple:
+    """The one place where a group's host arrays become device tensors,
+    shared by the streaming and the resident paths."""
+    return tuple(torch.from_numpy(a).to(device) for a in host_args)
+
+
+def _placed_plan(dataset, cfg: AlignEvalConfig, device):
+    """``_plan`` with every group's arrays uploaded to ``device``: yields the
+    'skip' entries as they are and ('group', dims, args, offsets) with
+    device tensors. One device: ``eval_devices > 1`` raises in
+    ``AlignEvalConfig``."""
     for entry in _plan(dataset, cfg):
+        if entry[0] == "group":
+            _, dims, host_args, offsets = entry
+            entry = ("group", dims, _upload(host_args, device), offsets)
+        yield entry
+
+
+def _skip_record(entry):
+    _, idx, start, end, aligned, num_text = entry
+    return (idx, start, end, aligned, num_text, 0, 0, None)
+
+
+def _dispatch(entries, process, cfg: AlignEvalConfig):
+    """Queue every group of ``entries`` (``_placed_plan``'s, or a preload's)
+    with no host sync; returns one record per video:
+    (idx, start, end, aligned, num_text, text_offset, video_offset, out)
+    where ``out`` is the group's lazy packed result (None for a video with
+    no active windows)."""
+    pending = []
+    for entry in entries:
         if entry[0] == "skip":
-            _, idx, start, end, aligned, num_text = entry
-            pending.append((idx, start, end, aligned, num_text, 0, 0, None))
+            pending.append(_skip_record(entry))
             continue
-        _, dims, host_args, offsets = entry
-        packed, _ = process(cfg, dims, host_args)
-        packed = packed.cpu().numpy()
-        for idx, start, end, aligned, num_text, t0, v0 in offsets:
-            pending.append((idx, start, end, aligned, num_text, t0, v0, packed))
+        _, dims, args, offsets = entry
+        out = _Result(process(cfg, dims, args)[0])
+        pending.extend(rec + (out,) for rec in offsets)
     return pending
+
+
+class _Result:
+    """A dispatched group's packed result, left on the device until a reducer
+    reads it. ``prefetch`` starts its D2H copy (once) into pinned host memory
+    with ``non_blocking=True`` and records an event; ``np.asarray`` waits on
+    that event only. A result on the CPU is read as it is, with no copy."""
+
+    __slots__ = ("_dev", "_host", "_event")
+
+    def __init__(self, dev: torch.Tensor):
+        self._dev, self._host, self._event = dev, None, None
+
+    def prefetch(self) -> None:
+        if self._host is not None:
+            return
+        if self._dev.device.type == "cpu":
+            self._host = self._dev
+            return
+        self._host = torch.empty(self._dev.shape, dtype=self._dev.dtype, pin_memory=True)
+        self._host.copy_(self._dev, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+
+    def __array__(self, dtype=None, copy=None):
+        self.prefetch()
+        if self._event is not None:
+            self._event.synchronize()
+        a = self._host.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+class _StackRow:
+    """Row ``i`` of a stacked (k or q, 4, Ntot) ``_Result``: one D2H copy
+    serves every row."""
+
+    __slots__ = ("_stack", "_i")
+
+    def __init__(self, stack: _Result, i: int):
+        self._stack, self._i = stack, i
+
+    def prefetch(self) -> None:
+        self._stack.prefetch()
+
+    def __array__(self, dtype=None, copy=None):
+        row = np.asarray(self._stack)[self._i]
+        return row if dtype is None else row.astype(dtype)
+
+
+def _prefetch(pending):
+    """Start every result's D2H copy before the first wait on one."""
+    for rec in pending:
+        if rec[-1] is not None:
+            rec[-1].prefetch()
+    return pending
+
+
+def _pad_rows(a: np.ndarray, n: int, value=0) -> np.ndarray:
+    """Pad axis 0 of ``a`` to ``n`` rows with ``value`` (a no-op when equal).
+    Padded text-table rows are never indexed by a valid window."""
+    if a.shape[0] == n:
+        return a
+    pad = np.full((n - a.shape[0],) + a.shape[1:], value, a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _pad_2d(a: np.ndarray, n0: int, n1: int) -> np.ndarray:
+    """Zero-pad a 2-D array to (n0, n1) (padded cells carry valid=False)."""
+    if a.shape == (n0, n1):
+        return a
+    out = np.zeros((n0, n1), a.dtype)
+    out[: a.shape[0], : a.shape[1]] = a
+    return out
 
 
 def _reduce_predictions(pending) -> List[Dict]:
     """Per-video prediction reduction (the ``predict`` serving shape)."""
     results, order = [], []
-    for idx, start, end, aligned, num_text, t0, v0, packed in pending:
+    for idx, start, end, aligned, num_text, t0, v0, out in _prefetch(pending):
         order.append(idx)
-        if packed is None:
+        if out is None:
             results.append({
                 "argmax": np.zeros(num_text, np.int64),
                 "score": np.full(num_text, NEG_FILL, np.float32),
                 "align_score": np.full(num_text, NEG_FILL, np.float32),
             })
             continue
+        packed = np.asarray(out)
         # an all-NEG_FILL row (text with no covered window) argmaxes the flat
         # group canvas at global 0; clamp to a video-relative second >= 0
         argmax = np.clip(packed[0, t0 : t0 + num_text].astype(np.int64) - v0, 0, None)
@@ -396,9 +787,9 @@ def _reduce_metrics(pending, cfg: AlignEvalConfig) -> Dict[str, float]:
     recalls: List[bool] = []
     all_scores: List[np.ndarray] = []
     all_tgts: List[np.ndarray] = []
-    for _, start, end, aligned, num_text, t0, v0, packed in pending:
+    for _, start, end, aligned, num_text, t0, v0, out in _prefetch(pending):
         all_tgts.append(aligned.astype(np.int32))
-        if packed is None:
+        if out is None:
             # no active windows: the host canvas is all NEG_FILL -> uniform
             # softmax -> argmax frame 0 (eval_zeroshot_align.py:222-241)
             all_scores.append(np.zeros(num_text) if cfg.use_alignability_head
@@ -406,6 +797,7 @@ def _reduce_metrics(pending, cfg: AlignEvalConfig) -> Dict[str, float]:
             for ti in np.nonzero(aligned)[0]:
                 recalls.append(math.floor(start[ti]) <= 0 <= math.ceil(end[ti]))
             continue
+        packed = np.asarray(out)
         argmax_t = packed[0, t0 : t0 + num_text].astype(np.int64)
         scores = packed[1, t0 : t0 + num_text]
         a_joint = packed[3, t0 : t0 + num_text]

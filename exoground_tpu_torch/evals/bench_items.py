@@ -51,6 +51,30 @@ def make_bench_items(video_dim=1024, text_dim=512, vlens=None):
     ]
 
 
+def make_query_batch(items, seed):
+    """Same videos as ``items``, fresh texts: one serving request batch over
+    the bench corpus for ``FusedAlignEvaluator.preload_queries`` /
+    ``run_queries`` (the JAX package's ``make_query_batch``: same seeds, same
+    batches). Text counts match the base items, so every batch shares the
+    corpus's bucket dims."""
+    r = np.random.RandomState(seed)
+    out = []
+    for it in items:
+        vlen = it["video"].shape[0]
+        num_text = it["text_embed"].shape[0]
+        aligned = (r.rand(num_text) > 0.5).astype(np.int64)
+        aligned[0], aligned[1] = 1, 0
+        centers = np.sort(r.rand(num_text)) * (vlen - 10) + 5
+        out.append(dict(
+            it,
+            start=np.maximum(centers - r.randint(2, 8, num_text), 0.0),
+            end=np.minimum(centers + r.randint(2, 8, num_text), vlen),
+            aligned=aligned,
+            text_embed=r.randn(num_text, it["text_embed"].shape[1]).astype(np.float32),
+        ))
+    return out
+
+
 def make_global_items(video_dim=4096, text_dim=4096, vlens=None):
     """Long HTM-Align-like items for the global mode (``make_item`` at
     ``GLOBAL_VLENS``, seeds 100, 101, ...)."""

@@ -6,7 +6,9 @@ Counterpart of ``exoground_tpu/serve.py`` for these paths:
   * ``AlignmentService`` — holds a port ``TemporalAligner`` and the fused
     evaluator (parameters cast once, kernels built at first use); a request
     is one video plus candidate text embeddings, the response per-text best
-    seconds and confidence scores.
+    seconds and confidence scores. Over a resident corpus it also ranks
+    checkpoints (``score_checkpoints``) and answers q request batches at
+    once (``align_batch_requests``, ``align_query_batches``).
   * ``GroundingService`` — holds a port ``ExoGroundingTransformer`` or
     ``GroundingModel``; a request is one video window plus narration
     embeddings, the response per-narration (start, end) in [0, 1] of the
@@ -21,7 +23,7 @@ Counterpart of ``exoground_tpu/serve.py`` for these paths:
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -129,6 +131,7 @@ class AlignmentService:
         # ONE evaluator serves both protocols: all_texts_active is a per-call
         # host-side switch
         self._evaluator = FusedAlignEvaluator(model, self.cfg, device=device)
+        self._pp_evaluator: Optional[FusedAlignEvaluator] = None
         self._lock = threading.Lock()
         self._front = _CoalescingFront(self._predict_batch)
 
@@ -153,39 +156,136 @@ class AlignmentService:
 
     def align(self, req: AlignRequest) -> Dict:
         """One video + K texts -> per-text best second + confidence score."""
-        te = np.asarray(req.text_embeds, np.float32)
-        k = te.shape[0]
-        vlen = req.video.shape[0]
         if (req.start is None) != (req.end is None):
             raise ValueError(
                 "AlignRequest needs BOTH start and end (coarse per-text "
                 "timestamps) or neither (score all texts in all windows)")
-        all_texts = req.start is None
-        if all_texts:
-            start = np.zeros(k)
-            end = np.full(k, float(vlen))
-            order = np.arange(k)
-        else:
-            start = np.asarray(req.start, np.float64)
-            end = np.asarray(req.end, np.float64)
-            # the active-text protocol derives index spans, which assumes
-            # chronological text order: sort by midpoint, unsort the results
-            order = np.argsort((start + end) / 2.0, kind="stable")
-            start, end, te = start[order], end[order], te[order]
-        item = {
-            "video": np.asarray(req.video, np.float32),
-            "start": start, "end": end,
-            "aligned": np.zeros(k, np.int64),
-            "text_embed": te,
-        }
-        out = self._front.submit(item, all_texts)
-        inv = np.empty(k, np.int64)
-        inv[order] = np.arange(k)
-        return {
-            "best_second": out["argmax"][inv].tolist(),
-            "score": out["score"][inv].tolist(),
-            "align_score": out["align_score"][inv].tolist(),
-        }
+        item, order = _request_item(req.video, np.asarray(req.text_embeds, np.float32),
+                                    req.start, req.end)
+        return _answer(self._front.submit(item, req.start is None), order)
+
+    # ------------------------------------------------------------------
+    # resident serving (the evaluator's preload paths)
+    # ------------------------------------------------------------------
+
+    def score_checkpoints(self, items: Sequence[Dict], state_dicts: Sequence,
+                          resident=None) -> List[Dict[str, float]]:
+        """Rank k checkpoints (state dicts of the served model) against one
+        labelled corpus (``evals/align.py``'s item schema), one packed result
+        a group for all of them (``FusedAlignEvaluator.run_many``); one
+        {'Recall', 'AUC'} dict per checkpoint. Pass
+        ``resident=preload_corpus(items)`` to reuse an upload across calls."""
+        with self._lock:
+            pre = resident or self._evaluator.preload(items)
+            return self._evaluator.run_many(pre, list(state_dicts))
+
+    def preload_corpus(self, items: Sequence[Dict]):
+        """Upload a scoring corpus to the device once (see ``score_checkpoints``)."""
+        with self._lock:
+            return self._evaluator.preload(items)
+
+    def _preproject_evaluator(self) -> FusedAlignEvaluator:
+        """A twin evaluator under ``cfg.preproject``, built at first use, for
+        the resident query paths; ``align()`` keeps the streaming one."""
+        if self._pp_evaluator is None:
+            self._pp_evaluator = FusedAlignEvaluator(
+                self.model, replace(self.cfg, preproject=True),
+                device=self._evaluator.device)
+        return self._pp_evaluator
+
+    def align_batch_requests(self, videos: Sequence[np.ndarray],
+                             text_batches: Sequence[Sequence[Dict]],
+                             preproject: bool = False) -> List[List[Dict]]:
+        """q request batches over one corpus of V videos -> one
+        ``align()``-shaped answer per (batch, video), every batch scored over
+        the resident corpus (``align_query_batches``).
+
+        ``text_batches[i]`` has V entries in the order of ``videos``, each
+        {'text_embeds' (K, Dt), optional 'start'/'end' coarse per-text
+        timestamps}. Timestamp presence must be the same across the whole
+        call (else ``ValueError``): with timestamps the active-text protocol
+        runs (texts sorted by midpoint per video and unsorted in the answer,
+        as ``align()`` does); without, every text scores in every window.
+        Raw 'texts' need the text tower, which this package does not have
+        yet: they raise ``NotImplementedError``."""
+        has_ts = None
+        item_batches, orders = [], []
+        for batch in text_batches:
+            if len(batch) != len(videos):
+                raise ValueError(f"each batch needs one entry per corpus video "
+                                 f"({len(batch)} != {len(videos)})")
+            items, border = [], []
+            for video, req in zip(videos, batch):
+                if req.get("text_embeds") is None:
+                    raise NotImplementedError(
+                        "raw 'texts' requests need the text tower (models/word2vec.py), "
+                        "which arrives with the text-tower slice of the PyTorch port; "
+                        "send 'text_embeds'")
+                te = np.asarray(req["text_embeds"], np.float32)
+                ts = req.get("start") is not None
+                if ts != (req.get("end") is not None):
+                    raise ValueError("a request needs BOTH start and end (coarse per-text "
+                                     "timestamps) or neither")
+                if has_ts is None:
+                    has_ts = ts
+                elif ts != has_ts:
+                    raise ValueError("timestamp presence must be the same across an "
+                                     "align_batch_requests call (the active-text "
+                                     "protocol is a per-call mode)")
+                item, order = _request_item(video, te, req.get("start"), req.get("end"))
+                items.append(item)
+                border.append(order)
+            item_batches.append(items)
+            orders.append(border)
+        preds = self.align_query_batches(item_batches, preproject=preproject,
+                                         all_texts_active=not has_ts)
+        return [[_answer(p, order) for p, order in zip(batch_preds, border)]
+                for batch_preds, border in zip(preds, orders)]
+
+    def align_query_batches(self, query_batches: Sequence[Sequence[Dict]],
+                            preproject: bool = False,
+                            all_texts_active: Optional[bool] = None) -> List[List[Dict]]:
+        """q batches of items (``evals/align.py``'s schema) over ONE video
+        corpus -> one ``predict``-shaped result list per batch
+        (``FusedAlignEvaluator.preload_queries`` / ``predict_queries``): the
+        corpus is uploaded once and every batch is scored over it. Entry i
+        equals ``predict(query_batches[i])`` but for one edge: a video none
+        of whose texts activates a window reports align_score 0 where
+        ``predict`` reports NEG_FILL ('score' carries the sentinel on both).
+        ``preproject=True`` goes through a twin evaluator under
+        ``cfg.preproject``: the corpus's input stages run once, at preload."""
+        with self._lock:
+            ev = self._preproject_evaluator() if preproject else self._evaluator
+            pq = ev.preload_queries(query_batches, all_texts_active)
+            return ev.predict_queries(pq)
+
+
+def _request_item(video, te, start, end):
+    """One request as an evaluator item and the order its texts were put in.
+    With timestamps the active-text protocol derives index spans, which
+    assumes chronological text order: the texts are sorted by midpoint (and
+    ``_answer`` unsorts them); without, every text spans the whole video."""
+    k, vlen = te.shape[0], video.shape[0]
+    if start is None:
+        start, end, order = np.zeros(k), np.full(k, float(vlen)), np.arange(k)
+    else:
+        start, end = np.asarray(start, np.float64), np.asarray(end, np.float64)
+        order = np.argsort((start + end) / 2.0, kind="stable")
+        start, end, te = start[order], end[order], te[order]
+    item = {"video": np.asarray(video, np.float32), "start": start, "end": end,
+            "aligned": np.zeros(k, np.int64), "text_embed": te}
+    return item, order
+
+
+def _answer(pred: Dict, order: np.ndarray) -> Dict:
+    """An evaluator prediction as an ``align()`` answer, in request order."""
+    inv = np.empty(len(order), np.int64)
+    inv[order] = np.arange(len(order))
+    return {
+        "best_second": pred["argmax"][inv].tolist(),
+        "score": pred["score"][inv].tolist(),
+        "align_score": pred["align_score"][inv].tolist(),
+    }
 
 
 class GroundingService:

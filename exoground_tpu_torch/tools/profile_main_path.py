@@ -1,7 +1,7 @@
 """Where the main path's time goes on the card.
 
     python -m exoground_tpu_torch.tools.profile_main_path [--out DIR]
-        [--train | --global | --ground] [--block] [--int8]
+        [--train | --global | --ground] [--block] [--int8] [--resident]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -38,6 +38,11 @@ layer runs two launches, the block-attention and block-MLP kernels (their
 int8 bodies with ``--int8``), with the block MLP's share of the busy time
 (the block attention's kernels are the MHA family's, counted there).
 
+``--resident`` profiles the resident sweep instead of the streaming one
+(with ``--int8`` and ``--block`` too): the 8 bench videos are uploaded once
+(``FusedAlignEvaluator.preload``), and each timed and profiled sweep is a
+``run_preloaded``, so the sweep holds no upload.
+
 ``--ground`` profiles keystep grounding served instead: ``GroundingService``
 over ``GroundingModel`` at the configuration scripts/train_grounding.sh
 trains (``evals/bench_items.py::GROUNDING``: the MLP view-invariant
@@ -56,6 +61,7 @@ raises otherwise.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -77,10 +83,10 @@ from exoground_tpu_torch.ops import _kernels
 from exoground_tpu_torch.utils.convert import load_tan_params
 
 
-def _sweep(ev, items) -> float:
+def _sweep(run) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ev(items)
+    run()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -94,20 +100,23 @@ def _device_rows(prof):
     return rows
 
 
-def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
+def profile_sweeps(model, items, out_dir=None, resident=False, **cfg) -> dict:
     """The main path in one configuration (``cfg``: AlignEvalConfig
     fields), labelled by its compute dtype, with '_int8' under
-    matmul_dtype='int8' and '_block' for the whole-block model."""
+    matmul_dtype='int8', '_block' for the whole-block model and
+    '_resident' for ``run_preloaded`` sweeps over a preload."""
     cfg = AlignEvalConfig(**cfg)
     block = getattr(model, "attn_impl", None) == "fused"
     label = (cfg.compute_dtype + ("_int8" if cfg.matmul_dtype == "int8" else "")
-             + ("_block" if block else ""))
+             + ("_block" if block else "") + ("_resident" if resident else ""))
     ev = FusedAlignEvaluator(model, cfg, device="cuda")
-    _sweep(ev, items)  # warm-up
-    times = [_sweep(ev, items) for _ in range(3)]
+    run = (functools.partial(ev.run_preloaded, ev.preload(items)) if resident
+           else functools.partial(ev, items))
+    _sweep(run)  # warm-up
+    times = [_sweep(run) for _ in range(3)]
     frames = sum(len(it["video"]) for it in items)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _sweep(ev, items)
+        wall = _sweep(run)
     rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     if out_dir:
@@ -127,6 +136,7 @@ def profile_sweeps(model, items, out_dir=None, **cfg) -> dict:
     return {
         "dtype": label,
         "path": "block" if block else "per_module",
+        "resident": resident,
         "transfer_dtype": cfg.transfer_dtype,
         "matmul_dtype": cfg.matmul_dtype,
         "int8_min_cols": cfg.int8_min_cols,
@@ -290,10 +300,13 @@ def main():
                     help="profile the int8 serving mode (the JAX bench's int8 row)")
     ap.add_argument("--block", action="store_true",
                     help="profile the whole-block path (attn_impl and mlp_impl 'fused')")
+    ap.add_argument("--resident", action="store_true",
+                    help="profile run_preloaded sweeps over a preload (no upload a sweep)")
     args = ap.parse_args()
-    if (args.int8 or args.block) and (args.train or args.global_mode or args.ground):
-        ap.error("--int8 and --block profile the serving sweeps, not --train, --global or "
-                 "--ground")
+    if (args.int8 or args.block or args.resident) and (args.train or args.global_mode
+                                                         or args.ground):
+        ap.error("--int8, --block and --resident profile the serving sweeps, not --train, "
+                 "--global or --ground")
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -340,7 +353,8 @@ def main():
     configs = ([INT8_SERVING] if args.int8
                else [dict(compute_dtype=dtype) for dtype in ("float32", "bfloat16")])
     for cfg in configs:
-        print(json.dumps({"card": card, **profile_sweeps(model, items, args.out, **cfg)}),
+        print(json.dumps({"card": card, **profile_sweeps(model, items, args.out,
+                                                          resident=args.resident, **cfg)}),
               flush=True)
 
 

@@ -159,9 +159,20 @@ def test_alignment_service_matches_jax(models, items, with_ts):
 
 
 @pytest.mark.parametrize("field,value", [("preproject", True), ("eval_devices", 2)])
-def test_later_slice_config_values_raise(field, value):
-    with pytest.raises(NotImplementedError, match="slice"):
-        AlignEvalConfig(**{field: value})
+def test_later_slice_config_values_raise(models, items, field, value):
+    """eval_devices > 1 waits for the multi-device slice. preproject=True
+    arrived with resident serving: the config builds, and the streaming
+    paths refuse it with ValueError (there is no preload to amortize the
+    input stages into)."""
+    if field == "eval_devices":
+        with pytest.raises(NotImplementedError, match="slice"):
+            AlignEvalConfig(**{field: value})
+        return
+    ev = FusedAlignEvaluator(models[2], AlignEvalConfig(**CFG, preproject=True), device="cpu")
+    with pytest.raises(ValueError, match="resident-serving"):
+        ev(items)
+    with pytest.raises(ValueError, match="resident-serving"):
+        ev.predict(items)
 
 
 def test_bfloat16_compute_runs_on_cpu(models, items):
