@@ -100,9 +100,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the card, at the train path's shapes (S 6, R = B*64, Cc = B*12, C 512
      for B 16 and 64, dual St = 1 and joint St = 6), a ragged (2, 36, 15,
      128) with three invalid columns, a column space above the TPU
-     kernel's cap (1, 512, 3072, 512) and two output slabs (2, 100, 70,
-     640), in float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); the
-     backward run twice must give the same bytes; forward and backward
+     kernel's cap (1, 512, 3072, 512), two output slabs (2, 100, 70,
+     640) and the command line's shapes of phase 8 (a B64 step: 6, 4096,
+     2048, 512; its B27 validation batch: 6, 1728, 864, 512; dual and
+     joint, three quarters of the columns invalid), in float32 (<= 1e-4
+     of max|plain|) and bfloat16 (<= 1e-2); the backward run twice must
+     give the same bytes; forward and backward
      times (single calls and 30 back to back) beside the plain version's
      and the bound (float32: both routes); then one `bar ✓/✗` line a B64
      case (grid_bars: the kernel's forward + backward back to back at most
@@ -170,14 +173,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      of 16 under 'small' (30 small_attn launches and nothing else; against
      the CPU within 2x the CPU's own change under a 1e-7 relative change of
      the inputs, at least 1e-3: a rounding step upstream flips int8 steps).
+  8. the training command line: ``exoground_tpu_torch.train.main`` (``--dataset
+     htm-370k --model cotrain``, E6D6 width 512, seq 64, text bucket 32, token
+     length 32, B64, seed 0) over a seeded tree under build/ (tools/synth_htm.py:
+     540 videos of 200-600 s with 512-d features, 27 of them validation;
+     sentencified ASR at one 8-word sentence every 14 s, the JAX package's
+     command-line test's cadence, htm_vlen.csv, htm_align.json over 8 videos, a
+     66,249-word s3d_dict.npy and a seeded s3d_howto100m.pth with the MIL-NCE
+     text module's shapes), 2 epochs of 8 steps with --eval_freq 1, then
+     --resume from the epoch-0 checkpoint (parameters, EMA twin, moments, step
+     count, iteration, start epoch 1 and best restored exactly, checked as
+     load_checkpoint returns) and --test; each run counted (the grid 2 + 2 a
+     step and 2 forwards a validation batch; fused MHA and MLP 24 + 24 a
+     validation batch, online and EMA teacher, and 12 + 12 a group of each
+     HTM-Align eval; no other kernel); then the card against the CPU with the
+     command line's build_htm_tan on the whole first batch, B64 (step and
+     validation loss rel. error <= 1e-4, the tower's pooled output <= 1e-5 of
+     max|CPU|, f32); one `cli_bench {...}` line (samples/s over the whole
+     window of steps and waits for data, the window's seconds, the median
+     step, which is a loader-idle one at 8 steps an epoch, the Data meter's
+     share, validation ms, HTM-Align s, checkpoint MB and save s, launches,
+     the phase's seconds). The tree is removed after.
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
 family, the MHA family (but the int8 qkv product's), the flash forward and
 the grid kernel run 3xTF32 on the tensor cores, which keeps float32
-accuracy (csrc/tc.cuh says why). The
-line before the last is the kernels JSON; the last line is
-{"ok": true, "device": {...}}.
+accuracy (csrc/tc.cuh says why). The script's seconds, then the kernels
+JSON, precede the last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2199,7 +2222,210 @@ def grounding_path(card):
     return outs["small"][1]
 
 
+# ----------------------------------------------------------------- phase 8
+# The training command line at the HTM TAN configuration: E6D6 width 512 on
+# 512-d S3D video features, seq 64, text bucket 32, token length 32, B 64,
+# the word2vec tower at the MIL-NCE text module's shapes (66,250 x 300
+# embedding, fc1 300 -> 2048, fc2 2048 -> 512). 540 videos: the 5% split
+# puts 27 in validation (one batch) and 513 in training (8 steps at B64).
+CLI_VIDEOS, CLI_BATCH, CLI_EPOCHS = 540, 64, 2
+CLI_VAL_BATCHES = 1  # ceil(27 / 64) a validation pass
+CLI_ALIGN_GROUPS = 1  # 8 htm_align.json videos, 8 to a group
+
+
+def _cli_argv(root):
+    return ["--dataset", "htm-370k", "--model", "cotrain", "--data_root", root,
+            "--seq_len", "64", "--batch_size", str(CLI_BATCH), "--epochs", str(CLI_EPOCHS),
+            "--eval_freq", "1", "--num_workers", "8", "--print_freq", "4", "--seed", "0"]
+
+
+def _cli_expect(steps, val_passes, evals):
+    """Launches of the command line: 2 grid forward + 2 backward a train
+    step (dual and joint) and 2 grid forward a validation batch; fused MHA
+    and MLP 12 + 12 a validation forward (online and EMA teacher under
+    cotrain) and 12 + 12 a group of each HTM-Align eval."""
+    mha = 2 * 12 * CLI_VAL_BATCHES * val_passes + 12 * CLI_ALIGN_GROUPS * evals
+    want = {k: 0 for k in ("fused_mha_int8", "fused_mlp_int8", "flash_fwd", "flash_dq",
+                           "flash_dkv", "block_attn", "block_mlp", "block_attn_int8",
+                           "block_mlp_int8", "small_attn")}
+    want.update(milnce_grid_fwd=2 * steps + 2 * CLI_VAL_BATCHES * val_passes,
+                milnce_grid_bwd=2 * steps, fused_mha=mha, fused_mlp=mha)
+    return want
+
+
+def cli_agreement(argv):
+    """The card against the CPU: one trainer each, built by the command
+    line's build_htm_tan from the same seed, on the whole first batch (B64,
+    the shapes phase 8 trains and validates at): the first step's loss and
+    the validation loss (f32, rel. error <= 1e-4) and the tower's pooled
+    output (<= 1e-5 of max|CPU|)."""
+    from exoground_tpu_torch.models.word2vec import word2vec_forward
+    from exoground_tpu_torch.train import main as cli
+    from exoground_tpu_torch.train.config import parse_args
+
+    runs = {dev: cli.build_htm_tan(parse_args(argv), dev) for dev in ("cpu", "cuda")}
+    try:
+        raw = next(iter(runs["cpu"].train_loader))
+        res = {}
+        for dev, run in runs.items():
+            tr = run.trainer
+            batch = tr.to_device(tr.prepare_batch(raw))
+            metrics, _ = tr.step.loss_and_grads(tr.params, tr.target_params, batch,
+                                                torch.Generator().manual_seed(0))
+            tok = batch["token"].reshape(-1, batch["token"].shape[-1])
+            pooled = word2vec_forward(tr._tower_params, tok, tok != 0)["pooler_output"]
+            res[dev] = (float(metrics["loss"]), tr.evaluate([raw], 0), pooled.cpu())
+    finally:
+        for run in runs.values():
+            run.close()
+    (lc, vc, pc), (lg, vg, pg) = res["cpu"], res["cuda"]
+    errs = dict(step_loss=abs(lg - lc) / abs(lc), val_loss=abs(vg - vc) / abs(vc),
+                tower=float((pg - pc).abs().max() / pc.abs().max()))
+    print(f"cli card vs CPU (the first batch, B{len(raw['video'])}, f32): "
+          f"step loss {lg:.6f} vs {lc:.6f}, "
+          f"val loss {vg:.6f} vs {vc:.6f}, rel errors {errs}", flush=True)
+    if not (errs["step_loss"] <= 1e-4 and errs["val_loss"] <= 1e-4 and errs["tower"] <= 1e-5):
+        fail(f"the command line's trainer on the card disagrees with the CPU: {errs}")
+    return errs
+
+
+def _spy_trainers():
+    """Record each TANTrainer the command line builds, and check each
+    ``load_checkpoint`` as it returns: resume must restore the checkpoint's
+    parameters, EMA twin, optimizer state, iteration, epoch and best
+    exactly. Returns (trainers, loads, undo)."""
+    from exoground_tpu_torch.train.trainer import TANTrainer
+
+    trainers, loads = [], []
+    real_init, real_load = TANTrainer.__init__, TANTrainer.load_checkpoint
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        trainers.append(self)
+
+    def load(self, path, mode="resume"):
+        real_load(self, path, mode)
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+
+        def same(got, want):
+            return set(got) == set(want) and all(torch.equal(got[k].cpu(), want[k])
+                                                 for k in want)
+
+        rec = dict(mode=mode, params=same(self.params, blob["state_dict"]))
+        if mode == "resume":
+            opt = blob["optimizer"]
+            rec.update(ema=same(self.target_params, blob["target_state_dict"]),
+                       mu=same(self.opt_state.mu, opt["mu"]),
+                       nu=same(self.opt_state.nu, opt["nu"]),
+                       count=self.opt_state.count == opt["count"],
+                       iteration=self.iteration == blob["iteration"],
+                       start_epoch=self.start_epoch == blob["epoch"] + 1 == 1,
+                       best_acc=self.best_acc == blob["best_acc"])
+        loads.append(rec)
+
+    TANTrainer.__init__, TANTrainer.load_checkpoint = init, load
+
+    def undo():
+        TANTrainer.__init__, TANTrainer.load_checkpoint = real_init, real_load
+
+    return trainers, loads, undo
+
+
+def cli_path(card):
+    """Phase 8: ``exoground_tpu_torch.train.main`` on the card over a seeded
+    tree (cotrain, 2 epochs, validation and HTM-Align every epoch), then
+    ``--resume`` from epoch 0 and ``--test``; each run counted; the card
+    against the CPU. Returns the first run's launches."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.tools.synth_htm import make_htm_tree
+    from exoground_tpu_torch.train import main as cli
+    from exoground_tpu_torch.train.trainer import epoch_summary
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="cli_", dir=build)
+    cwd = os.getcwd()
+    trainers, loads, undo = _spy_trainers()
+    try:
+        t0 = time.perf_counter()
+        root = make_htm_tree(os.path.join(work, "htm"), n_videos=CLI_VIDEOS, vlen=(200, 600),
+                             dim=512, vocab=66249, embed_dim=300, hidden=2048, out_dim=512,
+                             n_align=8, seed=0)
+        tree_s = time.perf_counter() - t0
+        os.chdir(work)  # set_path writes log<prefix>/ under the cwd
+        argv = _cli_argv(root)
+
+        def run(extra=()):
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = cli.main(argv + list(extra))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, dict(_kernels.LAUNCHES)
+
+        best, run_s, launches = run()
+        tr = trainers[-1]
+        steps = sum(s["steps"] for s in tr.epoch_stats)
+        if steps != CLI_EPOCHS * 8 or not np.isfinite(best):
+            fail(f"cli: {steps} steps (want {CLI_EPOCHS * 8}), best {best}")
+        _check_counts("cli run", launches, _cli_expect(steps, CLI_EPOCHS, CLI_EPOCHS))
+        (e0,) = glob.glob(os.path.join(work, "log", "*", "model", "epoch0.pth.tar"))
+        ckpt_mb = os.path.getsize(e0) / 2**20
+
+        best2, resume_s, launches2 = run(["--resume", e0])
+        tr2 = trainers[-1]
+        steps2 = sum(s["steps"] for s in tr2.epoch_stats)
+        if not loads or loads[-1]["mode"] != "resume" or not all(loads[-1].values()):
+            fail(f"--resume did not restore exactly: {loads}")
+        if steps2 != 8 or not np.isfinite(best2):
+            fail(f"cli --resume: {steps2} steps (want 8), best {best2}")
+        _check_counts("cli --resume", launches2, _cli_expect(steps2, 1, 1))
+
+        res, test_s, launches3 = run(["--test", e0])
+        if loads[-1] != dict(mode="test", params=True) or not all(
+                np.isfinite(v) for v in res.values()):
+            fail(f"cli --test: {res}, load {loads[-1]}")
+        _check_counts("cli --test", launches3, _cli_expect(0, 0, 1))
+        undo()
+        errs = cli_agreement(argv)
+    finally:
+        undo()
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+    stats = tr.epoch_stats
+    summary = epoch_summary(stats)
+    bench = dict(
+        card=card, steps=steps, batch=CLI_BATCH,
+        # over the whole window, every step and every wait for data: what a
+        # user pays a sample
+        samples_per_s=round(summary["samples_per_s"], 1),
+        window_s=round(summary["window_s"], 3),
+        # at 8 steps an epoch the loader has read the epoch before most steps
+        # run, so the median step is a loader-idle one
+        step_ms_median_loader_idle=round(summary["step_ms_median"], 2),
+        data_share=round(summary["data_share"], 4),
+        data_share_after_first=round(summary["data_share_after_first"], 4),
+        step_ms_all=[round(t * 1e3, 1) for s in stats for t in s["step_s"]],
+        val_ms=[round(s["val_s"] * 1e3, 1) for s in stats],
+        downstream_s=[round(s["downstream_s"], 3) for s in stats],
+        ckpt_mb=round(ckpt_mb, 1), save_s=[round(s["save_s"], 3) for s in stats],
+        run_s=round(run_s, 1), resume_s=round(resume_s, 1), test_s=round(test_s, 1),
+        tree_s=round(tree_s, 1), best=best, test=res,
+        err={k: float(f"{v:.3g}") for k, v in errs.items()},
+        launches={k: v for k, v in launches.items() if v},
+        phase_s=round(time.perf_counter() - t_phase, 1))
+    print("cli_bench", json.dumps(bench), flush=True)
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs on the card only")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2245,6 +2471,15 @@ def main():
         grid_cases.append(grid_case(2, 36, 15, 128, 1, dtype, seed=24, n_invalid=3))
         grid_cases.append(grid_case(1, 512, 3072, 512, 1, dtype, seed=25, n_invalid=5))
         grid_cases.append(grid_case(2, 100, 70, 640, 2, dtype, seed=26, n_invalid=2))
+        # the command line's shapes (phase 8): a B64 train step (R 64 x 64,
+        # Cc 64 x text bucket 32, most columns padding) and its B27
+        # validation batch
+        grid_cases.append(grid_case(6, 4096, 2048, 512, 6, dtype, seed=27, n_invalid=1536,
+                                    timed=True))
+        grid_cases.append(grid_case(6, 4096, 2048, 512, 1, dtype, seed=28, n_invalid=1536,
+                                    timed=True))
+        grid_cases.append(grid_case(6, 1728, 864, 512, 6, dtype, seed=29, n_invalid=648))
+        grid_cases.append(grid_case(6, 1728, 864, 512, 1, dtype, seed=30, n_invalid=648))
     grid_bars(grid_cases)
 
     # phase 3c: the flash kernels against their plain version
@@ -2312,6 +2547,9 @@ def main():
     # phase 7: keystep grounding served, counted; its 'small' run is this
     # slice's main path
     launches["small_attn"] = grounding_path(card)
+
+    # phase 8: the training command line, counted (this slice's main path)
+    cli_launches = cli_path(card)
     small_launches = {"grounding attn_impl=small (phase 7)": launches["small_attn"],
                       **small_launches}
 
@@ -2372,7 +2610,7 @@ def main():
                                  "resident path (phase 4e)": resident_launches[e["name"]]}
         return e
 
-    print(json.dumps({"kernels": [
+    kernels = [
         by_path(entry("fused_mha", "exoground_tpu_torch/csrc/fused_mha.cu",
                       "exoground_tpu/ops/attention.py:761", mha_cases), "main path (phase 4)"),
         by_path(entry("fused_mlp", "exoground_tpu_torch/csrc/fused_mlp.cu",
@@ -2395,7 +2633,14 @@ def main():
         dict(entry("small_attn", "exoground_tpu_torch/csrc/small_attn.cu",
                    "exoground_tpu/ops/attention.py:514", small_cases),
              launches_by_path=small_launches),
-    ]}), flush=True)
+    ]
+    for e in kernels:
+        if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):
+            e["launches_by_path"] = {"train path (phase 5)": launches[e["name"]]}
+        if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd", "fused_mha", "fused_mlp"):
+            e["launches_by_path"]["training command line (phase 8)"] = cli_launches[e["name"]]
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

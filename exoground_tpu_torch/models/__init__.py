@@ -6,3 +6,8 @@ from exoground_tpu_torch.models.grounding import (  # noqa: F401
     ExoGroundingTransformer,
     GroundingModel,
 )
+from exoground_tpu_torch.models.word2vec import (  # noqa: F401
+    Word2VecModel,
+    Word2VecTokenizer,
+    word2vec_forward,
+)

@@ -3,7 +3,8 @@
 Counterpart of ``exoground_tpu/models/aligner.py`` (reference
 model/tan_model.py:13-306) as an ``nn.Module`` in (B, T, C) layout: a
 video-only "dual" encoder and a video+text "joint" encoder, 4096->width
-pre-projections, a learned or sine temporal pos-embedding with optional
+pre-projections (``video_dim`` / ``text_dim`` set the two input widths apart,
+each defaulting to ``input_dim``), a learned or sine temporal pos-embedding with optional
 random start (drawn from a ``torch.Generator``) and linear interpolation for
 longer sequences, optional text pos-embedding, and an optional binary
 alignability head.
@@ -63,6 +64,8 @@ class TemporalAligner(nn.Module):
         heads: int = 8,
         input_dim: int = 4096,
         max_pos: int = 4096,
+        video_dim: Optional[int] = None,
+        text_dim: Optional[int] = None,
         attn_impl: Optional[str] = None,
         mlp_impl: Optional[str] = None,
         device="cuda",
@@ -82,8 +85,9 @@ class TemporalAligner(nn.Module):
         w = width
         self.video_temporal_encoder = TemporalEncoder(w, num_encoder_layers, heads)
         self.joint_temporal_encoder = TemporalEncoder(w, num_joint_layers, heads)
-        self.video_pre_proj = nn.Linear(input_dim, w, bias=False)
-        self.text_pre_proj = nn.Linear(input_dim, w, bias=False)
+        # the JAX Dense layers take each input's width from the input itself
+        self.video_pre_proj = nn.Linear(video_dim or input_dim, w, bias=False)
+        self.text_pre_proj = nn.Linear(text_dim or input_dim, w, bias=False)
         self.ln_text_init = nn.LayerNorm(w, eps=LN_EPS)
         self.ln_video_init = nn.LayerNorm(w, eps=LN_EPS)
         self.ln_position_init = nn.LayerNorm(w, eps=LN_EPS)

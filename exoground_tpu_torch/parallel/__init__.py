@@ -1,4 +1,9 @@
 """Train steps of the port (counterpart of ``exoground_tpu/parallel``; one
 device for now)."""
 
-from exoground_tpu_torch.parallel.train_step import TanTrainStep, make_tan_train_step  # noqa: F401
+from exoground_tpu_torch.parallel.train_step import (  # noqa: F401
+    TanEvalStep,
+    TanTrainStep,
+    make_tan_eval_step,
+    make_tan_train_step,
+)

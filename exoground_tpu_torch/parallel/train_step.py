@@ -10,6 +10,16 @@ takes its plain compositions; on the card the MIL-NCE grid kernel carries
 the loss's denominators (2 forward and 2 backward launches per step, dual
 and joint).
 
+With ``text_tower_params`` (the frozen word2vec tower's tensors) a batch
+may carry 'token' (B, N, L) ids in place of 'text' features: the tower
+embeds them inside the step (``_batch_text``, its pooled output only), its
+weights cast once to the compute dtype, as the JAX step casts them.
+
+``TanEvalStep`` is the JAX ``make_tan_eval_step`` (:607-676) on one device:
+inference-shaped, under ``torch.no_grad()`` with the kernels on (fused MHA
+and MLP in both towers, the grid's forward), the cotrain targets from the
+EMA teacher, returning the loss scalars and ``_rows``.
+
 Parameters are a dictionary of float32 master tensors (the model's own
 parameters, shared by storage, so the optimizer's in-place update keeps the
 module current). ``compute_dtype="bfloat16"`` casts them for the forward
@@ -26,6 +36,7 @@ import torch
 from torch.func import functional_call
 
 from exoground_tpu_torch.losses.milnce import TANLossConfig, tan_loss
+from exoground_tpu_torch.models.word2vec import word2vec_forward
 from exoground_tpu_torch.ops.fused_mlp import disable_fused_kernels
 
 # normalized-feature outputs of TemporalAligner: they stay in the compute
@@ -35,7 +46,7 @@ _FEATURE_KEYS = (
     "dual_feature_video", "dual_feature_text",
     "joint_feature_video", "joint_feature_text",
 )
-_LATER = "a later slice of the port (ROADMAP.md, queue 1 item 8)"
+_LATER = "a later slice of the port (ROADMAP.md, queue 1 item 4)"
 
 
 def _cast_floats(tree: Dict[str, torch.Tensor], dtype) -> Dict[str, torch.Tensor]:
@@ -47,19 +58,36 @@ def _f32_except_features(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
     return {k: v if k in _FEATURE_KEYS else v.float() for k, v in out.items()}
 
 
+def _batch_text(batch: Dict[str, torch.Tensor], tower) -> torch.Tensor:
+    """Text features for the TAN steps (the JAX ``_batch_text``, :111-127):
+    'text' passes through; 'token' (B, N, L) ids go through the frozen
+    tower, pad ids (0) masked, and come back (B, N, D) in its dtype."""
+    if "text" in batch:
+        return batch["text"]
+    if tower is None:
+        raise ValueError("a token batch needs the step's text_tower_params")
+    tok = batch["token"]
+    b, n, l = tok.shape
+    tok2 = tok.reshape(b * n, l)
+    with torch.no_grad():
+        emb = word2vec_forward(tower, tok2, tok2 != 0)["pooler_output"]
+    return emb.reshape(b, n, -1)
+
+
 class TanTrainStep:
     """``step(params, target, opt_state, batch, generator) -> (params,
     target, opt_state, metrics)``; ``loss_and_grads`` is its first half.
 
-    batch: video (B, T, Dv), text (B, N, Dt), video_padding_mask (B, T),
-    text_padding_mask (B, N), start, end [, abs_text_pos], on the device of
-    the parameters. ``target`` is the EMA twin (pass ``params`` when not
-    cotraining); with ``ema_momentum`` set the optimizer updates it in the
-    same pass. Metrics are the loss dict's 0-d tensors, detached."""
+    batch: video (B, T, Dv), text (B, N, Dt) or token (B, N, L) with
+    ``text_tower_params``, video_padding_mask (B, T), text_padding_mask
+    (B, N), start, end [, abs_text_pos], on the device of the parameters.
+    ``target`` is the EMA twin (pass ``params`` when not cotraining); with
+    ``ema_momentum`` set the optimizer updates it in the same pass. Metrics
+    are the loss dict's 0-d tensors, detached."""
 
     def __init__(self, model, loss_cfg: TANLossConfig, optimizer,
                  ema_momentum: Optional[float] = None, compute_dtype: str = "float32",
-                 fused_grid: bool = True):
+                 fused_grid: bool = True, text_tower_params=None):
         self.model = model
         self.loss_cfg = loss_cfg
         self.optimizer = optimizer
@@ -67,6 +95,9 @@ class TanTrainStep:
         self.cdt = getattr(torch, compute_dtype)
         self.fused_grid = fused_grid
         self.cotrain = loss_cfg.model == "cotrain"
+        # frozen tower: cast once at build time, not once per step
+        self.tower = None if text_tower_params is None else _cast_floats(
+            text_tower_params, self.cdt)
 
     def _forward(self, params, batch_c, batch, deterministic, generator=None):
         kw = dict(deterministic=deterministic, return_sim_volumes=not self.fused_grid,
@@ -83,7 +114,8 @@ class TanTrainStep:
         with disable_fused_kernels():
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             p_c = _cast_floats(leaves, self.cdt)
-            batch_c = _cast_floats({"video": batch["video"], "text": batch["text"]}, self.cdt)
+            batch_c = _cast_floats({"video": batch["video"],
+                                    "text": _batch_text(batch, self.tower)}, self.cdt)
             out = self._forward(p_c, batch_c, batch, False, generator)
             if self.fused_grid:
                 missing = [k for k in _FEATURE_KEYS if k not in out]
@@ -131,7 +163,57 @@ def make_tan_train_step(model, loss_cfg: TANLossConfig, optimizer,
         raise NotImplementedError(f"gather_negatives (all_gather over NCCL) waits for {_LATER}")
     if scan_steps is not None:
         raise NotImplementedError(f"scan_steps (fused multi-step dispatch) waits for {_LATER}")
-    if text_tower_params is not None:
-        raise NotImplementedError(f"the word2vec text tower in the step waits for {_LATER}")
     return TanTrainStep(model, loss_cfg, optimizer, ema_momentum=ema_momentum,
-                        compute_dtype=compute_dtype, fused_grid=fused_grid)
+                        compute_dtype=compute_dtype, fused_grid=fused_grid,
+                        text_tower_params=text_tower_params)
+
+
+class TanEvalStep:
+    """``eval_step(params, target, batch) -> scalars``: the validation loss
+    of the train protocol (the JAX ``make_tan_eval_step``, :607-676).
+
+    float32, deterministic, under ``torch.no_grad()`` with the model in eval
+    mode and the inference kernels available; for cotrain the agreement
+    targets come from the EMA teacher (deriving them from the online
+    outputs would bias the loss low). Returns the loss dict's scalars (on
+    one device the JAX step's row-weighted psum mean is the batch's own
+    value) and ``_rows``, the batch's rows, by which callers average."""
+
+    def __init__(self, model, loss_cfg: TANLossConfig, is_cotrain: bool = False,
+                 text_tower_params=None, fused_grid: bool = True):
+        self.model = model
+        self.loss_cfg = loss_cfg
+        self.is_cotrain = is_cotrain
+        self.tower = text_tower_params
+        self.fused_grid = fused_grid
+
+    def _forward(self, params, text, batch):
+        return functional_call(
+            self.model, params,
+            (batch["video"], text, batch["video_padding_mask"], batch["text_padding_mask"]),
+            dict(deterministic=True, return_sim_volumes=not self.fused_grid))
+
+    @torch.no_grad()
+    def __call__(self, params, target, batch) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        text = _batch_text(batch, self.tower)
+        out = self._forward(params, text, batch)
+        if self.fused_grid:
+            out = {k: v for k, v in out.items() if k not in ("logits_dual", "logits_joint")}
+        if self.is_cotrain:
+            ema_out = self._forward(target, text, batch)
+            keys = _FEATURE_KEYS if self.fused_grid else ("logits_dual", "logits_joint")
+            out.update({f"ema-{k}": ema_out[k] for k in keys})
+        ld = tan_loss(batch["start"], batch["end"], out, batch["video_padding_mask"],
+                      batch["text_padding_mask"], self.loss_cfg,
+                      abs_text_pos=batch.get("abs_text_pos"))
+        agg = {k: v for k, v in ld.items() if v.dim() == 0}
+        agg["_rows"] = torch.tensor(float(batch["video"].shape[0]), device=batch["video"].device)
+        return agg
+
+
+def make_tan_eval_step(model, loss_cfg: TANLossConfig, is_cotrain: bool = False,
+                       text_tower_params=None, fused_grid: bool = True) -> TanEvalStep:
+    """The TAN validation step on one device (see ``TanEvalStep``)."""
+    return TanEvalStep(model, loss_cfg, is_cotrain=is_cotrain,
+                       text_tower_params=text_tower_params, fused_grid=fused_grid)

@@ -1,7 +1,7 @@
 """Where the main path's time goes on the card.
 
     python -m exoground_tpu_torch.tools.profile_main_path [--out DIR]
-        [--train | --global | --ground] [--block] [--int8] [--resident]
+        [--train | --global | --ground | --cli] [--block] [--int8] [--resident]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -53,6 +53,20 @@ timed ``ground_batch`` calls (median), then one call under
 through the window-attention kernel) and 'auto' (the fused-MHA kernel on
 self-attention), in one process, with the window kernel's and the fused
 kernels' shares of the busy time.
+
+``--cli`` profiles the training command line instead: the trainer that
+``train/main.py`` builds (``build_htm_tan``) for ``--dataset htm-370k
+--model cotrain`` at B64 over a seeded tree (``tools/synth_htm.py``: 1,000
+videos of 200-600 s, 512-d features, ASR at the tree's default cadence, the
+word2vec tower at the MIL-NCE shapes; 14 steps an epoch) in float32 with 8
+and 1 loader threads and in bfloat16 with 8: one warm-up epoch, one timed
+epoch (each step's wall time and its wait for data, the ``Data`` meter, and
+``train/trainer.py::epoch_summary``'s window rate), then one epoch under
+``torch.profiler`` (its device busy and idle share, the grid's device
+time); one JSON line each. Then the steady state: one timed float32 epoch
+of 200 steps (8 threads) at the default ASR cadence and at a dense one, its
+window rate whole and over its second half, beside the reader's host cost
+an item (and its shares under cProfile); one JSON line each.
 
 With ``--out`` the Chrome traces are written there. Needs a CUDA device;
 raises otherwise.
@@ -287,6 +301,127 @@ def profile_ground(svc, requests, impl: str, out_dir=None) -> dict:
     }
 
 
+CLI_TREE = dict(n_videos=1000, vlen=(200, 600), dim=512, vocab=66249, embed_dim=300,
+                hidden=2048, out_dim=512, n_align=8, seed=0)
+# the steady state: one epoch of CLI_LONG_STEPS at B64 over 200 feature
+# arrays, at the tree's sourced ASR cadence and at a dense one (one sentence
+# every 2.5 s, no source: an upper bracket for the loader's cost)
+CLI_LONG_STEPS, CLI_DENSE_GAP_S = 200, 2.5
+
+
+def _cli_run(root, amp: bool, workers: int, epochs: int):
+    from exoground_tpu_torch.train import main as cli
+    from exoground_tpu_torch.train.config import parse_args
+
+    argv = ["--dataset", "htm-370k", "--model", "cotrain", "--data_root", root,
+            "--batch_size", "64", "--epochs", str(epochs), "--num_workers", str(workers),
+            "--print_freq", "1000"] + (["--amp"] if amp else [])
+    return cli.build_htm_tan(parse_args(argv), "cuda")
+
+
+def _epoch_fields(stats) -> dict:
+    from exoground_tpu_torch.train.trainer import epoch_summary
+
+    return {**epoch_summary([stats]),
+            "step_ms_all": [round(t * 1e3, 1) for t in stats["step_s"]],
+            "data_ms_all": [round(t * 1e3, 1) for t in stats["data_s"]]}
+
+
+def profile_cli(root, amp: bool, workers: int, out_dir=None) -> dict:
+    """Train epochs of the command line's trainer on the tree at ``root``."""
+    run = _cli_run(root, amp, workers, 3)
+    tr = run.trainer
+    try:
+        for epoch in (0, 1):  # warm-up, timed
+            run.train_loader.set_epoch(epoch)
+            tr.train_epoch(run.train_loader, epoch)
+        run.train_loader.set_epoch(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train_epoch(run.train_loader, 2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        run.close()
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    dtype = "bfloat16" if amp else "float32"
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"cli_{dtype}_w{workers}.json"))
+    return {
+        "dtype": dtype,
+        "loader_threads": workers,
+        "batch": 64,
+        **_epoch_fields(tr.epoch_stats[1]),
+        "profiled_epoch_s": wall,
+        "profiled_steps": tr.epoch_stats[2]["steps"],
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "grid_kernels_ms": sum(us for us, _, k in rows if "grid_" in k) / 1e3,
+        "top_kernels": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                        for us, c, k in rows[:12]],
+    }
+
+
+def _item_profile(ds, n: int = 256) -> dict:
+    """Host time of the reader's items, one after another, and the shares
+    of it (under cProfile) in the sentence trim, the tokenizer, ``np.pad``,
+    ``np.load`` and the per-item ``RandomState``."""
+    import cProfile
+    import pstats
+
+    t0 = time.perf_counter()
+    items = [ds[i % len(ds)] for i in range(64)]
+    out = {"item_ms": (time.perf_counter() - t0) / 64 * 1e3,
+           "sentences_per_item": sum(len(it["_texts"]["text"]) for it in items) / 64}
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for i in range(n):
+        ds[i % len(ds)]
+    prof.disable()
+    total = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+
+    def share(fn_name, file_part):
+        return sum(v[3] for k, v in stats.items()
+                   if k[2] == fn_name and file_part in k[0]) / total
+
+    out["share_of_item"] = {
+        "clip_sentences": share("_clip_sentences", "htm"),
+        "tokenizer": share("__call__", "word2vec"), "np_pad": share("pad", "_arraypad"),
+        "np_load": share("load", "_npyio"), "random_state": share("_rng", "htm")}
+    return out
+
+
+def profile_cli_steady(root, asr_gap: float) -> dict:
+    """One long float32 epoch (8 loader threads) on the tree at ``root``,
+    timed only: the whole window, and its second half apart (the loader
+    long past its start); the reader's host cost an item beside it."""
+    run = _cli_run(root, False, 8, 1)
+    tr = run.trainer
+    try:
+        host = _item_profile(run.train_loader.dataset)
+        run.train_loader.set_epoch(0)
+        t0 = time.perf_counter()
+        tr.train_epoch(run.train_loader, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        run.close()
+    from exoground_tpu_torch.train.trainer import epoch_summary
+
+    stats = tr.epoch_stats[0]
+    half = stats["steps"] // 2
+    second = dict(samples=stats["samples"] * (stats["steps"] - half) // stats["steps"],
+                  step_s=stats["step_s"][half:],
+                  data_s=stats["data_s"][half:])
+    return {"dtype": "float32", "loader_threads": 8, "batch": 64, "asr_gap_s": asr_gap,
+            "epoch_s": wall, **epoch_summary([stats]),
+            "second_half": epoch_summary([second]), "host": host}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
@@ -296,6 +431,8 @@ def main():
                       help="profile global-mode text_visual_sim at the bench shape")
     mode.add_argument("--ground", action="store_true",
                       help="profile GroundingService ('small' and 'auto')")
+    mode.add_argument("--cli", action="store_true",
+                      help="profile the training command line's epochs")
     ap.add_argument("--int8", action="store_true",
                     help="profile the int8 serving mode (the JAX bench's int8 row)")
     ap.add_argument("--block", action="store_true",
@@ -304,9 +441,9 @@ def main():
                     help="profile run_preloaded sweeps over a preload (no upload a sweep)")
     args = ap.parse_args()
     if (args.int8 or args.block or args.resident) and (args.train or args.global_mode
-                                                         or args.ground):
+                                                         or args.ground or args.cli):
         ap.error("--int8, --block and --resident profile the serving sweeps, not --train, "
-                 "--global or --ground")
+                 "--global, --ground or --cli")
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -318,6 +455,34 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     _kernels.build()
+    if args.cli:
+        import shutil
+        import tempfile
+
+        from exoground_tpu_torch.tools.synth_htm import make_htm_tree
+
+        from exoground_tpu_torch.tools.synth_htm import ASR_GAP_S
+
+        os.makedirs("build", exist_ok=True)
+        work = tempfile.mkdtemp(prefix="cli_", dir=os.path.abspath("build"))
+        try:
+            root = make_htm_tree(os.path.join(work, "htm"), **CLI_TREE)
+            for amp, workers in ((False, 8), (False, 1), (True, 8)):
+                print(json.dumps({"card": card, **profile_cli(root, amp, workers, args.out)}),
+                      flush=True)
+            shutil.rmtree(root)
+            # 5% of the videos go to validation
+            videos = -(-CLI_LONG_STEPS * 64 * 100 // 95) + 64
+            for gap in (ASR_GAP_S, CLI_DENSE_GAP_S):
+                long_root = make_htm_tree(os.path.join(work, f"long{gap}"),
+                                          **dict(CLI_TREE, n_videos=videos, feature_files=200,
+                                                 asr_gap=gap))
+                print(json.dumps({"card": card, **profile_cli_steady(long_root, gap)}),
+                      flush=True)
+                shutil.rmtree(long_root)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return
     if args.ground:
         from exoground_tpu_torch.evals.bench_items import (
             GROUNDING, make_grounding_params, make_grounding_requests)

@@ -1,0 +1,115 @@
+"""Checkpoint save/resume with the reference's lifecycle semantics.
+
+Counterpart of ``exoground_tpu/train/checkpoint.py`` (:32-165). Format: one
+``torch.save`` file holding the top-level keys of the JAX trainer's
+``_ckpt_state`` (trainer.py:110-125) — ``epoch``, ``state_dict``,
+``best_acc``, ``optimizer``, ``iteration`` and, when cotraining,
+``target_state_dict`` — the reference's dict fields (train/main.py:532-537).
+Every tensor is on the CPU and every value is a tensor, a number or a dict
+of them, so ``torch.load(weights_only=True)`` reads it. Writes are atomic:
+``<path>.tmp``, then ``os.replace``.
+
+Lifecycle as utils/utils.py:23-57 of the reference:
+  * save_checkpoint: writes epoch%d.pth.tar, deletes the previous epoch's
+    file unless keep_all, keeps the 2 newest model_best_epoch%d.pth.tar;
+  * save_runtime_checkpoint: a timestamped snapshot, keeping only the newest;
+  * load modes (the trainer's ``load_checkpoint``): resume, pretrain, test.
+
+The JAX package's msgpack checkpoints need ``msgpack``; reading them waits
+for a later slice (ROADMAP.md, queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+from datetime import datetime
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+
+def _to_cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, Mapping):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def save_state(path: str, state: Dict[str, Any]) -> None:
+    """``state`` with every tensor moved to the CPU, written atomically."""
+    tmp = path + ".tmp"
+    torch.save(_to_cpu(state), tmp)
+    os.replace(tmp, path)
+
+
+def load_state(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_checkpoint(state: Dict[str, Any], is_best: bool = False, gap: int = 1,
+                    filename: str = "model/epoch0.pth.tar", keep_all: bool = False,
+                    save_best_n: int = 2) -> None:
+    """Reference utils/utils.py:39-57: prune the previous epoch's file unless
+    keep_all; on is_best write model_best_epoch*.pth.tar keeping the newest
+    ``save_best_n``."""
+    save_state(filename, state)
+    m = re.search(r"epoch(\d+)", os.path.basename(filename))
+    if m and not keep_all:
+        last = os.path.join(os.path.dirname(filename), f"epoch{int(m.group(1)) - gap}.pth.tar")
+        if os.path.exists(last):
+            os.remove(last)
+    if is_best:
+        best_path = os.path.join(os.path.dirname(filename),
+                                 f"model_best_epoch{state.get('epoch', 0)}.pth.tar")
+        save_state(best_path, state)
+        past_best = sorted(glob.glob(os.path.join(os.path.dirname(filename),
+                                                  "model_best_*.pth.tar")),
+                           key=os.path.getmtime)
+        for p in past_best[:-save_best_n]:
+            os.remove(p)
+
+
+def save_runtime_checkpoint(state: Dict[str, Any], filename: str,
+                            rm_history: bool = True) -> None:
+    """Timestamped snapshot keeping only the newest (utils/utils.py:23-36)."""
+    if not filename.endswith(".pth.tar"):
+        raise ValueError(f"runtime checkpoint {filename!r} must end in .pth.tar")
+    ts = datetime.now().strftime("%Y%m%d_%H%M%S")
+    save_state(filename.replace(".pth.tar", f"_{ts}.pth.tar"), state)
+    if rm_history:
+        for p in _history(filename)[:-1]:
+            os.remove(p)
+
+
+def _history(filename: str):
+    return sorted(glob.glob(filename.replace(".pth.tar", "_*.pth.tar")), key=os.path.getmtime)
+
+
+def latest_runtime_checkpoint(filename: str) -> Optional[str]:
+    history = _history(filename)
+    return history[-1] if history else None
+
+
+@torch.no_grad()
+def restore_into(template: Dict[str, torch.Tensor], state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """Non-strict restore (reference neq_load_customized,
+    utils/utils.py:302-312): every key present in both with the same shape
+    is copied into the template's tensor in place (so parameters shared with
+    a module stay shared); missing and unused keys are reported. Returns
+    ``template``."""
+    missing = []
+    for k, t in template.items():
+        src = state_dict.get(k)
+        if torch.is_tensor(src) and tuple(src.shape) == tuple(t.shape):
+            t.copy_(src)
+        else:
+            missing.append(k)
+    extra = [k for k in state_dict if k not in template]
+    if missing:
+        print(f"[checkpoint] {len(missing)} params NOT restored: {missing[:8]}...")
+    if extra:
+        print(f"[checkpoint] {len(extra)} checkpoint keys unused: {extra[:8]}...")
+    return template

@@ -1,16 +1,23 @@
-"""Experiment configuration: the reference's flag surface as one dataclass.
+"""Experiment configuration: the reference's flag surface as one dataclass,
+its command-line parser and the experiment-directory registry.
 
-A copy of ``exoground_tpu/train/config.py::ExperimentConfig`` and its
-``validate`` (the port imports nothing of the JAX package), so the port's
-trainer takes the same configurations. ``parse_args``/``set_path`` wait for
-the port's ``htm-tan`` CLI route. Comments that speak of TPU measurements
-describe the JAX package, not the port.
+A copy of ``exoground_tpu/train/config.py`` (``ExperimentConfig``,
+``validate``, ``parse_args`` :216, ``set_path`` :271; the port imports
+nothing of the JAX package), so the port's trainer and command line take
+the same configurations. ``validate`` also checks ``attn_impl``. Comments
+that speak of TPU measurements describe the JAX package, not the port.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import os
+import sys
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from datetime import datetime
+from typing import List, Optional, Tuple
 
 # per-dataset annotation/decode frame rates (see ExperimentConfig.fps)
 _DEFAULT_FPS = {"lemma": 24, "htm-aa": 5}
@@ -203,3 +210,79 @@ class ExperimentConfig:
         if self.test_egovlp:  # main_egoexo4d_distributed.py:606-607
             assert self.test, "--test_egovlp is a test-time baseline"
         return self
+
+
+def parse_args(argv: Optional[List[str]] = None, dataset: Optional[str] = None) -> ExperimentConfig:
+    """CLI with the reference's flag names (config_egoexo4d.py:6-95), as the
+    JAX package's ``parse_args``: every dataclass field a flag, booleans
+    with ``--no-<flag>``, no prefix abbreviations."""
+    defaults = ExperimentConfig()
+    # allow_abbrev=False: the explicit --model detection below scans argv for
+    # the literal token, so '--mode joint' must be an argparse error
+    parser = argparse.ArgumentParser(allow_abbrev=False)
+    for f in dataclasses.fields(ExperimentConfig):
+        if f.name in ("launch_timestamp", "log_path", "model_path", "exp_path", "iteration"):
+            continue
+        # the FIELD default: __post_init__ resolves fps=None to a rate, which
+        # would defeat the "explicit --fps wins" sentinel
+        default = f.default if f.default is not dataclasses.MISSING else getattr(defaults, f.name)
+        if f.type in ("bool", bool) or isinstance(default, bool):
+            parser.add_argument(f"--{f.name}", action=argparse.BooleanOptionalAction,
+                                default=default)
+        elif isinstance(default, tuple):
+            parser.add_argument(f"--{f.name}", nargs="+", type=float, default=list(default))
+        elif default is None:  # Optional[int] sentinel fields (fps)
+            parser.add_argument(f"--{f.name}", type=int, default=None)
+        else:
+            parser.add_argument(f"--{f.name}", type=type(default), default=default)
+    kw = vars(parser.parse_args(argv))
+    kw["iou_thresholds"] = tuple(kw["iou_thresholds"])
+    cfg = ExperimentConfig(**kw)
+    if dataset:
+        cfg.dataset = dataset
+    # the e2e pipeline's only model (end2end/config.py:9), only when --model
+    # was not given: an explicit `--model joint` must reach validate()
+    raw_argv = sys.argv[1:] if argv is None else argv
+    model_given = any(a == "--model" or a.startswith("--model=") for a in raw_argv)
+    if cfg.dataset == "htm-aa" and not model_given:
+        cfg.model = "s3d"
+    if kw["fps"] is None:  # an explicit --fps always wins
+        cfg.fps = _DEFAULT_FPS.get(cfg.dataset, 30)
+    return cfg.validate()
+
+
+def set_path(cfg: ExperimentConfig, root: str = ".") -> ExperimentConfig:
+    """Experiment registry: the log-dir name encodes the key hyperparameters
+    (config_egoexo4d.py:98-135); appends the full config to
+    ``log/running_command.txt``. Resume and test write into the
+    checkpoint's experiment directory."""
+    dt = datetime.now().strftime("%Y_%m_%d_%H_%M")
+    cfg.launch_timestamp = dt
+    if cfg.resume:
+        exp_path = os.path.dirname(os.path.dirname(cfg.resume))
+    elif cfg.test:
+        d = os.path.dirname(cfg.test)
+        exp_path = os.path.dirname(d) if d.endswith("model") else d
+    else:
+        name_prefix = f"{cfg.name_prefix}_" if cfg.name_prefix else ""
+        exp_path = os.path.join(
+            root, f"log{cfg.prefix}",
+            f"{name_prefix}{dt}_{cfg.model}_{cfg.loss}_{cfg.dataset}_"
+            f"len{cfg.seq_len}_e{cfg.num_encoder_layers}d{cfg.num_decoder_layers}_"
+            f"bs{cfg.batch_size}_lr{cfg.lr}_view={cfg.views}_"
+            f"distill={cfg.use_distill_nce_loss}_"
+            f"pair_ds={cfg.use_pairwise_distill_nce_loss}_"
+            f"pair_ds_mode={cfg.pairwise_distill_mode}_"
+            f"multi_ego={cfg.multi_view_egoexo}_"
+            f"narr_rand={cfg.randomize_narration_order}")
+    cfg.exp_path = exp_path
+    cfg.log_path = os.path.join(exp_path, "log")
+    cfg.model_path = os.path.join(exp_path, "model")
+    os.makedirs(cfg.log_path, exist_ok=True)
+    os.makedirs(cfg.model_path, exist_ok=True)
+    with open(os.path.join(cfg.log_path, "running_command.txt"), "a") as f:
+        json.dump({"command_time_stamp": dt,
+                   **{k: (list(v) if isinstance(v, tuple) else v)
+                      for k, v in dataclasses.asdict(cfg).items()}}, f, indent=2)
+        f.write("\n")
+    return cfg

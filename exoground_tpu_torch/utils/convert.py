@@ -15,6 +15,9 @@ transformer):
 
 The port's module names are the reference's torch state-dict names, so a
 reference checkpoint needs no mapping at all (``load_reference_state``).
+``load_torch_checkpoint`` and ``convert_word2vec_from_s3d`` read the MIL-NCE
+S3D checkpoint's text tower (the JAX package's functions of the same names,
+in the tower's torch layout).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from exoground_tpu_torch.models.word2vec import TOWER_KEYS
 
 # in the reference's state dict and the port's model, but in no JAX tree:
 # the reference's TemporalAligner and ExoGroundingTransformer hold an ``mlp``
@@ -187,3 +192,20 @@ def load_reference_state(path: str) -> Dict:
     state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
     state = strip_prefix(strip_prefix(state, "module."), "target.")
     return {k: v for k, v in state.items() if torch.is_tensor(v)}
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torch ``.pth(.tar)`` file as {key: CPU tensor} (its ``state_dict``
+    when it holds one), as the JAX package's ``load_torch_checkpoint`` reads
+    it into numpy."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    return {k: v.detach() for k, v in state.items() if torch.is_tensor(v)}
+
+
+def convert_word2vec_from_s3d(state: Mapping) -> Dict[str, torch.Tensor]:
+    """MIL-NCE S3D checkpoint -> the frozen word2vec tower's tensors
+    (reference model/word2vec_model.py:76-102 pulls text_module.{word_embd,
+    fc1, fc2}); keys as ``models/word2vec.py::TOWER_KEYS``, float32."""
+    prefix = "text_module." if any(k.startswith("text_module.") for k in state) else ""
+    return {k: torch.as_tensor(np.asarray(state[prefix + k], np.float32)) for k in TOWER_KEYS}

@@ -303,7 +303,7 @@ def test_step_options_of_later_slices_raise():
     tm = TemporalAligner(**SMALL, device="cpu")
     p = {k: v.detach() for k, v in tm.named_parameters()}
     tx = make_fused_optimizer(p)
-    for kw in (dict(gather_negatives=True), dict(scan_steps=4), dict(text_tower_params={})):
+    for kw in (dict(gather_negatives=True), dict(scan_steps=4)):
         with pytest.raises(NotImplementedError, match="later slice"):
             make_tan_train_step(tm, TANLossConfig(), tx, **kw)
 
