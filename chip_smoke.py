@@ -116,7 +116,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      at B 4 on the card and on the CPU plain path from the same weights and
      batch (init loss: loss within 1e-4 relative, every grad within 1e-3 of
      its max|CPU|; the cotrain loss printed beside it), then a warm-up and
-     10 timed steps at B 16 and 64 in float32 and bfloat16, with the launch
+     10 timed steps at B 16 in float32 and bfloat16 (B 64's eager step is
+     timed in phase 5b, beside its replay), with the launch
      counters reset just before and read just after each run: 2 grid
      forward and 2 grid backward launches per step, no fused MHA/MLP launch.
      Then the same with attn_impl='flash': one float32 cotrain step at B 4 on
@@ -124,6 +125,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      within 1e-4 relative, grads within 1e-3 of max|CPU|, and 24 flash
      forward + 12 dq + 12 dk/dv launches; 10 timed steps at B 16 in float32
      and bfloat16 with those counts per step.
+  5b. the train step as a replayed CUDA graph (make_tan_train_step(scan_steps=4)
+     through TANTrainer(fused_steps=4)) at phase 5's configuration, B 64 in
+     float32 and bfloat16 and B 16 under attn_impl='flash': from one state and
+     one generator seed, 8 eager steps on one trainer and two 4-step calls (an
+     eager warm-up group, then a replay of the captured graph) on another;
+     fails unless the losses agree within 1e-5 relative and every parameter,
+     EMA-twin and moment tensor within 1e-4 of its max|eager| (bit for bit
+     expected; the exact max printed), both counts are 8, the replay's
+     launches are 2 + 2 grid a step (and 24 + 12 + 12 flash under flash) by
+     the replay counter, and a profiled replay names 4x the grid (and flash)
+     kernels of a profiled eager step; one `graph_bench {...}` line a case:
+     the eager step (median of 10) against the replay's ms / 4 (median of
+     5), one replay's device time by CUDA events, capture seconds and the
+     graph pool's MB.
   3c. flash kernels: forward (o; lse on rows with a valid key, +1e30 exactly
      on the rest), dq and dk/dv against autograd of flash_attention_plain on
      the card for the same random upstream grad, at the global path's shapes
@@ -181,6 +196,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      command-line test's cadence, htm_vlen.csv, htm_align.json over 8 videos, a
      66,249-word s3d_dict.npy and a seeded s3d_howto100m.pth with the MIL-NCE
      text module's shapes), 2 epochs of 8 steps with --eval_freq 1, then
+     the same 2 epochs at --fused_steps 4 (epoch 0 an eager group and a
+     replay, epoch 1 two replays; one capture) whose epoch-0 checkpoint must
+     match the --fused_steps 1 run's (parameters, EMA twin and moments within
+     1e-4 of max|.|, bit for bit expected; same counts), then
      --resume from the epoch-0 checkpoint (parameters, EMA twin, moments, step
      count, iteration, start epoch 1 and best restored exactly, checked as
      load_checkpoint returns) and --test; each run counted (the grid 2 + 2 a
@@ -189,11 +208,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      HTM-Align eval; no other kernel); then the card against the CPU with the
      command line's build_htm_tan on the whole first batch, B64 (step and
      validation loss rel. error <= 1e-4, the tower's pooled output <= 1e-5 of
-     max|CPU|, f32); one `cli_bench {...}` line (samples/s over the whole
+     max|CPU|, f32), and the train reader's host ms an item, deferred through
+     the native gather against per-item reads on the same tree; one
+     `cli_bench {...}` line (samples/s over the whole
      window of steps and waits for data, the window's seconds, the median
      step, which is a loader-idle one at 8 steps an epoch, the Data meter's
-     share, validation ms, HTM-Align s, checkpoint MB and save s, launches,
-     the phase's seconds). The tree is removed after.
+     share, the --fused_steps 4 run's samples/s, median step, Data share and
+     capture seconds, the reader's ms an item, validation ms, HTM-Align s,
+     checkpoint MB and save s, launches, the phase's seconds). The tree is
+     removed after.
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
@@ -1886,7 +1909,7 @@ def train_flash_agreement(model):
              f"{FLASH_BWD_PER_STEP} dq and dk/dv")
 
 
-def train_path(model, card, batches=(16, 64), attn_impl="auto"):
+def train_path(model, card, batches=(16,), attn_impl="auto"):
     """Timed TANTrainer steps at ``batches``, float32 and bfloat16, with the
     configuration's ``attn_impl``; returns the launches of the timed steps."""
     import copy
@@ -1941,6 +1964,139 @@ def train_path(model, card, batches=(16, 64), attn_impl="auto"):
             del trainer, batch
             torch.cuda.empty_cache()
     return totals, runs
+
+
+# ---------------------------------------------------------------- phase 5b
+GRAPH_N = 4  # steps a replayed graph (--fused_steps 4)
+# (batch, compute dtype, attn_impl) of the replayed train step
+GRAPH_CASES = ((64, False, "auto"), (64, True, "auto"), (16, False, "flash"))
+
+
+def _kernel_names(prof, parts=("grid_", "flash_")) -> dict:
+    """Device kernels of a profiled run whose name holds one of ``parts``,
+    with their counts."""
+    from torch.autograd import DeviceType
+
+    return {e.key[:60]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and any(p in e.key for p in parts)}
+
+
+def graph_case(model, card, raw, amp, attn_impl):
+    """From one state, one generator seed and the 2N prepared batches
+    ``raw``: 2N eager steps on one trainer and two scan_steps=N calls (an
+    eager warm-up group, then a replay of the captured graph) on another;
+    the states and the losses compared; the replay counted and profiled;
+    eager and replayed steps timed. Returns the replay's launches."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.train import ExperimentConfig, TANTrainer
+
+    n = GRAPH_N
+    b = raw[0]["video"].shape[0]
+    trainers = {}
+    for fused in (1, n):
+        cfg = ExperimentConfig(amp=amp, attn_impl=attn_impl, fused_steps=fused, **BENCH_TRAIN)
+        trainers[fused] = TANTrainer(copy.deepcopy(model), cfg, iters_per_epoch=1000,
+                                     device="cuda")
+    eager, graph = trainers[1], trainers[n]
+    groups = [graph.to_device({k: np.stack([r[k] for r in raw[g * n:(g + 1) * n]])
+                               for k in raw[0]}) for g in (0, 1)]
+    batches = [eager.to_device(r) for r in raw]
+    eager_losses = [float(eager.train_step(x)["loss"]) for x in batches]
+    graph_losses = graph._do_fused(groups[0])["loss"].tolist()  # eager warm-up, capture
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    graph_losses += graph._do_fused(groups[1])["loss"].tolist()  # the replay
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    (g,) = graph.fused_step.graphs.values()
+
+    loss_rel = max(abs(a - e) / abs(e) for a, e in zip(graph_losses, eager_losses))
+    worst, bit_equal = (0.0, ""), True
+    for name, got, want in (("params", graph.params, eager.params),
+                            ("ema", graph.target_params, eager.target_params),
+                            ("mu", graph.opt_state.mu, eager.opt_state.mu),
+                            ("nu", graph.opt_state.nu, eager.opt_state.nu)):
+        for k in want:
+            bit_equal &= torch.equal(got[k], want[k])
+            err = ((got[k].float() - want[k].float()).abs().max()
+                   / want[k].float().abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, (err, f"{name} {k}"))
+    counts = (graph.opt_state.count, eager.opt_state.count)
+    want = {k: 0 for k in launches}
+    want.update(milnce_grid_fwd=2 * n, milnce_grid_bwd=2 * n)
+    if attn_impl == "flash":
+        want.update(flash_fwd=n * FLASH_FWD_PER_STEP, flash_dq=n * FLASH_BWD_PER_STEP,
+                    flash_dkv=n * FLASH_BWD_PER_STEP)
+
+    # the kernels the card ran (its activity alone): one eager step, then
+    # one replay
+    x = batches[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eager.train_step(x)
+        torch.cuda.synchronize()
+    names_eager = _kernel_names(prof)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph._do_fused(groups[1])
+        torch.cuda.synchronize()
+    names_graph = _kernel_names(prof)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    eager_ms = statistics.median(wall(lambda: float(eager.train_step(x)["loss"]))
+                                 for _ in range(10)) * 1e3
+    replay_ms = statistics.median(wall(lambda: graph._do_fused(groups[1])["loss"].tolist())
+                                  for _ in range(5)) * 1e3 / n
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    graph._do_fused(groups[1])
+    ev1.record()
+    torch.cuda.synchronize()
+    bench = dict(card=card, batch=b, dtype="bfloat16" if amp else "float32",
+                 attn_impl=attn_impl, n=n, eager_step_ms=round(eager_ms, 3),
+                 replay_step_ms=round(replay_ms, 3),
+                 replay_busy_ms=round(ev0.elapsed_time(ev1), 3),
+                 capture_s=round(g.capture_s, 3), pool_mb=round(g.pool_bytes / 2**20, 1),
+                 loss_rel=float(f"{loss_rel:.3g}"), max_err=float(f"{worst[0]:.3g}"),
+                 worst=worst[1], bit_equal=bit_equal, launches={k: v for k, v in
+                                                                launches.items() if v})
+    print("graph_bench", json.dumps(bench), flush=True)
+    print(f"graph replay profile, kernels by name (eager step / replay of {n}): "
+          f"{names_eager} / {names_graph}", flush=True)
+    if not all(np.isfinite(graph_losses)) or not loss_rel <= 1e-5 or not worst[0] <= 1e-4:
+        fail(f"the replayed steps disagree with the eager steps: {bench}")
+    if counts != (2 * n, 2 * n):
+        fail(f"optimizer counts {counts} after {2 * n} steps each")
+    _check_counts(f"graph replay {bench['dtype']} {attn_impl}", launches, want)
+    if not names_eager or names_graph != {k: n * c for k, c in names_eager.items()}:
+        fail(f"the replay's profile does not hold {n} x the eager step's kernels: "
+             f"{names_eager} / {names_graph}")
+    del eager, graph, trainers, groups, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def graph_path(model, card):
+    """Phase 5b: the train step as a replayed CUDA graph (scan_steps=N) at
+    B64 float32 and bfloat16, and B16 under attn_impl='flash'; returns the
+    replays' launches by case."""
+    from exoground_tpu_torch.evals.bench_items import make_train_batch
+
+    # the host arrays prepare_batch gives, shared by the cases of a batch size
+    raw = {b: [make_train_batch(b, seed=40 + i) for i in range(2 * GRAPH_N)]
+           for b in sorted({c[0] for c in GRAPH_CASES})}
+    return {f"B{b} {'bf16' if amp else 'f32'} {impl}": graph_case(model, card, raw[b], amp,
+                                                                  impl)
+            for b, amp, impl in GRAPH_CASES}
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2253,12 +2409,56 @@ def _cli_expect(steps, val_passes, evals):
     return want
 
 
+def _loader_item_ms(ds, n=256) -> dict:
+    """Host ms an item of the command line's train reader over one tree:
+    deferred (the batch's windows gathered in collate by the native reader,
+    as the command line reads) and per item, each on a fresh store, in
+    turns; n items read one after another and collated 64 at a time; the
+    better of two runs each."""
+    from exoground_tpu_torch.data import FeatureStore, HTMFeatureDataset
+
+    runs = {True: [], False: []}
+    for defer in (False, True, False, True):
+        d = HTMFeatureDataset(ds.cfg, ds.tokenizer, mode="train", asr=ds.asr,
+                              store=FeatureStore(ds.cfg.video_feature_root,
+                                                 ds.cfg.feature_suffixes),
+                              defer_video_io=defer)
+        t0 = time.perf_counter()
+        for lo in range(0, n, 64):
+            d.collate_fn([d[i % len(d)] for i in range(lo, lo + 64)])
+        runs[defer].append((time.perf_counter() - t0) / n * 1e3)
+    return {"deferred_native": round(min(runs[True]), 3),
+            "per_item": round(min(runs[False]), 3)}
+
+
+def _ckpt_agreement(path, ref_path) -> dict:
+    """A checkpoint against another: parameters, EMA twin and both moments,
+    each tensor's max error over its max|ref|; bit equality; counts."""
+    got, want = (torch.load(p, map_location="cpu", weights_only=True)
+                 for p in (path, ref_path))
+    worst, equal = 0.0, True
+    for a, b in ((got["state_dict"], want["state_dict"]),
+                 (got["target_state_dict"], want["target_state_dict"]),
+                 (got["optimizer"]["mu"], want["optimizer"]["mu"]),
+                 (got["optimizer"]["nu"], want["optimizer"]["nu"])):
+        if set(a) != set(b):
+            return dict(max_err=float("inf"), bit_equal=False, same_counts=False)
+        for k in b:
+            equal &= torch.equal(a[k], b[k])
+            worst = max(worst, ((a[k].float() - b[k].float()).abs().max()
+                                / b[k].float().abs().max().clamp_min(1e-30)).item())
+    return dict(max_err=worst, bit_equal=equal,
+                same_counts=(got["iteration"], got["optimizer"]["count"])
+                == (want["iteration"], want["optimizer"]["count"]))
+
+
 def cli_agreement(argv):
     """The card against the CPU: one trainer each, built by the command
     line's build_htm_tan from the same seed, on the whole first batch (B64,
     the shapes phase 8 trains and validates at): the first step's loss and
     the validation loss (f32, rel. error <= 1e-4) and the tower's pooled
-    output (<= 1e-5 of max|CPU|)."""
+    output (<= 1e-5 of max|CPU|). Returns the errors and the reader's host
+    cost an item (``_loader_item_ms``)."""
     from exoground_tpu_torch.models.word2vec import word2vec_forward
     from exoground_tpu_torch.train import main as cli
     from exoground_tpu_torch.train.config import parse_args
@@ -2275,6 +2475,7 @@ def cli_agreement(argv):
             tok = batch["token"].reshape(-1, batch["token"].shape[-1])
             pooled = word2vec_forward(tr._tower_params, tok, tok != 0)["pooler_output"]
             res[dev] = (float(metrics["loss"]), tr.evaluate([raw], 0), pooled.cpu())
+        item_ms = _loader_item_ms(runs["cpu"].train_loader.dataset)
     finally:
         for run in runs.values():
             run.close()
@@ -2286,7 +2487,7 @@ def cli_agreement(argv):
           f"val loss {vg:.6f} vs {vc:.6f}, rel errors {errs}", flush=True)
     if not (errs["step_loss"] <= 1e-4 and errs["val_loss"] <= 1e-4 and errs["tower"] <= 1e-5):
         fail(f"the command line's trainer on the card disagrees with the CPU: {errs}")
-    return errs
+    return errs, item_ms
 
 
 def _spy_trainers():
@@ -2377,6 +2578,23 @@ def cli_path(card):
         (e0,) = glob.glob(os.path.join(work, "log", "*", "model", "epoch0.pth.tar"))
         ckpt_mb = os.path.getsize(e0) / 2**20
 
+        # the same run at --fused_steps 4: epoch 0 an eager group (the
+        # capture's warm-up) and a replay, epoch 1 two replays
+        best4, fused_s, launches4 = run(["--fused_steps", str(GRAPH_N), "--prefix", "_f4"])
+        tr4 = trainers[-1]
+        steps4 = sum(s["steps"] for s in tr4.epoch_stats)
+        if steps4 != CLI_EPOCHS * 8 or not np.isfinite(best4) or tr4.fused_step.captures != 1:
+            fail(f"cli --fused_steps {GRAPH_N}: {steps4} steps (want {CLI_EPOCHS * 8}), "
+                 f"best {best4}, {tr4.fused_step.captures} captures (want 1)")
+        _check_counts(f"cli --fused_steps {GRAPH_N}", launches4,
+                      _cli_expect(steps4, CLI_EPOCHS, CLI_EPOCHS))
+        (e0f,) = glob.glob(os.path.join(work, "log_f4", "*", "model", "epoch0.pth.tar"))
+        fused_vs_single = _ckpt_agreement(e0f, e0)
+        print(f"cli --fused_steps {GRAPH_N} epoch-0 checkpoint vs --fused_steps 1: "
+              f"{fused_vs_single}", flush=True)
+        if not (fused_vs_single["max_err"] <= 1e-4 and fused_vs_single["same_counts"]):
+            fail(f"--fused_steps {GRAPH_N} trained another model: {fused_vs_single}")
+
         best2, resume_s, launches2 = run(["--resume", e0])
         tr2 = trainers[-1]
         steps2 = sum(s["steps"] for s in tr2.epoch_stats)
@@ -2392,7 +2610,7 @@ def cli_path(card):
             fail(f"cli --test: {res}, load {loads[-1]}")
         _check_counts("cli --test", launches3, _cli_expect(0, 0, 1))
         undo()
-        errs = cli_agreement(argv)
+        errs, item_ms = cli_agreement(argv)
     finally:
         undo()
         os.chdir(cwd)
@@ -2400,6 +2618,8 @@ def cli_path(card):
 
     stats = tr.epoch_stats
     summary = epoch_summary(stats)
+    fused_summary = {k: epoch_summary(tr4.epoch_stats)[k] for k in
+                     ("samples_per_s", "window_s", "step_ms_median", "data_share")}
     bench = dict(
         card=card, steps=steps, batch=CLI_BATCH,
         # over the whole window, every step and every wait for data: what a
@@ -2415,17 +2635,31 @@ def cli_path(card):
         val_ms=[round(s["val_s"] * 1e3, 1) for s in stats],
         downstream_s=[round(s["downstream_s"], 3) for s in stats],
         ckpt_mb=round(ckpt_mb, 1), save_s=[round(s["save_s"], 3) for s in stats],
+        fused_steps=dict(n=GRAPH_N, **{k: round(v, 4) for k, v in fused_summary.items()},
+                         run_s=round(fused_s, 1),
+                         capture_s=[round(g.capture_s, 3) for g in tr4.fused_step.graphs.values()],
+                         ckpt_vs_single=dict(max_err=float(f"{fused_vs_single['max_err']:.3g}"),
+                                             bit_equal=fused_vs_single["bit_equal"])),
+        loader_item_ms=item_ms,
         run_s=round(run_s, 1), resume_s=round(resume_s, 1), test_s=round(test_s, 1),
         tree_s=round(tree_s, 1), best=best, test=res,
         err={k: float(f"{v:.3g}") for k, v in errs.items()},
         launches={k: v for k, v in launches.items() if v},
         phase_s=round(time.perf_counter() - t_phase, 1))
     print("cli_bench", json.dumps(bench), flush=True)
-    return launches
+    return launches, launches4
 
 
 def main():
     t_start = time.perf_counter()
+    phase_s, t_phase = {}, [t_start, None]
+
+    def mark(phase):
+        """Close the phase before ``phase`` (its seconds in ``phase_s``)."""
+        now = time.perf_counter()
+        if t_phase[1] is not None:
+            phase_s[t_phase[1]] = round(now - t_phase[0], 1)
+        t_phase[:] = [now, phase]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs on the card only")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2434,6 +2668,7 @@ def main():
 
     from exoground_tpu_torch.ops import _kernels
 
+    mark("1")
     # phase 1: device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2441,12 +2676,14 @@ def main():
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     print(smi, flush=True)
 
+    mark("2")
     # phase 2: build
     t0 = time.perf_counter()
     _kernels.build()
     print(f"built {sorted(_kernels.SIGNATURES)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    mark("3")
     # phase 3: kernels against their plain versions
     mha_cases, mlp_cases = [], []
     for dtype in (torch.float32, torch.bfloat16):
@@ -2461,6 +2698,7 @@ def main():
         mha_cases.append(mha_case(2, 50, 256, 16, dtype, seed=14))
     mlp_cases += mlp_kernel_cases()
 
+    mark("3b")
     # phase 3b: the grid kernel against its plain version
     grid_cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -2482,6 +2720,7 @@ def main():
         grid_cases.append(grid_case(6, 1728, 864, 512, 1, dtype, seed=30, n_invalid=648))
     grid_bars(grid_cases)
 
+    mark("3c")
     # phase 3c: the flash kernels against their plain version
     flash_cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -2499,41 +2738,55 @@ def main():
         flash_cases.append(flash_case(2, 2, 70, 90, 16, dtype, seed=41, pad_tail=9))
         flash_cases.append(flash_case(1, 2, 100, 130, 96, dtype, seed=42, empty_row=True))
 
+    mark("3d")
     # phase 3d: the int8 kernels against their plain versions
     mha8_cases, mlp8_cases = int8_kernel_cases()
 
+    mark("3e")
     # phase 3e: the whole-block kernels against their plain versions
     block_cases = block_kernel_cases()
     attention_bars(mha_cases, flash_cases, mha8_cases, block_cases)
 
+    mark("3f")
     # phase 3f: the window-attention kernel against its plain version
     small_cases = small_kernel_cases()
 
+    mark("4")
     # phase 4: the serving path, counted
     launches = main_path(card)
 
+    mark("4b")
     # phase 4b: the int8 serving mode, counted
     int8_launches = int8_path(card)
     launches.update({k: int8_launches[k] for k in ("fused_mha_int8", "fused_mlp_int8")})
 
+    mark("4c")
     # phase 4c: the whole-block path, counted
     launches.update(block_path(card))
 
+    mark("4e")
     # phase 4e: resident serving, counted
     resident_launches = resident_path(card)
 
+    mark("4d")
     # phase 4d: the aligner under attn_impl='small', counted
     small_launches = {"aligner attn_impl=small (phase 4d)": aligner_small_path(card)}
 
-    # phase 5: the train path, counted (auto at B 16 and 64, then the flash
+    mark("5")
+    # phase 5: the train path, counted (auto at B 16, then the flash
     # kernels under attn_impl='flash' at B 16)
     model = _aligner()
     train_agreement(model)
     train_launches, _ = train_path(model, card)
     launches.update({k: train_launches[k] for k in ("milnce_grid_fwd", "milnce_grid_bwd")})
     train_flash_agreement(model)
-    flash_train_launches, _ = train_path(model, card, batches=(16,), attn_impl="flash")
+    flash_train_launches, _ = train_path(model, card, attn_impl="flash")
 
+    mark("5b")
+    # phase 5b: the train step replayed as a CUDA graph, counted by replay
+    graph_launches = graph_path(model, card)
+
+    mark("6")
     # phase 6: global mode over long videos, counted
     global_launches, _ = global_path(card)
     flash_launches = {
@@ -2542,14 +2795,20 @@ def main():
         "flash_dq": {"train attn_impl=flash (phase 5)": flash_train_launches["flash_dq"]},
         "flash_dkv": {"train attn_impl=flash (phase 5)": flash_train_launches["flash_dkv"]},
     }
+    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+        flash_launches[k]["train attn_impl=flash, graph replay (phase 5b)"] = (
+            graph_launches["B16 f32 flash"][k])
     launches.update({k: sum(v.values()) for k, v in flash_launches.items()})
 
+    mark("7")
     # phase 7: keystep grounding served, counted; its 'small' run is this
     # slice's main path
     launches["small_attn"] = grounding_path(card)
 
-    # phase 8: the training command line, counted (this slice's main path)
-    cli_launches = cli_path(card)
+    mark("8")
+    # phase 8: the training command line, counted (this slice's main path),
+    # at --fused_steps 1 and 4
+    cli_launches, cli_fused_launches = cli_path(card)
     small_launches = {"grounding attn_impl=small (phase 7)": launches["small_attn"],
                       **small_launches}
 
@@ -2637,8 +2896,16 @@ def main():
     for e in kernels:
         if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):
             e["launches_by_path"] = {"train path (phase 5)": launches[e["name"]]}
+        if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):
+            e["launches_by_path"].update({
+                f"train step, graph replay {case} (phase 5b)": n[e["name"]]
+                for case, n in graph_launches.items()})
         if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd", "fused_mha", "fused_mlp"):
             e["launches_by_path"]["training command line (phase 8)"] = cli_launches[e["name"]]
+            e["launches_by_path"][f"training command line --fused_steps {GRAPH_N} (phase 8)"] = (
+                cli_fused_launches[e["name"]])
+    mark(None)
+    print("phase_s", json.dumps(phase_s), flush=True)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

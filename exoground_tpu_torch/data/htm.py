@@ -15,9 +15,14 @@ Differences from the reference (deliberate, kept from the JAX package):
 ``htm_vlen.csv`` is read with the ``csv`` module (no pandas), rows
 ``vid,vlen`` with no header, as the JAX package's
 ``pd.read_csv(names=["vid", "vlen"])`` reads it; a row whose length is not a
-number (a header line) is skipped. The batched window gather through the
-JAX package's native reader (``defer_video_io``) is not ported: items carry
-their window's features.
+number (a header line) is skipped.
+
+``HTMFeatureDataset(defer_video_io=True)`` is the JAX package's batched
+reader: an item carries only its window (vid, start, end), and
+``collate_fn`` gathers the batch's windows in one call of
+``FeatureStore.read_windows`` (for npy files the port's native C++ reader,
+``utils/native.py``, outside the GIL). The reader is built when the dataset
+is; a library that does not build raises there.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 
 from exoground_tpu_torch.data.collate import collate_dicts, stack_texts, stack_videos
 from exoground_tpu_torch.data.io import FeatureStore
+from exoground_tpu_torch.utils import native
 
 
 @dataclass
@@ -126,12 +132,18 @@ class HTMFeatureDataset:
         mode: str = "train",
         asr: Optional[Dict] = None,
         store: Optional[FeatureStore] = None,
+        defer_video_io: bool = False,
     ):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.mode = mode
         self.epoch = 0
         self.store = store or FeatureStore(cfg.video_feature_root, cfg.feature_suffixes)
+        # items carry their window; collate gathers the batch in one call
+        self.defer_video_io = defer_video_io
+        self._feat_dim: Optional[int] = None  # probed once, constant per store
+        if defer_video_io and self.store.mem is None:
+            native.library()  # raises now if the reader does not build
 
         if asr is None:
             with open(cfg.asr_json) as f:
@@ -197,7 +209,10 @@ class HTMFeatureDataset:
             if no_caption:
                 start_ts, end_ts = 0, cfg.duration
 
-        video = self.store.read(vid, start_ts, min(end_ts, vlen))
+        if self.defer_video_io:
+            video = (vid, start_ts, min(end_ts, vlen))
+        else:
+            video = self.store.read(vid, start_ts, min(end_ts, vlen))
         abs_start = (np.asarray(clipped["start"], np.float32) + start_ts) / vlen
         abs_end = (np.asarray(clipped["end"], np.float32) + start_ts) / vlen
         item = {
@@ -213,7 +228,15 @@ class HTMFeatureDataset:
 
     def collate_fn(self, items: List[Dict]) -> Dict:
         cfg = self.cfg
-        out = stack_videos([it["_video"] for it in items], cfg.duration)
+        if self.defer_video_io:
+            vids, starts, ends = zip(*(it["_video"] for it in items))
+            if self._feat_dim is None:
+                self._feat_dim = int(self.store.read(vids[0], 0, 1).shape[-1])
+            video, vmask = self.store.read_windows(vids, starts, ends, cfg.duration,
+                                                   self._feat_dim)
+            out = {"video": video, "video_padding_mask": vmask}
+        else:
+            out = stack_videos([it["_video"] for it in items], cfg.duration)
         texts = stack_texts(
             [np.stack(it["_texts"]["token"]) for it in items],
             [it["_texts"]["start"] for it in items],

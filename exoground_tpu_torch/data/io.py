@@ -11,9 +11,12 @@ data/loader_egoexo4d.py:455). Backends:
              LRU-cached;
   * 'mem'  — an in-memory dict (tests and benchmarks).
 
-All reads return float32 numpy arrays shaped (T, C) or (C,). The JAX
-package's batched window gather (``read_windows``, through its native C++
-reader) has no caller in the port: each item reads its own window.
+All reads return float32 numpy arrays shaped (T, C) or (C,).
+``read_windows`` gathers a batch's windows in one call: for npy files
+through the port's native C++ reader (``utils/native.py``, the GIL
+released), for the other backends in Python with the same semantics.
+``length`` reads an npy file's header once (through the native parser)
+and remembers it per path.
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ from __future__ import annotations
 import os
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from exoground_tpu_torch.utils import native
 
 
 def load_npy_window(path: str, start: Optional[int] = None, end: Optional[int] = None) -> np.ndarray:
@@ -65,6 +70,7 @@ class FeatureStore:
         self._cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
         self._cache_items = cache_items
         self._lock = threading.Lock()
+        self._lengths: Dict[str, int] = {}  # npy path -> rows, from its header
 
     def path_of(self, vid: str) -> Optional[str]:
         for sfx in self.suffixes:
@@ -88,9 +94,15 @@ class FeatureStore:
         if self.mem is not None:
             return int(self.mem[vid].shape[0])
         path = self._path(vid)
-        if path.endswith(".npy"):
-            return int(np.load(path, mmap_mode="r").shape[0])
-        return int(self._load_full(path).shape[0])
+        if not path.endswith(".npy"):
+            return int(self._load_full(path).shape[0])
+        n = self._lengths.get(path)
+        if n is None:
+            shape = native.npy_shape(path)
+            # a file the native parser does not read (e.g. (T, 1, C)): numpy's header
+            n = shape[0] if shape is not None else int(np.load(path, mmap_mode="r").shape[0])
+            self._lengths[path] = n
+        return n
 
     def _load_full(self, path: str) -> np.ndarray:
         with self._lock:
@@ -107,6 +119,28 @@ class FeatureStore:
             while len(self._cache) > self._cache_items:
                 self._cache.popitem(last=False)
         return arr
+
+    def read_windows(self, vids: Sequence[str], starts: Sequence[int], ends: Sequence[int],
+                     seq_bucket: int, dim: int) -> Tuple[np.ndarray, np.ndarray]:
+        """A batch's windows, padded to ``seq_bucket`` by repeating the last
+        row: (video (B, seq_bucket, dim) float32, padding mask (B,
+        seq_bucket) bool, True at PAD); an empty window is a zero row, all
+        PAD. npy files go through ``native.gather_windows``."""
+        if self.mem is None:
+            paths = [self._path(v) for v in vids]
+            if all(p.endswith(".npy") for p in paths):
+                return native.gather_windows(paths, np.asarray(starts), np.asarray(ends),
+                                             seq_bucket, dim)
+        out = np.zeros((len(vids), seq_bucket, dim), np.float32)
+        mask = np.ones((len(vids), seq_bucket), bool)
+        for i, v in enumerate(vids):
+            arr = self.read(v, int(starts[i]), int(ends[i]))
+            valid = min(arr.shape[0], seq_bucket)
+            if valid > 0:
+                out[i, :valid] = arr[:valid]
+                out[i, valid:] = arr[valid - 1]
+                mask[i, :valid] = False
+        return out, mask
 
     def read(self, vid: str, start: Optional[int] = None, end: Optional[int] = None) -> np.ndarray:
         """Rows [start:end) of vid's features; the full array when unspecified."""

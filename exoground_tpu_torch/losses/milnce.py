@@ -295,7 +295,7 @@ def tan_loss(
                                        video_padding_mask, text_padding_mask, cfg)
         tgt_tn = agree["tgt_tn"]
         loss_dict["confidence-ratio"] = agree["confidence-ratio"]
-        loss_dict["iou-threshold"] = torch.tensor(0.5, device=dev)
+        loss_dict["iou-threshold"] = torch.full((), 0.5, device=dev)
     else:
         tgt_tn = bt_tn
 

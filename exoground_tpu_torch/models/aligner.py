@@ -24,6 +24,13 @@ layer, ``ops/blocks.py``).
 
 The two pre-projections go through ``quant.linear`` (exactly ``F.linear``
 outside ``quant.matmul_impl('int8')``), as the JAX model's Dense hooks.
+
+A training forward draws its random pos starts on the host, in the order
+video (dual), text (with ``use_text_pos_enc``), video (joint).
+``draw_pos_starts`` makes the same draws up front; the train step passes
+them back as ``pos_starts``, a small integer tensor on the device, and the
+model selects the pos rows on the device (``ops/pos_embed.py::pos_rows``),
+so the step can be captured in a CUDA graph and replayed with new starts.
 """
 
 from __future__ import annotations
@@ -108,20 +115,38 @@ class TemporalAligner(nn.Module):
     # helpers
     # ------------------------------------------------------------------
 
+    def pos_start_lengths(self, t: int, n: int, interpolate_from=None,
+                          deterministic: bool = False) -> tuple:
+        """The sequence lengths of the random pos starts a forward over T
+        frames and N texts draws, in draw order (none when it draws none)."""
+        if deterministic or interpolate_from is not None or not self.random_pos_start:
+            return ()
+        return (t, n, t) if self.use_text_pos_enc else (t, t)
+
+    def draw_pos_starts(self, generator: Optional[torch.Generator], t: int, n: int
+                        ) -> torch.Tensor:
+        """The (k,) int64 CPU tensor of the starts a training forward over T
+        frames and N texts draws from ``generator``, in its order."""
+        return torch.tensor([random_pos_start(generator, s)
+                             for s in self.pos_start_lengths(t, n)], dtype=torch.int64)
+
     def _pos_slice(self, table, seq_len, interpolate_from, deterministic,
-                   true_len=None, generator=None):
-        start = 0
+                   true_len=None, generator=None, start=None):
         if interpolate_from is None and self.random_pos_start and not deterministic:
-            start = random_pos_start(generator, seq_len)
+            if start is None:
+                start = random_pos_start(generator, seq_len)
+        else:
+            start = 0
         return slice_or_interpolate_pos_embed(
             table, seq_len, interpolate_from, start, true_len=true_len
         )
 
     def _video_with_time(self, video_embed, interpolate_from, deterministic,
-                         pos_interp_len=None, preprojected=False, generator=None):
+                         pos_interp_len=None, preprojected=False, generator=None,
+                         pos_start=None):
         x = video_embed if preprojected else self.preproject_video(video_embed)
         pos = self._pos_slice(self.temporal_pos_embed, x.shape[1], interpolate_from,
-                              deterministic, pos_interp_len, generator)
+                              deterministic, pos_interp_len, generator, pos_start)
         return x + self.ln_position_init(pos.to(x.dtype))[None]
 
     def preproject_video(self, video_embed):
@@ -139,10 +164,12 @@ class TemporalAligner(nn.Module):
 
     def get_visual_feature(self, video_embed, video_padding_mask, interpolate_from=None,
                            deterministic=True, pos_interp_len=None, preprojected=False,
-                           generator=None):
-        """Dual-encoder video tower -> per-stage features (B, Stage, T, C)."""
+                           generator=None, pos_start=None):
+        """Dual-encoder video tower -> per-stage features (B, Stage, T, C).
+        A training pass draws its pos start from ``generator`` unless
+        ``pos_start`` (a 0-d integer tensor) gives it."""
         x = self._video_with_time(video_embed, interpolate_from, deterministic,
-                                  pos_interp_len, preprojected, generator)
+                                  pos_interp_len, preprojected, generator, pos_start)
         if self.num_encoder_layers == 0:
             return x[:, None]
         stages = self.video_temporal_encoder(x, video_padding_mask, impl=self.attn_impl,
@@ -154,21 +181,23 @@ class TemporalAligner(nn.Module):
 
     def get_textual_feature_with_time(self, lang_embed, interpolate_from=None,
                                       deterministic=True, preprojected=False,
-                                      generator=None):
+                                      generator=None, pos_start=None):
         """Text features + temporal pos-emb (tan_model.py:206-222)."""
         x = lang_embed if preprojected else self.get_textual_feature(lang_embed)
         pos = self._pos_slice(self.text_temporal_pos_embed, x.shape[1],
-                              interpolate_from, deterministic, generator=generator)
+                              interpolate_from, deterministic, generator=generator,
+                              start=pos_start)
         return x + self.ln_position_init(pos.to(x.dtype))[None]
 
     def get_joint_feature(self, video_embed, video_padding_mask, lang_embed_with_time,
                           lang_padding_mask, interpolate_from=None, deterministic=True,
-                          pos_interp_len=None, preprojected=False, generator=None):
+                          pos_interp_len=None, preprojected=False, generator=None,
+                          pos_start=None):
         """Joint encoder over [video, text]; returns (video, text) stage stacks.
         Like the reference (tan_model.py:181-192) the joint pass draws its
         own random pos start."""
         x = self._video_with_time(video_embed, interpolate_from, deterministic,
-                                  pos_interp_len, preprojected, generator)
+                                  pos_interp_len, preprojected, generator, pos_start)
         t = x.shape[1]
         joint = torch.cat([x, lang_embed_with_time], dim=1)
         joint_mask = torch.cat([video_padding_mask, lang_padding_mask], dim=1)
@@ -184,25 +213,37 @@ class TemporalAligner(nn.Module):
     def forward(self, video_embed, lang_embed, video_padding_mask, lang_padding_mask,
                 text_timestamp=None, interpolate_from: Optional[int] = None,
                 deterministic: bool = True, return_sim_volumes: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                pos_starts: Optional[torch.Tensor] = None):
         """Similarity volumes logits_dual / logits_joint (B, S, T, B, N) and
         the normalized features; ``return_sim_volumes=False`` returns only the
-        features. ``generator`` drives the random pos start when
-        ``deterministic=False``."""
+        features. When ``deterministic=False`` the random pos starts come
+        from ``pos_starts`` (``draw_pos_starts``'s (k,) tensor, on the
+        device) or else are drawn from ``generator``."""
+        lens = self.pos_start_lengths(video_embed.shape[1], lang_embed.shape[1],
+                                      interpolate_from, deterministic)
+        starts = [None, None, None]  # video (dual), text, video (joint)
+        if pos_starts is not None and lens:
+            if tuple(pos_starts.shape) != (len(lens),):
+                raise ValueError(f"pos_starts {tuple(pos_starts.shape)}: this forward "
+                                 f"draws {len(lens)} starts")
+            drawn = list(pos_starts.unbind(0))
+            starts = drawn if len(drawn) == 3 else [drawn[0], None, drawn[1]]
         video_out = self.get_visual_feature(video_embed, video_padding_mask,
                                             interpolate_from, deterministic,
-                                            generator=generator)
+                                            generator=generator, pos_start=starts[0])
         lang_raw = self.get_textual_feature(lang_embed)
         video_n = _l2norm(video_out)
         text_n = _l2norm(lang_raw)
         if self.use_text_pos_enc:
             lang_with_time = self.get_textual_feature_with_time(
-                lang_embed, interpolate_from, deterministic, generator=generator)
+                lang_embed, interpolate_from, deterministic, generator=generator,
+                pos_start=starts[1])
         else:
             lang_with_time = lang_raw
         joint_video, joint_text = self.get_joint_feature(
             video_embed, video_padding_mask, lang_with_time, lang_padding_mask,
-            interpolate_from, deterministic, generator=generator)
+            interpolate_from, deterministic, generator=generator, pos_start=starts[2])
         video_nj = _l2norm(joint_video)
         text_nj = _l2norm(joint_text)
 

@@ -16,10 +16,17 @@ Every kernel entry point takes its pointers and the CUDA stream as
 wrapper raises on any non-zero value. Each wrapper counts its launches in
 ``LAUNCHES`` under its own name (one per launch, nowhere else), so a run can
 show that a path went through the kernels.
+
+A launch made while a CUDA graph is being captured goes into the graph (the
+capturing stream is the current one) and runs only when the graph is
+replayed: ``captured_launches`` takes the capture's counts back out of
+``LAUNCHES`` and ``add_launches`` adds them once per replay, so
+``LAUNCHES`` keeps counting the kernels the card ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -119,6 +126,28 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a graph capture: yields a dict that holds, at exit, the
+    launches the capture recorded by wrapper name; ``LAUNCHES`` is left as
+    it was before the capture."""
+    before = dict(LAUNCHES)
+    counts: Dict[str, int] = {}
+    try:
+        yield counts
+    finally:
+        for name, n in before.items():
+            if LAUNCHES[name] != n:
+                counts[name] = LAUNCHES[name] - n
+                LAUNCHES[name] = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``counts``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -6,6 +6,11 @@ linear interpolation of a table to a longer sequence (the "global" mode,
 ``F.interpolate(..., mode='linear', align_corners=False)`` semantics), and a
 slice from a start index (0, or a random start drawn from a
 ``torch.Generator`` for the length-generalization augmentation).
+
+A start given as a tensor selects its rows on the device
+(``pos_rows``), the JAX ``dynamic_slice_in_dim``: the train step hands the
+model its starts that way, so a captured CUDA graph reads each replay's
+starts from memory instead of freezing a Python ``int``.
 """
 
 from __future__ import annotations
@@ -65,11 +70,26 @@ def slice_or_interpolate_pos_embed(
 ) -> torch.Tensor:
     """The (seq_len, C) positional embedding of one forward pass: resampled
     from ``table[:interpolate_from]`` when that is given, else the slice
-    starting at ``start_idx`` (reference model/tan_model.py:146-160)."""
+    starting at ``start_idx`` (reference model/tan_model.py:146-160): an
+    ``int``, or a 0-d integer tensor (see ``pos_rows``)."""
     if interpolate_from:
         return interpolate_pos_embed(table, interpolate_from, seq_len, true_len)
+    if isinstance(start_idx, torch.Tensor):
+        return pos_rows(table, start_idx, seq_len)
     start_idx = int(start_idx)
     return table[start_idx:start_idx + seq_len]
+
+
+def pos_rows(table: torch.Tensor, start: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """Rows [start, start + seq_len) of ``table`` for a 0-d integer tensor
+    ``start`` on the table's device, clamped into the table as
+    ``jax.lax.dynamic_slice_in_dim`` clamps it. Nothing is read back to the
+    host (a captured graph allows no ``.item()``); each row is picked, and
+    takes a gradient, exactly once, so the values and the table's gradient
+    equal the slice's."""
+    start = torch.clamp(start, 0, table.shape[0] - seq_len)
+    idx = start + torch.arange(seq_len, device=table.device)
+    return torch.index_select(table, 0, idx)
 
 
 def random_pos_start(generator: Optional[torch.Generator], seq_len: int) -> int:

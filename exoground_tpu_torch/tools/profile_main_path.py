@@ -1,7 +1,8 @@
 """Where the main path's time goes on the card.
 
     python -m exoground_tpu_torch.tools.profile_main_path [--out DIR]
-        [--train | --global | --ground | --cli] [--block] [--int8] [--resident]
+        [--train | --global | --ground | --cli [--fused_steps N]] [--block] [--int8]
+        [--resident]
 
 Runs FusedAlignEvaluator over the 8 bench videos (TemporalAligner E6D6,
 width 512, 4096-d inputs, seeded weights) in float32 and bfloat16: one
@@ -56,17 +57,22 @@ kernels' shares of the busy time.
 
 ``--cli`` profiles the training command line instead: the trainer that
 ``train/main.py`` builds (``build_htm_tan``) for ``--dataset htm-370k
---model cotrain`` at B64 over a seeded tree (``tools/synth_htm.py``: 1,000
-videos of 200-600 s, 512-d features, ASR at the tree's default cadence, the
-word2vec tower at the MIL-NCE shapes; 14 steps an epoch) in float32 with 8
-and 1 loader threads and in bfloat16 with 8: one warm-up epoch, one timed
-epoch (each step's wall time and its wait for data, the ``Data`` meter, and
+--model cotrain --fused_steps N`` (``--fused_steps``, default 1) at B64
+over a seeded tree (``tools/synth_htm.py``: 1,000 videos of 200-600 s,
+512-d features, ASR at the tree's default cadence, the word2vec tower at
+the MIL-NCE shapes; 14 steps an epoch) in float32 with 8 and 1 loader
+threads and in bfloat16 with 8: one warm-up epoch, one timed epoch (each
+step's wall time and its wait for data, the ``Data`` meter, and
 ``train/trainer.py::epoch_summary``'s window rate), then one epoch under
 ``torch.profiler`` (its device busy and idle share, the grid's device
-time); one JSON line each. Then the steady state: one timed float32 epoch
-of 200 steps (8 threads) at the default ASR cadence and at a dense one, its
-window rate whole and over its second half, beside the reader's host cost
-an item (and its shares under cProfile); one JSON line each.
+time); one JSON line each. Then the steady state: one epoch of 200 steps
+(8 threads) at the default ASR cadence, in float32 and bfloat16, each with
+the train reader deferred (the batch's windows gathered by the native
+reader in collate, as the command line reads) and per item: its window rate
+whole and over its second half, the device busy and idle share of 16 steps
+of its second half (the device's activity alone under ``torch.profiler``),
+beside the reader's host cost an item, collate included (and its shares
+under cProfile); one JSON line each.
 
 With ``--out`` the Chrome traces are written there. Needs a CUDA device;
 raises otherwise.
@@ -304,18 +310,19 @@ def profile_ground(svc, requests, impl: str, out_dir=None) -> dict:
 CLI_TREE = dict(n_videos=1000, vlen=(200, 600), dim=512, vocab=66249, embed_dim=300,
                 hidden=2048, out_dim=512, n_align=8, seed=0)
 # the steady state: one epoch of CLI_LONG_STEPS at B64 over 200 feature
-# arrays, at the tree's sourced ASR cadence and at a dense one (one sentence
-# every 2.5 s, no source: an upper bracket for the loader's cost)
-CLI_LONG_STEPS, CLI_DENSE_GAP_S = 200, 2.5
+# arrays, at the tree's sourced ASR cadence; CLI_WINDOW steps of its second
+# half profiled
+CLI_LONG_STEPS, CLI_WINDOW = 200, 16
 
 
-def _cli_run(root, amp: bool, workers: int, epochs: int):
+def _cli_run(root, amp: bool, workers: int, epochs: int, fused_steps: int = 1):
     from exoground_tpu_torch.train import main as cli
     from exoground_tpu_torch.train.config import parse_args
 
     argv = ["--dataset", "htm-370k", "--model", "cotrain", "--data_root", root,
             "--batch_size", "64", "--epochs", str(epochs), "--num_workers", str(workers),
-            "--print_freq", "1000"] + (["--amp"] if amp else [])
+            "--print_freq", "1000", "--fused_steps", str(fused_steps)] + (
+                ["--amp"] if amp else [])
     return cli.build_htm_tan(parse_args(argv), "cuda")
 
 
@@ -327,9 +334,9 @@ def _epoch_fields(stats) -> dict:
             "data_ms_all": [round(t * 1e3, 1) for t in stats["data_s"]]}
 
 
-def profile_cli(root, amp: bool, workers: int, out_dir=None) -> dict:
+def profile_cli(root, amp: bool, workers: int, fused_steps: int, out_dir=None) -> dict:
     """Train epochs of the command line's trainer on the tree at ``root``."""
-    run = _cli_run(root, amp, workers, 3)
+    run = _cli_run(root, amp, workers, 3, fused_steps)
     tr = run.trainer
     try:
         for epoch in (0, 1):  # warm-up, timed
@@ -353,6 +360,7 @@ def profile_cli(root, amp: bool, workers: int, out_dir=None) -> dict:
         "dtype": dtype,
         "loader_threads": workers,
         "batch": 64,
+        "fused_steps": fused_steps,
         **_epoch_fields(tr.epoch_stats[1]),
         "profiled_epoch_s": wall,
         "profiled_steps": tr.epoch_stats[2]["steps"],
@@ -365,21 +373,27 @@ def profile_cli(root, amp: bool, workers: int, out_dir=None) -> dict:
 
 
 def _item_profile(ds, n: int = 256) -> dict:
-    """Host time of the reader's items, one after another, and the shares
-    of it (under cProfile) in the sentence trim, the tokenizer, ``np.pad``,
-    ``np.load`` and the per-item ``RandomState``."""
+    """Host time of the reader's items, read one after another and collated
+    64 at a time (the deferred reader gathers the windows in collate), and
+    the shares of it (under cProfile, over other items) in the sentence
+    trim, the tokenizer, ``np.pad``, ``np.load``, the per-item
+    ``RandomState``, the native gather and ``FeatureStore.length``."""
     import cProfile
     import pstats
 
+    def read(first):
+        for lo in range(first, first + n, 64):
+            ds.collate_fn([ds[i % len(ds)] for i in range(lo, lo + 64)])
+
     t0 = time.perf_counter()
-    items = [ds[i % len(ds)] for i in range(64)]
-    out = {"item_ms": (time.perf_counter() - t0) / 64 * 1e3,
-           "sentences_per_item": sum(len(it["_texts"]["text"]) for it in items) / 64}
+    read(0)
+    out = {"item_ms": (time.perf_counter() - t0) / n * 1e3,
+           "defer_video_io": ds.defer_video_io,
+           "sentences_per_item": sum(len(ds[i]["_texts"]["text"]) for i in range(64)) / 64}
     prof = cProfile.Profile()
     t0 = time.perf_counter()
     prof.enable()
-    for i in range(n):
-        ds[i % len(ds)]
+    read(n)
     prof.disable()
     total = time.perf_counter() - t0
     stats = pstats.Stats(prof).stats
@@ -391,18 +405,55 @@ def _item_profile(ds, n: int = 256) -> dict:
     out["share_of_item"] = {
         "clip_sentences": share("_clip_sentences", "htm"),
         "tokenizer": share("__call__", "word2vec"), "np_pad": share("pad", "_arraypad"),
-        "np_load": share("load", "_npyio"), "random_state": share("_rng", "htm")}
+        "np_load": share("load", "_npyio"), "random_state": share("_rng", "htm"),
+        "native_gather": share("gather_windows", "native"),
+        "length": share("length", "data/io")}
     return out
 
 
-def profile_cli_steady(root, asr_gap: float) -> dict:
-    """One long float32 epoch (8 loader threads) on the tree at ``root``,
-    timed only: the whole window, and its second half apart (the loader
-    long past its start); the reader's host cost an item beside it."""
-    run = _cli_run(root, False, 8, 1)
+class _StepWindow:
+    """Profiles the device's activity over the steps [start, start + steps)
+    of an epoch, by wrapping the trainer's step calls (a group of the N-step
+    runner counts N); the wall between the two synchronizes at its edges."""
+
+    def __init__(self, tr, start: int, steps: int):
+        self.start, self.stop = start, start + steps
+        self.done, self.prof, self.rows, self.wall = 0, None, None, None
+        for name in ("_do_step", "_do_fused"):
+            setattr(tr, name, self._wrap(getattr(tr, name)))
+
+    def _wrap(self, real):
+        def call(batch):
+            if self.prof is None and self.rows is None and self.done >= self.start:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            out = real(batch)
+            self.done += batch["video"].shape[0] if batch["video"].dim() == 4 else 1
+            if self.prof is not None and self.done >= self.stop:
+                torch.cuda.synchronize()
+                self.wall = time.perf_counter() - self.t0
+                self.steps = self.done - self.start
+                self.prof.__exit__(None, None, None)
+                self.rows, self.prof = _device_rows(self.prof), None
+            return out
+
+        return call
+
+
+def profile_cli_steady(root, asr_gap: float, amp: bool, fused_steps: int, defer: bool) -> dict:
+    """One long epoch (8 loader threads) on the tree at ``root``, timed,
+    with the train reader deferred or per item: the whole window, and its
+    second half apart (the loader long past its start); the device busy and
+    idle share of CLI_WINDOW steps of the second half; the reader's host
+    cost an item beside it."""
+    run = _cli_run(root, amp, 8, 1, fused_steps)
     tr = run.trainer
+    run.train_loader.dataset.defer_video_io = defer
     try:
         host = _item_profile(run.train_loader.dataset)
+        window = _StepWindow(tr, CLI_LONG_STEPS // 2, CLI_WINDOW)
         run.train_loader.set_epoch(0)
         t0 = time.perf_counter()
         tr.train_epoch(run.train_loader, 0)
@@ -417,9 +468,15 @@ def profile_cli_steady(root, asr_gap: float) -> dict:
     second = dict(samples=stats["samples"] * (stats["steps"] - half) // stats["steps"],
                   step_s=stats["step_s"][half:],
                   data_s=stats["data_s"][half:])
-    return {"dtype": "float32", "loader_threads": 8, "batch": 64, "asr_gap_s": asr_gap,
+    busy_s = sum(r[0] for r in window.rows) / 1e6
+    return {"dtype": "bfloat16" if amp else "float32", "loader_threads": 8, "batch": 64,
+            "fused_steps": fused_steps, "defer_video_io": defer, "asr_gap_s": asr_gap,
             "epoch_s": wall, **epoch_summary([stats]),
-            "second_half": epoch_summary([second]), "host": host}
+            "second_half": epoch_summary([second]),
+            "window": {"steps": window.steps, "wall_s": window.wall,
+                       "device_busy_ms_a_step": busy_s / window.steps * 1e3,
+                       "device_idle_share": 1.0 - busy_s / window.wall},
+            "host": host}
 
 
 def main():
@@ -439,7 +496,11 @@ def main():
                     help="profile the whole-block path (attn_impl and mlp_impl 'fused')")
     ap.add_argument("--resident", action="store_true",
                     help="profile run_preloaded sweeps over a preload (no upload a sweep)")
+    ap.add_argument("--fused_steps", type=int, default=1,
+                    help="with --cli: the command line's --fused_steps")
     args = ap.parse_args()
+    if args.fused_steps != 1 and not args.cli:
+        ap.error("--fused_steps goes with --cli")
     if (args.int8 or args.block or args.resident) and (args.train or args.global_mode
                                                          or args.ground or args.cli):
         ap.error("--int8, --block and --resident profile the serving sweeps, not --train, "
@@ -468,18 +529,18 @@ def main():
         try:
             root = make_htm_tree(os.path.join(work, "htm"), **CLI_TREE)
             for amp, workers in ((False, 8), (False, 1), (True, 8)):
-                print(json.dumps({"card": card, **profile_cli(root, amp, workers, args.out)}),
+                print(json.dumps({"card": card, **profile_cli(root, amp, workers,
+                                                              args.fused_steps, args.out)}),
                       flush=True)
             shutil.rmtree(root)
             # 5% of the videos go to validation
             videos = -(-CLI_LONG_STEPS * 64 * 100 // 95) + 64
-            for gap in (ASR_GAP_S, CLI_DENSE_GAP_S):
-                long_root = make_htm_tree(os.path.join(work, f"long{gap}"),
-                                          **dict(CLI_TREE, n_videos=videos, feature_files=200,
-                                                 asr_gap=gap))
-                print(json.dumps({"card": card, **profile_cli_steady(long_root, gap)}),
-                      flush=True)
-                shutil.rmtree(long_root)
+            long_root = make_htm_tree(os.path.join(work, "long"),
+                                      **dict(CLI_TREE, n_videos=videos, feature_files=200))
+            for amp in (False, True):
+                for defer in (False, True):
+                    print(json.dumps({"card": card, **profile_cli_steady(
+                        long_root, ASR_GAP_S, amp, args.fused_steps, defer)}), flush=True)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         return

@@ -144,11 +144,12 @@ class ExperimentConfig:
     # algebraically cancels end_epoch_frac (see data/sampling.py) and parity
     # means reproducing what it actually does.
     fixed_curriculum: bool = False
-    # Fuse N optimizer steps into ONE device dispatch (lax.scan over N
-    # stacked prefetched batches). Amortizes the host->device dispatch round
-    # trip, which dominates step time on tunnel/PCIe-attached chips. Logging,
-    # runtime snapshots and LR-schedule resolution stay correct (per-step
-    # metrics come back stacked); they just land every N steps.
+    # Run N optimizer steps a dispatch over N stacked prefetched batches: on
+    # the card one replay of a CUDA graph of N whole steps
+    # (parallel/train_step.py::TanScanStep), which takes the step's ~1,800
+    # eager launches off the host. Logging, runtime snapshots and the LR
+    # schedule stay per step (metrics come back stacked); they land every N
+    # steps.
     fused_steps: int = 1
     # Stream the TAN MIL-NCE similarity grid from normalized features
     # (losses/milnce.py::_feature_two_way) instead of materializing the

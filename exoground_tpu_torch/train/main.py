@@ -126,7 +126,8 @@ def build_htm_tan(cfg, device) -> HTMTanRun:
         vlen_csv=os.path.join(root, "htm_vlen.csv"),
         duration=cfg.seq_len, seed=cfg.seed,
     )
-    train_ds = HTMFeatureDataset(dcfg, tokenizer, mode="train")
+    # the train batches gather their windows in one native call a batch
+    train_ds = HTMFeatureDataset(dcfg, tokenizer, mode="train", defer_video_io=True)
     val_ds = HTMFeatureDataset(dcfg, tokenizer, mode="val", asr=train_ds.asr,
                                store=train_ds.store)
     train_loader = ThreadedLoader(

@@ -13,7 +13,11 @@ elementwise there, with no Pallas kernel; here its counterpart is
 PyTorch's multi-tensor ``torch._foreach_*`` ops, one pass per group of
 parameters that share their decay and train flags. It updates the
 parameters, the moments and the EMA twin in place. The schedule and the
-bias corrections are computed in float32, as the JAX step computes them.
+bias corrections are computed on the host in float32, as the JAX step
+computes them, and reach the update as one (3,) float32 tensor on the
+parameters' device (``scalars`` / ``apply``): a captured CUDA graph reads
+each replay's values from it, and the eager step divides by the same tensor
+(a CUDA division by a Python scalar multiplies by its reciprocal instead).
 
 The optax chain ``make_optimizer`` (gradient accumulation, global-norm
 clipping) waits for a later slice.
@@ -27,6 +31,8 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from exoground_tpu_torch.utils.device import to_device
 
 NO_DECAY = ("ln_", "bias", "logit_scale", "entropy_scale")
 
@@ -115,17 +121,34 @@ class FusedAdamWEMA:
 
         return FusedAdamWState(count=0, mu=zeros(), nu=zeros())
 
+    def scalars(self, count: int) -> np.ndarray:
+        """(lr, bc1, bc2) of the step that reads ``count`` (lr before the
+        count increments, the bias corrections after), float32."""
+        f32 = np.float32
+        return np.array([self.schedule(count), f32(1.0) - f32(self.b1) ** f32(count + 1),
+                         f32(1.0) - f32(self.b2) ** f32(count + 1)], np.float32)
+
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], state: FusedAdamWState,
              grads: Dict[str, torch.Tensor], target: Optional[Dict[str, torch.Tensor]] = None,
              ema_momentum: Optional[float] = None):
         """One optimizer (+EMA) step, in place. A missing or None grad counts
         as zero, as JAX differentiates a parameter the loss does not reach."""
-        f32 = np.float32
-        lr = self.schedule(state.count)
-        count = state.count + 1
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
+        dev = next(iter(params.values())).device
+        self.apply(params, state, grads, to_device(self.scalars(state.count), dev), target,
+                   ema_momentum)
+        state.count += 1
+        return params, state, target
+
+    @torch.no_grad()
+    def apply(self, params: Dict[str, torch.Tensor], state: FusedAdamWState,
+              grads: Dict[str, torch.Tensor], scalars: torch.Tensor,
+              target: Optional[Dict[str, torch.Tensor]] = None,
+              ema_momentum: Optional[float] = None) -> None:
+        """The update of ``step`` from ``scalars`` ((3,) float32 on the
+        parameters' device: ``scalars(state.count)``), with no host work and
+        no host read: ``state.count`` is the caller's to advance."""
+        lr, bc1, bc2 = scalars.unbind(0)
         do_ema = target is not None and ema_momentum is not None
         f32_moments = self.moment_dtype == torch.float32
         for names, wd_on, trainable in self._groups:
@@ -150,7 +173,8 @@ class FusedAdamWEMA:
             if wd_on and self.weight_decay:
                 torch._foreach_add_(upd, p, alpha=self.weight_decay)
             if trainable:
-                torch._foreach_add_(p, upd, alpha=-lr)
+                torch._foreach_mul_(upd, lr)
+                torch._foreach_sub_(p, upd)
             if not f32_moments:
                 for k, mk, vk in zip(names, m, v):
                     state.mu[k].copy_(mk)
@@ -159,8 +183,7 @@ class FusedAdamWEMA:
                 t = [target[k] for k in names]
                 torch._foreach_mul_(t, ema_momentum)
                 torch._foreach_add_(t, p, alpha=1.0 - ema_momentum)
-        state.count = count
-        return params, state, target
+
 
 
 def make_fused_optimizer(params: Dict[str, torch.Tensor], lr: float = 1e-4,

@@ -10,21 +10,30 @@ the model's own, the EMA twin is a dictionary beside them, and
 (``save_epoch``, ``maybe_save_runtime`` on an iteration threshold,
 ``load_checkpoint`` in resume / pretrain / test mode), batches copied to
 the card one ahead of the step through pinned buffers (``_prefetched``,
-depth 2 as in the JAX package), and the shared
+depth 2 as in the JAX package; ``_prefetched_groups`` stacks
+``fused_steps`` of them into one upload), and the shared
 epoch loop (meters, the finite-loss guard, every-5 logging, runtime
 saves). ``TANTrainer`` adds the step, the frozen word2vec tower for token
 batches, ``evaluate`` and ``fit`` with the downstream HTM-Align hook.
+
+With ``fused_steps`` N > 1 each N batches that stack run as one call of
+the N-step runner (``make_tan_train_step(scan_steps=N)``: on the card a
+replayed CUDA graph); a group whose batches do not stack, and the epoch's
+last batches short of a group, run single eager steps, as in the JAX
+trainer. Both draw the random pos starts from one generator in step order,
+so the parameters follow the same path whatever N is.
 
 The random pos-start generator is not saved in a checkpoint (the JAX
 package does not save its key either), so a resumed run is not a
 bit-exact continuation: it restarts the generator from ``cfg.seed``.
 
 Still raising, with the ROADMAP item that brings them (queue 1 item 4):
-``fused_steps > 1``, gradient accumulation and global-norm clipping.
+gradient accumulation and global-norm clipping.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import statistics
 import time
@@ -165,30 +174,80 @@ class BaseTrainer:
         return device_prefetch((self.prepare_batch(raw) for raw in loader), self.device,
                                size=depth)
 
+    def _prefetched_groups(self, loader: Iterable[Dict], n: int, depth: int = 2):
+        """('fused', the (n, B, ...) stack of n prepared batches) for each n
+        that stack, else ('single', batch) for each batch of the group, and
+        for the epoch's last batches short of n; each item uploaded in one
+        copy, ``depth`` - 1 ahead (the JAX ``_prefetched_stacked``)."""
+        kinds = collections.deque()
+
+        def items():
+            group = []
+            for raw in loader:
+                group.append(self.prepare_batch(raw))
+                if len(group) < n:
+                    continue
+                try:
+                    stacked = {k: np.stack([g[k] for g in group]) for k in group[0]}
+                except (ValueError, KeyError):  # shapes or keys that do not stack
+                    stacked = None
+                if stacked is not None:
+                    kinds.append("fused")
+                    yield stacked
+                    group = []
+                    continue
+                for g in group:
+                    kinds.append("single")
+                    yield g
+                group = []
+            for g in group:
+                kinds.append("single")
+                yield g
+
+        for batch in device_prefetch(items(), self.device, size=depth):
+            yield kinds.popleft(), batch
+
     # ------------------------------------------------------------ the loop
     def _run_train_epoch(self, loader: Iterable[Dict], epoch: int,
-                         do_step: Callable[[Dict[str, torch.Tensor]], Dict]) -> float:
+                         do_step: Callable[[Dict[str, torch.Tensor]], Dict],
+                         do_fused: Optional[Callable[[Dict[str, torch.Tensor]], Dict]] = None
+                         ) -> float:
         """Meters and progress, the finite-loss guard (main.py:102-103),
         every-5 logging and the runtime-checkpoint cadence (trainer.py:
-        303-355). ``do_step(batch) -> metrics`` advances the state."""
+        303-355). ``do_step(batch) -> metrics`` advances the state one step;
+        ``do_fused(stacked) -> stacked metrics`` (with ``cfg.fused_steps`` >
+        1) N steps. A group counts as N steps of its time / N, its wait for
+        data on the first."""
         cfg = self.cfg
         meters = {k: AverageMeter(k, ":.4f") for k in ("Time", "Data", "Loss")}
         progress = ProgressMeter(getattr(loader, "__len__", lambda: 0)(),
                                  list(meters.values()), prefix=f"Epoch:[{epoch}]")
         step_s, data_s, samples = [], [], 0
         timer = Timer()
-        for idx, batch in enumerate(self._prefetched(loader)):
-            data_s.append(timer.lap())
-            meters["Data"].update(data_s[-1])
-            metrics = do_step(batch)
-            loss = float(metrics["loss"])  # waits for the step
-            samples += batch["video"].shape[0]
-            if np.isfinite(loss):
-                meters["Loss"].update(loss, batch["video"].shape[0])
-            self._log(metrics, "train/")  # reads the other scalars only when it logs
-            self.iteration += 1
-            step_s.append(timer.lap())
-            meters["Time"].update(step_s[-1])
+        source = (self._prefetched_groups(loader, cfg.fused_steps) if do_fused is not None
+                  else (("single", b) for b in self._prefetched(loader)))
+        for idx, (kind, batch) in enumerate(source):
+            wait = timer.lap()
+            meters["Data"].update(wait)
+            if kind == "fused":
+                metrics = do_fused(batch)
+                losses = metrics["loss"].tolist()  # waits for the group
+                last = {k: v[-1] for k, v in metrics.items()}  # the group's last step logs
+            else:
+                metrics = do_step(batch)
+                losses = [float(metrics["loss"])]  # waits for the step
+                last = metrics
+            rows = batch["video"].shape[-3]
+            for loss in losses:
+                samples += rows
+                if np.isfinite(loss):
+                    meters["Loss"].update(loss, rows)
+            self._log(last, "train/")  # reads the other scalars only when it logs
+            self.iteration += len(losses)
+            per_step = timer.lap() / len(losses)
+            step_s += [per_step] * len(losses)
+            data_s += [wait] + [0.0] * (len(losses) - 1)
+            meters["Time"].update(per_step, len(losses))
             if idx % cfg.print_freq == 0:
                 progress.display(idx)
             self.maybe_save_runtime(epoch)
@@ -229,8 +288,6 @@ class TANTrainer(BaseTrainer):
     def __init__(self, model, cfg: ExperimentConfig, iters_per_epoch: int = 1000,
                  device="cuda", text_tower=None):
         cfg.validate()
-        if cfg.fused_steps > 1:
-            raise NotImplementedError(f"fused_steps waits for {_LATER}")
         super().__init__(cfg, device)
         self.model = model.to(self.device)
         if cfg.attn_impl != "auto":  # 'auto' keeps the model's own (train/main.py:124)
@@ -260,12 +317,16 @@ class TANTrainer(BaseTrainer):
                 "gradient accumulation and global-norm clipping need the optax-chain "
                 f"optimizer, which waits for {_LATER}")
         self.opt_state = self.tx.init(self.params)
-        self.step = make_tan_train_step(
+        step = make_tan_train_step(
             self.model, self.loss_cfg, self.tx,
             ema_momentum=cfg.momentum_m if self.is_cotrain else None,
             gather_negatives=cfg.gather_negatives, text_tower_params=self._tower_params,
             compute_dtype="bfloat16" if cfg.amp else "float32",
-            fused_grid=cfg.fused_grid)
+            fused_grid=cfg.fused_grid,
+            scan_steps=cfg.fused_steps if cfg.fused_steps > 1 else None)
+        # the N-step runner (fused_steps > 1) and the one step it repeats
+        self.fused_step = step if cfg.fused_steps > 1 else None
+        self.step = step.single if cfg.fused_steps > 1 else step
         self._eval_step = None
 
     # ------------------------------------------------------------ batch prep
@@ -307,6 +368,11 @@ class TANTrainer(BaseTrainer):
             self.params, self.target_params, self.opt_state, batch, self.generator)
         return metrics
 
+    def _do_fused(self, batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        self.params, self.target_params, self.opt_state, metrics = self.fused_step(
+            self.params, self.target_params, self.opt_state, batches, self.generator)
+        return metrics
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimizer step on a device batch; returns its metrics."""
         metrics = self._do_step(batch)
@@ -316,7 +382,8 @@ class TANTrainer(BaseTrainer):
     def train_epoch(self, loader: Iterable[Dict], epoch: int) -> float:
         """One pass over ``loader``; the mean finite loss, weighted by rows."""
         self.model.train()
-        return self._run_train_epoch(loader, epoch, self._do_step)
+        return self._run_train_epoch(loader, epoch, self._do_step,
+                                     self._do_fused if self.fused_step is not None else None)
 
     def evaluate(self, loader: Iterable[Dict], epoch: int) -> float:
         """Validation loss of the train protocol (trainer.py:511-541): the

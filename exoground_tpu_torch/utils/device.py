@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,14 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A small host array as a tensor on ``device``: on a card through
+    pinned memory and a copy that does not wait for the stream (PyTorch's
+    pinned-memory cache keeps the buffer until the copy is done); on the
+    CPU as it is."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
