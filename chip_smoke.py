@@ -124,7 +124,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the card (flash kernels) and on the CPU (flash_attention_plain), loss
      within 1e-4 relative, grads within 1e-3 of max|CPU|, and 24 flash
      forward + 12 dq + 12 dk/dv launches; 10 timed steps at B 16 in float32
-     and bfloat16 with those counts per step.
+     and bfloat16 with those counts per step. Then the optax chain
+     (make_optimizer: accumulation over 2, global-norm clip at half the
+     grads' norm, so the device-side norm and select act): one float32 B 4
+     step's grads on the card and on the CPU, and four chain updates from
+     them (the second and fourth emit; the fourth moves the parameters):
+     loss within 1e-4 relative, grads and updated parameters within 1e-3 of
+     max|CPU|.
   5b. the train step as a replayed CUDA graph (make_tan_train_step(scan_steps=4)
      through TANTrainer(fused_steps=4)) at phase 5's configuration, B 64 in
      float32 and bfloat16 and B 16 under attn_impl='flash': from one state and
@@ -138,7 +144,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      kernels of a profiled eager step; one `graph_bench {...}` line a case:
      the eager step (median of 10) against the replay's ms / 4 (median of
      5), one replay's device time by CUDA events, capture seconds and the
-     graph pool's MB.
+     graph pool's MB. A fourth case runs B 64 float32 under --backprop_freq
+     2 (the optax chain: the 4 mini-batches of a replay accumulate and every
+     second updates; the accumulator compared too), and one
+     `graph_accum {...}` line sets its step times and pool beside the fused
+     optimizer's case.
   3c. flash kernels: forward (o; lse on rows with a valid key, +1e30 exactly
      on the rest), dq and dk/dv against autograd of flash_attention_plain on
      the card for the same random upstream grad, at the global path's shapes
@@ -205,7 +215,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      load_checkpoint returns) and --test; each run counted (the grid 2 + 2 a
      step and 2 forwards a validation batch; fused MHA and MLP 24 + 24 a
      validation batch, online and EMA teacher, and 12 + 12 a group of each
-     HTM-Align eval; no other kernel); then the card against the CPU with the
+     HTM-Align eval; no other kernel); then one epoch each at --backprop_freq 2
+     (--fused_steps 1 and 4: the same launches, the epoch-0 checkpoints
+     equal bit for bit, the accumulator and mini step too), then --resume
+     from that run's epoch-0 checkpoint written again as a JAX package file
+     (write_jax_checkpoint: the flax msgpack map of the JAX trainer, its
+     MultiStepsState at full width; the restored parameters, EMA twin,
+     moments, accumulator and counts bit for bit the port file's; its
+     load_checkpoint seconds and peak host MB), and one epoch at
+     --no-fused_optimizer (the optax chain; its epoch-0 checkpoint within
+     1e-5 of max|.| of the first run's); then the card against the CPU with the
      command line's build_htm_tan on the whole first batch, B64 (step and
      validation loss rel. error <= 1e-4, the tower's pooled output <= 1e-5 of
      max|CPU|, f32), and the train reader's host ms an item, deferred through
@@ -217,6 +236,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      capture seconds, the reader's ms an item, validation ms, HTM-Align s,
      checkpoint MB and save s, launches, the phase's seconds). The tree is
      removed after.
+  8b. a JAX package checkpoint resumed on the card: for each committed
+     fixture (exoground_tpu_torch/testdata/: the fused optimizer's state and
+     the optax chain's MultiStepsState at --backprop_freq 2, written by the
+     JAX TANTrainer of tests/jax_tan_fixtures.py at width 32), a TANTrainer
+     of the fixture's configuration on the card runs load_checkpoint(mode=
+     "resume"), what --resume runs, through the pure-Python msgpack reader;
+     every restored tensor (parameters, EMA twin, moments, accumulator) must
+     equal the fixture's array bit for bit, with the counts; then one step
+     on the card against the same resume and step on the CPU (loss within
+     1e-4 relative; the parameters, EMA twin, moments and accumulator after
+     it within 1e-3 of each tensor's max|CPU|, the parameters moved); one
+     `jax_resume {...}` line with the file's read seconds.
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
@@ -228,8 +259,10 @@ JSON, precede the last line, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import io
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -1909,6 +1942,63 @@ def train_flash_agreement(model):
              f"{FLASH_BWD_PER_STEP} dq and dk/dv")
 
 
+def train_chain_agreement(model):
+    """The optax chain on the card against the CPU: one float32 B 4 step's
+    loss and grads, then four make_optimizer updates from those grads
+    (accumulation over 2, so the second and fourth emit, the fourth at the
+    full lr: MultiSteps' warmup is at least one inner step, whose lr is 0;
+    global-norm clip at half the grads' norm on the CPU, so the clip acts on
+    both devices)."""
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import make_train_batch
+    from exoground_tpu_torch.losses.milnce import TANLossConfig
+    from exoground_tpu_torch.parallel import make_tan_train_step
+    from exoground_tpu_torch.train import make_optimizer
+
+    batch_np = make_train_batch(4, seed=3)
+    cfg = TANLossConfig(model="init")
+    res, clip = {}, None
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        params = {k: p.detach() for k, p in m.named_parameters()}
+        step = make_tan_train_step(m, cfg, make_optimizer(params))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        metrics, grads = step.loss_and_grads(params, params, batch,
+                                             torch.Generator().manual_seed(0))
+        if clip is None:
+            clip = 0.5 * float(torch.linalg.vector_norm(torch.stack(
+                [g.float().norm() for g in grads.values() if g is not None])))
+        # Adam eps 1e-3: the key bias's exact grad is 0, and eps 1e-8 would
+        # turn the two devices' float noise there into lr-sized updates of
+        # either sign (tests/test_torch_train.py)
+        tx = make_optimizer(params, lr=1e-3, warmup_iterations=0, total_iterations=100,
+                            accumulate_steps=2, grad_clip=clip, grad_clip_mode="global")
+        tx.eps = 1e-3
+        state = tx.init(params)
+        before = {k: v.clone() for k, v in params.items()}
+        for _ in range(4):
+            tx.step(params, state, grads)
+        moved = max((params[k] - before[k]).abs().max().item() for k in params)
+        res[dev] = (float(metrics["loss"]),
+                    {k: g.float().cpu() for k, g in grads.items() if g is not None},
+                    {k: v.cpu() for k, v in params.items()}, (state.count, moved > 0))
+    (lc, gc, pc, nc), (lg, gg, pg, ng) = res["cpu"], res["cuda"]
+    loss_rel = abs(lg - lc) / abs(lc)
+
+    def worst(got, want):
+        return max(((got[k] - want[k]).abs().max().item()
+                    / max(want[k].abs().max().item(), 1e-30), k) for k in want)
+
+    wg, wp = worst(gg, gc), worst(pg, pc)
+    print(f"optax chain card vs CPU (init, B4 f32, accumulate 2, global clip {clip:.4g}): "
+          f"loss rel {loss_rel:.2e}, worst grad {wg[1]} at {wg[0]:.2e}, worst updated "
+          f"parameter {wp[1]} at {wp[0]:.2e} of its max|CPU|", flush=True)
+    if (set(gg) != set(gc) or (nc, ng) != ((4, True), (4, True)) or not loss_rel <= 1e-4
+            or not wg[0] <= 1e-3 or not wp[0] <= 1e-3):
+        fail("the optax chain's step on the card disagrees with the CPU plain path")
+
+
 def train_path(model, card, batches=(16,), attn_impl="auto"):
     """Timed TANTrainer steps at ``batches``, float32 and bfloat16, with the
     configuration's ``attn_impl``; returns the launches of the timed steps."""
@@ -1968,8 +2058,9 @@ def train_path(model, card, batches=(16,), attn_impl="auto"):
 
 # ---------------------------------------------------------------- phase 5b
 GRAPH_N = 4  # steps a replayed graph (--fused_steps 4)
-# (batch, compute dtype, attn_impl) of the replayed train step
-GRAPH_CASES = ((64, False, "auto"), (64, True, "auto"), (16, False, "flash"))
+# (batch, compute dtype, attn_impl, --backprop_freq) of the replayed train step
+GRAPH_CASES = ((64, False, "auto", 1), (64, True, "auto", 1), (16, False, "flash", 1),
+               (64, False, "auto", 2))
 
 
 def _kernel_names(prof, parts=("grid_", "flash_")) -> dict:
@@ -1981,12 +2072,14 @@ def _kernel_names(prof, parts=("grid_", "flash_")) -> dict:
             if e.device_type == DeviceType.CUDA and any(p in e.key for p in parts)}
 
 
-def graph_case(model, card, raw, amp, attn_impl):
+def graph_case(model, card, raw, amp, attn_impl, backprop_freq=1):
     """From one state, one generator seed and the 2N prepared batches
     ``raw``: 2N eager steps on one trainer and two scan_steps=N calls (an
     eager warm-up group, then a replay of the captured graph) on another;
-    the states and the losses compared; the replay counted and profiled;
-    eager and replayed steps timed. Returns the replay's launches."""
+    the states (and under ``backprop_freq`` > 1 the optax chain's
+    accumulator) and the losses compared; the replay counted and profiled;
+    eager and replayed steps timed. Returns the replay's launches and the
+    ``graph_bench`` line's dict."""
     import copy
 
     from torch.profiler import ProfilerActivity, profile
@@ -1998,7 +2091,8 @@ def graph_case(model, card, raw, amp, attn_impl):
     b = raw[0]["video"].shape[0]
     trainers = {}
     for fused in (1, n):
-        cfg = ExperimentConfig(amp=amp, attn_impl=attn_impl, fused_steps=fused, **BENCH_TRAIN)
+        cfg = ExperimentConfig(amp=amp, attn_impl=attn_impl, fused_steps=fused,
+                               backprop_freq=backprop_freq, **BENCH_TRAIN)
         trainers[fused] = TANTrainer(copy.deepcopy(model), cfg, iters_per_epoch=1000,
                                      device="cuda")
     eager, graph = trainers[1], trainers[n]
@@ -2019,7 +2113,9 @@ def graph_case(model, card, raw, amp, attn_impl):
     for name, got, want in (("params", graph.params, eager.params),
                             ("ema", graph.target_params, eager.target_params),
                             ("mu", graph.opt_state.mu, eager.opt_state.mu),
-                            ("nu", graph.opt_state.nu, eager.opt_state.nu)):
+                            ("nu", graph.opt_state.nu, eager.opt_state.nu),
+                            ("acc", getattr(graph.opt_state, "acc_grads", {}),
+                             getattr(eager.opt_state, "acc_grads", {}))):
         for k in want:
             bit_equal &= torch.equal(got[k], want[k])
             err = ((got[k].float() - want[k].float()).abs().max()
@@ -2062,7 +2158,8 @@ def graph_case(model, card, raw, amp, attn_impl):
     ev1.record()
     torch.cuda.synchronize()
     bench = dict(card=card, batch=b, dtype="bfloat16" if amp else "float32",
-                 attn_impl=attn_impl, n=n, eager_step_ms=round(eager_ms, 3),
+                 attn_impl=attn_impl, backprop_freq=backprop_freq,
+                 optimizer=type(graph.tx).__name__, n=n, eager_step_ms=round(eager_ms, 3),
                  replay_step_ms=round(replay_ms, 3),
                  replay_busy_ms=round(ev0.elapsed_time(ev1), 3),
                  capture_s=round(g.capture_s, 3), pool_mb=round(g.pool_bytes / 2**20, 1),
@@ -2082,21 +2179,31 @@ def graph_case(model, card, raw, amp, attn_impl):
              f"{names_eager} / {names_graph}")
     del eager, graph, trainers, groups, batches
     torch.cuda.empty_cache()
-    return launches
+    return launches, bench
 
 
 def graph_path(model, card):
     """Phase 5b: the train step as a replayed CUDA graph (scan_steps=N) at
-    B64 float32 and bfloat16, and B16 under attn_impl='flash'; returns the
-    replays' launches by case."""
+    B64 float32 and bfloat16, B16 under attn_impl='flash' and B64 float32
+    under --backprop_freq 2; returns the replays' launches by case."""
     from exoground_tpu_torch.evals.bench_items import make_train_batch
 
     # the host arrays prepare_batch gives, shared by the cases of a batch size
     raw = {b: [make_train_batch(b, seed=40 + i) for i in range(2 * GRAPH_N)]
            for b in sorted({c[0] for c in GRAPH_CASES})}
-    return {f"B{b} {'bf16' if amp else 'f32'} {impl}": graph_case(model, card, raw[b], amp,
-                                                                  impl)
-            for b, amp, impl in GRAPH_CASES}
+    out = {}
+    for b, amp, impl, k in GRAPH_CASES:
+        name = f"B{b} {'bf16' if amp else 'f32'} {impl}" + (f" backprop_freq {k}" if k > 1
+                                                              else "")
+        out[name] = graph_case(model, card, raw[b], amp, impl, k)
+    fused, chain = out["B64 f32 auto"][1], out["B64 f32 auto backprop_freq 2"][1]
+    print("graph_accum", json.dumps(dict(
+        card=card, batch=64, dtype="float32", n=GRAPH_N,
+        **{f"{key}_{name}": bench[key] for name, bench in (("fused", fused), ("k2", chain))
+           for key in ("eager_step_ms", "replay_step_ms", "replay_busy_ms", "pool_mb")},
+        replay_busy_ms_added=round(chain["replay_busy_ms"] - fused["replay_busy_ms"], 3))),
+        flush=True)
+    return {name: launches for name, (launches, _) in out.items()}
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2432,15 +2539,20 @@ def _loader_item_ms(ds, n=256) -> dict:
 
 
 def _ckpt_agreement(path, ref_path) -> dict:
-    """A checkpoint against another: parameters, EMA twin and both moments,
-    each tensor's max error over its max|ref|; bit equality; counts."""
+    """A checkpoint against another: parameters, EMA twin, both moments and
+    the optax chain's accumulator where both have one, each tensor's max
+    error over its max|ref|; bit equality; counts (and the mini step)."""
     got, want = (torch.load(p, map_location="cpu", weights_only=True)
                  for p in (path, ref_path))
     worst, equal = 0.0, True
-    for a, b in ((got["state_dict"], want["state_dict"]),
-                 (got["target_state_dict"], want["target_state_dict"]),
-                 (got["optimizer"]["mu"], want["optimizer"]["mu"]),
-                 (got["optimizer"]["nu"], want["optimizer"]["nu"])):
+    trees = [(got["state_dict"], want["state_dict"]),
+             (got["target_state_dict"], want["target_state_dict"]),
+             (got["optimizer"]["mu"], want["optimizer"]["mu"]),
+             (got["optimizer"]["nu"], want["optimizer"]["nu"])]
+    if "acc_grads" in got["optimizer"] or "acc_grads" in want["optimizer"]:
+        trees.append((got["optimizer"].get("acc_grads", {}),
+                      want["optimizer"].get("acc_grads", {})))
+    for a, b in trees:
         if set(a) != set(b):
             return dict(max_err=float("inf"), bit_equal=False, same_counts=False)
         for k in b:
@@ -2448,8 +2560,10 @@ def _ckpt_agreement(path, ref_path) -> dict:
             worst = max(worst, ((a[k].float() - b[k].float()).abs().max()
                                 / b[k].float().abs().max().clamp_min(1e-30)).item())
     return dict(max_err=worst, bit_equal=equal,
-                same_counts=(got["iteration"], got["optimizer"]["count"])
-                == (want["iteration"], want["optimizer"]["count"]))
+                same_counts=(got["iteration"], got["optimizer"]["count"],
+                             got["optimizer"].get("mini_step"))
+                == (want["iteration"], want["optimizer"]["count"],
+                    want["optimizer"].get("mini_step")))
 
 
 def cli_agreement(argv):
@@ -2490,14 +2604,146 @@ def cli_agreement(argv):
     return errs, item_ms
 
 
-def _spy_trainers():
+def _jax_param_tree(sd) -> dict:
+    """A port TemporalAligner state dict as the JAX package's param tree
+    (exoground_tpu/utils/convert.py::convert_tan_state_dict's output; the
+    inverse of utils/convert.py::tan_state_dict_from_jax): Linear and
+    in_proj weights transposed back to kernels, LayerNorm weights as scales,
+    ``resblocks.i`` as ``resblocks_i``; the reference's unused ``mlp``,
+    which no JAX tree holds, left out."""
+    from exoground_tpu_torch.utils.convert import UNUSED_REFERENCE_KEYS
+
+    tree = {}
+    for key, v in sd.items():
+        if key in UNUSED_REFERENCE_KEYS:
+            continue
+        a = v.numpy()
+        *path, leaf = key.split(".")
+        if path and path[-1] == "out_proj":
+            path, leaf = path[:-1], f"out_proj_{leaf}"
+        if leaf.endswith("weight"):
+            leaf, a = (leaf[:-6] + "kernel", a.T) if a.ndim == 2 else ("scale", a)
+        node = tree
+        for i, name in enumerate(path):
+            if name.isdigit():
+                continue
+            if i + 1 < len(path) and path[i + 1].isdigit():
+                name = f"{name}_{path[i + 1]}"
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree
+
+
+def _msgpack(f, node) -> None:
+    """``node`` (dicts of str keys, str, int, float, numpy arrays and
+    scalars) written to ``f`` as flax.serialization.msgpack_serialize writes
+    it: an array as ext type 1, whose payload is the msgpack of (shape,
+    dtype name, C-order bytes)."""
+    if isinstance(node, dict):
+        n = len(node)
+        f.write(bytes([0x80 | n]) if n < 16 else struct.pack(">BH", 0xDE, n))
+        for k, v in node.items():
+            _msgpack(f, str(k))
+            _msgpack(f, v)
+    elif isinstance(node, str):
+        b = node.encode()
+        f.write((bytes([0xA0 | len(b)]) if len(b) < 32 else struct.pack(">BB", 0xD9, len(b)))
+                + b)
+    elif isinstance(node, float):
+        f.write(struct.pack(">Bd", 0xCB, node))
+    elif isinstance(node, int):
+        f.write(bytes([node]) if 0 <= node < 0x80 else struct.pack(">Bq", 0xD3, node))
+    else:
+        a = np.asarray(node)
+        if not a.flags.c_contiguous:
+            a = np.ascontiguousarray(a)
+        head = io.BytesIO()
+        head.write(bytes([0x93, 0x90 | a.ndim]))
+        for d in a.shape:
+            _msgpack(head, int(d))
+        _msgpack(head, a.dtype.name)
+        head.write(struct.pack(">BI", 0xC6, a.nbytes))
+        head = head.getvalue()
+        f.write(struct.pack(">BIb", 0xC9, len(head) + a.nbytes, 1) + head)
+        f.write(a.tobytes() if a.ndim == 0 else a.data)
+
+
+def write_jax_checkpoint(port_path, path) -> int:
+    """The port checkpoint at ``port_path`` written to ``path`` as the JAX
+    package writes its own (exoground_tpu/train/checkpoint.py::save_state:
+    one flax msgpack map of the JAX trainer's ``_ckpt_state``): the trees
+    through ``_jax_param_tree``, the optimizer's state in the JAX layout of
+    the port's (the fused ``{count, mu, nu}``, or the chain's
+    ``MultiStepsState`` under accumulation, nested as the committed
+    jax_tan_multisteps_k2 fixture holds it). Returns the file's bytes."""
+    import os
+
+    blob = torch.load(port_path, map_location="cpu", weights_only=True)
+    opt = blob["optimizer"]
+    count = np.int32(opt["count"])
+    state = {"count": count, "mu": _jax_param_tree(opt["mu"]), "nu": _jax_param_tree(opt["nu"])}
+    if "acc_grads" in opt:
+        state = {"mini_step": np.int32(opt["mini_step"]), "gradient_step": count,
+                 "inner_opt_state": {"0": {"0": state, "1": {"inner_state": {}},
+                                           "2": {"count": count}}},
+                 "acc_grads": _jax_param_tree(opt["acc_grads"]), "skip_state": {}}
+    with open(path, "wb") as f:
+        _msgpack(f, {"epoch": int(blob["epoch"]),
+                     "state_dict": _jax_param_tree(blob["state_dict"]),
+                     "best_acc": float(blob["best_acc"]), "optimizer": state,
+                     "iteration": int(blob["iteration"]),
+                     "target_state_dict": _jax_param_tree(blob["target_state_dict"])})
+    return os.path.getsize(path)
+
+
+def _host_cost(fn) -> tuple:
+    """fn()'s wall seconds and the host memory it took at its peak: the
+    process's resident set, sampled every millisecond by a thread over the
+    call (the reader and the bridge release the GIL in their copies), its
+    largest value less its value before, in MB."""
+    import os
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    before, peak, done = rss(), [0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], rss())
+            done.wait(1e-3)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        fn()
+    finally:
+        secs = time.perf_counter() - t0
+        done.set()
+        sampler.join()
+    return secs, (max(peak[0], rss()) - before) / 2**20
+
+
+def _spy_trainers(refs=None):
     """Record each TANTrainer the command line builds, and check each
     ``load_checkpoint`` as it returns: resume must restore the checkpoint's
-    parameters, EMA twin, optimizer state, iteration, epoch and best
-    exactly. Returns (trainers, loads, undo)."""
+    parameters, EMA twin, optimizer state (the accumulator and mini step
+    under accumulation), iteration, epoch and best exactly. ``refs`` maps a
+    JAX-format file to the port file it was written from
+    (``write_jax_checkpoint``), whose state it must restore (the unused
+    ``mlp``, in no JAX tree, aside). Each load's seconds and peak host MB
+    (``_host_cost``) go into ``costs``. Returns (trainers, loads, costs,
+    undo)."""
+    from exoground_tpu_torch.train import optimizer_state_dict
     from exoground_tpu_torch.train.trainer import TANTrainer
+    from exoground_tpu_torch.utils.convert import UNUSED_REFERENCE_KEYS
 
-    trainers, loads = [], []
+    refs = {} if refs is None else refs
+    trainers, loads, costs = [], [], []
     real_init, real_load = TANTrainer.__init__, TANTrainer.load_checkpoint
 
     def init(self, *a, **k):
@@ -2505,23 +2751,27 @@ def _spy_trainers():
         trainers.append(self)
 
     def load(self, path, mode="resume"):
-        real_load(self, path, mode)
-        blob = torch.load(path, map_location="cpu", weights_only=True)
+        secs, peak_mb = _host_cost(lambda: real_load(self, path, mode))
+        costs.append(dict(path=path, s=secs, peak_mb=peak_mb))
+        blob = torch.load(refs.get(path, path), map_location="cpu", weights_only=True)
+        skip = set(UNUSED_REFERENCE_KEYS) if path in refs else set()
 
         def same(got, want):
             return set(got) == set(want) and all(torch.equal(got[k].cpu(), want[k])
-                                                 for k in want)
+                                                 for k in set(want) - skip)
 
         rec = dict(mode=mode, params=same(self.params, blob["state_dict"]))
         if mode == "resume":
-            opt = blob["optimizer"]
+            opt, state = blob["optimizer"], optimizer_state_dict(self.opt_state)
             rec.update(ema=same(self.target_params, blob["target_state_dict"]),
-                       mu=same(self.opt_state.mu, opt["mu"]),
-                       nu=same(self.opt_state.nu, opt["nu"]),
-                       count=self.opt_state.count == opt["count"],
+                       mu=same(state["mu"], opt["mu"]), nu=same(state["nu"], opt["nu"]),
+                       count=state["count"] == opt["count"],
                        iteration=self.iteration == blob["iteration"],
                        start_epoch=self.start_epoch == blob["epoch"] + 1 == 1,
                        best_acc=self.best_acc == blob["best_acc"])
+            if "acc_grads" in opt:
+                rec.update(acc=same(state["acc_grads"], opt["acc_grads"]),
+                           mini_step=state["mini_step"] == opt["mini_step"])
         loads.append(rec)
 
     TANTrainer.__init__, TANTrainer.load_checkpoint = init, load
@@ -2529,14 +2779,17 @@ def _spy_trainers():
     def undo():
         TANTrainer.__init__, TANTrainer.load_checkpoint = real_init, real_load
 
-    return trainers, loads, undo
+    return trainers, loads, costs, undo
 
 
 def cli_path(card):
     """Phase 8: ``exoground_tpu_torch.train.main`` on the card over a seeded
-    tree (cotrain, 2 epochs, validation and HTM-Align every epoch), then
+    tree (cotrain, 2 epochs, validation and HTM-Align every epoch), the same
+    at ``--fused_steps 4``, ``--backprop_freq 2`` (and ``--resume`` from its
+    checkpoint written as a JAX file), ``--no-fused_optimizer``, then
     ``--resume`` from epoch 0 and ``--test``; each run counted; the card
-    against the CPU. Returns the first run's launches."""
+    against the CPU. Returns the launches of the first run, of the
+    ``--fused_steps 4`` run and of the optax chain's runs by their flags."""
     import glob
     import os
     import shutil
@@ -2552,7 +2805,9 @@ def cli_path(card):
     os.makedirs(build, exist_ok=True)
     work = tempfile.mkdtemp(prefix="cli_", dir=build)
     cwd = os.getcwd()
-    trainers, loads, undo = _spy_trainers()
+    jax0 = os.path.join(work, "jax_run", "model", "epoch0.pth.tar")
+    refs = {}  # the JAX-format file: the port file it was written from
+    trainers, loads, costs, undo = _spy_trainers(refs)
     try:
         t0 = time.perf_counter()
         root = make_htm_tree(os.path.join(work, "htm"), n_videos=CLI_VIDEOS, vlen=(200, 600),
@@ -2594,6 +2849,72 @@ def cli_path(card):
               f"{fused_vs_single}", flush=True)
         if not (fused_vs_single["max_err"] <= 1e-4 and fused_vs_single["same_counts"]):
             fail(f"--fused_steps {GRAPH_N} trained another model: {fused_vs_single}")
+
+        # the optax chain: --backprop_freq 2 at --fused_steps 1 and 4 (one
+        # epoch: 8 mini-batches, 4 updates), then --no-fused_optimizer; each
+        # within warmup, where one epoch's schedule is two epochs'
+        accum, accum_s = {}, {}
+        for n in (1, GRAPH_N):
+            best_k, accum_s[n], launches_k = run(["--backprop_freq", "2", "--fused_steps",
+                                                  str(n), "--epochs", "1", "--prefix",
+                                                  f"_k2f{n}"])
+            trk = trainers[-1]
+            steps_k = sum(s["steps"] for s in trk.epoch_stats)
+            captures = trk.fused_step.captures if trk.fused_step is not None else 1
+            if (steps_k != 8 or not np.isfinite(best_k) or captures != 1
+                    or getattr(trk.tx, "every_k", 1) != 2):
+                fail(f"cli --backprop_freq 2 --fused_steps {n}: {steps_k} steps (want 8), "
+                     f"best {best_k}, {captures} captures, optimizer {type(trk.tx).__name__}")
+            _check_counts(f"cli --backprop_freq 2 --fused_steps {n}", launches_k,
+                          _cli_expect(steps_k, 1, 1))
+            (path_k,) = glob.glob(os.path.join(work, f"log_k2f{n}", "*", "model",
+                                               "epoch0.pth.tar"))
+            accum[n] = (path_k, launches_k)
+        accum_vs_single = _ckpt_agreement(accum[GRAPH_N][0], accum[1][0])
+        print(f"cli --backprop_freq 2 --fused_steps {GRAPH_N} epoch-0 checkpoint vs "
+              f"--fused_steps 1: {accum_vs_single}", flush=True)
+        if not (accum_vs_single["bit_equal"] and accum_vs_single["same_counts"]):
+            fail(f"--backprop_freq 2 --fused_steps {GRAPH_N} trained another model: "
+                 f"{accum_vs_single}")
+        # the --backprop_freq 2 run's epoch-0 checkpoint (a MultiStepsState
+        # at full width) written again as a JAX package file, then --resume
+        # from it: the spy holds the restored state to the port file's
+        os.makedirs(os.path.dirname(jax0))  # --resume writes beside its file
+        refs[jax0] = accum[1][0]
+        t0 = time.perf_counter()
+        jax_mb = write_jax_checkpoint(accum[1][0], jax0) / 2**20
+        jax_write_s = time.perf_counter() - t0
+        best_j, jax_resume_s, launches_j = run(["--backprop_freq", "2", "--resume", jax0])
+        trj = trainers[-1]
+        steps_j = sum(s["steps"] for s in trj.epoch_stats)
+        if (not loads or loads[-1]["mode"] != "resume" or not all(loads[-1].values())
+                or "acc" not in loads[-1] or costs[-1]["path"] != jax0):
+            fail(f"--resume from the JAX-format file did not restore exactly: {loads[-1:]}")
+        if steps_j != 8 or not np.isfinite(best_j) or getattr(trj.tx, "every_k", 1) != 2:
+            fail(f"cli --backprop_freq 2 --resume <JAX file>: {steps_j} steps (want 8), "
+                 f"best {best_j}")
+        _check_counts("cli --backprop_freq 2 --resume <JAX file>", launches_j,
+                      _cli_expect(steps_j, 1, 1))
+        jax_resume = dict(file_mb=round(jax_mb, 1), write_s=round(jax_write_s, 2),
+                          load_checkpoint_s=round(costs[-1]["s"], 3),
+                          peak_host_mb=round(costs[-1]["peak_mb"], 1),
+                          run_s=round(jax_resume_s, 1), restored_bit_equal=True)
+        print(f"cli --resume from its --backprop_freq 2 checkpoint written as a JAX file: "
+              f"{jax_resume}", flush=True)
+
+        best_nf, nofused_s, launches_nf = run(["--no-fused_optimizer", "--epochs", "1",
+                                               "--prefix", "_nf"])
+        trn = trainers[-1]
+        if type(trn.tx).__name__ != "OptaxChain" or not np.isfinite(best_nf):
+            fail(f"--no-fused_optimizer: optimizer {type(trn.tx).__name__}, best {best_nf}")
+        _check_counts("cli --no-fused_optimizer", launches_nf,
+                      _cli_expect(sum(s["steps"] for s in trn.epoch_stats), 1, 1))
+        (e0n,) = glob.glob(os.path.join(work, "log_nf", "*", "model", "epoch0.pth.tar"))
+        chain_vs_fused = _ckpt_agreement(e0n, e0)
+        print(f"cli --no-fused_optimizer epoch-0 checkpoint vs the fused optimizer's: "
+              f"{chain_vs_fused}", flush=True)
+        if not (chain_vs_fused["max_err"] <= 1e-5 and chain_vs_fused["same_counts"]):
+            fail(f"--no-fused_optimizer trained another model: {chain_vs_fused}")
 
         best2, resume_s, launches2 = run(["--resume", e0])
         tr2 = trainers[-1]
@@ -2647,7 +2968,125 @@ def cli_path(card):
         launches={k: v for k, v in launches.items() if v},
         phase_s=round(time.perf_counter() - t_phase, 1))
     print("cli_bench", json.dumps(bench), flush=True)
-    return launches, launches4
+    print("cli_chain", json.dumps(dict(
+        card=card, backprop_freq_2_run_s={n: round(t, 1) for n, t in accum_s.items()},
+        backprop_freq_2_f4_vs_f1=dict(max_err=float(f"{accum_vs_single['max_err']:.3g}"),
+                                      bit_equal=accum_vs_single["bit_equal"]),
+        jax_file_resume=jax_resume, no_fused_optimizer_run_s=round(nofused_s, 1),
+        no_fused_vs_fused=dict(max_err=float(f"{chain_vs_fused['max_err']:.3g}"),
+                               bit_equal=chain_vs_fused["bit_equal"]))), flush=True)
+    return launches, launches4, {f"--backprop_freq 2 --fused_steps {n}": accum[n][1]
+                                 for n in accum} | {
+        "--backprop_freq 2 --resume <JAX file>": launches_j,
+        "--no-fused_optimizer": launches_nf}
+
+
+# ---------------------------------------------------------------- phase 8b
+# The committed JAX-written fixtures (tests/jax_tan_fixtures.py writes them
+# with the JAX package): the aligner's fields, the feature width and the
+# trainer's configuration they were trained with.
+JAX_FIXTURE_MODEL = dict(num_encoder_layers=1, num_joint_layers=1, width=32, heads=2,
+                         max_pos=64, use_alignability_head=1, random_pos_start=0)
+JAX_FIXTURE_DIM = 24
+JAX_FIXTURE_CONFIG = dict(model="cotrain", learn_agreement=1, loss_threshold=0.7,
+                          use_alignability_head=1, lr=1e-3, momentum_m=0.9, epochs=2, seed=0,
+                          print_freq=100)
+JAX_FIXTURE_LAYOUTS = {"fused": dict(), "multisteps_k2": dict(backprop_freq=2)}
+
+
+def _fixture_batch(seed, b=4, t=16, n=5) -> dict:
+    """tests/jax_tan_fixtures.py's ``batch``."""
+    rng = np.random.RandomState(seed)
+    start = rng.randint(0, t - 4, (b, n)).astype(np.float32)
+    return {"video": rng.randn(b, t, JAX_FIXTURE_DIM).astype(np.float32),
+            "text": rng.randn(b, n, JAX_FIXTURE_DIM).astype(np.float32),
+            "video_padding_mask": np.zeros((b, t), bool),
+            "text_padding_mask": np.zeros((b, n), bool), "start": start, "end": start + 2}
+
+
+def _fixture_trees(tr, blob) -> dict:
+    """name: (the trainer's tensors, the bridged file's) for the parameters,
+    EMA twin, moments and, under accumulation, the accumulator; the file's
+    keys are the ones compared (the reference's unused mlp is in no JAX
+    tree)."""
+    from exoground_tpu_torch.train import optimizer_state_dict
+
+    state, opt = optimizer_state_dict(tr.opt_state), blob["optimizer"]
+    trees = {"params": (tr.params, blob["state_dict"]),
+             "ema": (tr.target_params, blob["target_state_dict"]),
+             "mu": (state["mu"], opt["mu"]), "nu": (state["nu"], opt["nu"])}
+    if "acc_grads" in opt:
+        trees["acc"] = (state["acc_grads"], opt["acc_grads"])
+    return trees
+
+
+def jax_resume_path(card):
+    """Phase 8b: each committed JAX checkpoint resumed on the card by
+    TANTrainer.load_checkpoint (what --resume runs), every restored tensor
+    held bit for bit to the file's arrays, then one step against the same
+    resume and step on the CPU: the loss, and the parameters, EMA twin,
+    moments and accumulator after it (each tensor within 1e-3 of its
+    max|CPU|; the step must move the parameters: both fixtures' next step
+    is an update)."""
+    import os
+
+    from exoground_tpu_torch.models import TemporalAligner
+    from exoground_tpu_torch.train import ExperimentConfig, TANTrainer, optimizer_state_dict
+    from exoground_tpu_torch.train.checkpoint import load_state
+    from exoground_tpu_torch.utils.convert import tan_checkpoint_from_jax
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exoground_tpu_torch",
+                        "testdata")
+    out = {}
+    for layout, kw in JAX_FIXTURE_LAYOUTS.items():
+        path = os.path.join(here, f"jax_tan_{layout}.pth.tar")
+        t0 = time.perf_counter()
+        blob = tan_checkpoint_from_jax(load_state(path))
+        read_s = time.perf_counter() - t0
+        res = {}
+        for dev in ("cuda", "cpu"):
+            torch.manual_seed(1)  # not the file's weights: the resume brings them
+            tr = TANTrainer(TemporalAligner(**JAX_FIXTURE_MODEL, video_dim=JAX_FIXTURE_DIM,
+                                            text_dim=JAX_FIXTURE_DIM, device=dev),
+                            ExperimentConfig(**JAX_FIXTURE_CONFIG, **kw), iters_per_epoch=4,
+                            device=dev)
+            tr.tx.eps = 1e-3  # the fixtures' Adam eps
+            t0 = time.perf_counter()
+            tr.load_checkpoint(path, mode="resume")
+            load_s = time.perf_counter() - t0
+            trees = _fixture_trees(tr, blob)
+            unequal = [f"{name} {k}" for name, (got, want) in trees.items() for k in want
+                       if not torch.equal(got[k].cpu(), want[k])]
+            state = optimizer_state_dict(tr.opt_state)
+            counts = ((state["count"], state.get("mini_step"), tr.iteration)
+                      == (blob["optimizer"]["count"], blob["optimizer"].get("mini_step"),
+                          blob["iteration"]))
+            if unequal or not counts:
+                fail(f"resume from the JAX file {layout} on {dev}: unequal {unequal[:4]}, "
+                     f"counts {counts}")
+            loss = tr.train_epoch([_fixture_batch(10)], 1)
+            state = optimizer_state_dict(tr.opt_state)
+            after = {name: {k: got[k].float().cpu() for k in want}
+                     for name, (got, want) in _fixture_trees(tr, blob).items()}
+            res[dev] = (loss, load_s, after, (state["count"], state.get("mini_step")))
+        rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        # the state after the step, each tensor's max error over its max|CPU|
+        got, want = res["cuda"][2], res["cpu"][2]
+        worst = {name: max((got[name][k] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                           for k, w in want[name].items()) for name in want}
+        moved = max((want["params"][k] - w).abs().max().item()
+                    for k, w in blob["state_dict"].items())
+        out[layout] = dict(file_kb=round(os.path.getsize(path) / 1024, 1),
+                           read_s=round(read_s, 4), load_checkpoint_s=round(res["cuda"][1], 4),
+                           loss=res["cuda"][0], loss_cpu=res["cpu"][0],
+                           loss_rel=float(f"{rel:.3g}"), restored_bit_equal=True,
+                           after_step={k: float(f"{v:.3g}") for k, v in worst.items()},
+                           counts=res["cuda"][3])
+        if (not np.isfinite(res["cuda"][0]) or not rel <= 1e-4 or not moved > 0
+                or res["cuda"][3] != res["cpu"][3] or not max(worst.values()) <= 1e-3):
+            fail(f"the step after resuming {layout} on the card disagrees with the CPU "
+                 f"(parameters moved {moved:.3g}): {out[layout]}")
+    print("jax_resume", json.dumps(dict(card=card, **out)), flush=True)
 
 
 def main():
@@ -2781,6 +3220,7 @@ def main():
     launches.update({k: train_launches[k] for k in ("milnce_grid_fwd", "milnce_grid_bwd")})
     train_flash_agreement(model)
     flash_train_launches, _ = train_path(model, card, attn_impl="flash")
+    train_chain_agreement(model)
 
     mark("5b")
     # phase 5b: the train step replayed as a CUDA graph, counted by replay
@@ -2808,7 +3248,11 @@ def main():
     mark("8")
     # phase 8: the training command line, counted (this slice's main path),
     # at --fused_steps 1 and 4
-    cli_launches, cli_fused_launches = cli_path(card)
+    cli_launches, cli_fused_launches, cli_chain_launches = cli_path(card)
+
+    mark("8b")
+    # phase 8b: the JAX package's checkpoints resumed on the card
+    jax_resume_path(card)
     small_launches = {"grounding attn_impl=small (phase 7)": launches["small_attn"],
                       **small_launches}
 
@@ -2904,6 +3348,9 @@ def main():
             e["launches_by_path"]["training command line (phase 8)"] = cli_launches[e["name"]]
             e["launches_by_path"][f"training command line --fused_steps {GRAPH_N} (phase 8)"] = (
                 cli_fused_launches[e["name"]])
+            for flags, n in cli_chain_launches.items():
+                e["launches_by_path"][f"training command line {flags} (phase 8)"] = (
+                    n[e["name"]])
     mark(None)
     print("phase_s", json.dumps(phase_s), flush=True)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)

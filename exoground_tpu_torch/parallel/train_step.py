@@ -4,11 +4,13 @@ Counterpart of ``exoground_tpu/parallel/train_step.py::make_tan_train_step``
 (:129-303) without the data-parallel axis: one call runs the online forward
 (random pos start from a ``torch.Generator``), the EMA teacher forward under
 ``torch.no_grad()`` with ``deterministic=True``, ``tan_loss``, backward, and
-``FusedAdamWEMA.step`` with the EMA update. The whole step runs inside
-``disable_fused_kernels()``, as the JAX step traces under it, so the model
-takes its plain compositions; on the card the MIL-NCE grid kernel carries
-the loss's denominators (2 forward and 2 backward launches per step, dual
-and joint).
+the optimizer's update with the EMA twin's: ``FusedAdamWEMA`` or the optax
+chain (``OptaxChain``: gradient accumulation, global-norm clipping), both
+behind one protocol, so the step has no branch on the optimizer. The whole
+step runs inside ``disable_fused_kernels()``, as the JAX step traces under
+it, so the model takes its plain compositions; on the card the MIL-NCE grid
+kernel carries the loss's denominators (2 forward and 2 backward launches
+per step, dual and joint).
 
 With ``text_tower_params`` (the frozen word2vec tower's tensors) a batch
 may carry 'token' (B, N, L) ids in place of 'text' features: the tower
@@ -17,7 +19,8 @@ weights cast once to the compute dtype, as the JAX step casts them.
 
 A step has a host half and a device half. The host half (``draw``) takes
 the random pos starts from the ``torch.Generator`` and the optimizer's
-(lr, bc1, bc2) for the step's count; the device half (``device_step``)
+scalars for the step's count (lr, bc1, bc2, and under accumulation emit and
+the mini step + 1); the device half (``device_step``)
 reads them as small tensors on the card and does everything else: no host
 read, no host-to-device copy of a pageable buffer, nothing that a CUDA
 graph capture forbids.
@@ -30,9 +33,11 @@ then captures them as one ``torch.cuda.CUDAGraph`` over static input
 buffers; every later call copies its batches, starts and scalars into those
 buffers and replays the graph (the grid kernel's launches, and flash's under
 ``attn_impl='flash'``, are inside it). Parameters, the EMA twin and the
-moments are updated in place, so the graph's addresses stay theirs; a
-tensor that moved (replaced, not updated in place) makes the runner capture
-anew before it replays.
+moments (and the accumulator of gradient accumulation) are updated in
+place, so the graph's addresses stay theirs; a tensor that moved (replaced,
+not updated in place) makes the runner capture anew before it replays. Under
+accumulation over k mini-batches the graph updates on the k-th of each, as
+the eager step does: the emit flag is a replayed scalar, not a branch.
 
 ``TanEvalStep`` is the JAX ``make_tan_eval_step`` (:607-676) on one device:
 inference-shaped, under ``torch.no_grad()`` with the kernels on (fused MHA
@@ -142,7 +147,8 @@ class TanTrainStep:
     def draw(self, batch: Dict[str, torch.Tensor], generator, count: int):
         """The host half of the step that reads optimizer count ``count``:
         (its pos starts, (k,) int64, ``TemporalAligner.draw_pos_starts``;
-        the optimizer's (3,) float32 scalars). ``batch`` may be stacked."""
+        the optimizer's float32 scalars, ``optimizer.scalars(count)``).
+        ``batch`` may be stacked."""
         return (self.model.draw_pos_starts(generator, *_lengths(batch)).numpy(),
                 self.optimizer.scalars(count))
 
@@ -204,8 +210,9 @@ class TanTrainStep:
 
 
 def _addresses(params, target, opt_state) -> tuple:
-    return tuple(t.data_ptr() for d in (params, target, opt_state.mu, opt_state.nu)
-                 for t in d.values())
+    """Every tensor a step updates in place, the accumulator too."""
+    trees = (params, target, opt_state.mu, opt_state.nu, getattr(opt_state, "acc_grads", {}))
+    return tuple(t.data_ptr() for d in trees for t in d.values())
 
 
 class _Graph:
@@ -299,7 +306,8 @@ class TanScanStep:
         static = {k: torch.empty_like(v) for k, v in batches.items()}
         k = len(self.single.model.pos_start_lengths(*_lengths(batches)))
         starts = torch.zeros((self.n, k), dtype=torch.int64, device=dev)
-        scalars = torch.ones((self.n, 3), dtype=torch.float32, device=dev)
+        width = len(self.single.optimizer.scalars(0))
+        scalars = torch.ones((self.n, width), dtype=torch.float32, device=dev)
         graph = torch.cuda.CUDAGraph()
         with _kernels.captured_launches() as launches, torch.cuda.graph(
                 graph, stream=self._stream, capture_error_mode="thread_local"):

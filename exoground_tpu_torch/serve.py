@@ -13,7 +13,8 @@ Counterpart of ``exoground_tpu/serve.py`` for these paths:
     ``GroundingModel``; a request is one video window plus narration
     embeddings, the response per-narration (start, end) in [0, 1] of the
     window. Requests are bucketed by padded narration count, one forward
-    per bucket.
+    per bucket. ``from_checkpoint`` serves a JAX package checkpoint file
+    (flax msgpack, read without ``msgpack`` or ``flax``).
   * ``_CoalescingFront`` — concurrent ``align()`` / ``ground()`` calls
     coalesce into one batched call (the evaluator packs up to
     ``group_videos`` videos per device pass; a grounding bucket is one
@@ -312,6 +313,27 @@ class GroundingService:
         # concurrent ground() calls coalesce into bucket-batched forwards
         self._front = _CoalescingFront(
             lambda reqs, ucd: self.ground_batch(reqs, use_center_duration=ucd))
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_path: str, model=None, device="cuda", **kw):
+        """Serve a JAX package checkpoint file (the JAX ``from_checkpoint``,
+        serve.py:440-446): its ``state_dict`` through
+        ``grounding_state_dict_from_jax`` into ``model``, by default a
+        ``GroundingModel`` without a view-invariant pre-pass at the fields of
+        the JAX default ``ExoGroundingTransformer()``. Every key of the model
+        must be filled (``load_grounding_params``)."""
+        from exoground_tpu_torch.models.grounding import GroundingModel
+        from exoground_tpu_torch.train.checkpoint import checkpoint_format, load_state
+        from exoground_tpu_torch.utils.convert import load_grounding_params
+
+        if checkpoint_format(checkpoint_path) != "flax_msgpack":
+            raise ValueError(f"{checkpoint_path} is not a JAX package checkpoint; the port's "
+                             "own grounding checkpoints come with ROADMAP.md queue 1 item 7")
+        blob = load_state(checkpoint_path)
+        model = model if model is not None else GroundingModel(vi_encoder_type="none",
+                                                               device="cpu")
+        load_grounding_params(model, blob["state_dict"])
+        return cls(model, device=device, **kw)
 
     def _run(self, host: np.ndarray, b: int, kpad: int, dv: int, dt: int) -> np.ndarray:
         """One forward of a bucket from its packed float32 host buffer

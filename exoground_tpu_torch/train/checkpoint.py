@@ -15,8 +15,14 @@ Lifecycle as utils/utils.py:23-57 of the reference:
   * save_runtime_checkpoint: a timestamped snapshot, keeping only the newest;
   * load modes (the trainer's ``load_checkpoint``): resume, pretrain, test.
 
-The JAX package's msgpack checkpoints need ``msgpack``; reading them waits
-for a later slice (ROADMAP.md, queue 1 item 4).
+``load_state`` also reads the JAX package's checkpoint files (one flax
+msgpack map, ``exoground_tpu/train/checkpoint.py:32-51``) through the
+port's own pure-Python reader (``utils/flax_msgpack.py``): it tells the two
+formats apart by their first bytes (``checkpoint_format``) and returns the
+JAX file's tree as flax would, which ``utils/convert.py::
+tan_checkpoint_from_jax`` bridges to this module's layout. An orbax
+checkpoint directory (the JAX ``load_state_orbax``) raises
+``NotImplementedError``: it waits for ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -28,6 +34,10 @@ from datetime import datetime
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+from exoground_tpu_torch.utils import flax_msgpack
+
+_ZIP = b"PK\x03\x04"  # torch.save's zip container
 
 
 def _to_cpu(tree):
@@ -45,8 +55,31 @@ def save_state(path: str, state: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+def checkpoint_format(path: str) -> str:
+    """'torch' (a ``torch.save`` zip) or 'flax_msgpack' (the JAX package's
+    file: a msgpack map), from the file's first bytes; anything else raises
+    ``ValueError``, an orbax directory ``NotImplementedError``."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax checkpoint?): reading orbax checkpoints "
+            "waits for a later slice of the port (ROADMAP.md, queue 1 item 11)")
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == _ZIP:
+        return "torch"
+    if head and head[0] in flax_msgpack.MAP_MARKERS:
+        return "flax_msgpack"
+    raise ValueError(f"{path} is neither a torch.save zip nor a flax msgpack checkpoint "
+                     f"(first bytes {head!r})")
+
+
 def load_state(path: str) -> Dict[str, Any]:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The checkpoint at ``path``: a port file as ``torch.load`` reads it
+    (tensors on the CPU), a JAX package file as ``flax.serialization.
+    msgpack_restore`` would return it (``flax_msgpack``)."""
+    if checkpoint_format(path) == "torch":
+        return torch.load(path, map_location="cpu", weights_only=True)
+    return flax_msgpack.load(path)
 
 
 def save_checkpoint(state: Dict[str, Any], is_best: bool = False, gap: int = 1,

@@ -6,7 +6,12 @@ Counterpart of ``exoground_tpu/train/main.py`` (``main`` :179, ``build_model``
 cotrain on HowTo100M features, with the frozen word2vec tower inside the
 step, a validation loss and the in-loop HTM-Align eval every
 ``--eval_freq`` epochs, and a checkpoint every epoch; ``--resume``,
-``--pretrain`` and ``--test`` load them back.
+``--pretrain`` and ``--test`` load them back, or load the JAX package's
+checkpoint files (flax msgpack, told apart by their first bytes: no flag),
+so a run trained with the JAX package continues here. The optimizer is the
+JAX command line's: fused AdamW, or the optax chain under
+``--no-fused_optimizer`` or ``--backprop_freq k`` (gradient accumulation over
+k mini-batches, also inside the replayed graph of ``--fused_steps``).
 
 The command line always takes the card (``main`` raises without one);
 ``main(argv, device="cpu")`` runs the plain path on the CPU, as the tests

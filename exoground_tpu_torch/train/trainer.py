@@ -3,12 +3,17 @@
 Counterpart of ``exoground_tpu/train/trainer.py`` (``BaseTrainer`` and
 ``TANTrainer``, reference train/main.py:36-544) over the port's
 single-device steps (``parallel/train_step.py``): the online parameters are
-the model's own, the EMA twin is a dictionary beside them, and
-``FusedAdamWEMA`` updates both in place.
+the model's own, the EMA twin is a dictionary beside them, and the optimizer
+updates both in place: ``FusedAdamWEMA`` under ``--fused_optimizer`` (the
+default) when it can serve the configuration, else the optax chain
+(``make_optimizer``: ``--backprop_freq`` accumulation, global-norm
+clipping, ``--no-fused_optimizer``), chosen as the JAX ``_build_optimizer``
+chooses (trainer.py:56-71).
 
 ``BaseTrainer`` holds what the JAX one does on one device: checkpoints
 (``save_epoch``, ``maybe_save_runtime`` on an iteration threshold,
-``load_checkpoint`` in resume / pretrain / test mode), batches copied to
+``load_checkpoint`` in resume / pretrain / test mode, from the port's
+files or the JAX package's msgpack files), batches copied to
 the card one ahead of the step through pinned buffers (``_prefetched``,
 depth 2 as in the JAX package; ``_prefetched_groups`` stacks
 ``fused_steps`` of them into one upload), and the shared
@@ -26,9 +31,6 @@ so the parameters follow the same path whatever N is.
 The random pos-start generator is not saved in a checkpoint (the JAX
 package does not save its key either), so a resumed run is not a
 bit-exact continuation: it restarts the generator from ``cfg.seed``.
-
-Still raising, with the ROADMAP item that brings them (queue 1 item 4):
-gradient accumulation and global-norm clipping.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from exoground_tpu_torch.losses.milnce import TANLossConfig
 from exoground_tpu_torch.models.ema import ema_init
 from exoground_tpu_torch.parallel.train_step import make_tan_eval_step, make_tan_train_step
 from exoground_tpu_torch.train.checkpoint import (
+    checkpoint_format,
     load_state,
     restore_into,
     save_checkpoint,
@@ -54,11 +57,29 @@ from exoground_tpu_torch.train.checkpoint import (
 )
 from exoground_tpu_torch.train.config import ExperimentConfig
 from exoground_tpu_torch.train.logging import AsyncWriter, DeviceMonitor, Timer
-from exoground_tpu_torch.train.optim import make_fused_optimizer
+from exoground_tpu_torch.train.optim import (
+    adapt_optimizer_state,
+    make_fused_optimizer,
+    make_optimizer,
+    optimizer_state_dict,
+)
+from exoground_tpu_torch.utils.convert import tan_checkpoint_from_jax
 from exoground_tpu_torch.utils.device import resolve_device
 from exoground_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
-_LATER = "a later slice of the port (ROADMAP.md, queue 1 item 4)"
+
+def _build_optimizer(cfg: ExperimentConfig, params, total_iterations: int, **kw):
+    """The fused single-pass AdamW when ``cfg.fused_optimizer`` is set and it
+    can serve the configuration, else the optax chain (the JAX
+    ``_build_optimizer``, trainer.py:56-71). Both share the step protocol
+    and the checkpoint layout (``optimizer_state_dict``)."""
+    opt_kw = dict(lr=cfg.lr, weight_decay=cfg.wd, total_iterations=total_iterations,
+                  grad_clip=cfg.clip_grad or None, accumulate_steps=cfg.backprop_freq, **kw)
+    if cfg.fused_optimizer:
+        fused = make_fused_optimizer(params, moment_dtype=cfg.opt_moment_dtype, **opt_kw)
+        if fused is not None:
+            return fused
+    return make_optimizer(params, **opt_kw)
 
 
 def _ragged_to_arrays(start: List, end: List, n_bucket: int):
@@ -115,8 +136,7 @@ class BaseTrainer:
             "epoch": epoch,
             "state_dict": self.params,
             "best_acc": self.best_acc,
-            "optimizer": {"count": self.opt_state.count, "mu": self.opt_state.mu,
-                          "nu": self.opt_state.nu},
+            "optimizer": optimizer_state_dict(self.opt_state),
             "iteration": self.iteration,
         }
         if getattr(self, "is_cotrain", False):
@@ -143,10 +163,15 @@ class BaseTrainer:
     def load_checkpoint(self, path: str, mode: str = "resume"):
         """resume: parameters, EMA twin, optimizer state, iteration, epoch
         and best; pretrain / test: parameters (and the twin) only, non-strict
-        (reference main.py:452-484)."""
+        (reference main.py:452-484). ``path`` is the port's checkpoint or the
+        JAX package's msgpack one (``checkpoint_format``), bridged by
+        ``tan_checkpoint_from_jax``; the optimizer state of either layout is
+        adapted to this trainer's optimizer (``adapt_optimizer_state``)."""
         if mode not in ("resume", "pretrain", "test"):
             raise ValueError(f"checkpoint mode {mode!r}: resume, pretrain or test")
         blob = load_state(path)
+        if checkpoint_format(path) == "flax_msgpack":
+            blob = tan_checkpoint_from_jax(blob)
         restore_into(self.params, blob["state_dict"])
         if mode == "resume":
             self.iteration = int(blob.get("iteration", 0))
@@ -155,10 +180,8 @@ class BaseTrainer:
             self.start_epoch = int(blob.get("epoch", 0)) + 1
             self.best_acc = float(blob.get("best_acc", self.best_acc))
             opt = blob.get("optimizer")
-            if opt is not None:
-                self.opt_state.count = int(opt["count"])
-                restore_into(self.opt_state.mu, opt["mu"])
-                restore_into(self.opt_state.nu, opt["nu"])
+            if opt is not None and adapt_optimizer_state(self.opt_state, opt) is None:
+                print("[checkpoint] optimizer state not restored: no count / mu / nu")
         if getattr(self, "target_params", None) is not None:
             restore_into(self.target_params, blob.get("target_state_dict", blob["state_dict"]))
 
@@ -307,15 +330,8 @@ class TANTrainer(BaseTrainer):
         self.params = {k: p.detach() for k, p in self.model.named_parameters()}
         self.is_cotrain = cfg.model == "cotrain"
         self.target_params = ema_init(self.params)
-        self.tx = make_fused_optimizer(
-            self.params, lr=cfg.lr, weight_decay=cfg.wd,
-            total_iterations=cfg.epochs * iters_per_epoch, grad_clip=cfg.clip_grad or None,
-            accumulate_steps=cfg.backprop_freq, policy=cfg.optim_policy,
-            moment_dtype=cfg.opt_moment_dtype)
-        if self.tx is None:
-            raise NotImplementedError(
-                "gradient accumulation and global-norm clipping need the optax-chain "
-                f"optimizer, which waits for {_LATER}")
+        self.tx = _build_optimizer(cfg, self.params, cfg.epochs * iters_per_epoch,
+                                   policy=cfg.optim_policy)
         self.opt_state = self.tx.init(self.params)
         step = make_tan_train_step(
             self.model, self.loss_cfg, self.tx,

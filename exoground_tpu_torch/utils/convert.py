@@ -13,6 +13,13 @@ transformer):
   LayerNorm scale / bias           -> weight / bias
   pos tables                       -> as they are
 
+``tan_checkpoint_from_jax`` bridges a whole JAX TAN checkpoint (as
+``train/checkpoint.py::load_state`` reads the JAX package's msgpack file)
+to the port's checkpoint layout: parameters, the EMA twin and Adam's moments
+through ``tan_state_dict_from_jax`` (the bridge is linear, transposes only,
+so moments map as their parameters do), the count, and the accumulator and
+mini step of a ``MultiStepsState``.
+
 The port's module names are the reference's torch state-dict names, so a
 reference checkpoint needs no mapping at all (``load_reference_state``).
 ``load_torch_checkpoint`` and ``convert_word2vec_from_s3d`` read the MIL-NCE
@@ -36,11 +43,21 @@ UNUSED_REFERENCE_KEYS = ("mlp.weight", "mlp.bias")
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    """A float32 CPU tensor of ``a``: a numpy or JAX array, or a tensor (the
+    msgpack reader's bfloat16 arrays)."""
+    if torch.is_tensor(a):
+        return a.float().contiguous()
+    a = np.ascontiguousarray(np.asarray(a, dtype=np.float32))
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _tt(a) -> torch.Tensor:
+    """``_t`` of a transposed 2-d array."""
+    return _t(a).T.contiguous()
 
 
 def _dense(out, key, p, bias=True):
-    out[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    out[f"{key}.weight"] = _tt(p["kernel"])
     if bias and "bias" in p:
         out[f"{key}.bias"] = _t(p["bias"])
 
@@ -51,9 +68,9 @@ def _ln(out, key, p):
 
 
 def _attn(out, key, p):
-    out[f"{key}.in_proj_weight"] = _t(np.asarray(p["in_proj_kernel"]).T)
+    out[f"{key}.in_proj_weight"] = _tt(p["in_proj_kernel"])
     out[f"{key}.in_proj_bias"] = _t(p["in_proj_bias"])
-    out[f"{key}.out_proj.weight"] = _t(np.asarray(p["out_proj_kernel"]).T)
+    out[f"{key}.out_proj.weight"] = _tt(p["out_proj_kernel"])
     out[f"{key}.out_proj.bias"] = _t(p["out_proj_bias"])
 
 
@@ -95,6 +112,45 @@ def tan_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             out[table] = _t(p[table])
     if "binary_head" in p:
         _dense(out, "binary_head", p["binary_head"])
+    return out
+
+
+def find_adam(node):
+    """The first map holding count, mu and nu in an optimizer state tree:
+    ``FusedAdamWState`` itself, or the optax chain's ``ScaleByAdamState``
+    wherever it nests (the JAX ``adapt_optimizer_state``'s ``find_adam``,
+    train/optim.py:295-303)."""
+    if isinstance(node, Mapping):
+        if {"count", "mu", "nu"} <= set(node):
+            return node
+        for v in node.values():
+            hit = find_adam(v)
+            if hit is not None:
+                return hit
+    return None
+
+
+def tan_checkpoint_from_jax(blob: Mapping) -> Dict:
+    """A JAX TAN checkpoint's tree (``epoch``, ``state_dict``, ``best_acc``,
+    ``optimizer``, ``iteration`` [, ``target_state_dict``]: the JAX
+    trainer's ``_ckpt_state``, trainer.py:110-125) -> the port's checkpoint
+    layout (``train/optim.py::optimizer_state_dict``): the trees through
+    ``tan_state_dict_from_jax``, the optimizer's Adam count / mu / nu from
+    either JAX layout, and ``mini_step`` / ``acc_grads`` of a
+    ``MultiStepsState``; epoch, iteration and best carried as they are."""
+    out = {k: blob[k] for k in ("epoch", "iteration", "best_acc") if k in blob}
+    out["state_dict"] = tan_state_dict_from_jax(blob["state_dict"])
+    if "target_state_dict" in blob:
+        out["target_state_dict"] = tan_state_dict_from_jax(blob["target_state_dict"])
+    opt = blob.get("optimizer")
+    adam = find_adam(opt)
+    if adam is not None:
+        out["optimizer"] = {"count": int(adam["count"]),
+                            "mu": tan_state_dict_from_jax(adam["mu"]),
+                            "nu": tan_state_dict_from_jax(adam["nu"])}
+        if {"mini_step", "acc_grads"} <= set(opt):
+            out["optimizer"].update(mini_step=int(opt["mini_step"]),
+                                    acc_grads=tan_state_dict_from_jax(opt["acc_grads"]))
     return out
 
 

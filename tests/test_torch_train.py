@@ -424,5 +424,14 @@ def test_tan_trainer_train_epoch_end_to_end():
     assert trainer.iteration == 6
     assert not torch.equal(tm.binary_head.weight, p0)  # the module's own weights moved
     assert not torch.equal(trainer.target_params["binary_head.weight"], t0)  # EMA moved
-    with pytest.raises(NotImplementedError):  # gradient accumulation: a later slice
-        TANTrainer(tm, ExperimentConfig(model="init", backprop_freq=2), device="cpu")
+    # gradient accumulation (the optax chain): the trainer builds and steps;
+    # the parameters move on the second of each two mini-batches only, and
+    # not on the first such update, whose warmup lr is 0
+    acc = TANTrainer(tm, ExperimentConfig(model="init", backprop_freq=2, lr=1e-3),
+                     iters_per_epoch=3, device="cpu")
+    p1 = tm.video_pre_proj.weight.detach().clone()
+    acc.train_epoch(raw, 0)
+    assert torch.equal(tm.video_pre_proj.weight, p1)
+    acc.train_epoch(raw[:1], 1)
+    assert not torch.equal(tm.video_pre_proj.weight, p1)
+    assert acc.iteration == acc.opt_state.count == 4 and acc.opt_state.every_k == 2
