@@ -248,6 +248,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      1e-4 relative; the parameters, EMA twin, moments and accumulator after
      it within 1e-3 of each tensor's max|CPU|, the parameters moved); one
      `jax_resume {...}` line with the file's read seconds.
+  9. grounding training through the command line: ``exoground_tpu_torch.train.main``
+     with the repo's scripts' flags (scripts/train_vi.sh, train_grounding.sh,
+     train_joint_model.sh, train_joint_model_lemma.sh; E6D6 width 512, 8 heads,
+     4096-d EgoVLPv2 video and narration features, seq 64, B16), one epoch each
+     over seeded trees under build/ (tools/synth_egoexo.py, takes with an ego
+     and 4 exo cameras: 4 training takes of 220 s for the view-invariant and
+     grounding scripts, 2 of 180 s for the joint script, whose curriculum
+     makes 11 windows a start, each tree with 1 validation and 1 test take;
+     LEMMA 3 videos of 200 s and 1 each to validate and test; at least 512
+     training windows a script but LEMMA's): the view-invariant run,
+     the grounding run on its checkpoint (--vi_encoder_path) and --resume from
+     its epoch-0 checkpoint for a second epoch, the joint run
+     eager, at --fused_steps 4 (its epoch-0 checkpoint bit for bit the eager
+     run's, one capture, the replays' pos starts not all equal), --amp and
+     --attn_impl flash, test_joint_model.sh's --test on the eager checkpoint
+     (the IoU by camera rank) and the LEMMA run; each counted (24 fused MHA +
+     24 fused MLP a validation forward, none in the train steps, flash
+     forward, dq and dk/dv in the flash run's steps, nothing else); then the
+     card against the CPU on the joint model from the same seed: the eval step
+     on the first validation batch (24 + 24 launches; scalars 1e-4 relative or
+     1e-6 absolute, the IoU>=θ fractions within one narration, the IoU map
+     1e-4 of max|CPU|), the eval forward's interval predictions and
+     high-dim features there (1e-4 of max|CPU|; an untrained model's IoU
+     map is mostly 0, so the predictions carry the check)
+     and one train step (metrics as the scalars); one `gnd_bench {...}` line a
+     training run (samples/s over the epoch and its second half before the
+     last 8 steps, which are profiled for the device's busy ms a step and idle
+     share; validation ms), `gnd_agreement {...}` and `gnd_phase {...}`. The
+     trees are removed after.
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
@@ -2539,14 +2568,14 @@ def _loader_item_ms(ds, n=256) -> dict:
 
 
 def _ckpt_agreement(path, ref_path) -> dict:
-    """A checkpoint against another: parameters, EMA twin, both moments and
+    """A checkpoint against another: parameters, EMA twin (if any), both moments and
     the optax chain's accumulator where both have one, each tensor's max
     error over its max|ref|; bit equality; counts (and the mini step)."""
     got, want = (torch.load(p, map_location="cpu", weights_only=True)
                  for p in (path, ref_path))
     worst, equal = 0.0, True
     trees = [(got["state_dict"], want["state_dict"]),
-             (got["target_state_dict"], want["target_state_dict"]),
+             (got.get("target_state_dict", {}), want.get("target_state_dict", {})),
              (got["optimizer"]["mu"], want["optimizer"]["mu"]),
              (got["optimizer"]["nu"], want["optimizer"]["nu"])]
     if "acc_grads" in got["optimizer"] or "acc_grads" in want["optimizer"]:
@@ -3089,6 +3118,278 @@ def jax_resume_path(card):
     print("jax_resume", json.dumps(dict(card=card, **out)), flush=True)
 
 
+# ---------------------------------------------------------------- phase 9
+# The grounding scripts' configuration (scripts/train_*.sh: E6D6, width 512,
+# 8 heads, 4096-d EgoVLPv2 video and narration features, seq 64, B16) over
+# seeded trees (tools/synth_egoexo.py) cut in scale only, each take with an ego
+# camera and 4 exo cameras: for the view-invariant and grounding scripts 4
+# training takes of 220 s (512 windows, 32 steps), 1 validation and 1 test
+# take (128 windows, 8 batches); for the joint script, whose curriculum makes
+# 11 windows of each start (every pair of the 5 cameras and the ego alone), 2
+# training takes of 180 s (528 windows, 33 steps), 1 validation and 1 test
+# take (96 windows, 6 batches); LEMMA 3 training videos of 200 s (84
+# windows) and 1 each to validate and test.
+GND_TAKES, GND_SECONDS = {"train": 4, "val": 1, "test": 1}, 220
+GND_JOINT_TAKES, GND_JOINT_SECONDS = {"train": 2, "val": 1, "test": 1}, 180
+GND_LEMMA, GND_LEMMA_SECONDS = {"train": 3, "val": 1, "test": 1}, 200
+GND_PROFILED = 8  # steps at an epoch's end profiled for the device's busy time
+_GND_EGO = ["--dataset", "egoexo4d", "--batch_size", "16", "--num_workers", "0",
+            "--use_keysteps", "--views", "all", "--exos", "all", "--print_freq", "100"]
+GND_SCRIPTS = {
+    "vi": _GND_EGO + ["--epochs", "1", "--model", "view_invariant", "--use_distill_nce_loss",
+                      "--minimum_four_exo_takes", "--same_view_negative"],
+    "grounding": _GND_EGO + ["--epochs", "1", "--model", "grounding",
+                             "--minimum_four_exo_takes"],
+    "joint": _GND_EGO + ["--epochs", "1", "--model", "joint", "--minimum_four_exo_takes",
+                         "--use_distill_nce_loss", "--same_view_negative", "--curriculum_train"],
+    "lemma": ["--dataset", "lemma", "--batch_size", "16", "--num_workers", "0",
+              "--use_keysteps", "--views", "all", "--exos", "all", "--print_freq", "100",
+              "--epochs", "1", "--model", "joint", "--use_distill_nce_loss"],
+}
+GND_TEST_JOINT = _GND_EGO + ["--model", "joint", "--minimum_four_exo_takes",
+                             "--use_distill_nce_loss", "--same_view_negative"]
+GND_FWD = 24  # fused MHA and fused MLP launches a grounding forward (E6D6)
+
+
+def _gnd_close(label, got, want, n_valid) -> float:
+    """The card's scalars against the CPU's: 1e-4 relative or 1e-6 absolute
+    (a cosine near 0), the IoU>=θ fractions within one narration's share (an
+    IoU at θ may fall either side), the weights equal. Returns the largest
+    relative error of the scalars above 1e-2 in size."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if k.startswith("_"):
+            ok = g == w
+        elif k.startswith("IoU>="):
+            ok = abs(g - w) <= 1.0 / max(n_valid, 1) + 1e-6
+        else:
+            err = abs(g - w)
+            ok = err <= 1e-4 * abs(w) or err <= 1e-6
+            if abs(w) > 1e-2:
+                worst = max(worst, err / abs(w))
+        if not ok:
+            fail(f"{label} {k}: card {g} vs CPU {w}")
+    return worst
+
+
+def gnd_agreement(argv) -> dict:
+    """The card against the CPU on the joint script's model (the command
+    line's build_egoexo from the same seed): the eval step on the first
+    validation batch (the inference kernels on the card, counted) and one
+    train step on the first training batch, float32."""
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.parallel import make_grounding_eval_step
+    from exoground_tpu_torch.train import main as cli
+    from exoground_tpu_torch.train.config import parse_args
+
+    runs = {dev: cli.build_egoexo(parse_args(argv), dev) for dev in ("cpu", "cuda")}
+    res, launches = {}, {}
+    try:
+        for dev, run in runs.items():
+            tr = run.trainer
+            vb = tr.prepare_batch(next(iter(run.val_loader)))
+            tb = tr.prepare_batch(next(iter(run.train_loader)))
+            step = make_grounding_eval_step(tr.model, tr.loss_cfg)
+            vbt = tr.to_device(vb)
+            _kernels.reset_launches()
+            scal, ious = step(tr.params, vbt)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+            with torch.no_grad():  # the eval forward's outputs themselves
+                out = tr.model(vbt["video_features"], vbt["narration_features"],
+                               vbt["video_padding_mask"], vbt["narration_padding_mask"],
+                               egocentric_video_embed=vbt["ego_video_features_flat"],
+                               deterministic=True)
+            tr.model.train()
+            m = tr._do_step(tr.to_device(tb))
+            res[dev] = ({k: float(v) for k, v in scal.items()}, ious.float().cpu().numpy(),
+                        {k: float(v) for k, v in m.items()},
+                        int((~vb["narration_padding_mask"]).sum()),
+                        int((~tb["narration_padding_mask"]).sum()),
+                        {k: out[k].float().cpu().numpy()
+                         for k in ("interval_preds", "high_dim_features")})
+    finally:
+        for run in runs.values():
+            run.close()
+    (gs, gi, gm, nv, nt, go), (cs, ci, cm, _, _, co) = res["cuda"], res["cpu"]
+    if launches != {"fused_mha": GND_FWD, "fused_mlp": GND_FWD}:
+        fail(f"grounding eval step on the card: launches {launches}")
+    eval_err = _gnd_close("grounding eval step", gs, cs, nv)
+    errs = {k: float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
+            for k, g, c in (("iou_map", gi, ci), *((k, go[k], co[k]) for k in co))}
+    for k, err in errs.items():
+        if not err <= 1e-4:
+            fail(f"grounding eval forward: {k} differs by {err:.3e} of max|CPU|")
+    train_err = _gnd_close("grounding train step", gm, cm, nt)
+    return dict(eval_scalars_rel=float(f"{eval_err:.3g}"),
+                **{f"{k}_rel": float(f"{v:.3g}") for k, v in errs.items()},
+                iou_nonzero=int((ci != 0).sum()), train_metrics_rel=float(f"{train_err:.3g}"),
+                eval_launches=launches, loss_card=gm["loss"], loss_cpu=cm["loss"])
+
+
+def grounding_train_path(card):
+    """Phase 9: the grounding scripts through ``exoground_tpu_torch.train.main``
+    on the card, one epoch each over a seeded full-width tree: train_vi.sh,
+    train_grounding.sh (its VI encoder the first run's checkpoint; then
+    ``--resume`` from its epoch 0 for epoch 1),
+    train_joint_model.sh eager, at --fused_steps 4, --amp and --attn_impl
+    flash, test_joint_model.sh's --test on the eager joint checkpoint, and
+    train_joint_model_lemma.sh; each counted, the replayed joint epoch bit
+    for bit the eager one with fresh pos starts every replay; then the card
+    against the CPU. Returns the launches by run."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.parallel import train_step as ts
+    from exoground_tpu_torch.tools.profile_main_path import _StepWindow
+    from exoground_tpu_torch.tools.synth_egoexo import make_egoexo_tree, make_lemma_tree
+    from exoground_tpu_torch.train import main as cli
+    from exoground_tpu_torch.train.trainer import epoch_summary
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="gnd_", dir=build)
+    cwd = os.getcwd()
+    built, replays = [], []
+    real_build, real_replay = cli.build_egoexo, ts._Graph.replay
+
+    def build_spy(cfg, device):
+        run = real_build(cfg, device)
+        steps, n = len(run.train_loader), max(cfg.fused_steps, 1)
+        start = steps - max(n, (min(GND_PROFILED, steps // 2) // n) * n)
+        built.append(dict(cfg=cfg, trainer=run.trainer, steps=steps, start=start,
+                          val_batches=len(run.val_loader),
+                          window=None if cfg.test else _StepWindow(run.trainer, start,
+                                                                   steps - start)))
+        return run
+
+    def replay_spy(self, batches, starts, scalars):
+        replays.append(np.array(starts))
+        return real_replay(self, batches, starts, scalars)
+
+    def run(tag, argv):
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        rec = built[-1]
+        rec.update(tag=tag, out=out, run_s=time.perf_counter() - t0,
+                   launches=dict(_kernels.LAUNCHES))
+        flash = rec["cfg"].attn_impl == "flash"
+        want = {k: 0 for k in _kernels.LAUNCHES}
+        if rec["cfg"].model != "view_invariant":
+            want["fused_mlp"] = GND_FWD * rec["val_batches"]
+            want["fused_mha"] = 0 if flash else GND_FWD * rec["val_batches"]
+        got = dict(rec["launches"])
+        if flash:
+            if not all(got[k] > 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+                fail(f"grounding {tag}: no flash launch in {got}")
+            for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+                got[k] = 0
+        _check_counts(f"grounding {tag}", got, want)
+        print(f"grounding {tag}: rows 1/2/4 launches "
+              f"{ {k: rec['launches'][k] for k in ('fused_mha', 'fused_mlp', 'flash_fwd', 'flash_dq', 'flash_dkv')} }",
+              flush=True)
+        return rec
+
+    def bench(rec) -> dict:
+        tr, w = rec["trainer"], rec["window"]
+        st = tr.epoch_stats[0]
+        half = st["steps"] // 2
+        stop = rec["start"] if rec["start"] > half else st["steps"]
+        rows = int(rec["cfg"].batch_size)
+        steady = epoch_summary([dict(samples=rows * (stop - half), step_s=st["step_s"][half:stop],
+                                     data_s=st["data_s"][half:stop])])
+        out = dict(card=card, run=rec["tag"], steps=st["steps"], batch=rows,
+                   samples_per_s=round(epoch_summary([st])["samples_per_s"], 1),
+                   steady_samples_per_s=round(steady["samples_per_s"], 1),
+                   steady_step_ms_median=round(steady["step_ms_median"], 2),
+                   steady_data_share=round(steady["data_share"], 4),
+                   val_ms=round(st["val_s"] * 1e3, 1), val_batches=rec["val_batches"],
+                   run_s=round(rec["run_s"], 1))
+        if w is not None and w.rows is not None:
+            busy_s = sum(r[0] for r in w.rows) / 1e6
+            out.update(profiled_steps=w.steps,
+                       device_busy_ms_a_step=round(busy_s / w.steps * 1e3, 2),
+                       device_idle_share=round(1.0 - busy_s / w.wall, 4))
+        return out
+
+    cli.build_egoexo, ts._Graph.replay = build_spy, replay_spy
+    try:
+        t0 = time.perf_counter()
+        eg = make_egoexo_tree(os.path.join(work, "egoexo"), GND_TAKES, seconds=GND_SECONDS)
+        ej = make_egoexo_tree(os.path.join(work, "egoexo_joint"), GND_JOINT_TAKES,
+                              seconds=GND_JOINT_SECONDS, seed=1)
+        lm = make_lemma_tree(os.path.join(work, "lemma"), GND_LEMMA, seconds=GND_LEMMA_SECONDS)
+        tree_s = time.perf_counter() - t0
+        os.chdir(work)
+        root, jroot, lroot = ["--data_root", eg], ["--data_root", ej], ["--data_root", lm]
+        recs = {"vi": run("vi", GND_SCRIPTS["vi"] + root + ["--prefix", "_vi"])}
+        (vi_ckpt,) = glob.glob(os.path.join(work, "log_vi", "*", "model", "epoch0.pth.tar"))
+        recs["grounding"] = run("grounding", GND_SCRIPTS["grounding"] + root + [
+            "--vi_encoder_path", vi_ckpt, "--prefix", "_gnd"])
+        (g0,) = glob.glob(os.path.join(work, "log_gnd", "*", "model", "epoch0.pth.tar"))
+        recs["grounding_resume"] = run("grounding --resume", GND_SCRIPTS["grounding"] + root + [
+            "--vi_encoder_path", vi_ckpt, "--epochs", "2", "--resume", g0])
+        resumed = recs["grounding_resume"]["trainer"]
+        if ([s["epoch"] for s in resumed.epoch_stats] != [1]
+                or resumed.iteration != 2 * recs["grounding"]["steps"]):
+            fail(f"grounding --resume: epochs {[s['epoch'] for s in resumed.epoch_stats]}, "
+                 f"iteration {resumed.iteration}")
+        joint = GND_SCRIPTS["joint"] + jroot
+        recs["joint"] = run("joint", joint + ["--prefix", "_j"])
+        (j0,) = glob.glob(os.path.join(work, "log_j", "*", "model", "epoch0.pth.tar"))
+        replays.clear()
+        recs["joint_f4"] = run(f"joint --fused_steps {GRAPH_N}",
+                               joint + ["--fused_steps", str(GRAPH_N), "--prefix", "_jf"])
+        (jf,) = glob.glob(os.path.join(work, "log_jf", "*", "model", "epoch0.pth.tar"))
+        replayed = _ckpt_agreement(jf, j0)
+        fresh = len({r.tobytes() for r in replays})
+        captures = recs["joint_f4"]["trainer"].fused_step.captures
+        print(f"grounding joint --fused_steps {GRAPH_N} vs eager: {replayed}, {len(replays)} "
+              f"replays, {fresh} distinct pos-start draws, {captures} capture", flush=True)
+        if not (replayed["bit_equal"] and replayed["same_counts"]) or captures != 1 or (
+                len(replays) < 2 or fresh < 2):
+            fail(f"grounding --fused_steps {GRAPH_N}: {replayed}, {len(replays)} replays, "
+                 f"{fresh} distinct starts, {captures} captures")
+        recs["joint_amp"] = run("joint --amp", joint + ["--amp", "--prefix", "_ja"])
+        recs["joint_flash"] = run("joint --attn_impl flash",
+                                  joint + ["--attn_impl", "flash", "--prefix", "_jfl"])
+        recs["test"] = run("joint --test", GND_TEST_JOINT + jroot + ["--test", j0])
+        res = recs["test"]["out"]
+        ranks = sorted(k for k in res if k.startswith("Rank ") and k.endswith("mean IoU"))
+        if not ranks or not all(np.isfinite(v) for v in res.values()):
+            fail(f"grounding --test: no Rank bins or a non-finite result: {res}")
+        print("grounding --test:", {k: round(v, 4) for k, v in res.items()}, flush=True)
+        recs["lemma"] = run("lemma joint", GND_SCRIPTS["lemma"] + lroot + ["--prefix", "_lm"])
+        for key, rec in recs.items():
+            if key != "test" and not np.isfinite(rec["out"]):
+                fail(f"grounding {rec['tag']}: best {rec['out']}")
+    finally:
+        cli.build_egoexo, ts._Graph.replay = real_build, real_replay
+        os.chdir(cwd)
+    try:
+        agreement = gnd_agreement(GND_SCRIPTS["joint"] + jroot)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("gnd_agreement", json.dumps(dict(card=card, **agreement)), flush=True)
+    for key, rec in recs.items():
+        if key != "test":
+            print("gnd_bench", json.dumps(bench(rec)), flush=True)
+    print("gnd_phase", json.dumps(dict(
+        card=card, tree_s=round(tree_s, 1), test_s=round(recs["test"]["run_s"], 1),
+        replayed_vs_eager=dict(bit_equal=replayed["bit_equal"], replays=len(replays),
+                               distinct_starts=fresh),
+        phase_s=round(time.perf_counter() - t_phase, 1))), flush=True)
+    return {rec["tag"]: rec["launches"] for rec in recs.values()}
+
+
 def main():
     t_start = time.perf_counter()
     phase_s, t_phase = {}, [t_start, None]
@@ -3350,6 +3651,14 @@ def main():
                 cli_fused_launches[e["name"]])
             for flags, n in cli_chain_launches.items():
                 e["launches_by_path"][f"training command line {flags} (phase 8)"] = (
+                    n[e["name"]])
+    mark("9")
+    # phase 9: grounding training through the command line, counted
+    gnd_launches = grounding_train_path(card)
+    for e in kernels:
+        for tag, n in gnd_launches.items():
+            if n[e["name"]]:
+                e["launches_by_path"][f"grounding training command line {tag} (phase 9)"] = (
                     n[e["name"]])
     mark(None)
     print("phase_s", json.dumps(phase_s), flush=True)

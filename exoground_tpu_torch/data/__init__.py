@@ -1,6 +1,6 @@
 """Host data layer of the port (counterpart of ``exoground_tpu/data``): the
-HowTo100M readers, samplers, collate and the threaded loader with pinned
-copies to the card."""
+HowTo100M, EgoExo4D and LEMMA readers, samplers, collate and the threaded
+loader with pinned copies to the card."""
 
 from exoground_tpu_torch.data.collate import (  # noqa: F401
     collate_dicts,
@@ -9,6 +9,12 @@ from exoground_tpu_torch.data.collate import (  # noqa: F401
     stack_texts,
     stack_videos,
 )
+from exoground_tpu_torch.data.egoexo4d import (  # noqa: F401
+    EgoExo4DDataset,
+    EgoExoConfig,
+    EgoExoSource,
+    camera_view_order,
+)
 from exoground_tpu_torch.data.htm import (  # noqa: F401
     HTMAlignDataset,
     HTMConfig,
@@ -16,6 +22,7 @@ from exoground_tpu_torch.data.htm import (  # noqa: F401
     read_vlen_csv,
 )
 from exoground_tpu_torch.data.io import FeatureStore, load_npy_window, load_pt  # noqa: F401
+from exoground_tpu_torch.data.lemma import LemmaConfig, LemmaDataset  # noqa: F401
 from exoground_tpu_torch.data.pipeline import (  # noqa: F401
     BackgroundIterator,
     ThreadedLoader,
@@ -27,3 +34,4 @@ from exoground_tpu_torch.data.sampling import (  # noqa: F401
     batched,
     get_phase,
 )
+from exoground_tpu_torch.data.table import read_csv_records, write_csv_records  # noqa: F401

@@ -1,17 +1,22 @@
-"""InfoNCE losses of the grounding model's distillation options.
+"""InfoNCE-family losses.
 
-Counterpart of the first two functions of ``exoground_tpu/losses/infonce.py``
-(reference model/exo_ground_model.py:206-292), mask-based and static-shape:
+Counterpart of ``exoground_tpu/losses/infonce.py`` (reference
+model/exo_ground_model.py:206-292, train/loss_egoexo4d.py:201-323,
+end2end/main_nce.py:30-47), mask-based and static-shape:
 
   * ``info_nce_diag`` — per-timestep InfoNCE whose positives are the
     diagonal (the same timestep of the positive sequence);
   * ``pairwise_view_info_nce`` — the same between every ordered pair of
     views of a stitched multi-view sequence, over the batch rows where both
-    views exist, averaged over the pairs that have such a row.
+    views exist, averaged over the pairs that have such a row;
+  * ``cross_view_info_nce`` — per-timestep InfoNCE against an explicit
+    positive and negative view of a multi-view bank (and optionally a
+    same-view temporal negative), the view-invariant loss;
+  * ``l1_cosine_metrics`` — its monitoring metrics;
+  * ``symmetric_info_nce`` — the plain batch InfoNCE of the S3D stage.
 
-``GroundingModel.forward`` computes them under its distillation options.
-The rest of the JAX module (cross-view InfoNCE, the monitoring metrics, the
-symmetric InfoNCE of the S3D stage) belongs to the train slices.
+``GroundingModel.forward`` computes the first two under its distillation
+options; ``losses/grounding.py`` the next two.
 """
 
 from __future__ import annotations
@@ -56,3 +61,54 @@ def pairwise_view_info_nce(features, view_mask, num_views: int, temperature: flo
             total = total + torch.where(n > 0, pair_loss, zero)
             pair_w = pair_w + (n > 0).to(features.dtype)
     return torch.where(pair_w > 0, total / pair_w.clamp(min=1e-6), zero)
+
+
+def _gather_views(video_features, indices):
+    """(B, T, C) rows ``video_features[b, indices[b, t], t]`` of a (B, V, T,
+    C) bank."""
+    b, _, t, _ = video_features.shape
+    bt = torch.arange(b, device=indices.device)[:, None]
+    tt = torch.arange(t, device=indices.device)[None, :]
+    return video_features[bt, indices.long(), tt]
+
+
+def cross_view_info_nce(output_features, video_features, positive_indices, negative_indices,
+                        same_view_neg_feats=None, only_same_view_negative: bool = False,
+                        temperature: float = 0.1):
+    """Per-timestep cross-view InfoNCE map (B, T) (JAX infonce.py:78):
+    output (B, T, C) against the positive and negative views of the (B, V,
+    T, C) bank picked per timestep by the (B, T) indices, and the (B, T, C)
+    same-view negatives when given (alone under
+    ``only_same_view_negative``); the caller reduces it."""
+    f = _l2norm(output_features)
+    pos = _l2norm(_gather_views(video_features, positive_indices))
+    neg = _l2norm(_gather_views(video_features, negative_indices))
+    sims = [(f * pos).sum(-1) / temperature]
+    neg_sim = (f * neg).sum(-1) / temperature
+    if same_view_neg_feats is not None:
+        sv = (f * _l2norm(same_view_neg_feats)).sum(-1) / temperature
+        sims += [sv] if only_same_view_negative else [neg_sim, sv]
+    else:
+        sims.append(neg_sim)
+    return -torch.log_softmax(torch.stack(sims, dim=-1), dim=-1)[..., 0]
+
+
+def l1_cosine_metrics(output_features, video_features, positive_indices, negative_indices):
+    """Monitoring metrics (JAX infonce.py:113): per-timestep L1 to the
+    positive view and cosine similarity to the positive and negative views,
+    each (B, T)."""
+    f = _l2norm(output_features)
+    pos = _l2norm(_gather_views(video_features, positive_indices))
+    neg = _l2norm(_gather_views(video_features, negative_indices))
+    return (f - pos).abs().mean(-1), (f * pos).sum(-1), (f * neg).sum(-1)
+
+
+def symmetric_info_nce(video_embed, text_embed, temperature: float = 0.07):
+    """The batch InfoNCE over (B, C) video and text embeddings, the SUM of
+    both directions (JAX infonce.py:127): (loss, {'loss-per-video',
+    'loss-per-text', 'sim'}); the rows of sim are videos, so the softmax
+    over texts is 'loss-per-text'."""
+    sim = torch.einsum("bc,kc->bk", video_embed, text_embed) / temperature
+    loss_t = -torch.diagonal(torch.log_softmax(sim, dim=1)).mean()
+    loss_v = -torch.diagonal(torch.log_softmax(sim, dim=0)).mean()
+    return loss_v + loss_t, {"loss-per-video": loss_v, "loss-per-text": loss_t, "sim": sim}

@@ -26,7 +26,12 @@ reaches every encoder and decoder attention, as the JAX fields do: under
 ``GroundingService``) runs the window-attention kernel. The pre-projections
 go through ``quant.linear``, as the JAX model's ``_quant_dot_general``
 Denses; the grounding head and the distillation projection stay exact.
-``random_pos_start`` draws from the ``torch.Generator`` given to forward.
+``random_pos_start`` draws from the ``torch.Generator`` given to forward,
+or the starts come from ``pos_starts``, a small integer tensor on the
+device that ``draw_pos_starts`` drew up front in the same order (text,
+video, audio; the VI encoder's first): the train step hands them in that
+way, so a captured CUDA graph reads each replay's starts from memory instead
+of freezing the ones drawn at capture.
 """
 
 from __future__ import annotations
@@ -108,13 +113,40 @@ class ExoGroundingTransformer(nn.Module):
 
     # ------------------------------------------------------------------
 
-    def _pos_with(self, table, n, interpolate_from, deterministic, generator, views=1):
+    def pos_start_lengths(self, t: int, n: int, audio: bool = False, interpolate_from=None,
+                          deterministic: bool = False) -> tuple:
+        """The sequence lengths of the random pos starts a forward over T
+        video steps and N narrations draws, in draw order: the text's (with
+        text pos-enc), the video's, the audio's (none when it draws none)."""
+        if deterministic or interpolate_from is not None or not self.random_pos_start:
+            return ()
+        tv = t // self.num_max_views
+        return (((n,) if self.use_text_pos_enc else ()) + (tv,)
+                + ((tv,) if audio else ()))
+
+    def draw_pos_starts(self, generator: Optional[torch.Generator], t: int, n: int,
+                        audio: bool = False) -> torch.Tensor:
+        """The (k,) int64 CPU tensor of the starts a training forward draws
+        from ``generator``, in its order."""
+        return torch.tensor([random_pos_start(generator, s)
+                             for s in self.pos_start_lengths(t, n, audio)], dtype=torch.int64)
+
+    def _starts(self, lens: tuple, generator, pos_starts) -> list:
+        """One start a length of ``lens``: the entries of ``pos_starts`` (0-d
+        tensors) or, without it, draws from ``generator``."""
+        if pos_starts is None:
+            return [random_pos_start(generator, s) for s in lens]
+        if tuple(pos_starts.shape) != (len(lens),):
+            raise ValueError(f"pos_starts {tuple(pos_starts.shape)}: this forward draws "
+                             f"{len(lens)} starts")
+        return list(pos_starts.unbind(0))
+
+    def _pos_with(self, table, n, interpolate_from, deterministic, start=None, views=1):
         """ln_position_init of the (n // views)-row pos slice tiled per view
-        (grounding.py:127-137, :142-151)."""
+        (grounding.py:127-137, :142-151), from ``start`` when training."""
         seq_len = n // views
-        start = 0
-        if interpolate_from is None and self.random_pos_start and not deterministic:
-            start = random_pos_start(generator, seq_len)
+        if interpolate_from is not None or not self.random_pos_start or deterministic:
+            start = 0
         pos = slice_or_interpolate_pos_embed(table, seq_len, interpolate_from, start)
         return self.ln_position_init(pos.repeat(views, 1))[None]
 
@@ -122,23 +154,23 @@ class ExoGroundingTransformer(nn.Module):
         return self.ln_text_init(quant.linear(lang_embed, self.text_pre_proj.weight))
 
     def get_textual_feature_with_time(self, lang_embed, interpolate_from=None,
-                                      deterministic=True, generator=None):
+                                      deterministic=True, pos_start=None):
         x = self.get_textual_feature(lang_embed)
         return x + self._pos_with(self.text_temporal_pos_embed, x.shape[1], interpolate_from,
-                                  deterministic, generator).to(x.dtype)
+                                  deterministic, pos_start).to(x.dtype)
 
     def get_audio_feature(self, audio_embed):
         return self.ln_audio_init(quant.linear(audio_embed, self.audio_pre_proj.weight))
 
     def get_unimodal_features(self, mode, feat_embed, padding_mask, interpolate_from=None,
-                              deterministic=True, generator=None):
+                              deterministic=True, pos_start=None):
         """Uni-modal encoder pass -> (B, Stage, X, C) (grounding.py:156-172):
         the video is projected, normed and given the tiled pos-emb here; the
         text arrives projected."""
         if mode == "video":
             x = self.ln_video_init(quant.linear(feat_embed, self.video_pre_proj.weight))
             x = x + self._pos_with(self.temporal_pos_embed, x.shape[1], interpolate_from,
-                                   deterministic, generator, self.num_max_views).to(x.dtype)
+                                   deterministic, pos_start, self.num_max_views).to(x.dtype)
             stages = self.video_unimodal_encoder(x, padding_mask, impl=self.attn_impl)
             return post_ln_last(stages, self.ln_video_post_enc)
         stages = self.text_unimodal_encoder(feat_embed, padding_mask, impl=self.attn_impl)
@@ -146,14 +178,14 @@ class ExoGroundingTransformer(nn.Module):
 
     def get_joint_feature(self, video_feats, video_padding_mask, text_feats, lang_padding_mask,
                           audio_feats=None, audio_padding_mask=None, interpolate_from=None,
-                          deterministic=True, generator=None):
+                          deterministic=True, pos_start=None):
         """Joint encoder over [video (, audio), text] (grounding.py:174-202);
         only the audio receives a pos-emb here."""
         parts, masks = [video_feats], [video_padding_mask]
         if audio_feats is not None:
             parts.append(audio_feats + self._pos_with(
                 self.temporal_pos_embed, video_feats.shape[1], interpolate_from, deterministic,
-                generator, self.num_max_views).to(audio_feats.dtype))
+                pos_start, self.num_max_views).to(audio_feats.dtype))
             masks.append(audio_padding_mask)
         stages = self.multi_modal_encoder(torch.cat(parts + [text_feats], dim=1),
                                           torch.cat(masks + [lang_padding_mask], dim=1),
@@ -163,24 +195,35 @@ class ExoGroundingTransformer(nn.Module):
     def forward(self, video_embed, lang_embed, video_padding_mask, lang_padding_mask,
                 audio_embed=None, audio_padding_mask=None, egocentric_video_embed=None,
                 view_mask=None, interpolate_from=None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                pos_starts: Optional[torch.Tensor] = None):
         """{'low_dim_features' (B, T, C), 'interval_preds' (B, N, 2), or (B,
         Stage, N, 2) without the decoder[, 'high_dim_features']}
-        (grounding.py:206-266)."""
+        (grounding.py:206-266). A training forward's pos starts come from
+        ``pos_starts`` (``draw_pos_starts``'s tensor) or else from
+        ``generator``."""
         n = lang_embed.shape[1]
+        # the trunk's own starts (a subclass's override adds its pre-pass's)
+        lens = ExoGroundingTransformer.pos_start_lengths(
+            self, video_embed.shape[1], n, audio_embed is not None, interpolate_from,
+            deterministic)
+        starts = self._starts(lens, generator, pos_starts)
+        text_start = starts.pop(0) if lens and self.use_text_pos_enc else None
+        video_start = starts.pop(0) if starts else None
+        audio_start = starts.pop(0) if starts else None
         lang_raw = self.get_textual_feature(lang_embed)
         if self.use_text_pos_enc:
             lang_with_time = self.get_textual_feature_with_time(
-                lang_embed, interpolate_from, deterministic, generator)
+                lang_embed, interpolate_from, deterministic, text_start)
         else:
             lang_with_time = lang_raw
         audio_feats = self.get_audio_feature(audio_embed) if audio_embed is not None else None
         video_feats = self.get_unimodal_features(
             "video", video_embed, video_padding_mask, interpolate_from, deterministic,
-            generator).mean(dim=1)
+            video_start).mean(dim=1)
         text_feats = self.get_unimodal_features(
-            "text", lang_with_time, lang_padding_mask, interpolate_from, deterministic,
-            generator).mean(dim=1)
+            "text", lang_with_time, lang_padding_mask, interpolate_from,
+            deterministic).mean(dim=1)
 
         out = {"low_dim_features": video_feats}
         if ((self.use_distill_nce_loss and egocentric_video_embed is not None)
@@ -189,7 +232,7 @@ class ExoGroundingTransformer(nn.Module):
 
         all_stages = self.get_joint_feature(
             video_feats, video_padding_mask, text_feats, lang_padding_mask, audio_feats,
-            audio_padding_mask, interpolate_from, deterministic, generator)
+            audio_padding_mask, interpolate_from, deterministic, audio_start)
         if self.use_decoder:
             memory_mask = video_padding_mask
             if audio_feats is not None:
@@ -249,20 +292,38 @@ class GroundingModel(ExoGroundingTransformer):
                              "('mlp', 'transformer', 'none')")
         self.to(resolve_device(device))
 
+    def _vi_lengths(self, t: int, interpolate_from=None, deterministic: bool = False) -> tuple:
+        if isinstance(self.vi_encoder, ViewInvariantEncoder):
+            return self.vi_encoder.pos_start_lengths(t, interpolate_from, deterministic)
+        return ()
+
+    def pos_start_lengths(self, t: int, n: int, audio: bool = False, interpolate_from=None,
+                          deterministic: bool = False) -> tuple:
+        """The VI encoder's starts (the transformer's), then the trunk's."""
+        return (self._vi_lengths(t, interpolate_from, deterministic)
+                + super().pos_start_lengths(t, n, audio, interpolate_from, deterministic))
+
     def forward(self, video_embed, lang_embed, video_padding_mask, lang_padding_mask,
                 audio_embed=None, audio_padding_mask=None, egocentric_video_embed=None,
                 view_mask=None, interpolate_from=None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                pos_starts: Optional[torch.Tensor] = None):
         video = video_embed
+        k = len(self._vi_lengths(video_embed.shape[1], interpolate_from, deterministic))
+        vi_starts = None if pos_starts is None else pos_starts[:k]
+        if pos_starts is not None:
+            pos_starts = pos_starts[k:]
         if self.vi_encoder is not None:
             with torch.no_grad():
                 video = self.vi_encoder(
                     video_embed, lang_embed, video_padding_mask, lang_padding_mask,
                     egocentric_video_embed=egocentric_video_embed,
-                    deterministic=deterministic, generator=generator)["high_dim_features"]
+                    deterministic=deterministic, generator=generator,
+                    pos_starts=vi_starts)["high_dim_features"]
         out = super().forward(video, lang_embed, video_padding_mask, lang_padding_mask,
                               audio_embed, audio_padding_mask, egocentric_video_embed,
-                              view_mask, interpolate_from, deterministic, generator)
+                              view_mask, interpolate_from, deterministic, generator,
+                              pos_starts)
         if self.use_distill_nce_loss and egocentric_video_embed is not None:
             out["distill_infonce_loss"] = info_nce_diag(out["high_dim_features"],
                                                         egocentric_video_embed)

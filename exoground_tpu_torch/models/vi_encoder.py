@@ -60,21 +60,32 @@ class ViewInvariantEncoder(nn.Module):
             self.register_buffer("temporal_pos_embed", get_position_embedding_sine(w, max_pos))
         self.to(resolve_device(device))
 
+    def pos_start_lengths(self, t: int, interpolate_from=None,
+                          deterministic: bool = False) -> tuple:
+        """The length of the one random pos start a training forward over T
+        steps draws (none when it draws none)."""
+        if deterministic or interpolate_from is not None or not self.random_pos_start:
+            return ()
+        return (t // self.num_max_views,)
+
     def forward(self, video_embed, lang_embed=None, video_padding_mask=None,
                 lang_padding_mask=None, audio_embed=None, audio_padding_mask=None,
                 egocentric_video_embed=None, view_mask=None, interpolate_from=None,
-                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                pos_starts: Optional[torch.Tensor] = None):
         """(B, T, D_video) -> features (vi_encoder.py:67-99); the pos table
-        slice of T // num_max_views rows is tiled per view. ``generator``
-        draws the random pos start when ``deterministic=False``."""
+        slice of T // num_max_views rows is tiled per view. When
+        ``deterministic=False`` the random pos start is ``pos_starts``'s one
+        entry or else a draw from ``generator``."""
         b, t, _ = video_embed.shape
         if video_padding_mask is None:
             video_padding_mask = torch.zeros((b, t), dtype=torch.bool, device=video_embed.device)
         x = self.ln_video_init(self.video_pre_proj(video_embed))
         seq_len = t // self.num_max_views
         start = 0
-        if interpolate_from is None and self.random_pos_start and not deterministic:
-            start = random_pos_start(generator, seq_len)
+        if self.pos_start_lengths(t, interpolate_from, deterministic):
+            start = (random_pos_start(generator, seq_len) if pos_starts is None
+                     else pos_starts.reshape(-1)[0])
         pos = slice_or_interpolate_pos_embed(self.temporal_pos_embed, seq_len,
                                              interpolate_from, start)
         x = x + self.ln_position_init(pos.to(x.dtype).repeat(self.num_max_views, 1))[None]
@@ -92,6 +103,13 @@ class ViewInvariantMLP(nn.Module):
         self.ln_video_init = nn.LayerNorm(d, eps=LN_EPS)
         self.mlp = nn.Sequential(nn.Linear(d, d), nn.ReLU(), nn.Linear(d, d))
         self.to(resolve_device(device))
+
+    def pos_start_lengths(self, *args, **kwargs) -> tuple:
+        """No pos table, so no start."""
+        return ()
+
+    def draw_pos_starts(self, *args, **kwargs) -> torch.Tensor:
+        return torch.zeros((0,), dtype=torch.int64)
 
     def forward(self, video_embed, *args, **kwargs):
         """(B, T, D_video) -> the same width (vi_encoder.py:112-127); the

@@ -1,7 +1,8 @@
 """Temporal positional embeddings.
 
 Counterpart of ``exoground_tpu/ops/pos_embed.py`` (reference:
-model/tfm_model.py:137-148, model/tan_model.py:146-173): a static sine table,
+model/tfm_model.py:106-148, model/tan_model.py:146-173): a static sine table,
+the mask-driven DETR-style sine embedding,
 linear interpolation of a table to a longer sequence (the "global" mode,
 ``F.interpolate(..., mode='linear', align_corners=False)`` semantics), and a
 slice from a start index (0, or a random start drawn from a
@@ -38,6 +39,25 @@ def get_position_embedding_sine(
         (torch.sin(angles[:, 0::2]), torch.cos(angles[:, 1::2])), dim=2
     ).reshape(num_features, feature_dim)
     return emb
+
+
+def position_embedding_sine_from_mask(padding_mask: torch.Tensor, num_pos_feats: int = 64,
+                                      temperature: float = 10000.0, normalize: bool = True,
+                                      scale: Optional[float] = None) -> torch.Tensor:
+    """DETR-style 1-D sine embedding from a (B, T) padding mask (True at
+    PAD): positions count the real steps, normalised to [0, scale] by each
+    row's count; returns (B, num_pos_feats, T), the reference's permuted
+    output (model/tfm_model.py:120-134)."""
+    if scale is None:
+        scale = 2 * math.pi
+    y_embed = torch.cumsum((~padding_mask).to(torch.float32), dim=1)
+    if normalize:
+        y_embed = y_embed / (y_embed[:, -1:] + 1e-6) * scale
+    dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=padding_mask.device)
+    dim_t = temperature ** (2 * torch.floor(dim_t / 2) / num_pos_feats)
+    pos_y = y_embed[:, :, None] / dim_t
+    pos = torch.stack((torch.sin(pos_y[:, :, 0::2]), torch.cos(pos_y[:, :, 1::2])), dim=3)
+    return pos.reshape(pos_y.shape[0], pos_y.shape[1], num_pos_feats).permute(0, 2, 1)
 
 
 def interpolate_pos_embed(

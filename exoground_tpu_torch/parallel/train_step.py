@@ -1,4 +1,4 @@
-"""The TAN train step on one device.
+"""The TAN and grounding train steps on one device.
 
 Counterpart of ``exoground_tpu/parallel/train_step.py::make_tan_train_step``
 (:129-303) without the data-parallel axis: one call runs the online forward
@@ -25,7 +25,7 @@ reads them as small tensors on the card and does everything else: no host
 read, no host-to-device copy of a pageable buffer, nothing that a CUDA
 graph capture forbids.
 
-``make_tan_train_step(scan_steps=N)`` returns ``TanScanStep``, the JAX
+``make_tan_train_step(scan_steps=N)`` returns ``ScanStep``, the JAX
 ``scan_steps`` runner: one call runs N optimizer steps over a batch with a
 leading (N, ...) axis. On the CPU it loops over the eager step (the plain
 version). On a card its first call for a shape runs the N steps eagerly and
@@ -44,6 +44,19 @@ inference-shaped, under ``torch.no_grad()`` with the kernels on (fused MHA
 and MLP in both towers, the grid's forward), the cotrain targets from the
 EMA teacher, returning the loss scalars and ``_rows``.
 
+``GroundingTrainStep`` is the JAX ``make_grounding_train_step``
+(:679-785) on one device, for the view-invariant, grounding and joint
+models: the forward under ``disable_fused_kernels()`` with its random pos
+starts from the host half, ``egoexo_loss`` plus the model's
+``distill_infonce_loss`` where it returns one, backward and the optimizer
+(no EMA twin), split into the same host and device halves, so
+``make_grounding_train_step(scan_steps=N)`` replays it through the same
+``ScanStep``. ``GroundingEvalStep`` is ``make_grounding_eval_step``
+(:523-604): the exact weighted sums per metric (narrations for the
+grounding scalars, rows x steps for the view-invariant ones), the joint
+loss reassembled from its two halves, and the (B, N) IoU map, under
+``torch.no_grad()`` with the inference kernels on.
+
 Parameters are a dictionary of float32 master tensors (the model's own
 parameters, shared by storage, so the optimizer's in-place update keeps the
 module current). ``compute_dtype="bfloat16"`` casts them for the forward
@@ -61,6 +74,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from exoground_tpu_torch.losses.grounding import GroundingLossConfig, egoexo_loss
 from exoground_tpu_torch.losses.milnce import TANLossConfig, tan_loss
 from exoground_tpu_torch.models.word2vec import word2vec_forward
 from exoground_tpu_torch.ops import _kernels
@@ -144,6 +158,12 @@ class TanTrainStep:
             (batch_c["video"], batch_c["text"], batch["video_padding_mask"],
              batch["text_padding_mask"]), kw)
 
+    batch_key = "video"
+
+    def n_pos_starts(self, batch: Dict[str, torch.Tensor]) -> int:
+        """How many pos starts a step over ``batch`` (stacked or not) draws."""
+        return len(self.model.pos_start_lengths(*_lengths(batch)))
+
     def draw(self, batch: Dict[str, torch.Tensor], generator, count: int):
         """The host half of the step that reads optimizer count ``count``:
         (its pos starts, (k,) int64, ``TemporalAligner.draw_pos_starts``;
@@ -201,7 +221,7 @@ class TanTrainStep:
         return metrics
 
     def __call__(self, params, target, opt_state, batch, generator=None):
-        dev = batch["video"].device
+        dev = batch[self.batch_key].device
         starts, scalars = self.draw(batch, generator, opt_state.count)
         metrics = self.device_step(params, target, opt_state, batch, to_device(starts, dev),
                                    to_device(scalars, dev))
@@ -211,7 +231,8 @@ class TanTrainStep:
 
 def _addresses(params, target, opt_state) -> tuple:
     """Every tensor a step updates in place, the accumulator too."""
-    trees = (params, target, opt_state.mu, opt_state.nu, getattr(opt_state, "acc_grads", {}))
+    trees = (params, target or {}, opt_state.mu, opt_state.nu,
+             getattr(opt_state, "acc_grads", {}))
     return tuple(t.data_ptr() for d in trees for t in d.values())
 
 
@@ -234,12 +255,13 @@ class _Graph:
         _kernels.add_launches(self.launches)
 
 
-class TanScanStep:
+class ScanStep:
     """``step(params, target, opt_state, batches, generator) -> (params,
     target, opt_state, metrics)``: N optimizer steps a call (the JAX
     ``scan_steps`` contract). ``batches`` carries a leading (N, ...) axis;
     each metric comes back stacked (N,); ``opt_state.count`` advances by N.
-    ``single`` is the one-step ``TanTrainStep`` it repeats.
+    ``single`` is the one-step ``TanTrainStep`` or ``GroundingTrainStep`` it
+    repeats (``target`` is None for the latter).
 
     On a card: one graph per batch shapes and dtypes, compute dtype,
     ``attn_impl`` and train mode (``graphs``); each records its capture
@@ -256,7 +278,8 @@ class TanScanStep:
 
     def _key(self, batches) -> tuple:
         return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batches.items())),
-                self.single.cdt, self.single.model.attn_impl, self.single.model.training)
+                self.single.cdt, getattr(self.single.model, "attn_impl", None),
+                self.single.model.training)
 
     def _loop(self, params, target, opt_state, batches, generator):
         ms = []
@@ -270,7 +293,7 @@ class TanScanStep:
         bad = {k: tuple(v.shape) for k, v in batches.items() if v.shape[0] != self.n}
         if bad:
             raise ValueError(f"scan_steps={self.n} needs a leading axis of {self.n}: {bad}")
-        dev = batches["video"].device
+        dev = batches[self.single.batch_key].device
         if dev.type != "cuda":
             return self._loop(params, target, opt_state, batches, generator)
         if self._stream is None:
@@ -298,13 +321,13 @@ class TanScanStep:
         return params, target, opt_state, {k: v.clone() for k, v in g.metrics.items()}
 
     def _capture(self, params, target, opt_state, batches) -> _Graph:
-        dev = batches["video"].device
+        dev = batches[self.single.batch_key].device
         t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()  # as the capture does: the pool's bytes are what it adds
         reserved0 = torch.cuda.memory_reserved(dev)
         static = {k: torch.empty_like(v) for k, v in batches.items()}
-        k = len(self.single.model.pos_start_lengths(*_lengths(batches)))
+        k = self.single.n_pos_starts(batches)
         starts = torch.zeros((self.n, k), dtype=torch.int64, device=dev)
         width = len(self.single.optimizer.scalars(0))
         scalars = torch.ones((self.n, width), dtype=torch.float32, device=dev)
@@ -327,7 +350,7 @@ def make_tan_train_step(model, loss_cfg: TANLossConfig, optimizer,
                         text_tower_params=None, compute_dtype: str = "float32",
                         scan_steps: Optional[int] = None, fused_grid: bool = True):
     """The TAN train step (``TanTrainStep``), or with ``scan_steps=N`` the
-    N-step runner (``TanScanStep``). ``fused_grid=False`` keeps the
+    N-step runner (``ScanStep``). ``fused_grid=False`` keeps the
     reference-shaped volume path. ``gather_negatives`` (data parallel)
     raises: it comes with a later slice."""
     if gather_negatives:
@@ -335,7 +358,7 @@ def make_tan_train_step(model, loss_cfg: TANLossConfig, optimizer,
     step = TanTrainStep(model, loss_cfg, optimizer, ema_momentum=ema_momentum,
                         compute_dtype=compute_dtype, fused_grid=fused_grid,
                         text_tower_params=text_tower_params)
-    return step if scan_steps is None else TanScanStep(step, scan_steps)
+    return step if scan_steps is None else ScanStep(step, scan_steps)
 
 
 class TanEvalStep:
@@ -387,3 +410,178 @@ def make_tan_eval_step(model, loss_cfg: TANLossConfig, is_cotrain: bool = False,
     """The TAN validation step on one device (see ``TanEvalStep``)."""
     return TanEvalStep(model, loss_cfg, is_cotrain=is_cotrain,
                        text_tower_params=text_tower_params, fused_grid=fused_grid)
+
+
+# grounding-family batch entries the model takes, by its keyword
+_GROUNDING_INPUTS = (("audio_features", "audio_embed"),
+                     ("audio_padding_mask", "audio_padding_mask"),
+                     ("ego_video_features_flat", "egocentric_video_embed"),
+                     ("view_mask", "view_mask"))
+
+
+def _grounding_forward(model, params, batch, batch_c, **kw):
+    """``model`` with ``params`` on a grounding batch: the features from
+    ``batch_c`` (the compute dtype), the masks from ``batch``."""
+    for key, name in _GROUNDING_INPUTS:
+        if key in batch:
+            kw[name] = (batch_c if key in batch_c else batch)[key]
+    return functional_call(
+        model, params, (batch_c["video_features"], batch_c["narration_features"],
+                        batch["video_padding_mask"], batch["narration_padding_mask"]), kw)
+
+
+def _grounding_lengths(batch: Dict[str, torch.Tensor]) -> tuple:
+    """(T, N, audio) of a grounding batch, stacked or not."""
+    return (batch["video_features"].shape[-2], batch["narration_features"].shape[-2],
+            "audio_features" in batch)
+
+
+class GroundingTrainStep:
+    """``step(params, None, opt_state, batch, generator) -> (params, None,
+    opt_state, metrics)`` for the view-invariant, grounding and joint models
+    (the TAN step's protocol, with no EMA twin).
+
+    batch: video_features (B, T, Dv), narration_features (B, N, Dt), their
+    padding masks, the loss targets (mean / duration or starts / ends;
+    ego_video_features (B, V, T, Dv), view_rank_label, view_rank_neg_label
+    and same_view_neg_feats for the VI loss) and the model's optional inputs
+    (audio_features / audio_padding_mask, ego_video_features_flat,
+    view_mask), on the device of the parameters. The features reach the
+    model in the compute dtype; the loss reads the batch as it is, its
+    math in float32. Metrics are the loss dict's 0-d tensors, detached."""
+
+    batch_key = "video_features"
+
+    def __init__(self, model, loss_cfg: GroundingLossConfig, optimizer,
+                 compute_dtype: str = "float32"):
+        self.model = model
+        self.loss_cfg = loss_cfg
+        self.optimizer = optimizer
+        self.cdt = getattr(torch, compute_dtype)
+
+    def n_pos_starts(self, batch: Dict[str, torch.Tensor]) -> int:
+        return len(self.model.pos_start_lengths(*_grounding_lengths(batch)))
+
+    def draw(self, batch: Dict[str, torch.Tensor], generator, count: int):
+        """(the step's pos starts, (k,) int64, ``draw_pos_starts``; the
+        optimizer's scalars for ``count``); ``batch`` may be stacked."""
+        return (self.model.draw_pos_starts(generator, *_grounding_lengths(batch)).numpy(),
+                self.optimizer.scalars(count))
+
+    def loss_and_grads(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                       generator=None, pos_starts=None):
+        """(metrics, float32 grads by name; None where the loss does not
+        reach a parameter, as for the frozen VI pre-pass)."""
+        with disable_fused_kernels():
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            batch_c = _cast_floats({k: v for k, v in batch.items()
+                                    if k in ("video_features", "narration_features",
+                                             "audio_features", "ego_video_features_flat")},
+                                   self.cdt)
+            out = _grounding_forward(self.model, _cast_floats(leaves, self.cdt), batch,
+                                     batch_c, deterministic=False, generator=generator,
+                                     pos_starts=pos_starts)
+            out = {k: v.float() for k, v in out.items()}
+            ld, _ = egoexo_loss(out, batch, batch["narration_padding_mask"], self.loss_cfg)
+            loss = ld["loss"]
+            if "distill_infonce_loss" in out:
+                loss = loss + out["distill_infonce_loss"]
+            names = list(leaves)
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
+        metrics = {k: v.detach() for k, v in ld.items() if v.dim() == 0}
+        return metrics, dict(zip(names, grads))
+
+    def device_step(self, params, target, opt_state, batch, pos_starts: torch.Tensor,
+                    scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The device half of one step (see ``TanTrainStep.device_step``)."""
+        metrics, grads = self.loss_and_grads(params, batch, pos_starts=pos_starts)
+        self.optimizer.apply(params, opt_state, grads, scalars)
+        return metrics
+
+    def __call__(self, params, target, opt_state, batch, generator=None):
+        dev = batch[self.batch_key].device
+        starts, scalars = self.draw(batch, generator, opt_state.count)
+        metrics = self.device_step(params, None, opt_state, batch, to_device(starts, dev),
+                                   to_device(scalars, dev))
+        opt_state.count += 1
+        return params, target, opt_state, metrics
+
+
+def make_grounding_train_step(model, loss_cfg: GroundingLossConfig, optimizer,
+                              compute_dtype: str = "float32",
+                              scan_steps: Optional[int] = None):
+    """The grounding-family train step (``GroundingTrainStep``), or with
+    ``scan_steps=N`` the N-step runner (``ScanStep``: on the card a replayed
+    CUDA graph)."""
+    step = GroundingTrainStep(model, loss_cfg, optimizer, compute_dtype=compute_dtype)
+    return step if scan_steps is None else ScanStep(step, scan_steps)
+
+
+# view-invariant scalars are means over (B, T) steps, recomputed from these
+# maps by rows (the JAX _VI_SCALAR_MAPS, train_step.py:515)
+_VI_SCALAR_MAPS = {
+    "L1 loss": "per_step_l1",
+    "Pos cosine sim": "per_step_pos_cos",
+    "Avg neg cosine sim": "per_step_neg_cos",
+    "InfoNCE loss": "per_step_nce",
+}
+
+
+class GroundingEvalStep:
+    """``eval_step(params, batch) -> (scalars, ious)``: the validation and
+    test step of the grounding family (the JAX ``make_grounding_eval_step``
+    on one device).
+
+    Deterministic, under ``torch.no_grad()`` with the model in eval mode
+    and the inference kernels available. An optional 'row_valid' (B,) marks
+    padding rows, which must carry an all-true narration mask. Each scalar
+    is its exact weighted mean over the batch: the grounding scalars over
+    the valid narrations ('_n_valid'), the view-invariant ones over rows x
+    steps ('_rows' rows); the joint loss is the grounding loss plus the
+    InfoNCE loss, each over its own weights. ``ious`` is the (B, N) IoU
+    map."""
+
+    def __init__(self, model, loss_cfg: GroundingLossConfig):
+        self.model = model
+        self.loss_cfg = loss_cfg
+        self.vi_mode = loss_cfg.model == "view_invariant"
+        self.joint = loss_cfg.model == "joint" and loss_cfg.use_distill_nce_loss
+
+    @torch.no_grad()
+    def __call__(self, params, batch):
+        self.model.eval()
+        video = batch["video_features"]
+        rv = batch.get("row_valid")
+        rv = (torch.ones(video.shape[0], device=video.device) if rv is None
+              else rv.to(torch.float32))
+        out = _grounding_forward(self.model, params, batch, batch, deterministic=True)
+        ld, ious = egoexo_loss(out, batch, batch["narration_padding_mask"], self.loss_cfg)
+        nvalid = ((~batch["narration_padding_mask"]).to(torch.float32) * rv[:, None]).sum()
+        rows = rv.sum()
+        pairs = {}
+        for k, mapk in _VI_SCALAR_MAPS.items():
+            if mapk in ld and (self.vi_mode or self.joint):
+                m = ld[mapk]
+                pairs[k] = ((m * rv[:, None]).sum(), rows * m.shape[1])
+        if self.vi_mode:
+            m = ld["per_step_nce"]
+            pairs["loss"] = ((m * rv[:, None]).sum(), rows * m.shape[1])
+        else:
+            for k, v in ld.items():
+                if v.dim() == 0 and k not in _VI_SCALAR_MAPS and k != "loss":
+                    pairs[k] = (v * nvalid, nvalid)
+            if self.joint:
+                pairs["_gnd_loss"] = ((ld["loss"] - ld["InfoNCE loss"]) * nvalid, nvalid)
+            else:
+                pairs["loss"] = (ld["loss"] * nvalid, nvalid)
+        agg = {k: num / torch.clamp(den, min=1e-6) for k, (num, den) in pairs.items()}
+        if self.joint:
+            agg["loss"] = agg.pop("_gnd_loss") + agg["InfoNCE loss"]
+        agg["_n_valid"] = nvalid
+        agg["_rows"] = rows
+        return agg, ious
+
+
+def make_grounding_eval_step(model, loss_cfg: GroundingLossConfig) -> GroundingEvalStep:
+    """The grounding-family validation / test step on one device."""
+    return GroundingEvalStep(model, loss_cfg)

@@ -417,7 +417,7 @@ class _StepWindow:
     runner counts N); the wall between the two synchronizes at its edges."""
 
     def __init__(self, tr, start: int, steps: int):
-        self.start, self.stop = start, start + steps
+        self.start, self.stop, self.batch_key = start, start + steps, tr.batch_key
         self.done, self.prof, self.rows, self.wall = 0, None, None, None
         for name in ("_do_step", "_do_fused"):
             setattr(tr, name, self._wrap(getattr(tr, name)))
@@ -430,7 +430,8 @@ class _StepWindow:
                 self.prof.__enter__()
                 self.t0 = time.perf_counter()
             out = real(batch)
-            self.done += batch["video"].shape[0] if batch["video"].dim() == 4 else 1
+            rows = batch[self.batch_key]
+            self.done += rows.shape[0] if rows.dim() == 4 else 1
             if self.prof is not None and self.done >= self.stop:
                 torch.cuda.synchronize()
                 self.wall = time.perf_counter() - self.t0

@@ -146,7 +146,7 @@ class ExperimentConfig:
     fixed_curriculum: bool = False
     # Run N optimizer steps a dispatch over N stacked prefetched batches: on
     # the card one replay of a CUDA graph of N whole steps
-    # (parallel/train_step.py::TanScanStep), which takes the step's ~1,800
+    # (parallel/train_step.py::ScanStep), which takes the step's ~1,800
     # eager launches off the host. Logging, runtime snapshots and the LR
     # schedule stay per step (metrics come back stacked); they land every N
     # steps.

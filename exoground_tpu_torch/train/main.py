@@ -1,30 +1,50 @@
-"""Command line: ``python -m exoground_tpu_torch.train.main --dataset htm-370k
---model cotrain --data_root <tree>``.
+"""Command line: ``python -m exoground_tpu_torch.train.main --dataset ...
+--model ... --data_root <tree>``.
 
 Counterpart of ``exoground_tpu/train/main.py`` (``main`` :179, ``build_model``
-:119, ``run_htm_tan`` :344-469) for the route this slice ports: TAN init or
-cotrain on HowTo100M features, with the frozen word2vec tower inside the
-step, a validation loss and the in-loop HTM-Align eval every
-``--eval_freq`` epochs, and a checkpoint every epoch; ``--resume``,
-``--pretrain`` and ``--test`` load them back, or load the JAX package's
-checkpoint files (flax msgpack, told apart by their first bytes: no flag),
-so a run trained with the JAX package continues here. The optimizer is the
-JAX command line's: fused AdamW, or the optax chain under
-``--no-fused_optimizer`` or ``--backprop_freq k`` (gradient accumulation over
-k mini-batches, also inside the replayed graph of ``--fused_steps``).
+:119, ``build_egoexo_dataset`` :28, ``build_lemma_dataset`` :81,
+``load_frozen_vi_encoder`` :156, ``run_htm_tan`` :344-469) for two routes:
+
+  * ``--dataset egoexo4d | lemma`` with ``--model view_invariant |
+    grounding | joint``: keystep grounding and its view-invariant
+    distillation (``EgoExoTrainer``), the repo's ``scripts/train_vi.sh``,
+    ``train_grounding.sh`` (the frozen VI encoder from
+    ``--vi_encoder_path``), ``train_joint_model.sh`` (with the curriculum)
+    and ``train_joint_model_lemma.sh``, and their ``scripts/test_*.sh``:
+    ``--test`` prints and returns the results (the IoU by camera rank for
+    grounding / joint) and writes ``test_results_epoch_0.json``;
+  * ``--dataset htm-*`` with ``--model init | cotrain``: TAN on HowTo100M
+    features, with the frozen word2vec tower inside the step, a validation
+    loss and the in-loop HTM-Align eval every ``--eval_freq`` epochs.
+
+Both checkpoint every epoch; ``--resume``, ``--pretrain`` and ``--test``
+load them back, or load the JAX package's checkpoint files (flax msgpack,
+told apart by their first bytes: no flag), so a run trained with the JAX
+package continues here. The optimizer is the JAX command line's: fused
+AdamW, or the optax chain under ``--no-fused_optimizer`` or
+``--backprop_freq k``; ``--fused_steps N`` replays N steps as one CUDA graph
+and ``--amp`` computes in bfloat16 with float32 masters.
 
 The command line always takes the card (``main`` raises without one);
 ``main(argv, device="cpu")`` runs the plain path on the CPU, as the tests
-do. Every other route raises ``NotImplementedError`` naming its ROADMAP
-item (queue 1): EgoExo4D and LEMMA (item 7), HTM-AA / S3D (item 9), the
-grounding, view-invariant and joint models (item 7), multi-host (item 4).
+do. HTM-AA / S3D (item 9) and multi-host (item 4) raise
+``NotImplementedError`` naming their ROADMAP item (queue 1); a model on a
+dataset of the other family raises ``ValueError``.
 
-Expected --data_root layout (as the JAX route's):
-  howto100m_s3d_features/*.mp4.npy         per-second video features
-  sentencified_htm_<tag>.json              ASR sentences ({vid: {...}})
-  htm_holdout_vid.txt, htm_vlen.csv        filters (optional)
-  s3d_dict.npy + s3d_howto100m.pth         word2vec tokenizer + tower
-  htm_align.json (optional)                in-loop HTM-Align eval
+Expected --data_root layouts (as the JAX routes'):
+  EgoExo4D: splits/{split}.csv, keystep_annotations/{split}.csv (or
+    narration_annotations/ without --use_keysteps), all_camera_rankings.json,
+    takes.json, egovlpv2_video_features/{take}_{cam}.pt,
+    narration_features/{take}/{nid}.pt [, audio_features/, camera_pose/]
+  LEMMA: splits/{split}.csv (video_id,duration_sec),
+    keystep_annotations/{split}.csv + all.csv (hoi_index,natural_language),
+    vid_feats/{video_id}_{cam}.pt, keystep_feats/{hoi}.pt
+  HowTo100M:
+    howto100m_s3d_features/*.mp4.npy         per-second video features
+    sentencified_htm_<tag>.json              ASR sentences ({vid: {...}})
+    htm_holdout_vid.txt, htm_vlen.csv        filters (optional)
+    s3d_dict.npy + s3d_howto100m.pth         word2vec tokenizer + tower
+    htm_align.json (optional)                in-loop HTM-Align eval
 """
 
 from __future__ import annotations
@@ -37,28 +57,59 @@ from typing import Callable, Optional
 import torch
 
 _LATER = "a later slice of the port (ROADMAP.md, queue 1 item {})"
-_MODEL_ITEMS = {"view_invariant": 7, "grounding": 7, "joint": 7, "s3d": 9}
+_TAN_MODELS = ("init", "cotrain")
+_GROUNDING_MODELS = ("view_invariant", "grounding", "joint")
+_GROUNDING_DATASETS = ("egoexo4d", "lemma")
 
 
 def _check_model(cfg) -> None:
-    if cfg.model not in ("init", "cotrain"):
-        item = _MODEL_ITEMS.get(cfg.model, 7)
-        raise NotImplementedError(f"--model {cfg.model} waits for {_LATER.format(item)}")
+    """The model must be one of its dataset's family (the JAX route would
+    hand it to the other family's trainer, which cannot train it)."""
+    if cfg.model == "s3d":
+        raise NotImplementedError(f"--model s3d waits for {_LATER.format(9)}")
+    family = _GROUNDING_MODELS if cfg.dataset in _GROUNDING_DATASETS else _TAN_MODELS
+    if cfg.model not in family:
+        raise ValueError(f"--model {cfg.model} does not train on --dataset {cfg.dataset}: "
+                         f"its models are {', '.join(family)}")
 
 
-def build_model(cfg, video_dim: int, text_dim: int, device="cuda"):
-    """The TAN model of ``cfg`` (init / cotrain): ``TemporalAligner`` with the
-    JAX ``build_model``'s fields, its pre-projections sized by the data's
-    video and text widths (the JAX Dense layers take them from the input)."""
+def build_model(cfg, video_dim: Optional[int] = None, text_dim: Optional[int] = None,
+                device="cuda"):
+    """The model of ``cfg``, as the JAX ``build_model`` builds it: for init /
+    cotrain ``TemporalAligner``, its pre-projections sized by the data's
+    video and text widths (the JAX Dense layers take them from the input);
+    for view_invariant ``ViewInvariantMLP``, for grounding ``GroundingModel``
+    with the MLP VI pre-pass, for joint ``ExoGroundingTransformer``, at the
+    configuration's feature widths."""
     from exoground_tpu_torch.models import TemporalAligner
+    from exoground_tpu_torch.models.grounding import ExoGroundingTransformer, GroundingModel
+    from exoground_tpu_torch.models.vi_encoder import ViewInvariantMLP
 
     _check_model(cfg)
-    return TemporalAligner(
-        num_encoder_layers=cfg.num_encoder_layers, num_joint_layers=cfg.num_decoder_layers,
-        pos_enc=cfg.pos_enc, use_text_pos_enc=int(cfg.use_text_pos_enc),
-        use_alignability_head=int(cfg.use_alignability_head),
-        attn_impl=None if cfg.attn_impl == "auto" else cfg.attn_impl,
-        video_dim=video_dim, text_dim=text_dim, device=device)
+    attn = None if cfg.attn_impl == "auto" else cfg.attn_impl
+    if cfg.model in _TAN_MODELS:
+        return TemporalAligner(
+            num_encoder_layers=cfg.num_encoder_layers,
+            num_joint_layers=cfg.num_decoder_layers,
+            pos_enc=cfg.pos_enc, use_text_pos_enc=int(cfg.use_text_pos_enc),
+            use_alignability_head=int(cfg.use_alignability_head), attn_impl=attn,
+            video_dim=video_dim, text_dim=text_dim, device=device)
+    if cfg.model == "view_invariant":
+        return ViewInvariantMLP(video_embed_dim=cfg.video_feature_dim, device=device)
+    multi = cfg.views == "multi"
+    common = dict(
+        num_encoder_layers=cfg.num_encoder_layers, num_decoder_layers=cfg.num_decoder_layers,
+        use_decoder=cfg.use_decoder, pos_enc=cfg.pos_enc,
+        use_text_pos_enc=int(cfg.use_text_pos_enc), use_audio=cfg.use_audio,
+        video_embed_dim=cfg.video_feature_dim, text_embed_dim=cfg.text_feature_dim,
+        audio_embed_dim=cfg.audio_feature_dim, feature_dim=cfg.feature_dim,
+        use_distill_nce_loss=cfg.use_distill_nce_loss, multi_view=multi,
+        num_max_views=cfg.num_max_views if multi else 1,
+        use_pairwise_distill_nce_loss=cfg.use_pairwise_distill_nce_loss,
+        pairwise_distill_mode=cfg.pairwise_distill_mode, attn_impl=attn, device=device)
+    if cfg.model == "grounding":
+        return GroundingModel(vi_encoder_type="mlp", **common)
+    return ExoGroundingTransformer(**common)
 
 
 def main(argv=None, device="cuda"):
@@ -71,25 +122,27 @@ def main(argv=None, device="cuda"):
     dev = resolve_device(device)
     if cfg.multihost:
         raise NotImplementedError(f"--multihost waits for {_LATER.format(4)}")
-    if cfg.dataset in ("egoexo4d", "lemma"):
-        raise NotImplementedError(f"--dataset {cfg.dataset} waits for {_LATER.format(7)}")
     if cfg.dataset == "htm-aa":
         raise NotImplementedError(f"--dataset htm-aa waits for {_LATER.format(9)}")
-    if not cfg.dataset.startswith("htm"):
+    if cfg.dataset not in _GROUNDING_DATASETS and not cfg.dataset.startswith("htm"):
         raise SystemExit(f"unknown --dataset {cfg.dataset}")
     _check_model(cfg)  # before set_path writes the experiment directory
     set_path(cfg)
+    if cfg.dataset in _GROUNDING_DATASETS:
+        return run_egoexo(cfg, dev)
     return run_htm_tan(cfg, dev)
 
 
 @dataclass
-class HTMTanRun:
-    """What ``build_htm_tan`` builds from a configuration."""
+class TrainRun:
+    """What ``build_htm_tan`` or ``build_egoexo`` builds from a
+    configuration (``dataset``: the training reader, for its curriculum)."""
 
     trainer: object
     train_loader: object
     val_loader: object
-    downstream: Optional[Callable]
+    downstream: Optional[Callable] = None
+    dataset: object = None
 
     def close(self):
         self.trainer.close()
@@ -97,7 +150,168 @@ class HTMTanRun:
         self.val_loader.close()
 
 
-def build_htm_tan(cfg, device) -> HTMTanRun:
+# ------------------------------------------------------------ EgoExo4D / LEMMA
+def build_egoexo_dataset(cfg, split: str):
+    """The EgoExo4D reader of ``split`` over ``--data_root``, its windows
+    cached in ``{model}_{split}_{views}_ks=.._ct=.._exos=.._windows.csv``
+    beside the data, the JAX cache's name (main.py:28-78). The curriculum
+    is the training split's alone (the reader asserts it): the JAX route
+    hands ``--curriculum_train`` to the val and test readers too, whose
+    assertion then stops ``scripts/train_joint_model.sh`` before it trains."""
+    from exoground_tpu_torch.data.egoexo4d import EgoExo4DDataset, EgoExoConfig, EgoExoSource
+
+    root = cfg.data_root
+    curriculum = cfg.curriculum_train and split == "train"
+    src = EgoExoSource.from_paths(
+        split_csv=os.path.join(root, "splits", f"{split}.csv"),
+        annotations_csv=os.path.join(
+            root, "keystep_annotations" if cfg.use_keysteps else "narration_annotations",
+            f"{split}.csv"),
+        camera_rankings_json=os.path.join(root, "all_camera_rankings.json"),
+        takes_json=os.path.join(root, "takes.json"),
+        video_feature_root=os.path.join(root, "egovlpv2_video_features"),
+        narration_feature_root=os.path.join(root, "narration_features"),
+        audio_feature_root=(os.path.join(root, "audio_features", split)
+                            if cfg.use_audio else None),
+        camera_pose_root=(os.path.join(root, "camera_pose")
+                          if os.path.isdir(os.path.join(root, "camera_pose")) else None),
+    )
+    dcfg = EgoExoConfig(
+        duration=cfg.seq_len, hop_length=cfg.seq_hop, use_audio=cfg.use_audio,
+        use_keysteps=cfg.use_keysteps, views=cfg.views,
+        use_distill_nce_loss=cfg.use_distill_nce_loss,
+        use_center_duration=cfg.use_center_duration,
+        multi_view_egoexo=cfg.multi_view_egoexo, num_max_views=cfg.num_max_views,
+        randomize_narration_order=cfg.randomize_narration_order,
+        curriculum_train=curriculum, sorted_curr_train=cfg.sorted_curr_train,
+        model=cfg.model, exo_mode=cfg.exos,
+        minimum_four_exo_takes=cfg.minimum_four_exo_takes,
+        same_view_negative=cfg.same_view_negative, reverse_ranking=cfg.reverse_ranking,
+        randomize_ranking=cfg.randomize_ranking, exo_exo_distill=cfg.exo_exo_distill,
+        feature_dim=cfg.text_feature_dim, seed=cfg.seed, fps=cfg.fps,
+    )
+    kind = "grounding" if cfg.model in ("grounding", "joint") else "view_invariant"
+    csv_cache = os.path.join(
+        root, f"{kind}_{split}_{cfg.views}_ks={cfg.use_keysteps}_ct={curriculum}"
+              f"_exos={cfg.exos}_windows.csv")
+    return EgoExo4DDataset(dcfg, src, split=split, window_csv_path=csv_cache)
+
+
+def build_lemma_dataset(cfg, split: str):
+    """The LEMMA reader of ``split`` over ``--data_root`` (the JAX
+    ``build_lemma_dataset``, main.py:81-116; its CSV files read without
+    pandas, typed as pandas types them; the curriculum the training
+    split's alone, as for EgoExo4D)."""
+    from exoground_tpu_torch.data.io import FeatureStore
+    from exoground_tpu_torch.data.lemma import LemmaConfig, LemmaDataset
+    from exoground_tpu_torch.data.table import read_csv_records
+
+    root = cfg.data_root
+    anno_dir = os.path.join(root, "keystep_annotations")
+    hoi = read_csv_records(os.path.join(anno_dir, "all.csv"))
+    dcfg = LemmaConfig(
+        duration=cfg.seq_len, hop_length=cfg.seq_hop, views=cfg.views,
+        use_distill_nce_loss=cfg.use_distill_nce_loss,
+        curriculum_train=cfg.curriculum_train and split == "train",
+        same_view_negative=cfg.same_view_negative, reverse_ranking=cfg.reverse_ranking,
+        randomize_ranking=cfg.randomize_ranking, feature_dim=cfg.text_feature_dim,
+        seed=cfg.seed, fps=cfg.fps,
+    )
+    return LemmaDataset(
+        dcfg, read_csv_records(os.path.join(root, "splits", f"{split}.csv")),
+        read_csv_records(os.path.join(anno_dir, f"{split}.csv")),
+        {r["hoi_index"]: r["natural_language"] for r in hoi},
+        video_store=FeatureStore(os.path.join(root, "vid_feats"), (".pt",)),
+        narration_store=FeatureStore(os.path.join(root, "keystep_feats"), (".pt",)),
+        split=split,
+    )
+
+
+def load_frozen_vi_encoder(trainer, cfg) -> bool:
+    """The ``vi_encoder`` branch of a grounding model from a view_invariant
+    checkpoint at ``--vi_encoder_path`` (the port's or the JAX package's),
+    non-strict, as the JAX ``load_frozen_vi_encoder`` (main.py:156-176);
+    nothing when the path is unset or missing. Returns whether it loaded."""
+    from exoground_tpu_torch.train.checkpoint import checkpoint_format, load_state, restore_into
+    from exoground_tpu_torch.utils.convert import grounding_state_dict_from_jax
+
+    path = cfg.vi_encoder_path
+    if not path or not os.path.exists(path):
+        return False
+    prefix = "vi_encoder."
+    branch = {k[len(prefix):]: v for k, v in trainer.params.items() if k.startswith(prefix)}
+    if not branch:
+        return False
+    blob = load_state(path)
+    state = blob["state_dict"]
+    if checkpoint_format(path) == "flax_msgpack":
+        state = grounding_state_dict_from_jax(state)
+    restore_into(branch, state)  # in place: the branch shares the model's storage
+    print(f"[main] loaded frozen VI encoder from {path}", flush=True)
+    return True
+
+
+def build_egoexo(cfg, device) -> TrainRun:
+    """The train and val (or test) readers and loaders of ``--dataset
+    egoexo4d | lemma``, the model (seeded by ``cfg.seed``) and the trainer.
+    The train sampler is ``CurriculumShardedSampler`` under
+    ``--curriculum_train --sorted_curr_train sorted``, else
+    ``ShardedSampler``; the eval loader keeps the last partial batch."""
+    from exoground_tpu_torch.data import (
+        CurriculumShardedSampler,
+        ShardedSampler,
+        ThreadedLoader,
+    )
+    from exoground_tpu_torch.train.trainer import EgoExoTrainer
+
+    build = build_lemma_dataset if cfg.dataset == "lemma" else build_egoexo_dataset
+    train_ds = build(cfg, "train")
+    val_ds = build(cfg, "test" if cfg.test else "val")
+    if cfg.curriculum_train and cfg.sorted_curr_train == "sorted":
+        sampler = CurriculumShardedSampler(
+            len(train_ds), seed=cfg.seed, max_epochs=cfg.epochs, start_frac=cfg.start_frac,
+            end_epoch_frac=cfg.end_epoch_frac, fixed_ramp=cfg.fixed_curriculum)
+    else:
+        sampler = ShardedSampler(len(train_ds), seed=cfg.seed)
+    train_loader = ThreadedLoader(train_ds, cfg.batch_size, sampler=sampler,
+                                  num_workers=cfg.num_workers)
+    val_loader = ThreadedLoader(val_ds, cfg.batch_size,
+                                sampler=ShardedSampler(len(val_ds), shuffle=False),
+                                num_workers=cfg.num_workers, drop_last=False)
+    torch.manual_seed(cfg.seed)  # the model's initial weights
+    model = build_model(cfg, device=device)
+    trainer = EgoExoTrainer(model, cfg, iters_per_epoch=len(train_loader), device=device)
+    return TrainRun(trainer, train_loader, val_loader, dataset=train_ds)
+
+
+def run_egoexo(cfg, device):
+    """Grounding-family training (reference main_egoexo4d_distributed.py):
+    for grounding the frozen VI encoder first, then ``--resume`` /
+    ``--pretrain``; ``--test`` loads a checkpoint, prints ``{'loss': ...,
+    results}`` and returns the results; else ``fit`` and its best score."""
+    run = build_egoexo(cfg, device)
+    trainer = run.trainer
+    try:
+        if cfg.model == "grounding":
+            load_frozen_vi_encoder(trainer, cfg)
+        if cfg.resume:
+            trainer.load_checkpoint(cfg.resume, mode="resume")
+        elif cfg.pretrain:
+            trainer.load_checkpoint(cfg.pretrain, mode="pretrain")
+        if cfg.test:
+            trainer.load_checkpoint(cfg.test, mode="test")
+            loss, results = trainer.evaluate(run.val_loader, epoch=0, test=True)
+            print({"loss": loss, **{k: round(v, 4) for k, v in results.items()}}, flush=True)
+            return results
+        return trainer.fit(run.train_loader, run.val_loader, dataset=run.dataset)
+    finally:
+        run.close()
+
+
+# ------------------------------------------------------------------ HowTo100M
+
+
+def build_htm_tan(cfg, device) -> TrainRun:
     """The tokenizer and frozen tower from ``--data_root``, the train / val
     readers and loaders, the model (seeded by ``cfg.seed``), the trainer and
     the in-loop HTM-Align eval (when ``htm_align.json`` exists)."""
@@ -180,7 +394,7 @@ def build_htm_tan(cfg, device) -> HTMTanRun:
                 evaluator_box["ev"].update_params(tr.model.state_dict())
             return evaluator_box["ev"](align_items)
 
-    return HTMTanRun(trainer, train_loader, val_loader, downstream)
+    return TrainRun(trainer, train_loader, val_loader, downstream)
 
 
 def run_htm_tan(cfg, device):

@@ -1,4 +1,5 @@
-"""TAN train loop (MIL-NCE alignment, init or EMA cotrain) on one device.
+"""Train loops on one device: TAN (MIL-NCE alignment, init or EMA cotrain)
+and EgoExo4D / LEMMA (view-invariant, grounding, joint).
 
 Counterpart of ``exoground_tpu/train/trainer.py`` (``BaseTrainer`` and
 ``TANTrainer``, reference train/main.py:36-544) over the port's
@@ -20,6 +21,12 @@ depth 2 as in the JAX package; ``_prefetched_groups`` stacks
 epoch loop (meters, the finite-loss guard, every-5 logging, runtime
 saves). ``TANTrainer`` adds the step, the frozen word2vec tower for token
 batches, ``evaluate`` and ``fit`` with the downstream HTM-Align hook.
+``EgoExoTrainer`` (the JAX ``EgoExoTrainer``, trainer.py:566-807) adds the
+grounding-family step, ``prepare_batch`` (the (B, V) view mask, the
+positive view's ego features, the same-view negatives gathered from the
+model's input), ``evaluate`` with exact meters and, at ``--test``, the IoU
+binned by camera rank and ``test_results_epoch_{epoch}.json``, and ``fit``
+with the curriculum phases.
 
 With ``fused_steps`` N > 1 each N batches that stack run as one call of
 the N-step runner (``make_tan_train_step(scan_steps=N)``: on the card a
@@ -36,6 +43,7 @@ bit-exact continuation: it restarts the generator from ``cfg.seed``.
 from __future__ import annotations
 
 import collections
+import json
 import os
 import statistics
 import time
@@ -45,9 +53,15 @@ import numpy as np
 import torch
 
 from exoground_tpu_torch.data.pipeline import device_prefetch
+from exoground_tpu_torch.losses.grounding import GroundingLossConfig
 from exoground_tpu_torch.losses.milnce import TANLossConfig
 from exoground_tpu_torch.models.ema import ema_init
-from exoground_tpu_torch.parallel.train_step import make_tan_eval_step, make_tan_train_step
+from exoground_tpu_torch.parallel.train_step import (
+    make_grounding_eval_step,
+    make_grounding_train_step,
+    make_tan_eval_step,
+    make_tan_train_step,
+)
 from exoground_tpu_torch.train.checkpoint import (
     checkpoint_format,
     load_state,
@@ -63,7 +77,10 @@ from exoground_tpu_torch.train.optim import (
     make_optimizer,
     optimizer_state_dict,
 )
-from exoground_tpu_torch.utils.convert import tan_checkpoint_from_jax
+from exoground_tpu_torch.utils.convert import (
+    grounding_checkpoint_from_jax,
+    tan_checkpoint_from_jax,
+)
 from exoground_tpu_torch.utils.device import resolve_device
 from exoground_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
@@ -115,7 +132,12 @@ def epoch_summary(stats: List[Dict]) -> Dict[str, float]:
 class BaseTrainer:
     """Checkpoints, prefetch and the epoch loop shared by the trainers;
     a subclass sets ``params``, ``target_params``, ``opt_state``, ``model``
-    and ``prepare_batch``."""
+    and ``prepare_batch``, the batch entry whose rows it counts
+    (``batch_key``) and the bridge of the JAX package's checkpoints
+    (``from_jax``)."""
+
+    batch_key = "video"
+    from_jax = staticmethod(tan_checkpoint_from_jax)
 
     def __init__(self, cfg: ExperimentConfig, device="cuda"):
         self.cfg = cfg
@@ -165,13 +187,13 @@ class BaseTrainer:
         and best; pretrain / test: parameters (and the twin) only, non-strict
         (reference main.py:452-484). ``path`` is the port's checkpoint or the
         JAX package's msgpack one (``checkpoint_format``), bridged by
-        ``tan_checkpoint_from_jax``; the optimizer state of either layout is
+        ``from_jax``; the optimizer state of either layout is
         adapted to this trainer's optimizer (``adapt_optimizer_state``)."""
         if mode not in ("resume", "pretrain", "test"):
             raise ValueError(f"checkpoint mode {mode!r}: resume, pretrain or test")
         blob = load_state(path)
         if checkpoint_format(path) == "flax_msgpack":
-            blob = tan_checkpoint_from_jax(blob)
+            blob = self.from_jax(blob)
         restore_into(self.params, blob["state_dict"])
         if mode == "resume":
             self.iteration = int(blob.get("iteration", 0))
@@ -260,7 +282,7 @@ class BaseTrainer:
                 metrics = do_step(batch)
                 losses = [float(metrics["loss"])]  # waits for the step
                 last = metrics
-            rows = batch["video"].shape[-3]
+            rows = batch[self.batch_key].shape[-3]
             for loss in losses:
                 samples += rows
                 if np.isfinite(loss):
@@ -455,4 +477,199 @@ class TANTrainer(BaseTrainer):
                 self.writer.add_dict({k: v for k, v in stats.items()
                                       if k in ("val_s", "downstream_s", "save_s")},
                                      epoch, prefix="time/")
+        return best
+
+
+class EgoExoTrainer(BaseTrainer):
+    """View-invariant, grounding and joint training on EgoExo4D or LEMMA
+    (the JAX ``EgoExoTrainer``; reference main_egoexo4d_distributed.py:
+    573-883) of a port model: ``ViewInvariantMLP``, ``GroundingModel`` or
+    ``ExoGroundingTransformer``, its weights as they are. No EMA twin."""
+
+    batch_key = "video_features"
+    from_jax = staticmethod(grounding_checkpoint_from_jax)
+    _VI_KEYS = ("L1 loss", "Pos cosine sim", "Avg neg cosine sim", "InfoNCE loss")
+
+    def __init__(self, model, cfg: ExperimentConfig, iters_per_epoch: int = 1000,
+                 device="cuda"):
+        cfg.validate()
+        super().__init__(cfg, device)
+        self.model = model.to(self.device)
+        self.generator = torch.Generator().manual_seed(cfg.seed)  # random pos start
+        self.loss_cfg = GroundingLossConfig(
+            use_center_duration=cfg.use_center_duration, iou_loss_eps=cfg.iou_loss_eps,
+            iou_thresholds=tuple(cfg.iou_thresholds), model=cfg.model,
+            use_distill_nce_loss=cfg.use_distill_nce_loss,
+            same_view_negative=cfg.same_view_negative,
+            only_same_view_negative=cfg.only_same_view_negative,
+            test_egovlp=cfg.test_egovlp)
+        self.params = {k: p.detach() for k, p in self.model.named_parameters()}
+        self.target_params = None
+        self.tx = _build_optimizer(cfg, self.params, cfg.epochs * iters_per_epoch,
+                                   policy=cfg.optim_policy)
+        self.opt_state = self.tx.init(self.params)
+        step = make_grounding_train_step(
+            self.model, self.loss_cfg, self.tx,
+            compute_dtype="bfloat16" if cfg.amp else "float32",
+            scan_steps=cfg.fused_steps if cfg.fused_steps > 1 else None)
+        self.fused_step = step if cfg.fused_steps > 1 else None
+        self.step = step.single if cfg.fused_steps > 1 else step
+        self._eval_step = None
+
+    # ------------------------------------------------------------ batch prep
+    def prepare_batch(self, batch: Dict) -> Dict[str, np.ndarray]:
+        """Host arrays of one batch (trainer.py:629-673): the model's inputs
+        and the loss targets; under ``views == 'multi'`` the (B, V) view
+        mask; with a view bank the positive view's features per step
+        (``ego_video_features_flat``, the model's distillation target) and,
+        under ``same_view_negative``, the same-view negatives gathered from
+        the model's input video features."""
+        out = {
+            "video_features": np.asarray(batch["video_features"], np.float32),
+            "narration_features": np.asarray(batch["narration_features"], np.float32),
+            "video_padding_mask": np.asarray(batch["video_padding_mask"], bool),
+            "narration_padding_mask": np.asarray(batch["narration_padding_mask"], bool),
+        }
+        for k in ("starts", "ends", "mean", "duration"):
+            if k in batch:
+                out[k] = np.asarray(batch[k], np.float32)
+        if "audio_features" in batch:
+            out["audio_features"] = np.asarray(batch["audio_features"], np.float32)
+            out["audio_padding_mask"] = np.asarray(batch["audio_padding_mask"], bool)
+        if "view_available_mask" in batch and self.cfg.views == "multi":
+            b = out["video_features"].shape[0]
+            out["view_mask"] = np.asarray(batch["view_available_mask"], bool).reshape(
+                b, self.cfg.num_max_views, -1).any(axis=-1)
+        if "ego_video_features" in batch:
+            bank = np.asarray(batch["ego_video_features"], np.float32)  # (B, V, T, C)
+            out["ego_video_features"] = bank
+            out["view_rank_label"] = np.asarray(batch["view_rank_label"], np.int32)
+            out["view_rank_neg_label"] = np.asarray(batch["view_rank_neg_label"], np.int32)
+            v = bank.shape[1]
+            pos = np.clip(out["view_rank_label"][..., None, None], 0, v - 1)  # (B, T, 1, 1)
+            out["ego_video_features_flat"] = np.take_along_axis(
+                bank.transpose(0, 2, 1, 3), pos, axis=2)[:, :, 0]
+            if "same_view_neg_idxs" in batch and self.cfg.same_view_negative:
+                idxs = np.asarray(batch["same_view_neg_idxs"], np.int64)  # (B, T)
+                out["same_view_neg_feats"] = np.take_along_axis(
+                    out["video_features"], idxs[..., None], axis=1)
+        return out
+
+    # ------------------------------------------------------------ train loop
+    def _do_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        self.params, _, self.opt_state, metrics = self.step(
+            self.params, None, self.opt_state, batch, self.generator)
+        return metrics
+
+    def _do_fused(self, batches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        self.params, _, self.opt_state, metrics = self.fused_step(
+            self.params, None, self.opt_state, batches, self.generator)
+        return metrics
+
+    def train_epoch(self, loader: Iterable[Dict], epoch: int) -> float:
+        """One pass over ``loader``; the mean finite loss, weighted by rows."""
+        self.model.train()
+        return self._run_train_epoch(loader, epoch, self._do_step,
+                                     self._do_fused if self.fused_step is not None else None)
+
+    def evaluate(self, loader: Iterable[Dict], epoch: int, test: bool = False):
+        """(loss, results): the eval step over every batch of ``loader`` (the
+        last partial one too), each metric averaged with the weight of its
+        exact in-step mean (narrations for the grounding scalars, rows for
+        the view-invariant ones; trainer.py:702-777). At ``test`` for
+        grounding / joint: 'Rank r mean IoU' / 'Rank r count' over the
+        valid narrations by camera rank, and ``test_results_epoch_{epoch}
+        .json`` under ``log_path``."""
+        if self._eval_step is None:
+            self._eval_step = make_grounding_eval_step(self.model, self.loss_cfg)
+        binned = test and self.cfg.model in ("grounding", "joint")
+        vi_mode = self.cfg.model == "view_invariant"
+        meters: Dict[str, AverageMeter] = {}
+        loss_meter = AverageMeter("Loss", ":.4f")
+        rank_iou: Dict[str, List[float]] = {}
+        save_list = []
+        metas = collections.deque()
+
+        def prepared():
+            for raw in loader:
+                batch = self.prepare_batch(raw)
+                metas.append((raw.get("metadata", {}), batch["narration_padding_mask"]))
+                yield batch
+
+        for batch in device_prefetch(prepared(), self.device, size=2):
+            meta, narr_pad = metas.popleft()
+            b = narr_pad.shape[0]
+            scalars, ious = self._eval_step(self.params, batch)
+            keys = list(scalars)
+            values = dict(zip(keys, torch.stack([scalars[k] for k in keys]).tolist()))
+            n_valid = int(values.pop("_n_valid"))
+            values.pop("_rows")
+            for k, v in values.items():
+                per_row = k in self._VI_KEYS or (vi_mode and k == "loss")
+                meters.setdefault(k, AverageMeter(k, ":.4f")).update(v, b if per_row else n_valid)
+            loss_meter.update(values["loss"], b if vi_mode else n_valid)
+            if not binned:
+                continue
+            ious_np = ious.float().cpu().numpy()[:b]
+            save_list.append({
+                "loss_dict": ious_np.tolist(),
+                "metadata": {"narration": meta.get("narrations"),
+                             "video_id": meta.get("video_id"),
+                             "cam_id": meta.get("exo_camera"),
+                             "narr_ranks": meta.get("narr_ranks")},
+            })
+            # per-camera-rank IoU binning (reference loss_egoexo4d.py:126-137)
+            valid = ~narr_pad
+            for i, ranks in enumerate(meta.get("narr_ranks") or []):
+                for j, r in enumerate(ranks):
+                    if j < ious_np.shape[1] and valid[i, j]:
+                        rank_iou.setdefault(str(r), []).append(float(ious_np[i, j]))
+        if self.writer:
+            for k, m in meters.items():
+                self.writer.add_data(f"val/{k}", m.avg, epoch)
+        results = {k: m.avg for k, m in meters.items()}
+        for r, vals in sorted(rank_iou.items()):
+            results[f"Rank {r} mean IoU"] = float(np.mean(vals))
+            results[f"Rank {r} count"] = len(vals)
+        if test and save_list and self.cfg.log_path:
+            with open(os.path.join(self.cfg.log_path, f"test_results_epoch_{epoch}.json"),
+                      "w") as f:
+                json.dump(save_list, f)
+        return loss_meter.avg, results
+
+    def fit(self, train_loader, val_loader=None, dataset=None) -> float:
+        """Train from ``start_epoch`` to ``cfg.epochs`` with the curriculum
+        (trainer.py:779-807): each epoch the loader's and the dataset's epoch,
+        then under ``curriculum_train`` with 'phased' the dataset's phase;
+        each ``eval_freq``-th epoch the validation, whose 'mean IoU' (else
+        the negated loss) ranks the epochs; a checkpoint every epoch.
+        Returns the best score."""
+        from exoground_tpu_torch.data.sampling import get_phase
+
+        cfg = self.cfg
+        best = self.best_acc
+        for epoch in range(self.start_epoch, cfg.epochs):
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            if dataset is not None and hasattr(dataset, "set_epoch"):
+                dataset.set_epoch(epoch)
+            if dataset is not None and cfg.curriculum_train and cfg.sorted_curr_train == "phased":
+                dataset.set_phase(get_phase(epoch, cfg.epochs, 4, cfg.final_phase_prop))
+            self.train_epoch(train_loader, epoch)
+            stats = self.epoch_stats[-1]
+            is_best = False
+            if val_loader is not None and epoch % cfg.eval_freq == 0:
+                t0 = time.perf_counter()
+                val_loss, results = self.evaluate(val_loader, epoch)
+                stats["val_s"] = time.perf_counter() - t0
+                score = results.get("mean IoU", -val_loss)
+                is_best = score > best
+                best = max(score, best)
+                self.best_acc = best
+            t0 = time.perf_counter()
+            self.save_epoch(epoch, is_best=is_best)
+            stats["save_s"] = time.perf_counter() - t0
+            if self.writer:
+                self.writer.add_dict({k: v for k, v in stats.items()
+                                      if k in ("val_s", "save_s")}, epoch, prefix="time/")
         return best

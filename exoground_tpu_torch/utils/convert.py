@@ -13,7 +13,8 @@ transformer):
   LayerNorm scale / bias           -> weight / bias
   pos tables                       -> as they are
 
-``tan_checkpoint_from_jax`` bridges a whole JAX TAN checkpoint (as
+``tan_checkpoint_from_jax`` (``grounding_checkpoint_from_jax`` for the
+grounding family) bridges a whole JAX checkpoint (as
 ``train/checkpoint.py::load_state`` reads the JAX package's msgpack file)
 to the port's checkpoint layout: parameters, the EMA twin and Adam's moments
 through ``tan_state_dict_from_jax`` (the bridge is linear, transposes only,
@@ -130,28 +131,38 @@ def find_adam(node):
     return None
 
 
-def tan_checkpoint_from_jax(blob: Mapping) -> Dict:
-    """A JAX TAN checkpoint's tree (``epoch``, ``state_dict``, ``best_acc``,
+def checkpoint_from_jax(blob: Mapping, bridge) -> Dict:
+    """A JAX checkpoint's tree (``epoch``, ``state_dict``, ``best_acc``,
     ``optimizer``, ``iteration`` [, ``target_state_dict``]: the JAX
     trainer's ``_ckpt_state``, trainer.py:110-125) -> the port's checkpoint
     layout (``train/optim.py::optimizer_state_dict``): the trees through
-    ``tan_state_dict_from_jax``, the optimizer's Adam count / mu / nu from
-    either JAX layout, and ``mini_step`` / ``acc_grads`` of a
+    ``bridge`` (a params tree -> a state dict), the optimizer's Adam count /
+    mu / nu from either JAX layout, and ``mini_step`` / ``acc_grads`` of a
     ``MultiStepsState``; epoch, iteration and best carried as they are."""
     out = {k: blob[k] for k in ("epoch", "iteration", "best_acc") if k in blob}
-    out["state_dict"] = tan_state_dict_from_jax(blob["state_dict"])
+    out["state_dict"] = bridge(blob["state_dict"])
     if "target_state_dict" in blob:
-        out["target_state_dict"] = tan_state_dict_from_jax(blob["target_state_dict"])
+        out["target_state_dict"] = bridge(blob["target_state_dict"])
     opt = blob.get("optimizer")
     adam = find_adam(opt)
     if adam is not None:
-        out["optimizer"] = {"count": int(adam["count"]),
-                            "mu": tan_state_dict_from_jax(adam["mu"]),
-                            "nu": tan_state_dict_from_jax(adam["nu"])}
+        out["optimizer"] = {"count": int(adam["count"]), "mu": bridge(adam["mu"]),
+                            "nu": bridge(adam["nu"])}
         if {"mini_step", "acc_grads"} <= set(opt):
             out["optimizer"].update(mini_step=int(opt["mini_step"]),
-                                    acc_grads=tan_state_dict_from_jax(opt["acc_grads"]))
+                                    acc_grads=bridge(opt["acc_grads"]))
     return out
+
+
+def tan_checkpoint_from_jax(blob: Mapping) -> Dict:
+    """A JAX TAN checkpoint in the port's layout (``checkpoint_from_jax``)."""
+    return checkpoint_from_jax(blob, tan_state_dict_from_jax)
+
+
+def grounding_checkpoint_from_jax(blob: Mapping) -> Dict:
+    """A JAX view-invariant, grounding or joint checkpoint in the port's
+    layout (``checkpoint_from_jax`` through ``grounding_state_dict_from_jax``)."""
+    return checkpoint_from_jax(blob, grounding_state_dict_from_jax)
 
 
 def _grounding_trunk(p: Mapping) -> Dict[str, torch.Tensor]:
@@ -196,10 +207,12 @@ def _vi_encoder(p: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def grounding_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """ExoGroundingTransformer or GroundingModel JAX params (``{"params":
-    ...}`` or the bare tree; a GroundingModel's holds ``trunk`` and
-    ``vi_encoder``) -> the port's state dict of float32 CPU tensors."""
+    """ExoGroundingTransformer, GroundingModel or ViewInvariantMLP JAX params
+    (``{"params": ...}`` or the bare tree; a GroundingModel's holds ``trunk``
+    and ``vi_encoder``) -> the port's state dict of float32 CPU tensors."""
     p = params.get("params", params)
+    if "mlp_fc1" in p:  # the view_invariant model itself
+        return _vi_encoder(p)
     if "trunk" not in p:
         return _grounding_trunk(p)
     out = _grounding_trunk(p["trunk"])

@@ -41,7 +41,7 @@ from exoground_tpu_torch.models import TemporalAligner, ema_init
 from exoground_tpu_torch.ops import _kernels
 from exoground_tpu_torch.ops import pos_embed as tpos
 from exoground_tpu_torch.parallel import make_tan_train_step
-from exoground_tpu_torch.parallel.train_step import TanScanStep, TanTrainStep
+from exoground_tpu_torch.parallel.train_step import ScanStep, TanTrainStep
 from exoground_tpu_torch.train import ExperimentConfig, FusedAdamWEMA, TANTrainer
 from exoground_tpu_torch.utils.convert import load_tan_params, tan_state_dict_from_jax
 from tests.test_torch_train import LOSS, SMALL, _batch, _numpy_params
@@ -148,7 +148,7 @@ def test_scan_steps_equals_single_steps_bit_for_bit():
         p, t, o, m = step(p, t, o, {k: torch.from_numpy(v) for k, v in b.items()}, gen)
         singles.append(m)
     p2, t2, o2, scan = _port(0, 1, scan_steps=3)
-    assert isinstance(scan, TanScanStep) and isinstance(scan.single, TanTrainStep)
+    assert isinstance(scan, ScanStep) and isinstance(scan.single, TanTrainStep)
     p2, t2, o2, ms = scan(p2, t2, o2, _stack(batches), torch.Generator().manual_seed(11))
     assert o2.count == o.count == 3
     assert set(ms) == set(singles[0]) and all(v.shape == (3,) for v in ms.values())
@@ -216,8 +216,8 @@ def test_trainer_fused_steps_groups_tails_and_ragged_groups(monkeypatch):
     steps, and so does the tail (the JAX tests/test_train.py:277-300). The
     parameters follow fused_steps 1's exactly."""
     calls = []
-    real = TanScanStep.__call__
-    monkeypatch.setattr(TanScanStep, "__call__",
+    real = ScanStep.__call__
+    monkeypatch.setattr(ScanStep, "__call__",
                         lambda self, *a: calls.append(a[3]["video"].shape[0]) or real(self, *a))
     fused, plain = _trainer(2), _trainer(1)
     assert fused.fused_step is not None and fused.step is fused.fused_step.single

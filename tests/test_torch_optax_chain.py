@@ -12,7 +12,7 @@ package's, on the CPU.
 * ``TanTrainStep`` with the chain (k = 2, global-norm clip) against the JAX
   ``make_tan_train_step`` with ``make_optimizer`` over 4 steps (1 + 1
   layers, width 64), eagerly and
-  through ``TanScanStep`` (on the CPU its plain loop): the tolerances of
+  through ``ScanStep`` (on the CPU its plain loop): the tolerances of
   tests/test_torch_train.py::test_train_step_matches_jax (metrics 1e-4
   relative, first moments 1e-4 of their largest entry, parameters and EMA
   twin 2e-6 absolute; Adam eps 1e-3 on both sides, optax's ``adamw``
@@ -43,7 +43,7 @@ from exoground_tpu.train.optim import make_optimizer as jax_make_optimizer
 from exoground_tpu_torch.losses.milnce import TANLossConfig
 from exoground_tpu_torch.models import TemporalAligner, ema_init
 from exoground_tpu_torch.parallel import make_tan_train_step
-from exoground_tpu_torch.parallel.train_step import TanScanStep
+from exoground_tpu_torch.parallel.train_step import ScanStep
 from exoground_tpu_torch.train import (
     ChainState,
     ExperimentConfig,
@@ -155,7 +155,7 @@ def test_chain_scalars_and_schedule_of_inner_steps():
 def chain_steps():
     """4 steps (k = 2, global-norm clip 0.5) of the JAX step with its
     ``make_optimizer``, of the port's eager step and of its
-    ``TanScanStep(scan_steps=2)``, from the same weights and batches."""
+    ``ScanStep(scan_steps=2)``, from the same weights and batches."""
     opt_kw = dict(lr=1e-3, weight_decay=1e-2, total_iterations=20, warmup_iterations=0,
                   accumulate_steps=2, grad_clip=0.5, grad_clip_mode="global")
     jm = JaxAligner(**TINY, attn_impl="xla")
@@ -189,7 +189,7 @@ def chain_steps():
                 p, t, o, m = step(p, t, o, {k: torch.from_numpy(v) for k, v in b.items()})
                 metrics.append(m)
         else:
-            assert isinstance(step, TanScanStep)
+            assert isinstance(step, ScanStep)
             for g in (batches[:2], batches[2:]):
                 stacked = {k: torch.from_numpy(np.stack([b[k] for b in g])) for k in g[0]}
                 p, t, o, ms = step(p, t, o, stacked)
