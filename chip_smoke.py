@@ -277,6 +277,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      last 8 steps, which are profiled for the device's busy ms a step and idle
      share; validation ms), `gnd_agreement {...}` and `gnd_phase {...}`. The
      trees are removed after.
+  10. the inference front at phase 8's model (TemporalAligner E6D6 width 512,
+     8 heads, 512-d video and text; seeded) with the word2vec tower at the
+     MIL-NCE widths (66,249 words x 300 -> 2,048 -> 512) and its tokenizer
+     (32 words) on the card: AlignmentService(tokenizer=, text_tower=) over 4
+     raw-text requests (64 sentences of a ~300 s video, with and without
+     timestamps) and one align_batch_requests call of 'texts' entries, card
+     vs the same service on the CPU (score within 1e-4 of max|CPU|,
+     best_second equal where the CPU's top-2 margin clears it), raw texts
+     equal to the same request as the tower's embeddings, then 128 of them
+     timed (`front_raw_bench {...}`: mean, p50, p90 ms); serve_http on
+     127.0.0.1 with phase 7's grounding model under 'auto': /align,
+     /align_batch, /ground and /ground_batch over one keep-alive connection,
+     each equal to the direct call on the card; 400 serial /align requests
+     (`front_http_bench {...}`: requests/s, p50/p99 ms, the npz decode's
+     share), then 8 concurrent clients, one burst against the serial answers
+     and 40 requests each on its keep-alive connection (requests/s, p50/p99
+     ms over the 320, every answer held to its serial one); YouCook2
+     retrieval (tools/synth_yc2.py: 128 videos of 200-600 s, 512-d, 6-10
+     segments of 5-90 s and a few of 257-300 s; half-val, 10 clips an item,
+     adaptive windows, seq_len 64) with raw sentences through the tower
+     (`front_yc2_bench {...}`: the twelve metrics, items/s), 16 items card vs
+     CPU (video and text features within 1e-4 of max|CPU|, metrics equal).
+     Each run counted: 12 + 12 fused MHA / MLP a group (the joint tower's
+     MHA while S <= 128), 24 + 24 a grounding forward, 6 fused MLP a YouCook2
+     item and 6 fused MHA where its windows are <= 128 tokens. The tree is
+     removed after.
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
@@ -1158,13 +1184,14 @@ def _serving_aligner(**impls):
 def _card_vs_cpu(label, gpu, cpu, cpu_ev, cfg, item, rel_tol):
     """Score rel. error, and best_second (argmax) equality on the texts
     whose top-2 margin in the CPU evaluator's canvas for ``item`` clears
-    rel_tol of max|score|; fails beyond rel_tol."""
+    rel_tol of max|score|; fails beyond rel_tol. ``cpu_ev`` may also be an
+    evaluator on the card, whose answers ``cpu`` then holds ``gpu`` to."""
     from exoground_tpu_torch.evals.align_fused import _placed_plan
 
-    (_, dims, args, _), = list(_placed_plan([item], cfg, "cpu"))
+    (_, dims, args, _), = list(_placed_plan([item], cfg, cpu_ev.device))
     _, canvas = cpu_ev._process(cfg, dims, args)
     k, vlen = len(item["start"]), len(item["video"])
-    top2 = torch.topk(canvas[:k, :vlen], 2, dim=-1).values.numpy()
+    top2 = torch.topk(canvas[:k, :vlen], 2, dim=-1).values.float().cpu().numpy()
     g_score, c_score = np.asarray(gpu["score"]), np.asarray(cpu["score"])
     score_err = float(np.abs(g_score - c_score).max() / np.abs(c_score).max())
     tol = rel_tol * np.abs(c_score).max()
@@ -3390,6 +3417,496 @@ def grounding_train_path(card):
     return {rec["tag"]: rec["launches"] for rec in recs.values()}
 
 
+# ---------------------------------------------------------------- phase 10
+# The inference front at the TAN configuration phase 8 trains: TemporalAligner
+# E6D6 width 512, 8 heads, 512-d S3D video and 512-d text, the output of the
+# word2vec tower at the MIL-NCE text module's shapes (66,249 words x 300 ->
+# 2,048 -> 512; a sentence 32 words). Raw texts go through the tokenizer and
+# the tower on the card, then the aligner (12 fused MHA + 12 fused MLP a group
+# while the joint S <= 128); the HTTP front answers /align, /align_batch,
+# /ground and /ground_batch (phase 7's model under 'auto': 24 + 24 a
+# forward); YouCook2 retrieval runs the reference's protocol (10 clips an
+# item, adaptive windows of 32-256 tokens, seq_len 64) over a seeded tree of
+# 128 videos of 200-600 s (half-val: 64), the dual video tower once an item
+# (6 fused MLP, and 6 fused MHA where a clip is <= 128 tokens).
+FRONT_LAYERS, FRONT_VOCAB, FRONT_TOWER = 6, 66249, (300, 2048)  # tower: embedding, hidden
+FRONT_TEXTS, FRONT_CLIENTS = 64, 8
+# timed windows (after the counted and checked runs): raw-text align()
+# requests, serial /align requests on one connection, /align requests each
+# concurrent client sends on its own keep-alive connection
+FRONT_RAW_TIMED, FRONT_SERIAL, FRONT_PER_CLIENT = 128, 400, 40
+YC2_VIDEOS, YC2_CLIPS, YC2_SEQ, YC2_CHECKED = 128, 10, 64, 16
+
+
+def _front_aligner():
+    """The phase-8 aligner (512-d video and text), seeded, on the CPU."""
+    from exoground_tpu_torch.models import TemporalAligner
+
+    torch.manual_seed(0)
+    return TemporalAligner(num_encoder_layers=FRONT_LAYERS, num_joint_layers=FRONT_LAYERS,
+                           width=512, heads=8, video_dim=512, text_dim=512, device="cpu")
+
+
+def _answers_agree(label, got, want, ev, video, te, start, end, tol=1e-4):
+    """``got`` and ``want`` (align()-shaped answers to one request) through
+    ``_card_vs_cpu`` on ``ev``'s canvas of the request's evaluator item (in
+    the evaluator's order: sorted by midpoint with timestamps); align_score
+    within ``tol`` of max|want| too."""
+    from exoground_tpu_torch.serve import _request_item
+
+    item, order = _request_item(video, np.asarray(te, np.float32), start, end)
+    perm = [{k: np.asarray(a[k])[order] for k in ("best_second", "score")}
+            for a in (got, want)]
+    _card_vs_cpu(label, perm[0], perm[1], ev, ev._cfg_for(start is None), item, tol)
+    a, b = np.asarray(got["align_score"]), np.asarray(want["align_score"])
+    if not np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1e-30):
+        fail(f"{label}: align_score differs by {np.abs(a - b).max():.3e}")
+
+
+def _clear_texts(ev, video, te, tol):
+    """Of a request without timestamps, the texts whose top-2 margin in
+    ``ev``'s canvas clears ``tol`` (absolute): where ``_card_vs_cpu`` holds
+    best_second equal."""
+    from exoground_tpu_torch.evals.align_fused import _placed_plan
+    from exoground_tpu_torch.serve import _request_item
+
+    item, _ = _request_item(video, np.asarray(te, np.float32), None, None)  # request order
+    cfg = ev._cfg_for(True)
+    (_, dims, args, _), = list(_placed_plan([item], cfg, ev.device))
+    _, canvas = ev._process(cfg, dims, args)
+    top2 = torch.topk(canvas[:len(te), :len(video)], 2, dim=-1).values.float().cpu().numpy()
+    return top2[:, 0] - top2[:, 1] > tol
+
+
+def _group_spy(svc):
+    """Record the joint S of every group ``svc``'s evaluator runs and every
+    query-batch handle it preloads; returns (groups, handles, undo)."""
+    ev = svc._evaluator
+    groups, handles = [], []
+    inner, inner_pq = ev._process, ev.preload_queries
+
+    def process(cfg, dims, host_args):
+        groups.append(dims[1] + host_args[6].shape[1])  # seq_len + Npad (text_idx)
+        return inner(cfg, dims, host_args)
+
+    def preload_queries(*a, **k):
+        handles.append(inner_pq(*a, **k))
+        return handles[-1]
+
+    ev._process, ev.preload_queries = process, preload_queries
+
+    def undo():
+        ev._process, ev.preload_queries = inner, inner_pq
+    return groups, handles, undo
+
+
+def _align_expect(groups, handles, n_queries):
+    """fused MHA / MLP launches of ``groups`` (joint S each) and of the query
+    handles (``n_queries`` batches each; ``_expect``): per group 6 dual + 6
+    joint MHA (the joint tower while S <= 128) and 12 MLP."""
+    mha = sum(6 + (6 if s <= 128 else 0) for s in groups)
+    mlp = 12 * len(groups)
+    for pq, q in zip(handles, n_queries):
+        want = _expect(pq, q, False)
+        mha, mlp = mha + want["fused_mha"], mlp + want["fused_mlp"]
+    return mha, mlp
+
+
+def _http(conn, path, arrays, status=200):
+    """POST ``arrays`` (a dict, sent as npz, or the npz bytes) on the open
+    connection; the JSON answer. Any other status than ``status`` fails with
+    the body."""
+    from exoground_tpu_torch.serve import _encode_npz
+
+    conn.request("POST", path, arrays if isinstance(arrays, bytes) else _encode_npz(arrays))
+    resp = conn.getresponse()
+    body = resp.read()
+    if resp.status != status:
+        fail(f"POST {path}: HTTP {resp.status} (want {status}): {body[:2000]!r}")
+    return json.loads(body)
+
+
+def inference_front_path(card):
+    """Phase 10: raw-text alignment serving, the HTTP front and YouCook2
+    retrieval on the card, each counted; the card against the CPU. Returns
+    the fused MHA / MLP launches by path."""
+    import http.client
+    import os
+    import shutil
+    import tempfile
+
+    from exoground_tpu_torch import serve as serve_mod
+    from exoground_tpu_torch.data import FeatureStore, YouCook2Config, YouCook2Dataset
+    from exoground_tpu_torch.evals.bench_items import (
+        GROUNDING, make_grounding_params, make_grounding_requests)
+    from exoground_tpu_torch.evals.retrieval import test_retrieval_yc2
+    from exoground_tpu_torch.models import GroundingModel
+    from exoground_tpu_torch.models.word2vec import Word2VecModel, Word2VecTokenizer
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.serve import (
+        AlignmentService, AlignRequest, GroundingService, serve_http)
+    from exoground_tpu_torch.tools.synth_yc2 import make_yc2_tree, sentence
+    from exoground_tpu_torch.utils.convert import (
+        convert_word2vec_from_s3d, load_grounding_params, load_torch_checkpoint)
+
+    t_phase = time.perf_counter()
+    out = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="yc2_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        root = make_yc2_tree(os.path.join(work, "yc2"), n_videos=YC2_VIDEOS, dim=512,
+                             vocab=FRONT_VOCAB, embed_dim=FRONT_TOWER[0],
+                             hidden=FRONT_TOWER[1], out_dim=512, seed=0)
+        tree_s = time.perf_counter() - t0
+        tower_params = convert_word2vec_from_s3d(
+            load_torch_checkpoint(os.path.join(root, "s3d_howto100m.pth")))
+        tok = Word2VecTokenizer.from_dict_file(os.path.join(root, "s3d_dict.npy"), max_words=32)
+        towers = {d: Word2VecModel(tower_params, device=d) for d in ("cuda", "cpu")}
+        model = _front_aligner()
+        svc = AlignmentService(model, tokenizer=tok, text_tower=towers["cuda"], device="cuda")
+        cpu_svc = AlignmentService(model, tokenizer=tok, text_tower=towers["cpu"], device="cpu")
+        print(f"front: YouCook2 tree of {YC2_VIDEOS} videos and the tower ({FRONT_VOCAB} words x "
+              f"{FRONT_TOWER[0]} -> {FRONT_TOWER[1]} -> 512) written in {tree_s:.1f} s",
+              flush=True)
+
+        # 1. raw texts: 64 sentences of a ~300 s video, with and without
+        # timestamps, card vs CPU; raw == the tower's embeddings on the card
+        rng = np.random.RandomState(10)
+        reqs = []
+        for vlen in (300, 284):
+            texts = [sentence(rng, FRONT_VOCAB) for _ in range(FRONT_TEXTS)]
+            texts[3] = "zzz qqq"  # no known word: the tower pools every position
+            video = rng.standard_normal((vlen, 512)).astype(np.float32)
+            centers = rng.rand(FRONT_TEXTS) * (vlen - 8) + 4
+            start, end = np.maximum(centers - 4, 0), np.minimum(centers + 4, vlen)
+            reqs += [AlignRequest(video=video, texts=texts),
+                     AlignRequest(video=video, texts=texts, start=start, end=end)]
+        svc.align(reqs[0])  # warm-up
+        groups, handles, undo = _group_spy(svc)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        gpu = [svc.align(r) for r in reqs]
+        torch.cuda.synchronize()
+        raw_s = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        undo()
+        mha, mlp = _align_expect(groups, [], [])
+        _check_counts("front raw-text align", {k: launches[k] for k in ("fused_mha", "fused_mlp")},
+                      {"fused_mha": mha, "fused_mlp": mlp})
+        out["raw-text align (phase 10)"] = {"fused_mha": mha, "fused_mlp": mlp}
+        print(f"front raw-text align: {len(reqs)} requests of {FRONT_TEXTS} texts, "
+              f"{len(groups)} groups (joint S {groups}), {raw_s * 1e3:.1f} ms, launches "
+              f"{launches}", flush=True)
+        raw_lat = []
+        for i in range(FRONT_RAW_TIMED):  # the four requests in turn
+            t0 = time.perf_counter()
+            svc.align(reqs[i % len(reqs)])
+            raw_lat.append(time.perf_counter() - t0)
+        print("front_raw_bench", json.dumps(dict(
+            requests=FRONT_RAW_TIMED, texts=FRONT_TEXTS, s=sum(raw_lat),
+            mean_ms=sum(raw_lat) / len(raw_lat) * 1e3,
+            p50_ms=float(np.percentile(raw_lat, 50)) * 1e3,
+            p90_ms=float(np.percentile(raw_lat, 90)) * 1e3, card=card)), flush=True)
+        t0 = time.perf_counter()
+        cpu = [cpu_svc.align(r) for r in reqs]
+        cpu_s = time.perf_counter() - t0
+        for i, (r, g, c) in enumerate(zip(reqs, gpu, cpu)):
+            te = cpu_svc._embed_texts(r.texts)
+            _answers_agree(f"front raw-text align {i} card vs CPU (CPU {cpu_s:.1f} s)", g, c,
+                           cpu_svc._evaluator, r.video, te, r.start, r.end)
+            tower_err = float(np.abs(svc._embed_texts(r.texts) - te).max() / np.abs(te).max())
+            same = svc.align(AlignRequest(video=r.video, text_embeds=svc._embed_texts(r.texts),
+                                          start=r.start, end=r.end))
+            print(f"front raw-text align {i}: the tower card vs CPU {tower_err:.3e} of max|CPU|, "
+                  f"raw texts == their embeddings on the card: {same == g}", flush=True)
+            if same != g or not tower_err <= 1e-4:
+                fail(f"front raw-text align {i}: raw texts != their embeddings on the card, or "
+                     f"the tower differs from the CPU's by {tower_err:.3e}")
+        # align_batch_requests with 'texts' entries: 2 batches over 2 videos
+        videos = [reqs[0].video, reqs[2].video]
+        batches = [[{"texts": r.texts, "start": r.start, "end": r.end}
+                    for r in (reqs[1 + 2 * b], reqs[3 - 2 * b])] for b in range(2)]
+        batches[1] = [dict(e, texts=list(reversed(e["texts"])), start=e["start"][::-1],
+                           end=e["end"][::-1]) for e in batches[1]]
+        groups, handles, undo = _group_spy(svc)
+        _kernels.reset_launches()
+        got = svc.align_batch_requests(videos, batches)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        undo()
+        mha, mlp = _align_expect(groups, handles, [len(batches)])
+        _check_counts("front align_batch_requests", {k: launches[k] for k in
+                                                     ("fused_mha", "fused_mlp")},
+                      {"fused_mha": mha, "fused_mlp": mlp})
+        out["raw-text align_batch_requests (phase 10)"] = {"fused_mha": mha, "fused_mlp": mlp}
+        want = cpu_svc.align_batch_requests(videos, batches)
+        for b, batch in enumerate(batches):
+            for v, e in enumerate(batch):
+                _answers_agree(f"front align_batch_requests [{b}][{v}] card vs CPU", got[b][v],
+                               want[b][v], cpu_svc._evaluator, videos[v],
+                               cpu_svc._embed_texts(e["texts"]), e["start"], e["end"])
+
+        # 2. the HTTP front over loopback
+        gmodel = GroundingModel(**GROUNDING, device="cpu")  # phase 7's, under 'auto'
+        load_grounding_params(gmodel, make_grounding_params(0))
+        gsvc = GroundingService(gmodel, device="cuda")
+        greqs = make_grounding_requests(1, 8)
+        server = serve_http(align_service=svc, ground_service=gsvc, host="127.0.0.1", port=0,
+                            block=False)
+        port = server.server_address[1]
+        try:
+            te = [svc._embed_texts(r.texts) for r in reqs]
+            r0 = reqs[1]
+            align_arrays = {"video": r0.video, "text_embed": te[1], "start": r0.start,
+                            "end": r0.end}
+            batch_arrays = {f"video_{j}": v for j, v in enumerate(videos)}
+            batch_direct = []
+            for i in range(2):
+                row = []
+                for j, r in enumerate((reqs[1 + 2 * i], reqs[3 - 2 * i])):
+                    batch_arrays.update({f"text_embed_{i}_{j}": te[1 + 2 * i] if j == 0
+                                         else te[3 - 2 * i], f"start_{i}_{j}": r.start,
+                                         f"end_{i}_{j}": r.end})
+                    row.append({"text_embeds": batch_arrays[f"text_embed_{i}_{j}"],
+                                "start": r.start, "end": r.end})
+                batch_direct.append(row)
+            ground_arrays = {"video": greqs[0]["video"], "narration": greqs[0]["narration_embeds"]}
+            gb_arrays = {}
+            for i, r in enumerate(greqs):
+                gb_arrays.update({f"video_{i}": r["video"], f"narration_{i}": r["narration_embeds"]})
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            _http(conn, "/align", align_arrays)  # warm-up
+            groups, handles, undo = _group_spy(svc)
+            forwards = []
+            run = gsvc._run
+            gsvc._run = lambda *a: forwards.append(a[1]) or run(*a)
+            _kernels.reset_launches()
+            answers = {"/align": _http(conn, "/align", align_arrays),
+                       "/align_batch": _http(conn, "/align_batch", batch_arrays),
+                       "/ground": _http(conn, "/ground", ground_arrays),
+                       "/ground_batch": _http(conn, "/ground_batch", gb_arrays)}
+            torch.cuda.synchronize()
+            launches = dict(_kernels.LAUNCHES)
+            undo()
+            gsvc._run = run
+            mha, mlp = _align_expect(groups, handles, [2])
+            gfwd = {k: GROUND_LAUNCHES["auto"][k] * len(forwards) for k in ("fused_mha", "fused_mlp")}
+            _check_counts("front HTTP routes", {k: launches[k] for k in ("fused_mha", "fused_mlp")},
+                          {"fused_mha": mha + gfwd["fused_mha"], "fused_mlp": mlp + gfwd["fused_mlp"]})
+            out["HTTP front, 4 routes (phase 10)"] = {"fused_mha": mha + gfwd["fused_mha"],
+                                                      "fused_mlp": mlp + gfwd["fused_mlp"]}
+            direct = {
+                "/align": svc.align(AlignRequest(video=r0.video, text_embeds=te[1],
+                                                 start=r0.start, end=r0.end)),
+                "/align_batch": {"batches": svc.align_batch_requests(videos, batch_direct)},
+                "/ground": gsvc.ground(greqs[0]["video"], greqs[0]["narration_embeds"]),
+                "/ground_batch": {"requests": gsvc.ground_batch(greqs)}}
+            for path, ans in answers.items():
+                if ans != direct[path]:
+                    fail(f"HTTP {path} answers differently from the direct call on the card")
+            print(f"front HTTP: /align, /align_batch, /ground, /ground_batch over one keep-alive "
+                  f"connection equal the direct calls; {len(groups)} groups, {len(forwards)} "
+                  f"grounding forwards, launches {launches}", flush=True)
+
+            # /align latency over loopback, serial, with the npz decode share
+            decode_s = []
+            real_decode = serve_mod._decode_npz
+
+            def timed_decode(blob):
+                t = time.perf_counter()
+                arrays = real_decode(blob)
+                decode_s.append(time.perf_counter() - t)
+                return arrays
+
+            serve_mod._decode_npz = timed_decode
+            t = time.perf_counter()
+            body = serve_mod._encode_npz(align_arrays)  # the client's side, once
+            encode_s = time.perf_counter() - t
+            lat = []
+            t_all = time.perf_counter()
+            try:
+                for _ in range(FRONT_SERIAL):
+                    t = time.perf_counter()
+                    _http(conn, "/align", body)
+                    lat.append(time.perf_counter() - t)
+            finally:
+                serve_mod._decode_npz = real_decode
+            wall = time.perf_counter() - t_all
+            conn.close()
+
+            # 8 concurrent /align clients (no timestamps), each its own
+            # request: one burst against the serial answers, then each
+            # client sends FRONT_PER_CLIENT more on its connection (timed,
+            # every answer held to its serial one)
+            crng = np.random.RandomState(11)
+            creqs = []
+            for c in range(FRONT_CLIENTS):
+                vlen = int(crng.randint(200, 320))
+                creqs.append({"video": crng.standard_normal((vlen, 512)).astype(np.float32),
+                              "text_embed": te[c % len(te)][:int(crng.randint(16, 65))]})
+            bodies = [serve_mod._encode_npz(r) for r in creqs]
+            serial = []
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            for b in bodies:
+                serial.append(_http(conn, "/align", b))
+            conn.close()
+            burst = [None] * FRONT_CLIENTS
+            sustained = [[] for _ in range(FRONT_CLIENTS)]
+            clat = [[] for _ in range(FRONT_CLIENTS)]
+            barrier = threading.Barrier(FRONT_CLIENTS, timeout=600)
+            window, ends = [None], [None] * FRONT_CLIENTS
+
+            def client(i):
+                c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+                try:
+                    barrier.wait()
+                    burst[i] = _http(c, "/align", bodies[i])
+                    if barrier.wait() == 0:
+                        window[0] = time.perf_counter()
+                    barrier.wait()
+                    for _ in range(FRONT_PER_CLIENT):
+                        t = time.perf_counter()
+                        sustained[i].append(_http(c, "/align", bodies[i]))
+                        clat[i].append(time.perf_counter() - t)
+                    ends[i] = time.perf_counter()
+                except BaseException:
+                    barrier.abort()  # no other client waits on this one
+                    raise
+                finally:
+                    c.close()
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(FRONT_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            if any(a is None for a in burst) or any(len(a) != FRONT_PER_CLIENT for a in sustained):
+                fail("concurrent /align clients did not all get their answers")
+            exact = sum(a == b for a, b in zip(burst, serial))
+            for i, (a, b) in enumerate(zip(burst, serial)):
+                _answers_agree(f"front concurrent /align {i} vs serial", a, b, svc._evaluator,
+                               creqs[i]["video"], creqs[i]["text_embed"], None, None)
+                # the sustained answers as _answers_agree holds the burst's
+                tol = 1e-4 * np.abs(np.asarray(b["score"])).max()
+                clear = _clear_texts(svc._evaluator, creqs[i]["video"], creqs[i]["text_embed"],
+                                     tol)
+                for got in sustained[i]:
+                    for k in ("score", "align_score"):
+                        g, w = np.asarray(got[k]), np.asarray(b[k])
+                        if not np.abs(g - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-30):
+                            fail(f"front concurrent /align {i}: a sustained answer's {k} "
+                                 f"differs from serial by {np.abs(g - w).max():.3e}")
+                    same = np.asarray(got["best_second"]) == np.asarray(b["best_second"])
+                    if not same[clear].all():
+                        fail(f"front concurrent /align {i}: a sustained answer's best_second "
+                             f"differs from serial where the top-2 margin clears {tol:.2e}")
+            conc_lat = [t for c in clat for t in c]
+            conc_s = max(ends) - window[0]
+        finally:
+            server.shutdown()
+            server.server_close()
+        http_bench = dict(
+            requests=len(lat), texts=FRONT_TEXTS, frames=len(r0.video),
+            requests_per_s=len(lat) / wall, p50_ms=float(np.percentile(lat, 50)) * 1e3,
+            p99_ms=float(np.percentile(lat, 99)) * 1e3, npz_decode_share=sum(decode_s) / wall,
+            npz_decode_ms=float(np.median(decode_s)) * 1e3, body_kb=len(body) / 1024,
+            client_encode_ms=encode_s * 1e3,
+            concurrent=dict(clients=FRONT_CLIENTS, requests=len(conc_lat),
+                            s=conc_s, requests_per_s=len(conc_lat) / conc_s,
+                            p50_ms=float(np.percentile(conc_lat, 50)) * 1e3,
+                            p99_ms=float(np.percentile(conc_lat, 99)) * 1e3,
+                            burst_exact=exact), card=card)
+        print("front_http_bench", json.dumps(http_bench), flush=True)
+
+        # 3. YouCook2 retrieval, raw sentences through the tower
+        with open(os.path.join(root, "youcookii_annotations.json")) as f:
+            anno = json.load(f)["database"]
+        ds = YouCook2Dataset(YouCook2Config(num_clips=YC2_CLIPS, seq_len=-1),
+                             FeatureStore(os.path.join(root, "features"), suffixes=(".pth.tar",)),
+                             anno)
+        gpu_model = svc._evaluator._model
+        lengths = []
+
+        def closures(m, tower, dev, record=False, memo=None):
+            def visual(clips, mask, interp):
+                if record:
+                    lengths.append(clips.shape[1])
+                key = (clips.tobytes(), interp)
+                if memo is not None and key in memo:
+                    return memo[key]
+                with torch.inference_mode():
+                    feats = m.get_visual_feature(torch.from_numpy(clips).to(dev),
+                                                 torch.from_numpy(mask).to(dev),
+                                                 interpolate_from=interp)
+                    feats = feats[:, -1].float().cpu().numpy()  # the last stage
+                if memo is not None:  # the CPU side computes each item once
+                    memo[key] = feats
+                return feats
+
+            def text(lang):
+                with torch.inference_mode():
+                    return m.get_textual_feature(torch.from_numpy(lang).to(dev)).float().cpu().numpy()
+
+            def embed(strs):
+                enc = tok(strs)
+                return tower(enc["input_ids"], attention_mask=enc["attention_mask"])[
+                    "pooler_output"].float().cpu().numpy()
+            return visual, text, embed
+
+        gv, gt, ge = closures(gpu_model, towers["cuda"], "cuda", record=True)
+        test_retrieval_yc2([ds[i] for i in range(4)], gv, gt, ge, seq_len=YC2_SEQ)  # warm-up
+        lengths.clear()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = test_retrieval_yc2(ds, gv, gt, ge, seq_len=YC2_SEQ)  # items read as it goes
+        torch.cuda.synchronize()
+        yc2_s = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        short = sum(n <= 128 for n in lengths)
+        want = {"fused_mha": 6 * short, "fused_mlp": 6 * len(lengths)}
+        if len(lengths) != len(ds):
+            fail(f"YouCook2: {len(lengths)} tower calls for {len(ds)} items")
+        _check_counts("front YouCook2", {k: launches[k] for k in ("fused_mha", "fused_mlp")}, want)
+        out["YouCook2 retrieval (phase 10)"] = want
+        # 16 items spread over the window lengths: the card's features and
+        # metrics against the CPU model's
+        order = np.argsort(lengths, kind="stable")
+        picked = [ds[int(i)] for i in order[np.linspace(0, len(ds) - 1, YC2_CHECKED).astype(int)]]
+        cv, ct, ce = closures(model.eval(), towers["cpu"], "cpu", memo={})
+        v_err = t_err = 0.0
+        for it in picked:
+            interp = YC2_SEQ if it["video"].shape[1] >= YC2_SEQ else None
+            mask = np.zeros(it["video"].shape[:2], bool)
+            want_v = cv(it["video"], mask, interp)
+            v_err = max(v_err, float(np.abs(gv(it["video"], mask, interp) - want_v).max()
+                                     / np.abs(want_v).max()))
+            want_t = ct(ce([it["str"]]))
+            t_err = max(t_err, float(np.abs(gt(ge([it["str"]])) - want_t).max()
+                                     / np.abs(want_t).max()))
+        m_gpu = test_retrieval_yc2(picked, gv, gt, ge, seq_len=YC2_SEQ)
+        m_cpu = test_retrieval_yc2(picked, cv, ct, ce, seq_len=YC2_SEQ)
+        lens = sorted(it["video"].shape[1] for it in picked)
+        print(f"front YouCook2 card vs CPU on {len(picked)} items (windows {lens}): video features "
+              f"rel err {v_err:.3e}, text features {t_err:.3e}, metrics equal "
+              f"{m_gpu == m_cpu}", flush=True)
+        if not (v_err <= 1e-4 and t_err <= 1e-4 and m_gpu == m_cpu):
+            fail(f"YouCook2: the card disagrees with the CPU ({m_gpu} vs {m_cpu})")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"YouCook2 metrics not finite: {metrics}")
+        yc2_bench = dict(videos=len({i["vid"] for i in ds.video_info}), items=len(ds),
+                         clips=YC2_CLIPS, windows_le_128=short, windows_max=max(lengths),
+                         s=yc2_s, items_per_s=len(ds) / yc2_s, metrics=metrics,
+                         launches={k: launches[k] for k in ("fused_mha", "fused_mlp")}, card=card)
+        print("front_yc2_bench", json.dumps(yc2_bench), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("front_phase", json.dumps(dict(phase_s=round(time.perf_counter() - t_phase, 1),
+                                         launches=out)), flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_s, t_phase = {}, [t_start, None]
@@ -3660,6 +4177,13 @@ def main():
             if n[e["name"]]:
                 e["launches_by_path"][f"grounding training command line {tag} (phase 9)"] = (
                     n[e["name"]])
+    mark("10")
+    # phase 10: the inference front (raw texts, HTTP, YouCook2), counted
+    front_launches = inference_front_path(card)
+    for e in kernels:
+        for path, n in front_launches.items():
+            if e["name"] in n:
+                e["launches_by_path"][path] = n[e["name"]]
     mark(None)
     print("phase_s", json.dumps(phase_s), flush=True)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -7,8 +7,8 @@ data/loader_egoexo4d.py:455). Backends:
 
   * 'npy'  — numpy memory-mapped .npy files; a window read touches only its
              rows;
-  * 'pt'   — torch.load for .pt feature files, converted to numpy once,
-             LRU-cached;
+  * 'pt'   — torch.load for .pt / .pth / .pth.tar feature files (YouCook2's
+             are .pth.tar), converted to numpy once, LRU-cached;
   * 'mem'  — an in-memory dict (tests and benchmarks).
 
 All reads return float32 numpy arrays shaped (T, C) or (C,).
@@ -110,7 +110,7 @@ class FeatureStore:
             if hit is not None:
                 self._cache.move_to_end(path)
                 return hit
-        arr = load_pt(path) if path.endswith((".pt", ".pth")) else np.asarray(
+        arr = load_pt(path) if path.endswith((".pt", ".pth", ".pth.tar")) else np.asarray(
             np.load(path), dtype=np.float32)
         if arr.ndim == 3 and arr.shape[1] == 1:  # (T,1,C) narration-style files
             arr = arr[:, 0, :]

@@ -1,4 +1,5 @@
-"""HTM-Align evaluation: host protocol and device-resident evaluator."""
+"""HTM-Align evaluation (host protocol and device-resident evaluator) and
+YouCook2 retrieval."""
 
 from exoground_tpu_torch.evals.align import (  # noqa: F401
     NEG_FILL,
@@ -7,3 +8,7 @@ from exoground_tpu_torch.evals.align import (  # noqa: F401
     roc_auc,
 )
 from exoground_tpu_torch.evals.align_fused import FusedAlignEvaluator  # noqa: F401
+from exoground_tpu_torch.evals.retrieval import (  # noqa: F401
+    compute_retrieval_metrics,
+    test_retrieval_yc2,
+)

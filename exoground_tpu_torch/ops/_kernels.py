@@ -14,8 +14,10 @@ Every kernel entry point takes its pointers and the CUDA stream as
 ``c_void_p``, launches on the stream it is given (the wrappers pass
 ``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``; the
 wrapper raises on any non-zero value. Each wrapper counts its launches in
-``LAUNCHES`` under its own name (one per launch, nowhere else), so a run can
-show that a path went through the kernels.
+``LAUNCHES`` under its own name (one per launch, nowhere else, through
+``count_launch``), so a run can show that a path went through the kernels.
+The counts are taken under a lock: the HTTP front serves each connection on
+a thread of its own, and ``+= 1`` on a dict entry is not atomic.
 
 A launch made while a CUDA graph is being captured goes into the graph (the
 capturing stream is the current one) and runs only when the graph is
@@ -120,12 +122,20 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+def count_launch(name: str) -> None:
+    """One launch of wrapper ``name``'s kernel (the wrappers' one count)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 @contextlib.contextmanager
@@ -133,21 +143,24 @@ def captured_launches():
     """Around a graph capture: yields a dict that holds, at exit, the
     launches the capture recorded by wrapper name; ``LAUNCHES`` is left as
     it was before the capture."""
-    before = dict(LAUNCHES)
+    with _count_lock:
+        before = dict(LAUNCHES)
     counts: Dict[str, int] = {}
     try:
         yield counts
     finally:
-        for name, n in before.items():
-            if LAUNCHES[name] != n:
-                counts[name] = LAUNCHES[name] - n
-                LAUNCHES[name] = n
+        with _count_lock:
+            for name, n in before.items():
+                if LAUNCHES[name] != n:
+                    counts[name] = LAUNCHES[name] - n
+                    LAUNCHES[name] = n
 
 
 def add_launches(counts: Dict[str, int]) -> None:
     """Count one replay of a graph whose capture recorded ``counts``."""
-    for name, n in counts.items():
-        LAUNCHES[name] += n
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -196,7 +196,7 @@ def flash_forward(q, k, v, kpad):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpad.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, h, sq, sk, d, _kernels.dtype_code(q), _kernels.stream_of(q))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return o, lse
 
 
@@ -224,7 +224,7 @@ def flash_dq(q, k, v, kpad, do, lse, delta):
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, h, sq, sk, d,
         _kernels.dtype_code(q), _kernels.stream_of(q))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return dq
 
 
@@ -239,7 +239,7 @@ def flash_dkv(q, k, v, kpad, do, lse, delta):
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, h, sq, sk, d,
         _kernels.dtype_code(q), _kernels.stream_of(q))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return dk, dv
 
 
@@ -366,7 +366,7 @@ def small_attention(q, k, v, key_padding_mask=None):
         o.data_ptr(), b, h, s, d,
         *strides, scale, _kernels.dtype_code(q), _kernels.stream_of(q))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return o
 
 
@@ -524,7 +524,7 @@ def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, 
                                    *mha_scratch(x, int8), *outs)]
     rc = entry(*ptrs, b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return outs if ln else outs[0]
 
 

@@ -243,7 +243,7 @@ def _launch(name, lib, fn, x, fc_w, fc_b, pr_w, pr_b, *, ln=None, int8=False):
     rc = entry(*ptrs, None if ws is None else ws.data_ptr(), rows, c, plan["slab"],
                plan["split"], _kernels.dtype_code(x2d), _kernels.stream_of(x2d))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return out.reshape(x.shape)
 
 

@@ -115,7 +115,7 @@ def grid_lse2_forward(video3, text3, cvalid, inv_temp: float):
         tden.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), s, st, r, cc, c, nr,
         float(inv_temp), code, _kernels.stream_of(video3))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return vden, tden
 
 
@@ -143,7 +143,7 @@ def grid_lse2_backward(video3, text3, cvalid, vden, tden, g_v, g_t, inv_temp: fl
         dt_part.data_ptr(), s, st, r, cc, c, nsplit, slab, float(inv_temp), code,
         _kernels.stream_of(video3))
     _kernels.check(name, rc)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return dv, dt
 
 

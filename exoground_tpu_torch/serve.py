@@ -19,10 +19,19 @@ Counterpart of ``exoground_tpu/serve.py`` for these paths:
     coalesce into one batched call (the evaluator packs up to
     ``group_videos`` videos per device pass; a grounding bucket is one
     forward).
+  * ``serve_http`` — a stdlib HTTP/1.1 front (POST /align, /align_batch,
+    /ground, /ground_batch with npz-encoded arrays, JSON answers), the JAX
+    package's wire format.
+
+Alignment requests carry either text embeddings (precomputed upstream) or
+raw texts, which a service built with a tokenizer and the word2vec tower
+(``models/word2vec.py``) embeds itself.
 """
 
 from __future__ import annotations
 
+import io
+import json
 import threading
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
@@ -107,7 +116,8 @@ class _CoalescingFront:
 @dataclass
 class AlignRequest:
     video: np.ndarray  # (T, Dv) per-second features
-    text_embeds: np.ndarray  # (K, Dt)
+    texts: Optional[List[str]] = None  # raw sentences (a tokenizer and tower attached)
+    text_embeds: Optional[np.ndarray] = None  # (K, Dt)
     # optional per-text coarse timestamps: enable the overlap-seq active-text
     # protocol; otherwise all texts are active in every window
     start: Optional[np.ndarray] = None
@@ -117,10 +127,15 @@ class AlignRequest:
 class AlignmentService:
     """TAN alignment inference (overlap-seq protocol, device-resident)."""
 
-    def __init__(self, model: TemporalAligner, seq_len: int = 64,
-                 transfer_dtype: str = "float16", matmul_dtype: str = "default",
-                 use_alignability_head: bool = False, device="cuda"):
+    def __init__(self, model: TemporalAligner, tokenizer=None, text_tower=None,
+                 seq_len: int = 64, transfer_dtype: str = "float16",
+                 matmul_dtype: str = "default", use_alignability_head: bool = False,
+                 device="cuda"):
         self.model = model
+        # raw texts: tokenizer(texts) -> ids and pad mask, text_tower(ids,
+        # attention_mask=) -> {'pooler_output': (K, Dt)} on the service's device
+        self.tokenizer = tokenizer
+        self.text_tower = text_tower
         # matmul_dtype='int8' serves through the int8 projections
         # (ops/quant.py) with the JAX service's policy: int8_min_cols stays
         # 0, so every projection is quantized on the unfused path and the
@@ -132,6 +147,10 @@ class AlignmentService:
         # ONE evaluator serves both protocols: all_texts_active is a per-call
         # host-side switch
         self._evaluator = FusedAlignEvaluator(model, self.cfg, device=device)
+        tower_dev = getattr(text_tower, "device", None)
+        if tower_dev is not None and _device_key(tower_dev) != _device_key(self._evaluator.device):
+            raise ValueError(f"the text tower is on {tower_dev} but the service on "
+                             f"{self._evaluator.device}; build both on one device")
         self._pp_evaluator: Optional[FusedAlignEvaluator] = None
         self._lock = threading.Lock()
         self._front = _CoalescingFront(self._predict_batch)
@@ -146,23 +165,48 @@ class AlignmentService:
         """Serve the reference's released .pth.tar (cotrain TAN): its state
         dict loads as it is, the EMA target branch of a cotrain checkpoint.
         The model carries the binary head when the checkpoint does; the
-        head-score protocol still needs ``use_alignability_head=True``."""
+        head-score protocol still needs ``use_alignability_head=True``.
+        ``kw`` (``tokenizer``, ``text_tower``, ...) goes to the service."""
         state = load_reference_state(checkpoint_path)
+        # the input widths come from the checkpoint, as the JAX Dense layers
+        # take theirs from the params (a 512-d word2vec text side, say)
         model = TemporalAligner(
             num_encoder_layers=num_layers, num_joint_layers=num_layers,
-            use_alignability_head=int("binary_head.weight" in state), device="cpu",
+            use_alignability_head=int("binary_head.weight" in state),
+            video_dim=state["video_pre_proj.weight"].shape[1],
+            text_dim=state["text_pre_proj.weight"].shape[1], device="cpu",
         )
         model.load_state_dict(state, strict=True)
         return cls(model, device=device, **kw)
 
+    def _embed_texts(self, texts: List[str]) -> np.ndarray:
+        """Raw sentences -> (K, Dt) float32 host embeddings: the tokenizer's
+        ids and pad mask through the tower (the mask must reach it: the
+        max-pool would otherwise pool over pad embeddings, unlike the
+        embeddings the model was trained on), its ``pooler_output`` read
+        back from the device."""
+        if self.tokenizer is None or self.text_tower is None:
+            raise ValueError("attach tokenizer + text_tower to serve raw texts")
+        tok = self.tokenizer(texts)
+        ids = np.asarray(tok["input_ids"])
+        mask = np.asarray(tok.get("attention_mask", (ids != 0).astype(np.int32)))
+        out = self.text_tower(ids, attention_mask=mask)["pooler_output"]
+        return torch.as_tensor(out).float().cpu().numpy()
+
+    def _text_embeds(self, text_embeds, texts) -> np.ndarray:
+        if text_embeds is not None:
+            return np.asarray(text_embeds, np.float32)
+        return self._embed_texts(texts)
+
     def align(self, req: AlignRequest) -> Dict:
-        """One video + K texts -> per-text best second + confidence score."""
+        """One video + K texts (raw or embedded) -> per-text best second +
+        confidence score."""
         if (req.start is None) != (req.end is None):
             raise ValueError(
                 "AlignRequest needs BOTH start and end (coarse per-text "
                 "timestamps) or neither (score all texts in all windows)")
-        item, order = _request_item(req.video, np.asarray(req.text_embeds, np.float32),
-                                    req.start, req.end)
+        te = self._text_embeds(req.text_embeds, req.texts)
+        item, order = _request_item(req.video, te, req.start, req.end)
         return _answer(self._front.submit(item, req.start is None), order)
 
     # ------------------------------------------------------------------
@@ -202,13 +246,12 @@ class AlignmentService:
         the resident corpus (``align_query_batches``).
 
         ``text_batches[i]`` has V entries in the order of ``videos``, each
-        {'text_embeds' (K, Dt), optional 'start'/'end' coarse per-text
-        timestamps}. Timestamp presence must be the same across the whole
-        call (else ``ValueError``): with timestamps the active-text protocol
-        runs (texts sorted by midpoint per video and unsorted in the answer,
-        as ``align()`` does); without, every text scores in every window.
-        Raw 'texts' need the text tower, which this package does not have
-        yet: they raise ``NotImplementedError``."""
+        {'text_embeds' (K, Dt) or 'texts' (raw, through the tower), optional
+        'start'/'end' coarse per-text timestamps}. Timestamp presence must be
+        the same across the whole call (else ``ValueError``): with timestamps
+        the active-text protocol runs (texts sorted by midpoint per video and
+        unsorted in the answer, as ``align()`` does); without, every text
+        scores in every window."""
         has_ts = None
         item_batches, orders = [], []
         for batch in text_batches:
@@ -217,12 +260,7 @@ class AlignmentService:
                                  f"({len(batch)} != {len(videos)})")
             items, border = [], []
             for video, req in zip(videos, batch):
-                if req.get("text_embeds") is None:
-                    raise NotImplementedError(
-                        "raw 'texts' requests need the text tower (models/word2vec.py), "
-                        "which arrives with the text-tower slice of the PyTorch port; "
-                        "send 'text_embeds'")
-                te = np.asarray(req["text_embeds"], np.float32)
+                te = self._text_embeds(req.get("text_embeds"), req.get("texts"))
                 ts = req.get("start") is not None
                 if ts != (req.get("end") is not None):
                     raise ValueError("a request needs BOTH start and end (coarse per-text "
@@ -259,6 +297,14 @@ class AlignmentService:
             ev = self._preproject_evaluator() if preproject else self._evaluator
             pq = ev.preload_queries(query_batches, all_texts_active)
             return ev.predict_queries(pq)
+
+
+def _device_key(device) -> tuple:
+    """(type, index) of a device, a bare 'cuda' read as the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (dev.type, dev.index)
 
 
 def _request_item(video, te, start, end):
@@ -413,3 +459,111 @@ class GroundingService:
                         s, e = p[:, 0], p[:, 1]
                     results[i] = {"start": s.tolist(), "end": e.tolist()}
         return results
+
+
+def _encode_npz(arrays: Dict[str, np.ndarray]) -> bytes:
+    """The wire format: a compressed npz of named arrays (the JAX package's)."""
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def _decode_npz(blob: bytes) -> Dict[str, np.ndarray]:
+    return dict(np.load(io.BytesIO(blob), allow_pickle=False))
+
+
+def serve_http(align_service: Optional[AlignmentService] = None,
+               ground_service: Optional[GroundingService] = None,
+               host: str = "0.0.0.0", port: int = 8571, block: bool = True):
+    """A stdlib HTTP/1.1 front (the JAX ``serve_http``, serve.py:544-667).
+
+    POST /align  body: npz {video (T, Dv), text_embed (K, Dt)[, start, end]}
+    POST /align_batch body: npz {video_{j} (Tj, Dv) for j in 0..V-1,
+        text_embed_{i}_{j} (Kij, Dt) for batch i / video j
+        [, start_{i}_{j}, end_{i}_{j}]}: q request batches over one video
+        corpus (``AlignmentService.align_batch_requests``); answer
+        {"batches": [[per-video {best_second, score, align_score}]]}
+    POST /ground body: npz {video (T, Dv), narration (K, Dt)}
+    POST /ground_batch body: npz {video_{i} (Ti, Dv), narration_{i} (Ki, Dt)}:
+        n grounding requests (``GroundingService.ground_batch``); answer
+        {"requests": [...]}.
+    Answers are JSON with a Content-Length (connections stay open between
+    requests); a chunked body gets 411 and the connection closes; an
+    unknown route 404 after its body is read; an empty batch 400; any error
+    500 with its text. Each connection is served on a thread of its own.
+    With ``block=False`` the server runs on a daemon thread and is returned
+    (``shutdown()`` then ``server_close()``)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _reply(self, code: int, payload: Dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_POST(self):
+            # only Content-Length bodies are framed here: an unread chunked
+            # stream would be parsed as the next request on the open socket
+            if "chunked" in self.headers.get("Transfer-Encoding", "").lower():
+                self.close_connection = True
+                self._reply(411, {"error": "chunked bodies unsupported; send Content-Length"})
+                return
+            if self.path not in ("/align", "/align_batch", "/ground", "/ground_batch"):
+                self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                self._reply(404, {"error": f"no handler for {self.path}"})
+                return
+            try:
+                arrays = _decode_npz(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+                if self.path == "/align" and align_service is not None:
+                    req = AlignRequest(video=arrays["video"], text_embeds=arrays["text_embed"],
+                                       start=arrays.get("start"), end=arrays.get("end"))
+                    self._reply(200, align_service.align(req))
+                elif self.path == "/align_batch" and align_service is not None:
+                    videos = []
+                    while f"video_{len(videos)}" in arrays:
+                        videos.append(arrays[f"video_{len(videos)}"])
+                    batches = []
+                    while f"text_embed_{len(batches)}_0" in arrays:
+                        i = len(batches)
+                        batches.append([{"text_embeds": arrays[f"text_embed_{i}_{j}"],
+                                         "start": arrays.get(f"start_{i}_{j}"),
+                                         "end": arrays.get(f"end_{i}_{j}")}
+                                        for j in range(len(videos))])
+                    if not videos or not batches:
+                        self._reply(400, {"error": "align_batch needs video_{j} and "
+                                                   "text_embed_{i}_{j} arrays"})
+                        return
+                    self._reply(200, {"batches": align_service.align_batch_requests(
+                        videos, batches)})
+                elif self.path == "/ground" and ground_service is not None:
+                    self._reply(200, ground_service.ground(arrays["video"], arrays["narration"]))
+                elif self.path == "/ground_batch" and ground_service is not None:
+                    reqs = []
+                    while f"video_{len(reqs)}" in arrays:
+                        i = len(reqs)
+                        reqs.append({"video": arrays[f"video_{i}"],
+                                     "narration_embeds": arrays[f"narration_{i}"]})
+                    if not reqs:
+                        self._reply(400, {"error": "ground_batch needs video_{i}/narration_{i} "
+                                                   "arrays"})
+                        return
+                    self._reply(200, {"requests": ground_service.ground_batch(reqs)})
+                else:
+                    self._reply(404, {"error": f"no handler for {self.path}"})
+            except Exception as e:  # surface, don't kill the server
+                self._reply(500, {"error": str(e)})
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    if block:
+        server.serve_forever()
+    else:
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server

@@ -80,6 +80,15 @@ def make_htm_tree(root: str, n_videos: int = 40, vlen=(80, 160), dim: int = 32,
     with open(os.path.join(root, "htm_align.json"), "w") as f:
         json.dump(align, f)
 
+    write_word2vec(root, vocab, embed_dim, hidden, out_dim, seed)
+    return root
+
+
+def write_word2vec(root: str, vocab: int, embed_dim: int, hidden: int, out_dim: int,
+                   seed: int) -> None:
+    """The vocabulary (``s3d_dict.npy``: words 'w1'..'w<vocab>', ids 1..vocab)
+    and a seeded tower over it as a MIL-NCE-style checkpoint
+    (``s3d_howto100m.pth``, the ``text_module.*`` keys)."""
     np.save(os.path.join(root, "s3d_dict.npy"), np.array([f"w{i}" for i in range(1, vocab + 1)]))
     g = torch.Generator().manual_seed(seed)
     state = {
@@ -90,7 +99,6 @@ def make_htm_tree(root: str, n_videos: int = 40, vlen=(80, 160), dim: int = 32,
         "text_module.fc2.bias": torch.randn(out_dim, generator=g) * 0.1,
     }
     torch.save({"state_dict": state}, os.path.join(root, "s3d_howto100m.pth"))
-    return root
 
 
 def main(argv=None):

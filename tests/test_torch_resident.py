@@ -489,7 +489,7 @@ def test_align_batch_requests_matches_per_request_align(ckpts, with_ts):
     with pytest.raises(ValueError, match="BOTH"):
         svc.align_batch_requests(videos, [half])
     raw = [dict(e, text_embeds=None, texts=["a", "b"]) for e in tb[0]]
-    with pytest.raises(NotImplementedError, match="text-tower slice"):
+    with pytest.raises(ValueError, match="attach tokenizer"):  # no tower attached
         svc.align_batch_requests(videos, [raw])
 
 
