@@ -303,6 +303,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      MHA while S <= 128), 24 + 24 a grounding forward, 6 fused MLP a YouCook2
      item and 6 fused MHA where its windows are <= 128 tokens. The tree is
      removed after.
+  11. data parallelism on the card: the grid kernel against grid_lse2_plain
+     at the shapes gathered negatives give it (R 4096 = B64 x T64, C 512, 6
+     stages, St 6 joint and St 1 dual, Cc = W x 64 x 32 = 4,096 and 8,192
+     text columns for W 2 and 4 ranks, half of them padding), float32 (<=
+     1e-4 of max|plain|) and bfloat16 (<= 1e-2), forward and backward, the
+     W 4 shapes timed beside the bound; tan_loss at each rank r's column
+     offset r x 64 with the gathered padding mask, kernel against plain, on
+     the loss and the grads of the features (`dp_loss {...}` lines); phase
+     8's command line with --gather_negatives (one epoch, no HTM-Align) in
+     a world-1 NCCL group (python -m torch.distributed.run --standalone
+     --nproc_per_node 1), eager and at --fused_steps 4 with --multihost,
+     each against the same run without a group bit for bit (losses,
+     parameters, EMA twin, moments), its collectives counted a step and a
+     replay and its kernels counted; AlignmentService(eval_devices=2)
+     clamped to the one card, scoring bit for bit as at 1 (`dp_bench
+     {...}`: the replayed step's ms in and out of the group beside phase
+     5b's). The tree is removed after.
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
@@ -1014,6 +1031,16 @@ def grid_case(S, R, Cc, C, St, dtype, seed, n_invalid=0, timed=False):
                                     for x, y in zip(first, again))
     if not case["bwd_bit_identical"]:
         fail(f"grid backward differs between two runs at {case['shape']} {case['dtype']}")
+    # the work of this run's data: a padded column needs no product (its
+    # t_den is a fill, its dt zero), so the products and the inputs count
+    # the valid columns alone; the outputs (t_den, dt) are written whole
+    item, cv = v.element_size(), Cc - n_invalid
+    work = 2.0 * S * R * cv * C
+    fwd_bytes = (S * R + St * cv) * C * item + 4 * (S * R + S * Cc + Cc)
+    bwd_bytes = (2 * S * R + St * cv + St * Cc) * C * item + 4 * (2 * S * R + 2 * S * cv + Cc)
+    fb = routes_bound(0.0, work, fwd_bytes, dtype)
+    bb = routes_bound(0.0, 3 * work, bwd_bytes, dtype)
+    case.update({f"fwd_{k}": x for k, x in fb.items()}, **{f"bwd_{k}": x for k, x in bb.items()})
     if timed:
         def fwd():
             return grid_lse2_forward(v, t, cv32, inv)
@@ -1031,17 +1058,10 @@ def grid_case(S, R, Cc, C, St, dtype, seed, n_invalid=0, timed=False):
         def plain_bwd():
             return torch.autograd.grad([pvd, ptd], [a, b], [g_v, g_t], retain_graph=True)
 
-        item = v.element_size()
-        work = 2.0 * S * R * Cc * C
-        io = (S * R + St * Cc) * C * item
-        fb = routes_bound(0.0, work, io + 4 * (S * R + S * Cc + Cc), dtype)
-        bb = routes_bound(0.0, 3 * work, 2 * io + 4 * (2 * S * R + 2 * S * Cc + Cc), dtype)
         case.update(fwd_ms=time_ms(fwd), fwd_ms_b2b=b2b_ms(fwd), fwd_plain_ms=time_ms(plain_fwd),
                     fwd_plain_ms_b2b=b2b_ms(plain_fwd),
-                    **{f"fwd_{k}": x for k, x in fb.items()},
                     bwd_ms=time_ms(bwd), bwd_ms_b2b=b2b_ms(bwd), bwd_plain_ms=time_ms(plain_bwd),
-                    bwd_plain_ms_b2b=b2b_ms(plain_bwd),
-                    **{f"bwd_{k}": x for k, x in bb.items()}, library_ms=None)
+                    bwd_plain_ms_b2b=b2b_ms(plain_bwd), library_ms=None)
     print("milnce_grid", json.dumps(case), flush=True)
     if not rel <= TOL[dtype]:
         fail(f"the grid kernel disagrees with grid_lse2_plain: {case}")
@@ -2252,6 +2272,7 @@ def graph_path(model, card):
         name = f"B{b} {'bf16' if amp else 'f32'} {impl}" + (f" backprop_freq {k}" if k > 1
                                                               else "")
         out[name] = graph_case(model, card, raw[b], amp, impl, k)
+    GRAPH_BENCH.update({name: bench for name, (_, bench) in out.items()})
     fused, chain = out["B64 f32 auto"][1], out["B64 f32 auto backprop_freq 2"][1]
     print("graph_accum", json.dumps(dict(
         card=card, batch=64, dtype="float32", n=GRAPH_N,
@@ -3286,8 +3307,8 @@ def grounding_train_path(card):
     built, replays = [], []
     real_build, real_replay = cli.build_egoexo, ts._Graph.replay
 
-    def build_spy(cfg, device):
-        run = real_build(cfg, device)
+    def build_spy(cfg, device, mesh=None):
+        run = real_build(cfg, device, mesh)
         steps, n = len(run.train_loader), max(cfg.fused_steps, 1)
         start = steps - max(n, (min(GND_PROFILED, steps // 2) // n) * n)
         built.append(dict(cfg=cfg, trainer=run.trainer, steps=steps, start=start,
@@ -3907,6 +3928,362 @@ def inference_front_path(card):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+# Data parallelism on the one card. The grid kernel at the shapes gathered
+# negatives give it: Cc = W x B x N text columns (W 2 and 4 ranks of B 64 at
+# the text bucket 32: 4,096 and 8,192) against R = B x T = 4,096 video rows
+# at width 512, 6 stages; tan_loss at each rank's column offset r x B with
+# the gathered padding mask; phase 8's command line in a world-1 NCCL group
+# (python -m torch.distributed.run --standalone --nproc_per_node 1), eager
+# and at --fused_steps 4 with --multihost, each against the same run without
+# a group (in this process) bit for bit; the alignment service at
+# eval_devices=2; the step's collectives and the re-capture vote timed apart
+# in a world-1 NCCL group of this process.
+DP_B, DP_N, DP_T, DP_S, DP_C = 64, 32, 64, 6, 512
+DP_WORLDS = (2, 4)
+DP_EPOCHS = 1  # eager: 8 train steps and one validation batch a run
+DP_F4_EPOCHS = 2  # --fused_steps 4: 16 steps, 4 groups, the last 3 replays
+GRAPH_BENCH = {}  # phase 5b's graph_bench lines by case
+
+
+def dp_loss_case(world, dtype, seed):
+    """tan_loss on rank r's block for each r < ``world``: its features, the
+    gathered text of every rank, the gathered padding mask and column offset
+    r x B, on the grid kernel and on its plain version; the loss and the
+    grads of the rank's video features and of the gathered text (the
+    rank's gradient before the reduce-scatter) must agree."""
+    from exoground_tpu_torch.losses.milnce import TANLossConfig, set_grid_impl, tan_loss
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.masks import PAD_END, PAD_START
+
+    rng = np.random.RandomState(seed)
+    b, n, t, s, c = DP_B, DP_N, DP_T, DP_S, DP_C
+    bc = world * b
+    cfg = TANLossConfig(**{k: bool(v) if k in ("learn_agreement", "use_alignability_head")
+                           else v for k, v in BENCH_TRAIN.items()
+                           if k in ("model", "learn_agreement", "temporal_agreement_type",
+                                    "loss_threshold", "use_alignability_head")})
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def unit(*shape):  # drawn on the card: ~10^8 numbers a case
+        x = torch.randn(shape, generator=gen, device="cuda")
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+
+    lengths = rng.randint(4, n + 1, bc)
+    col_pad = np.arange(n)[None, :] >= lengths[:, None]  # (Bc, N): most columns padding
+    text_d, text_j = unit(bc, n, c), unit(bc, s, n, c)
+    cases = []
+    for r in range(world):
+        pad = col_pad[r * b:(r + 1) * b]
+        start = rng.randint(0, t - 8, (b, n)).astype(np.float32)
+        end = start + rng.randint(2, 8, (b, n))
+        start[pad], end[pad] = PAD_START, PAD_END
+        host = dict(start=start, end=end, text_padding_mask=pad,
+                    video_padding_mask=np.zeros((b, t), bool),
+                    abs_text_pos=np.stack([start / t, end / t], -1).astype(np.float32))
+        dev = {k: torch.tensor(v, device="cuda") for k, v in host.items()}
+        feats = dict(dual_feature_video=unit(b, s, t, c), joint_feature_video=unit(b, s, t, c),
+                     **{f"ema-{k}": v for k, v in dict(
+                         dual_feature_video=unit(b, s, t, c), dual_feature_text=unit(b, n, c),
+                         joint_feature_video=unit(b, s, t, c),
+                         joint_feature_text=unit(b, s, n, c)).items()},
+                     dual_logits_alignability=torch.randn((b, n, 1), generator=gen,
+                                                          device="cuda"),
+                     joint_logits_alignability=torch.randn((b, s, n, 1), generator=gen,
+                                                           device="cuda"))
+        col_mask = torch.tensor(col_pad, device="cuda")
+        outs, ms = {}, {}
+        for impl in ("kernel", "plain"):
+            set_grid_impl(impl)
+            leaves = dict(video_d=feats["dual_feature_video"].clone().requires_grad_(),
+                          video_j=feats["joint_feature_video"].clone().requires_grad_(),
+                          text_d=text_d.clone().requires_grad_(),
+                          text_j=text_j.clone().requires_grad_())
+
+            def run():
+                logits = dict(feats, dual_feature_video=leaves["video_d"],
+                              joint_feature_video=leaves["video_j"],
+                              dual_feature_text=leaves["text_d"],
+                              joint_feature_text=leaves["text_j"])
+                ld = tan_loss(dev["start"], dev["end"], logits, dev["video_padding_mask"],
+                              dev["text_padding_mask"], cfg, abs_text_pos=dev["abs_text_pos"],
+                              col_text_padding_mask=col_mask, col_offset=r * b)
+                grads = torch.autograd.grad(ld["loss"], list(leaves.values()))
+                return ld["loss"], grads
+
+            n0 = dict(_kernels.LAUNCHES)
+            loss, grads = run()
+            torch.cuda.synchronize()
+            fired = (_kernels.LAUNCHES["milnce_grid_fwd"] - n0["milnce_grid_fwd"],
+                     _kernels.LAUNCHES["milnce_grid_bwd"] - n0["milnce_grid_bwd"])
+            if fired != ((2, 2) if impl == "kernel" else (0, 0)):
+                fail(f"tan_loss at col_offset {r * b} ({impl}): grid launches {fired}")
+            outs[impl] = (loss.detach(), [g.detach() for g in grads])
+            ms[impl] = time_ms(run, warmup=1, reps=3)
+        set_grid_impl("auto")
+        (kl, kg), (pl, pg) = outs["kernel"], outs["plain"]
+        if not (torch.isfinite(kl) and all(torch.isfinite(g).all() for g in kg)):
+            fail(f"tan_loss at col_offset {r * b}: non-finite loss or grads")
+        errs = {"loss": abs(kl.item() - pl.item()) / max(abs(pl.item()), 1e-30)}
+        for name, g, w in zip(leaves, kg, pg):
+            errs[f"d_{name}"] = ((g.float() - w.float()).abs().max()
+                                 / w.float().abs().max().clamp_min(1e-30)).item()
+        case = dict(world=world, rank=r, col_offset=r * b, shape=f"B{b} S{s} T{t} Bc{bc} N{n} C{c}",
+                    dtype=str(dtype).split(".")[-1], loss=kl.item(),
+                    rel_err={k: float(f"{v:.3g}") for k, v in errs.items()},
+                    kernel_ms=round(ms["kernel"], 3), plain_ms=round(ms["plain"], 3))
+        print("dp_loss", json.dumps(case), flush=True)
+        if not max(errs.values()) <= TOL[dtype]:
+            fail(f"tan_loss on the grid kernel disagrees with its plain version: {case}")
+        cases.append(case)
+        del feats, outs, leaves
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _dp_run(argv, work, label, launcher):
+    """One command-line run: under ``launcher`` (the interpreter's arguments
+    before ``-m exoground_tpu_torch.train.main``) in a subprocess, or with
+    ``launcher`` None in this process, its counters set to 0 first; returns
+    its ``run_summary`` and seconds."""
+    import contextlib
+    import os
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.parallel import collectives
+    from exoground_tpu_torch.train import main as cli
+
+    t0 = time.perf_counter()
+    if launcher is None:
+        _kernels.reset_launches()
+        collectives.reset()
+        out, cwd = io.StringIO(), os.getcwd()
+        os.chdir(work)  # set_path writes log<prefix>/ under the cwd
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        stdout = out.getvalue()
+    else:
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run([sys.executable] + launcher
+                              + ["-m", "exoground_tpu_torch.train.main"] + argv, cwd=work,
+                              env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"dp {label}: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                 f"{proc.stderr[-6000:]}")
+        stdout = proc.stdout
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("run_summary ")]
+    if len(lines) != 1:
+        fail(f"dp {label}: {len(lines)} run_summary lines\n{stdout[-3000:]}")
+    return json.loads(lines[0][len("run_summary "):]), secs
+
+
+def _dp_expect(steps, val_batches, replays):
+    """The collectives of a world-1 NCCL command-line run under
+    --gather_negatives (cotrain, fused grid): the timestamp and the
+    replicated state (one float32 broadcast); a train step gathers the dual
+    and joint text features and the padding mask, reduce-scatters the two
+    text gradients and all-reduces grads and metrics in one buffer; a
+    validation batch all-reduces its weighted sums; a replay first agrees
+    on re-capture (one all-reduce)."""
+    return dict(all_reduce=steps + val_batches + replays, all_gather=3 * steps,
+                reduce_scatter=2 * steps, broadcast=2)
+
+
+def dp_collectives_case(n_grad):
+    """The collectives of one replayed --gather_negatives step, timed apart
+    in a world-1 NCCL group of this process (CUDA events, median of 10):
+    the all-reduce of the flat float32 grads (``n_grad``) and metrics, the
+    gathers of the dual and joint text features and the padding mask, the
+    reduce-scatters of the two text gradients (phase 8's shapes: B64, N32,
+    S6, width 512, float32); and the re-capture vote on the host (gloo, as
+    the step votes) beside the same vote on the card (an all-reduce there
+    and ``.item()``), host ms, median of 200."""
+    import torch.distributed as dist
+
+    from exoground_tpu_torch.parallel import collectives
+    from exoground_tpu_torch.parallel.mesh import free_port, make_mesh
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        if mesh.backend != "nccl":
+            fail(f"dp collectives: backend {mesh.backend}")
+        b, n, s, c = DP_B, DP_N, DP_S, DP_C
+        grads = torch.randn(n_grad + 16, device=dev)
+        text_d, text_j = torch.randn(b, n, c, device=dev), torch.randn(b, s, n, c, device=dev)
+        mask = torch.zeros(b, n, dtype=torch.uint8, device=dev)
+        out = {"all_reduce grads": time_ms(lambda: dist.all_reduce(grads))}
+        for name, x in (("all_gather dual text", text_d), ("all_gather joint text", text_j),
+                        ("all_gather mask", mask)):
+            y = torch.empty_like(x)
+            out[name] = time_ms(lambda x=x, y=y: dist.all_gather_into_tensor(y, x))
+        for name, x in (("reduce_scatter dual text", text_d),
+                        ("reduce_scatter joint text", text_j)):
+            y = torch.empty_like(x)
+            out[name] = time_ms(lambda x=x, y=y: dist.reduce_scatter_tensor(y, x))
+        out["device sum"] = sum(out.values())
+
+        def host_ms(fn, reps=200):
+            fn()
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ts)
+
+        def card_vote():
+            t = torch.tensor([0], dtype=torch.int32, device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            return bool(t.item())
+
+        out["vote on the host (gloo), host ms"] = host_ms(
+            lambda: collectives.any_rank(False, mesh))
+        out["vote on the card, host ms"] = host_ms(card_vote)
+    finally:
+        dist.destroy_process_group()
+    print("dp_collectives", json.dumps(out), flush=True)
+    return out
+
+
+def dp_path(card):
+    """Phase 11: data parallelism on the card (see the section's comment).
+    Returns (the grid cases, tan_loss cases, the kernel launches by run)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.serve import AlignmentService, AlignRequest
+    from exoground_tpu_torch.tools.synth_htm import make_htm_tree
+
+    t_phase = time.perf_counter()
+    grid_cases, loss_cases = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for w in DP_WORLDS:
+            cc = w * DP_B * DP_N
+            # most columns padding, as the text bucket gives them; the widest
+            # (W 4) timed
+            timed = w == DP_WORLDS[-1]
+            grid_cases.append(grid_case(DP_S, DP_B * DP_T, cc, DP_C, DP_S, dtype, seed=60 + w,
+                                        n_invalid=cc // 2, timed=timed))
+            grid_cases.append(grid_case(DP_S, DP_B * DP_T, cc, DP_C, 1, dtype, seed=70 + w,
+                                        n_invalid=cc // 2, timed=timed))
+        loss_cases += dp_loss_case(DP_WORLDS[-1], dtype, seed=80)
+    t_kernels = time.perf_counter() - t_phase
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="dp_", dir=build)
+    torchrun = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
+    runs, secs = {}, {}
+    try:
+        root = make_htm_tree(os.path.join(work, "htm"), n_videos=CLI_VIDEOS, vlen=(200, 600),
+                             dim=512, vocab=66249, embed_dim=300, hidden=2048, out_dim=512,
+                             seed=0)
+        os.remove(os.path.join(root, "htm_align.json"))  # no HTM-Align eval in these runs
+        argv = [a for a in _cli_argv(root)] + ["--gather_negatives"]
+        f4 = ["--epochs", str(DP_F4_EPOCHS), "--fused_steps", str(GRAPH_N)]
+        for label, launcher, extra in (
+                ("eager", None, ["--epochs", str(DP_EPOCHS)]),
+                ("eager nccl", torchrun, ["--epochs", str(DP_EPOCHS)]),
+                ("f4", None, f4), ("f4 multihost nccl", torchrun, f4 + ["--multihost"])):
+            prefix = "_" + label.replace(" ", "_")
+            runs[label], secs[label] = _dp_run(argv + extra + ["--prefix", prefix], work,
+                                               label, launcher)
+            epochs = int(extra[1])
+            (runs[label]["ckpt"],) = glob.glob(os.path.join(
+                work, f"log{prefix}", "*", "model", f"epoch{epochs - 1}.pth.tar"))
+        n_grad = sum(v.numel() for v in torch.load(
+            runs["f4"]["ckpt"], map_location="cpu", weights_only=True)["state_dict"].values())
+        for label, ref in (("eager nccl", "eager"), ("f4 multihost nccl", "f4")):
+            got, want = runs[label], runs[ref]
+            fused = label.startswith("f4")
+            epochs = DP_F4_EPOCHS if fused else DP_EPOCHS
+            steps = epochs * 8
+            if (got["world"], got["backend"], want["backend"]) != (1, "nccl", None):
+                fail(f"dp {label}: world {got['world']} over {got['backend']} "
+                     f"(want 1 over nccl, against a run without a group)")
+            agree = _ckpt_agreement(got["ckpt"], want["ckpt"])
+            if not (agree["bit_equal"] and agree["same_counts"]) or got["losses"] != want["losses"]:
+                fail(f"dp {label}: not bit for bit the run without a group: {agree}, losses "
+                     f"{got['losses']} / {want['losses']}")
+            replays = (steps // GRAPH_N - 1) if fused else 0
+            coll = _dp_expect(steps, CLI_VAL_BATCHES * epochs, replays)
+            if got["collectives"] != coll or any(want["collectives"].values()):
+                fail(f"dp {label}: collectives {got['collectives']} (want {coll}); "
+                     f"without a group {want['collectives']}")
+            kern = {k: v for k, v in _cli_expect(steps, epochs, 0).items() if v}
+            for run, name in ((got, label), (want, ref)):
+                if run["launches"] != kern or run["steps"] != steps:
+                    fail(f"dp {name}: launches {run['launches']} (want {kern}), "
+                         f"{run['steps']} steps")
+            if fused and (got["captures"], want["captures"]) != (1, 1):
+                fail(f"dp {label}: captures {got['captures']} / {want['captures']} (want 1)")
+        # (c) the service at eval_devices=2 clamps to the one card
+        model = _front_aligner()
+        rng = np.random.RandomState(90)
+        req = AlignRequest(video=rng.randn(300, 512).astype(np.float32),
+                           text_embeds=rng.randn(24, 512).astype(np.float32))
+        answers = []
+        for n in (1, 2):
+            svc = AlignmentService(model, seq_len=64, eval_devices=n)
+            if svc._evaluator.devices != [torch.device("cuda")]:
+                fail(f"eval_devices={n}: devices {svc._evaluator.devices} on one card")
+            answers.append(svc.align(req))
+        if not all(np.array_equal(np.asarray(answers[0][k]), np.asarray(answers[1][k]))
+                   for k in answers[0]):
+            fail("AlignmentService(eval_devices=2) does not score as at 1 on one card")
+        # (d) the step's collectives and the vote, timed apart
+        parts = dp_collectives_case(n_grad)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def replayed(run):  # every group after the first (the capture) is a replay
+        ms = run["step_ms"][GRAPH_N:]
+        return dict(median=statistics.median(ms), replays=len(ms) // GRAPH_N,
+                    min=min(ms), max=max(ms))
+
+    rep = {"nccl world 1": replayed(runs["f4 multihost nccl"]), "no group": replayed(runs["f4"])}
+    bench = dict(
+        card=card, kernels_s=round(t_kernels, 1),
+        run_s={k: round(v, 1) for k, v in secs.items()},
+        replay_step_ms=dict(rep, **{"phase 5b B64 f32 (4096-d input)":
+                                    GRAPH_BENCH.get("B64 f32 auto", {}).get("replay_step_ms")}),
+        replay_step_ms_delta=rep["nccl world 1"]["median"] - rep["no group"]["median"],
+        collectives_ms=parts,
+        eager_step_ms_median={k: round(runs[k]["timing"]["step_ms_median"], 3)
+                              for k in ("eager nccl", "eager")},
+        collectives={k: r["collectives"] for k, r in runs.items()},
+        bit_equal=True, phase_s=round(time.perf_counter() - t_phase, 1))
+    print("dp_bench", json.dumps(bench), flush=True)
+    return grid_cases, loss_cases, {k: runs[k]["launches"] for k in runs}
+
+
+def _grid_part_cases(part, cases):
+    """The grid cases with the ``fwd_`` or ``bwd_`` (``part``) numbers as
+    the kernels line's, the other part's dropped."""
+    out = []
+    for c in cases:
+        c = {k: v for k, v in c.items() if not k.startswith("bwd" if part == "fwd" else "fwd")}
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "ms_b2b", "plain_ms_b2b",
+                  "bound_cuda_cores_ms", "bound_3xtf32_ms"):
+            if f"{part}_{k}" in c:
+                c[k] = c.pop(f"{part}_{k}")
+        out.append(c)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_s, t_phase = {}, [t_start, None]
@@ -4100,16 +4477,8 @@ def main():
         return e
 
     def grid_entry(part, replaces):
-        cases = [{k: v for k, v in c.items() if not k.startswith("bwd" if part == "fwd" else
-                                                                  "fwd")}
-                 for c in grid_cases]
-        for c in cases:
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "ms_b2b", "plain_ms_b2b",
-                      "bound_cuda_cores_ms", "bound_3xtf32_ms"):
-                if f"{part}_{k}" in c:
-                    c[k] = c.pop(f"{part}_{k}")
         return entry(f"milnce_grid_{part}", "exoground_tpu_torch/csrc/milnce_grid.cu",
-                     replaces, cases)
+                     replaces, _grid_part_cases(part, grid_cases))
 
     def flash_entry(part, replaces):
         parts = ("fwd", "dq", "dkv")
@@ -4184,6 +4553,18 @@ def main():
         for path, n in front_launches.items():
             if e["name"] in n:
                 e["launches_by_path"][path] = n[e["name"]]
+    mark("11")
+    # phase 11: data parallelism on the card: the grid at the gathered
+    # shapes and column offsets, the command line in a world-1 NCCL group
+    dp_grid, dp_loss, dp_launches = dp_path(card)
+    for e in kernels:
+        if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):
+            e["cases"] += _grid_part_cases(e["name"].rsplit("_", 1)[1], dp_grid)
+            e["gathered_tan_loss_cases"] = dp_loss
+        for label, n in dp_launches.items():
+            if n.get(e["name"]):
+                e["launches_by_path"][
+                    f"training command line --gather_negatives {label} (phase 11)"] = n[e["name"]]
     mark(None)
     print("phase_s", json.dumps(phase_s), flush=True)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import csv
 import math
+import os
 from typing import Dict, List, Sequence
 
 # pandas' default na_values (pandas/_libs/parsers.pyx STR_NA_VALUES)
@@ -96,9 +97,14 @@ def write_csv_records(path: str, records: Sequence[Dict]) -> None:
         if len(present) < len(vals) and present and all(
                 isinstance(v, int) and not isinstance(v, bool) for v in present):
             as_float.add(k)
-    with open(path, "w", newline="") as f:
+    # written beside and renamed into place: the ranks of a data-parallel
+    # run on one host write the same cache, and one that finds the file must
+    # never read it half written
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(columns if columns else [""])
         for r in records:
             w.writerow(["" if _missing(r.get(k)) else
                         str(float(r[k]) if k in as_float else r[k]) for k in columns])
+    os.replace(tmp, path)

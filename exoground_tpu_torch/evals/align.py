@@ -69,8 +69,9 @@ class AlignEvalConfig:
     dequantize them on the device; ``matmul_dtype="int8"`` runs the model
     under ``quant.matmul_impl("int8", min_cols=int8_min_cols)``;
     ``preproject`` is a resident-serving mode (``FusedAlignEvaluator.preload``).
-    ``eval_devices > 1`` waits for the multi-device slice and raises
-    ``NotImplementedError``."""
+    ``eval_devices > 1`` round-robins the video groups over ``cuda:0`` ...
+    ``cuda:n-1``, one weights replica each, clamped to the cards present (1
+    on the CPU)."""
 
     seq_len: int = 64
     method: str = "overlap-seq"  # 'overlap-seq' | 'global'
@@ -98,10 +99,6 @@ class AlignEvalConfig:
         if self.matmul_dtype not in quant.VALID_IMPLS:
             raise ValueError(f"matmul_dtype {self.matmul_dtype!r}: one of "
                              f"{quant.VALID_IMPLS}")
-        if self.eval_devices > 1:
-            raise NotImplementedError(
-                "AlignEvalConfig.eval_devices > 1 arrives with the multi-device "
-                "slice of the PyTorch port")
 
 
 def make_tan_sim_fn(model) -> Callable:

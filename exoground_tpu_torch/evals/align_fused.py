@@ -195,7 +195,10 @@ class FusedAlignEvaluator:
 
     Holds its own copy of the model, with the parameters cast ONCE to
     ``cfg.compute_dtype`` on ``device`` (the JAX body casts them on every
-    call)."""
+    call). With ``cfg.eval_devices`` n > 1 on a card (clamped to the cards
+    present) the groups go round robin to ``cuda:0`` ... ``cuda:n-1``
+    (``_placed_plan``), each run by the replica of the model on its card
+    (the JAX evaluator's ``_params_for``, align_fused.py:292-310)."""
 
     def __init__(self, model: torch.nn.Module, cfg: AlignEvalConfig, device="cuda"):
         if cfg.use_alignability_head and not getattr(model, "use_alignability_head", 0):
@@ -207,6 +210,10 @@ class FusedAlignEvaluator:
         self._body = _Body(copy.deepcopy(model).to(
             device=self.device, dtype=_DTYPES[cfg.compute_dtype]).eval())
         self._model = self._body.model
+        self.devices = eval_devices(cfg, self.device)
+        self._replicas = {_key(d): (self._model if _key(d) == _key(self.device) else
+                                    copy.deepcopy(self._model).to(d))
+                          for d in self.devices}
         # bumped by update_params; a preprojected handle is pinned to the
         # generation whose input stages it holds
         self._params_gen = 0
@@ -214,8 +221,13 @@ class FusedAlignEvaluator:
     def update_params(self, state_dict) -> None:
         """Swap in fresh weights (e.g. a training snapshot); they are cast to
         the evaluator's compute dtype and device on the way in."""
-        self._model.load_state_dict(state_dict)
+        for model in self._replicas.values():
+            model.load_state_dict(state_dict)
         self._params_gen += 1
+
+    def _replica(self, device) -> torch.nn.Module:
+        """The copy of the model on ``device`` (a group's card)."""
+        return self._replicas[_key(device)]
 
     def _cfg_for(self, all_texts_active: Optional[bool]) -> AlignEvalConfig:
         if all_texts_active is None or all_texts_active == self.cfg.all_texts_active:
@@ -225,23 +237,25 @@ class FusedAlignEvaluator:
     def _process(self, cfg, dims, args):
         """Run one uploaded group (``_upload``); returns (packed, canvas)."""
         with torch.inference_mode():
-            return _process_body(self._model, cfg, dims, *args)
+            return _process_body(self._replica(args[0].device), cfg, dims, *args)
 
     def _process_many(self, cfg, dims, stacked: "StackedCheckpoints", args):
         """The same body once per stacked checkpoint over one group's
         resident buffers -> one (k, 4, Ntot) device tensor."""
+        body = _Body(self._replica(args[0].device))
         with torch.inference_mode():
             return torch.stack([
-                torch.func.functional_call(self._body, sd, (cfg, dims, *args))[0]
-                for sd in stacked.state_dicts])
+                torch.func.functional_call(body, sd, (cfg, dims, *args))[0]
+                for sd in stacked.on(args[0].device)])
 
     def _process_queries(self, cfg, dims, args):
         """The same body once per query batch: the video buffers are shared,
         the text-side args carry a leading (q,) axis -> (q, 4, Ntot)."""
         video, vscale, *text_side = args
+        model = self._replica(video.device)
         with torch.inference_mode():
             return torch.stack([
-                _process_body(self._model, cfg, dims, video, vscale, *(a[i] for a in text_side))[0]
+                _process_body(model, cfg, dims, video, vscale, *(a[i] for a in text_side))[0]
                 for i in range(text_side[0].shape[0])])
 
     def _preproject(self, args):
@@ -255,9 +269,10 @@ class FusedAlignEvaluator:
         table ignores them)."""
         dtype = _DTYPES[self.cfg.compute_dtype]
         video, vscale, text, tscale = args[:4]
+        model = self._replica(video.device)
         with torch.inference_mode(), quant.matmul_impl("default"):
-            zv = self._model.preproject_video(_dequant(video, vscale).to(dtype))
-            zt = self._model.preproject_text(_dequant(text, tscale).to(dtype))
+            zv = model.preproject_video(_dequant(video, vscale).to(dtype))
+            zt = model.preproject_text(_dequant(text, tscale).to(dtype))
         return (zv, vscale, zt, tscale) + tuple(args[4:])
 
     def _check_not_preproject(self, what: str):
@@ -280,7 +295,7 @@ class FusedAlignEvaluator:
         self._check_not_preproject("streaming evaluation")
         cfg = self._cfg_for(all_texts_active)
         return _reduce_metrics(
-            _dispatch(_placed_plan(dataset, cfg, self.device), self._process, cfg), cfg)
+            _dispatch(_placed_plan(dataset, cfg, self.devices), self._process, cfg), cfg)
 
     def predict(self, dataset: Iterable[Dict],
                 all_texts_active: Optional[bool] = None) -> List[Dict]:
@@ -290,7 +305,7 @@ class FusedAlignEvaluator:
         self._check_not_preproject("predict() (one-shot streaming)")
         cfg = self._cfg_for(all_texts_active)
         return _reduce_predictions(
-            _dispatch(_placed_plan(dataset, cfg, self.device), self._process, cfg))
+            _dispatch(_placed_plan(dataset, cfg, self.devices), self._process, cfg))
 
     # ------------------------------------------------------------------
     # resident serving: upload once, sweep many times
@@ -304,7 +319,7 @@ class FusedAlignEvaluator:
         once, and the handle is pinned to the current weights."""
         cfg = self._cfg_for(all_texts_active)
         entries = []
-        for entry in _placed_plan(dataset, cfg, self.device):
+        for entry in _placed_plan(dataset, cfg, self.devices):
             if entry[0] == "group" and cfg.preproject:
                 _, dims, args, offsets = entry
                 entry = ("group", dims, self._preproject(args), offsets)
@@ -427,7 +442,7 @@ class FusedAlignEvaluator:
                  _pad_rows(a[4], wtot), _pad_rows(a[5], wtot),
                  _pad_2d(a[6], wtot, npad), _pad_2d(a[7], wtot, npad))
                 for a in (r[2] for r in rows)]))
-            args = _upload(base[:2] + stacked, self.device)
+            args = _upload(base[:2] + stacked, self.devices[g % len(self.devices)])
             if cfg.preproject:
                 args = self._preproject(args)
             entries.append(("group", dims, args, tuple(r[3] for r in rows)))
@@ -463,9 +478,20 @@ class FusedAlignEvaluator:
 class StackedCheckpoints:
     """k checkpoints on the device (``FusedAlignEvaluator.stack_checkpoints``):
     one dict of tensors each, keyed for ``functional_call`` on the
-    evaluator's ``_Body``."""
+    evaluator's ``_Body``; ``on(device)`` copies them once to another eval
+    device and keeps the copies."""
     state_dicts: tuple
     k: int
+    copies: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def on(self, device) -> tuple:
+        here = next(iter(self.state_dicts[0].values())).device
+        if _key(device) == _key(here):
+            return self.state_dicts
+        if _key(device) not in self.copies:
+            self.copies[_key(device)] = tuple({k: v.to(device) for k, v in sd.items()}
+                                              for sd in self.state_dicts)
+        return self.copies[_key(device)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -651,15 +677,38 @@ def _upload(host_args, device) -> tuple:
     return tuple(torch.from_numpy(a).to(device) for a in host_args)
 
 
-def _placed_plan(dataset, cfg: AlignEvalConfig, device):
-    """``_plan`` with every group's arrays uploaded to ``device``: yields the
+def _key(device) -> tuple:
+    """A device as (type, index), a bare 'cuda' as the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (device.type, device.index)
+
+
+def eval_devices(cfg: AlignEvalConfig, device) -> list:
+    """The evaluator's devices: ``cfg.eval_devices`` cards from ``cuda:0``
+    when ``device`` is a card and more than one is asked for, clamped to
+    the cards present (the JAX ``_n_eval_devices``, align_fused.py:685-687);
+    else ``device`` alone."""
+    device = torch.device(device)
+    n = max(1, min(cfg.eval_devices, torch.cuda.device_count())) if device.type == "cuda" else 1
+    return [device] if n == 1 else [torch.device("cuda", i) for i in range(n)]
+
+
+def _placed_plan(dataset, cfg: AlignEvalConfig, devices):
+    """``_plan`` with every group's arrays uploaded to one of ``devices`` (a
+    device or a list), round robin from the first: the one place the group
+    -> device assignment lives (the JAX ``_placed_plan``, align_fused.py:
+    853-873), shared by the streaming and the resident paths. Yields the
     'skip' entries as they are and ('group', dims, args, offsets) with
-    device tensors. One device: ``eval_devices > 1`` raises in
-    ``AlignEvalConfig``."""
+    device tensors."""
+    devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
+    g = 0
     for entry in _plan(dataset, cfg):
         if entry[0] == "group":
             _, dims, host_args, offsets = entry
-            entry = ("group", dims, _upload(host_args, device), offsets)
+            entry = ("group", dims, _upload(host_args, devices[g % len(devices)]), offsets)
+            g += 1
         yield entry
 
 

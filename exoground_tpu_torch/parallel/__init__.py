@@ -1,6 +1,8 @@
-"""Train steps of the port (counterpart of ``exoground_tpu/parallel``; one
-device for now)."""
+"""Train and eval steps of the port, data parallel over a process group
+(counterpart of ``exoground_tpu/parallel``; sequence parallelism is still
+to come)."""
 
+from exoground_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_batch  # noqa: F401
 from exoground_tpu_torch.parallel.train_step import (  # noqa: F401
     GroundingEvalStep,
     GroundingTrainStep,

@@ -1,7 +1,7 @@
-"""The TAN and grounding train steps on one device.
+"""The TAN and grounding train and eval steps, data parallel over a ``Mesh``.
 
 Counterpart of ``exoground_tpu/parallel/train_step.py::make_tan_train_step``
-(:129-303) without the data-parallel axis: one call runs the online forward
+(:129-379): one call runs the online forward
 (random pos start from a ``torch.Generator``), the EMA teacher forward under
 ``torch.no_grad()`` with ``deterministic=True``, ``tan_loss``, backward, and
 the optimizer's update with the EMA twin's: ``FusedAdamWEMA`` or the optax
@@ -57,6 +57,23 @@ grounding scalars, rows x steps for the view-invariant ones), the joint
 loss reassembled from its two halves, and the (B, N) IoU map, under
 ``torch.no_grad()`` with the inference kernels on.
 
+Data parallel (``mesh``, ``parallel/mesh.py``; the group's, world 1 without
+one): each rank runs the step on its block of the batch and reduces where
+the JAX step reduces over its 'data' axis. The float32 grads (zeros where the
+loss does not reach a parameter) and the metrics go through one all-reduce
+of a flat buffer laid out alike on every rank and come back as their
+unweighted mean (:275-280, :728-730); each rank draws its own pos starts
+from its own generator (the JAX step folds ``axis_index`` into its key).
+``gather_negatives`` gathers the text features over the ranks
+(``collectives.all_gather_tiled``; the gradient comes back as the transpose)
+so the MIL-NCE denominators see the global batch: the normalized text
+features under the fused grid, the EMA features staying local (:230-251),
+or the joint and dual text features from which the volumes are rebuilt
+(``_gathered_logits``, :305-330); the text padding mask is gathered too and
+the rank's rows sit at column offset ``rank * b_local`` (:261-266). The eval
+steps sum their weighted metrics over the ranks (:562-594, :660-666). Under
+``ScanStep`` the collectives are inside the captured graph.
+
 Parameters are a dictionary of float32 master tensors (the model's own
 parameters, shared by storage, so the optimizer's in-place update keeps the
 module current). ``compute_dtype="bfloat16"`` casts them for the forward
@@ -79,6 +96,8 @@ from exoground_tpu_torch.losses.milnce import TANLossConfig, tan_loss
 from exoground_tpu_torch.models.word2vec import word2vec_forward
 from exoground_tpu_torch.ops import _kernels
 from exoground_tpu_torch.ops.fused_mlp import disable_fused_kernels
+from exoground_tpu_torch.parallel import collectives
+from exoground_tpu_torch.parallel.mesh import make_mesh
 from exoground_tpu_torch.utils.device import to_device
 
 # normalized-feature outputs of TemporalAligner: they stay in the compute
@@ -88,7 +107,6 @@ _FEATURE_KEYS = (
     "dual_feature_video", "dual_feature_text",
     "joint_feature_video", "joint_feature_text",
 )
-_LATER = "a later slice of the port (ROADMAP.md, queue 1 item 4)"
 
 
 def _cast_floats(tree: Dict[str, torch.Tensor], dtype) -> Dict[str, torch.Tensor]:
@@ -104,6 +122,19 @@ def _lengths(batch: Dict[str, torch.Tensor]) -> tuple:
     """(T, N) of a batch, stacked or not: video (..., T, Dv), text
     (..., N, Dt) or token (..., N, L)."""
     return batch["video"].shape[-2], batch["text" if "text" in batch else "token"].shape[-2]
+
+
+def _pmean_grads(mesh, metrics: Dict[str, torch.Tensor], grads: Dict, params: Dict):
+    """(metrics, grads) as their mean over the ranks: one all-reduce of the
+    float32 grads in ``params``' order, zeros where a grad is None (the
+    buffer's layout the same on every rank), then the metrics (the JAX
+    steps' two ``pmean``). Without a group the values pass as they are, the
+    None grads filled with zeros all the same."""
+    names, keys = list(params), list(metrics)
+    parts = [grads[k].float() if grads[k] is not None
+             else torch.zeros_like(params[k], dtype=torch.float32) for k in names]
+    out = collectives.pmean(parts + [metrics[k].float() for k in keys], mesh)
+    return dict(zip(keys, out[len(names):])), dict(zip(names, out[:len(names)]))
 
 
 def _batch_text(batch: Dict[str, torch.Tensor], tower) -> torch.Tensor:
@@ -131,11 +162,13 @@ class TanTrainStep:
     (B, N), start, end [, abs_text_pos], on the device of the parameters.
     ``target`` is the EMA twin (pass ``params`` when not cotraining); with
     ``ema_momentum`` set the optimizer updates it in the same pass. Metrics
-    are the loss dict's 0-d tensors, detached."""
+    are the loss dict's 0-d tensors, detached, averaged over the ranks of
+    ``mesh``; ``batch`` is this rank's block."""
 
     def __init__(self, model, loss_cfg: TANLossConfig, optimizer,
                  ema_momentum: Optional[float] = None, compute_dtype: str = "float32",
-                 fused_grid: bool = True, text_tower_params=None):
+                 fused_grid: bool = True, text_tower_params=None,
+                 gather_negatives: bool = False, mesh=None):
         self.model = model
         self.loss_cfg = loss_cfg
         self.optimizer = optimizer
@@ -143,6 +176,8 @@ class TanTrainStep:
         self.cdt = getattr(torch, compute_dtype)
         self.fused_grid = fused_grid
         self.cotrain = loss_cfg.model == "cotrain"
+        self.gather = gather_negatives
+        self.mesh = make_mesh() if mesh is None else mesh
         # frozen tower: cast once at build time, not once per step
         self.tower = None if text_tower_params is None else _cast_floats(
             text_tower_params, self.cdt)
@@ -175,9 +210,10 @@ class TanTrainStep:
     def loss_and_grads(self, params: Dict[str, torch.Tensor], target: Dict[str, torch.Tensor],
                        batch: Dict[str, torch.Tensor], generator=None, pos_starts=None):
         """(metrics, grads): the loss dict's scalars and float32 grads by
-        parameter name (None where the loss does not reach a parameter).
-        The random pos starts come from ``pos_starts`` (on the device) or
-        else from ``generator``."""
+        parameter name (zeros where the loss does not reach a parameter),
+        averaged over the ranks under a group. The
+        random pos starts come from ``pos_starts`` (on the device) or else
+        from ``generator``."""
         with disable_fused_kernels():
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             p_c = _cast_floats(leaves, self.cdt)
@@ -191,25 +227,57 @@ class TanTrainStep:
                                      f"normalized features {missing}")
                 logits = {k: v for k, v in _f32_except_features(out).items()
                           if k not in ("logits_dual", "logits_joint")}
+                if self.gather:
+                    # only the text features cross ranks; the grid streams
+                    # them as they are (no gathered volume)
+                    for k in ("dual_feature_text", "joint_feature_text"):
+                        logits[k] = collectives.all_gather_tiled(out[k], self.mesh)
             else:
                 logits = {k: v.float() for k, v in out.items()}
+                if self.gather:
+                    logits = self._gathered_logits(logits)
             if self.cotrain:
                 with torch.no_grad():
                     ema_out = self._forward(_cast_floats(target, self.cdt), batch_c, batch, True)
                 if self.fused_grid:
+                    # the agreement reads the diagonal block alone: local
+                    # EMA features suffice
                     for k in _FEATURE_KEYS:
                         logits[f"ema-{k}"] = ema_out[k]
                 else:
-                    logits["ema-logits_dual"] = ema_out["logits_dual"].float()
-                    logits["ema-logits_joint"] = ema_out["logits_joint"].float()
+                    ema_out = {k: v.float() for k, v in ema_out.items()}
+                    if self.gather:
+                        ema_out = self._gathered_logits(ema_out)
+                    logits["ema-logits_dual"] = ema_out["logits_dual"]
+                    logits["ema-logits_joint"] = ema_out["logits_joint"]
+            kw = {}
+            if self.gather:
+                kw["col_text_padding_mask"] = collectives.all_gather_rows(
+                    batch["text_padding_mask"], self.mesh)
+                kw["col_offset"] = self.mesh.rank * batch["video"].shape[0]
             ld = tan_loss(batch["start"], batch["end"], logits, batch["video_padding_mask"],
                           batch["text_padding_mask"], self.loss_cfg,
-                          abs_text_pos=batch.get("abs_text_pos"))
+                          abs_text_pos=batch.get("abs_text_pos"), **kw)
             names = list(leaves)
             grads = torch.autograd.grad(ld["loss"], [leaves[k] for k in names],
                                         allow_unused=True)
         metrics = {k: v.detach() for k, v in ld.items() if v.dim() == 0}
-        return metrics, dict(zip(names, grads))
+        return _pmean_grads(self.mesh, metrics, dict(zip(names, grads)), params)
+
+    def _gathered_logits(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The volumes rebuilt against the gathered text features (the JAX
+        ``_gathered_logits``): both grids are indexed with the global column
+        offset, so the joint text features must be gathered too."""
+        if "joint_feature_text" not in out:
+            raise ValueError("gather_negatives=True needs the model to return "
+                             "joint_feature_text; a local-batch logits_joint cannot be "
+                             "indexed with global column offsets")
+        text_n = collectives.all_gather_tiled(out["dual_feature_text"], self.mesh)
+        text_nj = collectives.all_gather_tiled(out["joint_feature_text"], self.mesh)
+        return {**out,
+                "logits_dual": torch.einsum("astc,bkc->astbk", out["dual_feature_video"], text_n),
+                "logits_joint": torch.einsum("astc,bskc->astbk", out["joint_feature_video"],
+                                             text_nj)}
 
     def device_step(self, params, target, opt_state, batch, pos_starts: torch.Tensor,
                     scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -241,10 +309,11 @@ class _Graph:
     the launches its capture recorded and the addresses it was captured on."""
 
     def __init__(self, graph, batch, starts, scalars, metrics, launches, addresses,
-                 capture_s, pool_bytes):
+                 capture_s, pool_bytes, issued=None):
         self.graph, self.batch, self.starts, self.scalars = graph, batch, starts, scalars
         self.metrics, self.launches, self.addresses = metrics, launches, addresses
         self.capture_s, self.pool_bytes = capture_s, pool_bytes
+        self.issued = issued or {}  # the collectives the capture recorded
 
     def replay(self, batches, starts: np.ndarray, scalars: np.ndarray) -> None:
         for k, buf in self.batch.items():
@@ -253,6 +322,7 @@ class _Graph:
         self.scalars.copy_(torch.from_numpy(scalars).pin_memory(), non_blocking=True)
         self.graph.replay()
         _kernels.add_launches(self.launches)
+        collectives.add(self.issued)
 
 
 class ScanStep:
@@ -266,7 +336,11 @@ class ScanStep:
     On a card: one graph per batch shapes and dtypes, compute dtype,
     ``attn_impl`` and train mode (``graphs``); each records its capture
     seconds and the bytes its memory pool reserved. A capture that fails
-    raises: it never falls back to the eager loop on the card."""
+    raises: it never falls back to the eager loop on the card. Under a
+    process group the step's collectives are captured with it (each rank
+    captures the same steps in the same order), and the ranks decide
+    together whether a tensor moved and the graph must be captured anew:
+    a rank that captured alone would wait on the others for ever."""
 
     def __init__(self, single: TanTrainStep, n: int):
         if n < 1:
@@ -311,7 +385,8 @@ class ScanStep:
                 m.record_stream(cur)
             self.graphs[key] = self._capture(params, target, opt_state, batches)
             return out
-        if g.addresses != _addresses(params, target, opt_state):
+        moved = g.addresses != _addresses(params, target, opt_state)
+        if collectives.any_rank(moved, self.single.mesh):
             del self.graphs[key], g
             g = self.graphs[key] = self._capture(params, target, opt_state, batches)
         draws = [self.single.draw(batches, generator, opt_state.count + i)
@@ -332,8 +407,9 @@ class ScanStep:
         width = len(self.single.optimizer.scalars(0))
         scalars = torch.ones((self.n, width), dtype=torch.float32, device=dev)
         graph = torch.cuda.CUDAGraph()
-        with _kernels.captured_launches() as launches, torch.cuda.graph(
-                graph, stream=self._stream, capture_error_mode="thread_local"):
+        with _kernels.captured_launches() as launches, collectives.captured() as issued, \
+                torch.cuda.graph(graph, stream=self._stream,
+                                 capture_error_mode="thread_local"):
             ms = [self.single.device_step(params, target, opt_state,
                                           {key: v[i] for key, v in static.items()},
                                           starts[i], scalars[i]) for i in range(self.n)]
@@ -342,22 +418,23 @@ class ScanStep:
         self.captures += 1
         return _Graph(graph, static, starts, scalars, metrics, launches,
                       _addresses(params, target, opt_state), time.perf_counter() - t0,
-                      torch.cuda.memory_reserved(dev) - reserved0)
+                      torch.cuda.memory_reserved(dev) - reserved0, issued)
 
 
 def make_tan_train_step(model, loss_cfg: TANLossConfig, optimizer,
                         ema_momentum: Optional[float] = None, gather_negatives: bool = False,
                         text_tower_params=None, compute_dtype: str = "float32",
-                        scan_steps: Optional[int] = None, fused_grid: bool = True):
-    """The TAN train step (``TanTrainStep``), or with ``scan_steps=N`` the
-    N-step runner (``ScanStep``). ``fused_grid=False`` keeps the
-    reference-shaped volume path. ``gather_negatives`` (data parallel)
-    raises: it comes with a later slice."""
-    if gather_negatives:
-        raise NotImplementedError(f"gather_negatives (all_gather over NCCL) waits for {_LATER}")
+                        scan_steps: Optional[int] = None, fused_grid: bool = True,
+                        mesh=None):
+    """The TAN train step (``TanTrainStep``) over ``mesh`` (the process
+    group's; world 1 without one), or with ``scan_steps=N`` the N-step
+    runner (``ScanStep``). ``fused_grid=False`` keeps the reference-shaped
+    volume path; ``gather_negatives`` puts every rank's text in each rank's
+    MIL-NCE denominators."""
     step = TanTrainStep(model, loss_cfg, optimizer, ema_momentum=ema_momentum,
                         compute_dtype=compute_dtype, fused_grid=fused_grid,
-                        text_tower_params=text_tower_params)
+                        text_tower_params=text_tower_params,
+                        gather_negatives=gather_negatives, mesh=mesh)
     return step if scan_steps is None else ScanStep(step, scan_steps)
 
 
@@ -368,17 +445,20 @@ class TanEvalStep:
     float32, deterministic, under ``torch.no_grad()`` with the model in eval
     mode and the inference kernels available; for cotrain the agreement
     targets come from the EMA teacher (deriving them from the online
-    outputs would bias the loss low). Returns the loss dict's scalars (on
-    one device the JAX step's row-weighted psum mean is the batch's own
-    value) and ``_rows``, the batch's rows, by which callers average."""
+    outputs would bias the loss low). Each rank scores its block of rows on
+    its own grid (negatives never cross ranks in validation); the scalars
+    come back as their row-weighted mean over the ranks (the JAX step's
+    psum, :660-666), with ``_rows``, the rows of every rank, by which
+    callers average."""
 
     def __init__(self, model, loss_cfg: TANLossConfig, is_cotrain: bool = False,
-                 text_tower_params=None, fused_grid: bool = True):
+                 text_tower_params=None, fused_grid: bool = True, mesh=None):
         self.model = model
         self.loss_cfg = loss_cfg
         self.is_cotrain = is_cotrain
         self.tower = text_tower_params
         self.fused_grid = fused_grid
+        self.mesh = make_mesh() if mesh is None else mesh
 
     def _forward(self, params, text, batch):
         return functional_call(
@@ -400,16 +480,20 @@ class TanEvalStep:
         ld = tan_loss(batch["start"], batch["end"], out, batch["video_padding_mask"],
                       batch["text_padding_mask"], self.loss_cfg,
                       abs_text_pos=batch.get("abs_text_pos"))
-        agg = {k: v for k, v in ld.items() if v.dim() == 0}
-        agg["_rows"] = torch.tensor(float(batch["video"].shape[0]), device=batch["video"].device)
+        keys = [k for k, v in ld.items() if v.dim() == 0]
+        rows = torch.tensor(float(batch["video"].shape[0]), device=batch["video"].device)
+        sums = collectives.psum([ld[k] * rows for k in keys] + [rows], self.mesh)
+        agg = {k: v / torch.clamp(sums[-1], min=1e-6) for k, v in zip(keys, sums)}
+        agg["_rows"] = sums[-1]
         return agg
 
 
 def make_tan_eval_step(model, loss_cfg: TANLossConfig, is_cotrain: bool = False,
-                       text_tower_params=None, fused_grid: bool = True) -> TanEvalStep:
-    """The TAN validation step on one device (see ``TanEvalStep``)."""
+                       text_tower_params=None, fused_grid: bool = True,
+                       mesh=None) -> TanEvalStep:
+    """The TAN validation step over ``mesh`` (see ``TanEvalStep``)."""
     return TanEvalStep(model, loss_cfg, is_cotrain=is_cotrain,
-                       text_tower_params=text_tower_params, fused_grid=fused_grid)
+                       text_tower_params=text_tower_params, fused_grid=fused_grid, mesh=mesh)
 
 
 # grounding-family batch entries the model takes, by its keyword
@@ -448,16 +532,18 @@ class GroundingTrainStep:
     (audio_features / audio_padding_mask, ego_video_features_flat,
     view_mask), on the device of the parameters. The features reach the
     model in the compute dtype; the loss reads the batch as it is, its
-    math in float32. Metrics are the loss dict's 0-d tensors, detached."""
+    math in float32. Metrics are the loss dict's 0-d tensors, detached;
+    metrics and grads are averaged over the ranks of ``mesh``."""
 
     batch_key = "video_features"
 
     def __init__(self, model, loss_cfg: GroundingLossConfig, optimizer,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", mesh=None):
         self.model = model
         self.loss_cfg = loss_cfg
         self.optimizer = optimizer
         self.cdt = getattr(torch, compute_dtype)
+        self.mesh = make_mesh() if mesh is None else mesh
 
     def n_pos_starts(self, batch: Dict[str, torch.Tensor]) -> int:
         return len(self.model.pos_start_lengths(*_grounding_lengths(batch)))
@@ -470,8 +556,9 @@ class GroundingTrainStep:
 
     def loss_and_grads(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                        generator=None, pos_starts=None):
-        """(metrics, float32 grads by name; None where the loss does not
-        reach a parameter, as for the frozen VI pre-pass)."""
+        """(metrics, float32 grads by name; zeros where the loss does not
+        reach a parameter, as for the frozen VI pre-pass), averaged over the
+        ranks under a group."""
         with disable_fused_kernels():
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             batch_c = _cast_floats({k: v for k, v in batch.items()
@@ -489,7 +576,7 @@ class GroundingTrainStep:
             names = list(leaves)
             grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
         metrics = {k: v.detach() for k, v in ld.items() if v.dim() == 0}
-        return metrics, dict(zip(names, grads))
+        return _pmean_grads(self.mesh, metrics, dict(zip(names, grads)), params)
 
     def device_step(self, params, target, opt_state, batch, pos_starts: torch.Tensor,
                     scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -509,11 +596,12 @@ class GroundingTrainStep:
 
 def make_grounding_train_step(model, loss_cfg: GroundingLossConfig, optimizer,
                               compute_dtype: str = "float32",
-                              scan_steps: Optional[int] = None):
-    """The grounding-family train step (``GroundingTrainStep``), or with
-    ``scan_steps=N`` the N-step runner (``ScanStep``: on the card a replayed
-    CUDA graph)."""
-    step = GroundingTrainStep(model, loss_cfg, optimizer, compute_dtype=compute_dtype)
+                              scan_steps: Optional[int] = None, mesh=None):
+    """The grounding-family train step (``GroundingTrainStep``) over
+    ``mesh``, or with ``scan_steps=N`` the N-step runner (``ScanStep``: on
+    the card a replayed CUDA graph)."""
+    step = GroundingTrainStep(model, loss_cfg, optimizer, compute_dtype=compute_dtype,
+                              mesh=mesh)
     return step if scan_steps is None else ScanStep(step, scan_steps)
 
 
@@ -538,12 +626,15 @@ class GroundingEvalStep:
     is its exact weighted mean over the batch: the grounding scalars over
     the valid narrations ('_n_valid'), the view-invariant ones over rows x
     steps ('_rows' rows); the joint loss is the grounding loss plus the
-    InfoNCE loss, each over its own weights. ``ious`` is the (B, N) IoU
-    map."""
+    InfoNCE loss, each over its own weights. Each weighted sum and weight is
+    summed over the ranks of ``mesh`` first (the JAX step's psum), so the
+    scalars are the global batch's and '_n_valid' / '_rows' count every
+    rank's. ``ious`` is the (B, N) IoU map of this rank's rows."""
 
-    def __init__(self, model, loss_cfg: GroundingLossConfig):
+    def __init__(self, model, loss_cfg: GroundingLossConfig, mesh=None):
         self.model = model
         self.loss_cfg = loss_cfg
+        self.mesh = make_mesh() if mesh is None else mesh
         self.vi_mode = loss_cfg.model == "view_invariant"
         self.joint = loss_cfg.model == "joint" and loss_cfg.use_distill_nce_loss
 
@@ -574,14 +665,19 @@ class GroundingEvalStep:
                 pairs["_gnd_loss"] = ((ld["loss"] - ld["InfoNCE loss"]) * nvalid, nvalid)
             else:
                 pairs["loss"] = (ld["loss"] * nvalid, nvalid)
-        agg = {k: num / torch.clamp(den, min=1e-6) for k, (num, den) in pairs.items()}
+        keys = list(pairs)
+        sums = collectives.psum([pairs[k][0] for k in keys] + [pairs[k][1] for k in keys]
+                                + [nvalid, rows], self.mesh)
+        n = len(keys)
+        agg = {k: sums[i] / torch.clamp(sums[n + i], min=1e-6) for i, k in enumerate(keys)}
         if self.joint:
             agg["loss"] = agg.pop("_gnd_loss") + agg["InfoNCE loss"]
-        agg["_n_valid"] = nvalid
-        agg["_rows"] = rows
+        agg["_n_valid"] = sums[-2]
+        agg["_rows"] = sums[-1]
         return agg, ious
 
 
-def make_grounding_eval_step(model, loss_cfg: GroundingLossConfig) -> GroundingEvalStep:
-    """The grounding-family validation / test step on one device."""
-    return GroundingEvalStep(model, loss_cfg)
+def make_grounding_eval_step(model, loss_cfg: GroundingLossConfig,
+                             mesh=None) -> GroundingEvalStep:
+    """The grounding-family validation / test step over ``mesh``."""
+    return GroundingEvalStep(model, loss_cfg, mesh=mesh)

@@ -130,7 +130,7 @@ class AlignmentService:
     def __init__(self, model: TemporalAligner, tokenizer=None, text_tower=None,
                  seq_len: int = 64, transfer_dtype: str = "float16",
                  matmul_dtype: str = "default", use_alignability_head: bool = False,
-                 device="cuda"):
+                 device="cuda", eval_devices: int = 1):
         self.model = model
         # raw texts: tokenizer(texts) -> ids and pad mask, text_tower(ids,
         # attention_mask=) -> {'pooler_output': (K, Dt)} on the service's device
@@ -140,9 +140,13 @@ class AlignmentService:
         # (ops/quant.py) with the JAX service's policy: int8_min_cols stays
         # 0, so every projection is quantized on the unfused path and the
         # fused int8 kernels, which need 3C or 4C >= min_cols > C, stay off
+        # eval_devices > 1 round-robins video groups over that many cards
+        # (clamped to the cards present; single align() requests ride the
+        # first)
         self.cfg = AlignEvalConfig(
             seq_len=seq_len, transfer_dtype=transfer_dtype, group_videos=8,
             use_alignability_head=use_alignability_head, matmul_dtype=matmul_dtype,
+            eval_devices=eval_devices,
         )
         # ONE evaluator serves both protocols: all_texts_active is a per-call
         # host-side switch

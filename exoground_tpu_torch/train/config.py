@@ -166,9 +166,13 @@ class ExperimentConfig:
     # or bfloat16 (halves optimizer state + its HBM traffic; documented
     # accuracy trade for throughput-bound runs).
     opt_moment_dtype: str = "float32"
-    dp_devices: int = 0  # 0 = all local devices
+    # data-parallel ranks main spawns on this host (0: every card; 1 on
+    # the CPU unless named); a torch.distributed.run launch sets its own
+    dp_devices: int = 0
     data_root: str = ""  # dataset tree root (replaces hardcoded cluster paths)
-    multihost: bool = False  # call jax.distributed.initialize()
+    # join the process group of a torch.distributed.run launch (its
+    # environment must be set)
+    multihost: bool = False
 
     # filled by set_path
     launch_timestamp: str = ""
@@ -252,12 +256,15 @@ def parse_args(argv: Optional[List[str]] = None, dataset: Optional[str] = None) 
     return cfg.validate()
 
 
-def set_path(cfg: ExperimentConfig, root: str = ".") -> ExperimentConfig:
+def set_path(cfg: ExperimentConfig, root: str = ".", timestamp: str = "",
+             write: bool = True) -> ExperimentConfig:
     """Experiment registry: the log-dir name encodes the key hyperparameters
     (config_egoexo4d.py:98-135); appends the full config to
     ``log/running_command.txt``. Resume and test write into the
-    checkpoint's experiment directory."""
-    dt = datetime.now().strftime("%Y_%m_%d_%H_%M")
+    checkpoint's experiment directory. The ranks of a data-parallel run
+    pass the chief's ``timestamp`` (one directory), and only the chief
+    ``write``s."""
+    dt = timestamp or datetime.now().strftime("%Y_%m_%d_%H_%M")
     cfg.launch_timestamp = dt
     if cfg.resume:
         exp_path = os.path.dirname(os.path.dirname(cfg.resume))
@@ -279,6 +286,8 @@ def set_path(cfg: ExperimentConfig, root: str = ".") -> ExperimentConfig:
     cfg.exp_path = exp_path
     cfg.log_path = os.path.join(exp_path, "log")
     cfg.model_path = os.path.join(exp_path, "model")
+    if not write:
+        return cfg
     os.makedirs(cfg.log_path, exist_ok=True)
     os.makedirs(cfg.model_path, exist_ok=True)
     with open(os.path.join(cfg.log_path, "running_command.txt"), "a") as f:

@@ -27,9 +27,24 @@ and ``--amp`` computes in bfloat16 with float32 masters.
 
 The command line always takes the card (``main`` raises without one);
 ``main(argv, device="cpu")`` runs the plain path on the CPU, as the tests
-do. HTM-AA / S3D (item 9) and multi-host (item 4) raise
-``NotImplementedError`` naming their ROADMAP item (queue 1); a model on a
-dataset of the other family raises ``ValueError``.
+do. HTM-AA / S3D (item 9) raises ``NotImplementedError`` naming its ROADMAP
+item (queue 1); a model on a dataset of the other family raises
+``ValueError``.
+
+Data parallel, one process a card (``parallel/mesh.py``; the JAX command
+line's ``--dp_devices`` / ``--multihost``, main.py:186-201):
+  * under a ``torch.distributed.run`` launch (RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT set) each process joins the
+    launch's group: NCCL on ``cuda:<LOCAL_RANK>``, gloo on the CPU, no
+    fallback between them. ``--multihost`` asks for that group and raises
+    without its environment;
+  * otherwise ``--dp_devices N`` > 1 spawns N ranks on this host over
+    ``tcp://localhost``; 0 means every card (1 on the CPU).
+The samplers shard by host, each rank takes its block of the host's batch
+(``--batch_size`` must divide by the host's ranks), and only rank 0
+writes. The chief prints a ``run_summary`` line at the end: the world and
+backend, the steps and their losses, the collectives and kernel launches
+of its process.
 
 Expected --data_root layouts (as the JAX routes'):
   EgoExo4D: splits/{split}.csv, keystep_annotations/{split}.csv (or
@@ -51,10 +66,12 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 _LATER = "a later slice of the port (ROADMAP.md, queue 1 item {})"
 _TAN_MODELS = ("init", "cotrain")
@@ -113,24 +130,140 @@ def build_model(cfg, video_dim: Optional[int] = None, text_dim: Optional[int] = 
 
 
 def main(argv=None, device="cuda"):
-    """Parse ``argv`` and run its route on ``device``; returns what the
-    route returns (the best score, or the ``--test`` results)."""
-    from exoground_tpu_torch.train.config import parse_args, set_path
+    """Parse ``argv`` and run its route on ``device``: in the process group
+    of a ``torch.distributed.run`` launch, over ``--dp_devices`` spawned
+    ranks, or in this process alone. Returns what the route returns on rank
+    0 (the best score, or the ``--test`` results)."""
+    from exoground_tpu_torch.parallel.mesh import LAUNCH_ENV
+    from exoground_tpu_torch.train.config import parse_args
     from exoground_tpu_torch.utils.device import resolve_device
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg = parse_args(argv)
     dev = resolve_device(device)
-    if cfg.multihost:
-        raise NotImplementedError(f"--multihost waits for {_LATER.format(4)}")
     if cfg.dataset == "htm-aa":
         raise NotImplementedError(f"--dataset htm-aa waits for {_LATER.format(9)}")
     if cfg.dataset not in _GROUNDING_DATASETS and not cfg.dataset.startswith("htm"):
         raise SystemExit(f"unknown --dataset {cfg.dataset}")
     _check_model(cfg)  # before set_path writes the experiment directory
-    set_path(cfg)
+    launched = all(k in os.environ for k in LAUNCH_ENV)
+    if cfg.multihost and not launched:
+        missing = [k for k in LAUNCH_ENV if k not in os.environ]
+        raise RuntimeError(
+            f"--multihost joins the process group of a torch.distributed.run launch, but "
+            f"{', '.join(missing)} {'is' if len(missing) == 1 else 'are'} not set: launch "
+            "with python -m torch.distributed.run --nnodes ... --nproc_per_node ... -m "
+            "exoground_tpu_torch.train.main ...")
+    if launched:
+        return _run_in_group(cfg, dev)
+    n = _dp_ranks(cfg, dev)
+    if n > 1:
+        if cfg.batch_size % n:
+            raise ValueError(f"--batch_size {cfg.batch_size} does not split over "
+                             f"--dp_devices {n}")
+        return _spawn(argv, str(device), n)
+    return _run(cfg, dev, None)
+
+
+def _dp_ranks(cfg, device: torch.device) -> int:
+    """The ranks ``--dp_devices`` asks for on this host: 0 is every card
+    (1 on the CPU); more than the cards present raises."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else None
+    n = cfg.dp_devices or (cards or 1)
+    if cards is not None and n > cards:
+        raise ValueError(f"--dp_devices {n}: this host has {cards} cards")
+    return n
+
+
+def _run(cfg, device, mesh):
+    """The route of ``cfg`` on ``device`` in ``mesh`` (None: no group)."""
+    from exoground_tpu_torch.parallel import collectives
+    from exoground_tpu_torch.train.config import set_path
+
+    chief = mesh is None or mesh.rank == 0
+    timestamp = "" if mesh is None else collectives.broadcast_object(
+        _timestamp(), mesh)  # one experiment directory for every rank
+    set_path(cfg, timestamp=timestamp, write=chief)
     if cfg.dataset in _GROUNDING_DATASETS:
-        return run_egoexo(cfg, dev)
-    return run_htm_tan(cfg, dev)
+        return run_egoexo(cfg, device, mesh)
+    return run_htm_tan(cfg, device, mesh)
+
+
+def _timestamp() -> str:
+    from datetime import datetime
+
+    return datetime.now().strftime("%Y_%m_%d_%H_%M")
+
+
+def _run_in_group(cfg, device):
+    """Join the launch's process group (NCCL on this rank's card, gloo on
+    the CPU), run the route in it and leave the group."""
+    from exoground_tpu_torch.parallel.mesh import make_mesh
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+        # device_id: the communicator is made now, before any graph capture
+        dist.init_process_group("nccl", device_id=device)
+    else:
+        dist.init_process_group("gloo")
+    try:
+        mesh = make_mesh(device=device)
+        if cfg.batch_size % mesh.local_world:
+            raise ValueError(f"--batch_size {cfg.batch_size} does not split over the "
+                             f"{mesh.local_world} ranks of a host")
+        return _run(cfg, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(argv, device: str, n: int):
+    """``n`` ranks of this command line on this host, each in a process of
+    its own under a launch environment over ``tcp://localhost``; returns
+    rank 0's result."""
+    import torch.multiprocessing as mp
+
+    from exoground_tpu_torch.parallel.mesh import free_port
+
+    # the ranks keep this process's blocked imports (modules set to None)
+    blocked = [k for k, v in sys.modules.items() if v is None]
+    results = mp.get_context("spawn").SimpleQueue()
+    mp.start_processes(_rank_main, nprocs=n, start_method="spawn",
+                       args=(n, free_port(), argv, device, torch.get_num_threads(), blocked,
+                             results))
+    return results.get()
+
+
+def _rank_main(rank, world, port, argv, device, threads, blocked, results):
+    from exoground_tpu_torch.parallel.mesh import launch_env
+
+    os.environ.update(launch_env(rank, world, port))
+    sys.modules.update(dict.fromkeys(blocked))
+    torch.set_num_threads(max(1, threads // world))  # the host's cores, shared
+    out = main(argv, device)
+    if rank == 0:
+        results.put(out)
+
+
+def _summary(trainer) -> None:
+    """The chief's ``run_summary`` line: the group, the steps and their
+    losses (full precision), the epochs' timing summary, the collectives
+    and kernel launches of this process."""
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.parallel import collectives
+    from exoground_tpu_torch.train.trainer import epoch_summary
+
+    if not trainer.is_chief:
+        return
+    stats = [s for s in trainer.epoch_stats if s["steps"]]
+    timing = epoch_summary(stats) if stats else {}
+    print("run_summary " + json.dumps(dict(
+        world=trainer.mesh.world, backend=trainer.mesh.backend,
+        steps=sum(s["steps"] for s in stats), losses=[l for s in stats for l in s["losses"]],
+        step_ms=[t * 1e3 for s in stats for t in s["step_s"]], timing=timing,
+        collectives=dict(collectives.COLLECTIVES),
+        launches={k: v for k, v in _kernels.LAUNCHES.items() if v},
+        captures=getattr(trainer.fused_step, "captures", 0))), flush=True)
 
 
 @dataclass
@@ -251,12 +384,19 @@ def load_frozen_vi_encoder(trainer, cfg) -> bool:
     return True
 
 
-def build_egoexo(cfg, device) -> TrainRun:
+def _hosts(mesh) -> dict:
+    """The samplers' sharding: by host (each rank takes its block of the
+    host's batch)."""
+    return {} if mesh is None else dict(num_shards=mesh.hosts, shard=mesh.host)
+
+
+def build_egoexo(cfg, device, mesh=None) -> TrainRun:
     """The train and val (or test) readers and loaders of ``--dataset
     egoexo4d | lemma``, the model (seeded by ``cfg.seed``) and the trainer.
     The train sampler is ``CurriculumShardedSampler`` under
     ``--curriculum_train --sorted_curr_train sorted``, else
-    ``ShardedSampler``; the eval loader keeps the last partial batch."""
+    ``ShardedSampler``; the eval loader keeps the last partial batch. Both
+    shard by host under ``mesh``."""
     from exoground_tpu_torch.data import (
         CurriculumShardedSampler,
         ShardedSampler,
@@ -270,30 +410,33 @@ def build_egoexo(cfg, device) -> TrainRun:
     if cfg.curriculum_train and cfg.sorted_curr_train == "sorted":
         sampler = CurriculumShardedSampler(
             len(train_ds), seed=cfg.seed, max_epochs=cfg.epochs, start_frac=cfg.start_frac,
-            end_epoch_frac=cfg.end_epoch_frac, fixed_ramp=cfg.fixed_curriculum)
+            end_epoch_frac=cfg.end_epoch_frac, fixed_ramp=cfg.fixed_curriculum,
+            **_hosts(mesh))
     else:
-        sampler = ShardedSampler(len(train_ds), seed=cfg.seed)
+        sampler = ShardedSampler(len(train_ds), seed=cfg.seed, **_hosts(mesh))
     train_loader = ThreadedLoader(train_ds, cfg.batch_size, sampler=sampler,
                                   num_workers=cfg.num_workers)
     val_loader = ThreadedLoader(val_ds, cfg.batch_size,
-                                sampler=ShardedSampler(len(val_ds), shuffle=False),
+                                sampler=ShardedSampler(len(val_ds), shuffle=False,
+                                                       **_hosts(mesh)),
                                 num_workers=cfg.num_workers, drop_last=False)
     torch.manual_seed(cfg.seed)  # the model's initial weights
     model = build_model(cfg, device=device)
-    trainer = EgoExoTrainer(model, cfg, iters_per_epoch=len(train_loader), device=device)
+    trainer = EgoExoTrainer(model, cfg, iters_per_epoch=len(train_loader), device=device,
+                            mesh=mesh)
     return TrainRun(trainer, train_loader, val_loader, dataset=train_ds)
 
 
-def run_egoexo(cfg, device):
+def run_egoexo(cfg, device, mesh=None):
     """Grounding-family training (reference main_egoexo4d_distributed.py):
     for grounding the frozen VI encoder first, then ``--resume`` /
     ``--pretrain``; ``--test`` loads a checkpoint, prints ``{'loss': ...,
     results}`` and returns the results; else ``fit`` and its best score."""
-    run = build_egoexo(cfg, device)
+    run = build_egoexo(cfg, device, mesh)
     trainer = run.trainer
     try:
-        if cfg.model == "grounding":
-            load_frozen_vi_encoder(trainer, cfg)
+        if cfg.model == "grounding" and load_frozen_vi_encoder(trainer, cfg):
+            trainer._replicate()
         if cfg.resume:
             trainer.load_checkpoint(cfg.resume, mode="resume")
         elif cfg.pretrain:
@@ -301,9 +444,14 @@ def run_egoexo(cfg, device):
         if cfg.test:
             trainer.load_checkpoint(cfg.test, mode="test")
             loss, results = trainer.evaluate(run.val_loader, epoch=0, test=True)
-            print({"loss": loss, **{k: round(v, 4) for k, v in results.items()}}, flush=True)
+            if trainer.is_chief:
+                print({"loss": loss, **{k: round(v, 4) for k, v in results.items()}},
+                      flush=True)
+            _summary(trainer)
             return results
-        return trainer.fit(run.train_loader, run.val_loader, dataset=run.dataset)
+        best = trainer.fit(run.train_loader, run.val_loader, dataset=run.dataset)
+        _summary(trainer)
+        return best
     finally:
         run.close()
 
@@ -311,10 +459,12 @@ def run_egoexo(cfg, device):
 # ------------------------------------------------------------------ HowTo100M
 
 
-def build_htm_tan(cfg, device) -> TrainRun:
+def build_htm_tan(cfg, device, mesh=None) -> TrainRun:
     """The tokenizer and frozen tower from ``--data_root``, the train / val
-    readers and loaders, the model (seeded by ``cfg.seed``), the trainer and
-    the in-loop HTM-Align eval (when ``htm_align.json`` exists)."""
+    readers and loaders (sharded by host under ``mesh``), the model (seeded
+    by ``cfg.seed``), the trainer and the in-loop HTM-Align eval (when
+    ``htm_align.json`` exists: the chief runs it, on its card, and the ranks
+    take its result)."""
     from exoground_tpu_torch.data import (
         HTMAlignDataset,
         HTMConfig,
@@ -350,17 +500,19 @@ def build_htm_tan(cfg, device) -> TrainRun:
     val_ds = HTMFeatureDataset(dcfg, tokenizer, mode="val", asr=train_ds.asr,
                                store=train_ds.store)
     train_loader = ThreadedLoader(
-        train_ds, cfg.batch_size, sampler=ShardedSampler(len(train_ds), seed=cfg.seed),
+        train_ds, cfg.batch_size,
+        sampler=ShardedSampler(len(train_ds), seed=cfg.seed, **_hosts(mesh)),
         num_workers=cfg.num_workers)
     val_loader = ThreadedLoader(
-        val_ds, cfg.batch_size, sampler=ShardedSampler(len(val_ds), shuffle=False),
+        val_ds, cfg.batch_size,
+        sampler=ShardedSampler(len(val_ds), shuffle=False, **_hosts(mesh)),
         num_workers=cfg.num_workers, drop_last=False)
 
     video_dim = int(train_ds.store.read(train_ds.video_info[0], 0, 1).shape[-1])
     torch.manual_seed(cfg.seed)  # the model's initial weights
     model = build_model(cfg, video_dim, text_tower.out_dim, device=device)
     trainer = TANTrainer(model, cfg, iters_per_epoch=len(train_loader), device=device,
-                         text_tower=text_tower)
+                         text_tower=text_tower, mesh=mesh)
 
     downstream = None
     align_json = os.path.join(root, "htm_align.json")
@@ -382,6 +534,10 @@ def build_htm_tan(cfg, device) -> TrainRun:
         evaluator_box = {}
 
         def downstream(tr):
+            from exoground_tpu_torch.parallel import collectives
+
+            if not tr.is_chief:
+                return collectives.broadcast_object(None, tr.mesh)
             # one evaluator for the run; each eval loads the trainer's
             # current weights into it
             if "ev" not in evaluator_box:
@@ -392,17 +548,17 @@ def build_htm_tan(cfg, device) -> TrainRun:
                     device=tr.device)
             else:
                 evaluator_box["ev"].update_params(tr.model.state_dict())
-            return evaluator_box["ev"](align_items)
+            return collectives.broadcast_object(evaluator_box["ev"](align_items), tr.mesh)
 
     return TrainRun(trainer, train_loader, val_loader, downstream)
 
 
-def run_htm_tan(cfg, device):
+def run_htm_tan(cfg, device, mesh=None):
     """TAN init / cotrain on HowTo100M features (reference train/main.py):
     ``--resume`` / ``--pretrain`` load a checkpoint before training;
     ``--test`` loads one and returns the HTM-Align results (or the
     validation loss when there is no ``htm_align.json``)."""
-    run = build_htm_tan(cfg, device)
+    run = build_htm_tan(cfg, device, mesh)
     trainer = run.trainer
     try:
         if cfg.resume:
@@ -413,9 +569,13 @@ def run_htm_tan(cfg, device):
             trainer.load_checkpoint(cfg.test, mode="test")
             res = (run.downstream(trainer) if run.downstream
                    else {"val_loss": trainer.evaluate(run.val_loader, 0)})
-            print(res, flush=True)
+            if trainer.is_chief:
+                print(res, flush=True)
+            _summary(trainer)
             return res
-        return trainer.fit(run.train_loader, run.val_loader, downstream_eval=run.downstream)
+        best = trainer.fit(run.train_loader, run.val_loader, downstream_eval=run.downstream)
+        _summary(trainer)
+        return best
     finally:
         run.close()
 

@@ -1,9 +1,9 @@
-"""Train loops on one device: TAN (MIL-NCE alignment, init or EMA cotrain)
-and EgoExo4D / LEMMA (view-invariant, grounding, joint).
+"""Train loops: TAN (MIL-NCE alignment, init or EMA cotrain) and EgoExo4D /
+LEMMA (view-invariant, grounding, joint), data parallel over a ``Mesh``.
 
 Counterpart of ``exoground_tpu/train/trainer.py`` (``BaseTrainer`` and
 ``TANTrainer``, reference train/main.py:36-544) over the port's
-single-device steps (``parallel/train_step.py``): the online parameters are
+steps (``parallel/train_step.py``): the online parameters are
 the model's own, the EMA twin is a dictionary beside them, and the optimizer
 updates both in place: ``FusedAdamWEMA`` under ``--fused_optimizer`` (the
 default) when it can serve the configuration, else the optax chain
@@ -11,7 +11,7 @@ default) when it can serve the configuration, else the optax chain
 clipping, ``--no-fused_optimizer``), chosen as the JAX ``_build_optimizer``
 chooses (trainer.py:56-71).
 
-``BaseTrainer`` holds what the JAX one does on one device: checkpoints
+``BaseTrainer`` holds what the JAX one does: checkpoints
 (``save_epoch``, ``maybe_save_runtime`` on an iteration threshold,
 ``load_checkpoint`` in resume / pretrain / test mode, from the port's
 files or the JAX package's msgpack files), batches copied to
@@ -35,6 +35,18 @@ last batches short of a group, run single eager steps, as in the JAX
 trainer. Both draw the random pos starts from one generator in step order,
 so the parameters follow the same path whatever N is.
 
+Data parallel (``parallel/mesh.py``): one trainer a rank, the mesh's (the
+process group's; world 1 without one). Each rank holds the whole state,
+broadcast from rank 0 after it is built or loaded (``_replicate``), takes
+its block of each host batch (``shard_batch``) and uploads that alone; the
+steps reduce over the ranks. Only the chief (rank 0) writes: checkpoints,
+the metrics log and the test results. Validation pads a host batch's
+ragged tail to the mesh's multiple (``_pad_rows``: by repeating rows for
+TAN, whose grid couples a rank's rows, and with masked rows and
+'row_valid' for grounding), and the test's IoU binning reads the host's
+rows, gathered from its ranks (``_host_rows``). Each rank draws its own pos
+starts from a generator of its own (``rank_seed``).
+
 The random pos-start generator is not saved in a checkpoint (the JAX
 package does not save its key either), so a resumed run is not a
 bit-exact continuation: it restarts the generator from ``cfg.seed``.
@@ -56,6 +68,8 @@ from exoground_tpu_torch.data.pipeline import device_prefetch
 from exoground_tpu_torch.losses.grounding import GroundingLossConfig
 from exoground_tpu_torch.losses.milnce import TANLossConfig
 from exoground_tpu_torch.models.ema import ema_init
+from exoground_tpu_torch.parallel import collectives
+from exoground_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
 from exoground_tpu_torch.parallel.train_step import (
     make_grounding_eval_step,
     make_grounding_train_step,
@@ -129,26 +143,43 @@ def epoch_summary(stats: List[Dict]) -> Dict[str, float]:
                 / max(later, 1e-12))
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """Rank ``rank``'s pos-start seed: ``seed`` itself on rank 0, the others
+    spread apart by the 32-bit golden ratio (the generator keeps 32 bits)."""
+    return (seed + rank * 0x9E3779B9) % 2**32
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
 class BaseTrainer:
     """Checkpoints, prefetch and the epoch loop shared by the trainers;
     a subclass sets ``params``, ``target_params``, ``opt_state``, ``model``
     and ``prepare_batch``, the batch entry whose rows it counts
     (``batch_key``) and the bridge of the JAX package's checkpoints
-    (``from_jax``)."""
+    (``from_jax``). ``mesh``: the data-parallel group (``make_mesh()``'s
+    when None)."""
 
     batch_key = "video"
     from_jax = staticmethod(tan_checkpoint_from_jax)
 
-    def __init__(self, cfg: ExperimentConfig, device="cuda"):
+    def __init__(self, cfg: ExperimentConfig, device="cuda", mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(device=self.device) if mesh is None else mesh
         self.iteration = cfg.iteration
         self._last_runtime_save = cfg.iteration
         self._last_log = cfg.iteration - 5  # the first step logs
         self.start_epoch = cfg.start_epoch
         self.best_acc = -1e5
-        self.writer = AsyncWriter(cfg.log_path) if cfg.log_path else None
+        # rank 0 alone writes checkpoints, the log and the test results
+        # (the reference's rank == 0 guards, main.py:137,119)
+        self.is_chief = self.mesh.rank == 0
+        self.writer = AsyncWriter(cfg.log_path) if cfg.log_path and self.is_chief else None
         self.monitor = DeviceMonitor(self.device)
+        # the random pos starts: one generator a rank, rank 0's cfg.seed's
+        self.generator = torch.Generator().manual_seed(rank_seed(cfg.seed, self.mesh.rank))
         # per-epoch wall times of the loop's phases (also written to the log)
         self.epoch_stats: List[Dict] = []
 
@@ -166,7 +197,7 @@ class BaseTrainer:
         return state
 
     def save_epoch(self, epoch: int, is_best: bool = False, keep_all: bool = False):
-        if not self.cfg.model_path:
+        if not self.cfg.model_path or not self.is_chief:
             return
         save_checkpoint(self._ckpt_state(epoch), is_best=is_best,
                         filename=os.path.join(self.cfg.model_path, f"epoch{epoch}.pth.tar"),
@@ -178,6 +209,8 @@ class BaseTrainer:
         due = self.iteration - self._last_runtime_save >= self.cfg.runtime_save_iter
         if self.cfg.model_path and due:
             self._last_runtime_save = self.iteration
+            if not self.is_chief:
+                return
             save_runtime_checkpoint(self._ckpt_state(epoch),
                                     filename=os.path.join(self.cfg.model_path,
                                                           "runtime.pth.tar"))
@@ -188,7 +221,8 @@ class BaseTrainer:
         (reference main.py:452-484). ``path`` is the port's checkpoint or the
         JAX package's msgpack one (``checkpoint_format``), bridged by
         ``from_jax``; the optimizer state of either layout is
-        adapted to this trainer's optimizer (``adapt_optimizer_state``)."""
+        adapted to this trainer's optimizer (``adapt_optimizer_state``).
+        Every rank reads the file; rank 0's state is then broadcast."""
         if mode not in ("resume", "pretrain", "test"):
             raise ValueError(f"checkpoint mode {mode!r}: resume, pretrain or test")
         blob = load_state(path)
@@ -206,18 +240,69 @@ class BaseTrainer:
                 print("[checkpoint] optimizer state not restored: no count / mu / nu")
         if getattr(self, "target_params", None) is not None:
             restore_into(self.target_params, blob.get("target_state_dict", blob["state_dict"]))
+        self._replicate()
+
+    def _replicate(self):
+        """Rank 0's parameters, EMA twin and optimizer moments (and the
+        accumulator) on every rank (the JAX ``_replicate``, trainer.py:198-
+        204); nothing without a group."""
+        trees = [self.params, getattr(self, "target_params", None) or {},
+                 self.opt_state.mu, self.opt_state.nu, getattr(self.opt_state, "acc_grads", {})]
+        replicate({f"{i}.{k}": v for i, d in enumerate(trees) for k, v in d.items()},
+                  self.mesh)
 
     # ------------------------------------------------------------- batches
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def _prefetched(self, loader: Iterable[Dict], depth: int = 2):
-        """Prepared batches on the device, copied ``depth`` - 1 ahead of the
-        consumer through pinned buffers on a side stream (the JAX
-        ``_prefetched``: H2D overlaps the step in flight)."""
-        return device_prefetch((self.prepare_batch(raw) for raw in loader), self.device,
-                               size=depth)
+    def _prefetched(self, loader: Iterable[Dict], depth: int = 2, pad: Optional[str] = None):
+        """Prepared batches on the device, this rank's block of each
+        (``shard_batch``; with ``pad`` the host batch first padded by
+        ``_pad_rows``), copied ``depth`` - 1 ahead of the consumer through
+        pinned buffers on a side stream (the JAX ``_prefetched``: H2D
+        overlaps the step in flight)."""
+        def blocks():
+            for raw in loader:
+                batch = self.prepare_batch(raw)
+                if pad is not None:
+                    batch = self._pad_rows(batch, pad)
+                yield shard_batch(batch, self.mesh)
+
+        return device_prefetch(blocks(), self.device, size=depth)
+
+    def _pad_rows(self, batch: Dict[str, np.ndarray], mode: str = "zeros") -> Dict:
+        """A host batch padded to the mesh's multiple of rows for the sharded
+        eval steps (the JAX ``_pad_rows``, trainer.py:255-285). 'zeros':
+        zero rows whose narrations are all padding, and 'row_valid' (B,)
+        marking the real rows; 'wrap': the first rows repeated (the
+        reference DistributedSampler's pad by repeat; TAN's grid couples a
+        rank's rows, so masked rows would not do)."""
+        b = next(iter(batch.values())).shape[0]
+        b_pad = _round_up(b, self.mesh.world)  # the JAX mesh.devices.size
+        out = dict(batch)
+        if b_pad != b:
+            for k, v in batch.items():
+                v = np.asarray(v)
+                if mode == "wrap":
+                    out[k] = np.concatenate([v] * -(-b_pad // b), axis=0)[:b_pad]
+                else:
+                    pad = (np.ones if k == "narration_padding_mask" else np.zeros)(
+                        (b_pad - b,) + v.shape[1:], v.dtype)
+                    out[k] = np.concatenate([v, pad], axis=0)
+        if mode == "zeros":
+            out["row_valid"] = (np.arange(b_pad) < b).astype(np.float32)
+        return out
+
+    def _host_rows(self, rows: torch.Tensor) -> np.ndarray:
+        """The rows of this rank's host, in row order, from each rank's
+        block of an eval output (the JAX ``_local_eval_rows``, trainer.py:
+        287-301): every rank's block is gathered, and the host's ranks'
+        taken."""
+        every = collectives.all_gather_rows(rows.contiguous(), self.mesh)
+        per_host = every.shape[0] // self.mesh.hosts
+        host = every[self.mesh.host * per_host:(self.mesh.host + 1) * per_host]
+        return host.float().cpu().numpy()
 
     def _prefetched_groups(self, loader: Iterable[Dict], n: int, depth: int = 2):
         """('fused', the (n, B, ...) stack of n prepared batches) for each n
@@ -238,16 +323,16 @@ class BaseTrainer:
                     stacked = None
                 if stacked is not None:
                     kinds.append("fused")
-                    yield stacked
+                    yield shard_batch(stacked, self.mesh, dim=1)
                     group = []
                     continue
                 for g in group:
                     kinds.append("single")
-                    yield g
+                    yield shard_batch(g, self.mesh)
                 group = []
             for g in group:
                 kinds.append("single")
-                yield g
+                yield shard_batch(g, self.mesh)
 
         for batch in device_prefetch(items(), self.device, size=depth):
             yield kinds.popleft(), batch
@@ -262,12 +347,13 @@ class BaseTrainer:
         303-355). ``do_step(batch) -> metrics`` advances the state one step;
         ``do_fused(stacked) -> stacked metrics`` (with ``cfg.fused_steps`` >
         1) N steps. A group counts as N steps of its time / N, its wait for
-        data on the first."""
+        data on the first. A step's rows are the global batch's (this rank's
+        block times the world), as the JAX loop weighs its meters."""
         cfg = self.cfg
         meters = {k: AverageMeter(k, ":.4f") for k in ("Time", "Data", "Loss")}
         progress = ProgressMeter(getattr(loader, "__len__", lambda: 0)(),
                                  list(meters.values()), prefix=f"Epoch:[{epoch}]")
-        step_s, data_s, samples = [], [], 0
+        step_s, data_s, samples, step_losses = [], [], 0, []
         timer = Timer()
         source = (self._prefetched_groups(loader, cfg.fused_steps) if do_fused is not None
                   else (("single", b) for b in self._prefetched(loader)))
@@ -282,7 +368,8 @@ class BaseTrainer:
                 metrics = do_step(batch)
                 losses = [float(metrics["loss"])]  # waits for the step
                 last = metrics
-            rows = batch[self.batch_key].shape[-3]
+            rows = batch[self.batch_key].shape[-3] * self.mesh.world
+            step_losses += losses
             for loss in losses:
                 samples += rows
                 if np.isfinite(loss):
@@ -293,11 +380,11 @@ class BaseTrainer:
             step_s += [per_step] * len(losses)
             data_s += [wait] + [0.0] * (len(losses) - 1)
             meters["Time"].update(per_step, len(losses))
-            if idx % cfg.print_freq == 0:
+            if idx % cfg.print_freq == 0 and self.is_chief:
                 progress.display(idx)
             self.maybe_save_runtime(epoch)
         self.epoch_stats.append(dict(epoch=epoch, steps=len(step_s), samples=samples,
-                                     step_s=step_s, data_s=data_s))
+                                     step_s=step_s, data_s=data_s, losses=step_losses))
         if self.writer:
             self.writer.add_data("train/total_epoch_loss", meters["Loss"].avg, epoch)
             if step_s:
@@ -331,16 +418,15 @@ class TANTrainer(BaseTrainer):
     'narration_features') feature arrays."""
 
     def __init__(self, model, cfg: ExperimentConfig, iters_per_epoch: int = 1000,
-                 device="cuda", text_tower=None):
+                 device="cuda", text_tower=None, mesh=None):
         cfg.validate()
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh)
         self.model = model.to(self.device)
         if cfg.attn_impl != "auto":  # 'auto' keeps the model's own (train/main.py:124)
             self.model.attn_impl = cfg.attn_impl
         tower = getattr(text_tower, "params", text_tower)
         self._tower_params = (None if tower is None else
                               {k: v.to(self.device) for k, v in tower.items()})
-        self.generator = torch.Generator().manual_seed(cfg.seed)  # random pos start
         self.loss_cfg = TANLossConfig(
             model=cfg.model, sim=cfg.sim, learn_agreement=bool(cfg.learn_agreement),
             temporal_agreement_type=cfg.temporal_agreement_type,
@@ -355,13 +441,14 @@ class TANTrainer(BaseTrainer):
         self.tx = _build_optimizer(cfg, self.params, cfg.epochs * iters_per_epoch,
                                    policy=cfg.optim_policy)
         self.opt_state = self.tx.init(self.params)
+        self._replicate()
         step = make_tan_train_step(
             self.model, self.loss_cfg, self.tx,
             ema_momentum=cfg.momentum_m if self.is_cotrain else None,
             gather_negatives=cfg.gather_negatives, text_tower_params=self._tower_params,
             compute_dtype="bfloat16" if cfg.amp else "float32",
             fused_grid=cfg.fused_grid,
-            scan_steps=cfg.fused_steps if cfg.fused_steps > 1 else None)
+            scan_steps=cfg.fused_steps if cfg.fused_steps > 1 else None, mesh=self.mesh)
         # the N-step runner (fused_steps > 1) and the one step it repeats
         self.fused_step = step if cfg.fused_steps > 1 else None
         self.step = step.single if cfg.fused_steps > 1 else step
@@ -425,13 +512,17 @@ class TANTrainer(BaseTrainer):
 
     def evaluate(self, loader: Iterable[Dict], epoch: int) -> float:
         """Validation loss of the train protocol (trainer.py:511-541): the
-        eval step over every batch of ``loader``, averaged by rows."""
+        eval step over every batch of ``loader``, sharded over the mesh
+        (each ragged tail padded by repeating rows: the repeats count in
+        '_rows', and one can sit in its original's grid, as in the JAX
+        trainer), averaged by rows."""
         if self._eval_step is None:
             self._eval_step = make_tan_eval_step(
                 self.model, self.loss_cfg, is_cotrain=self.is_cotrain,
-                text_tower_params=self._tower_params, fused_grid=self.cfg.fused_grid)
+                text_tower_params=self._tower_params, fused_grid=self.cfg.fused_grid,
+                mesh=self.mesh)
         meter = AverageMeter("Loss", ":.4f")
-        for batch in self._prefetched(loader):
+        for batch in self._prefetched(loader, pad="wrap"):
             ld = self._eval_step(self.params, self.target_params, batch)
             loss = float(ld["loss"])
             if np.isfinite(loss):
@@ -491,11 +582,10 @@ class EgoExoTrainer(BaseTrainer):
     _VI_KEYS = ("L1 loss", "Pos cosine sim", "Avg neg cosine sim", "InfoNCE loss")
 
     def __init__(self, model, cfg: ExperimentConfig, iters_per_epoch: int = 1000,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         cfg.validate()
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh)
         self.model = model.to(self.device)
-        self.generator = torch.Generator().manual_seed(cfg.seed)  # random pos start
         self.loss_cfg = GroundingLossConfig(
             use_center_duration=cfg.use_center_duration, iou_loss_eps=cfg.iou_loss_eps,
             iou_thresholds=tuple(cfg.iou_thresholds), model=cfg.model,
@@ -508,10 +598,11 @@ class EgoExoTrainer(BaseTrainer):
         self.tx = _build_optimizer(cfg, self.params, cfg.epochs * iters_per_epoch,
                                    policy=cfg.optim_policy)
         self.opt_state = self.tx.init(self.params)
+        self._replicate()
         step = make_grounding_train_step(
             self.model, self.loss_cfg, self.tx,
             compute_dtype="bfloat16" if cfg.amp else "float32",
-            scan_steps=cfg.fused_steps if cfg.fused_steps > 1 else None)
+            scan_steps=cfg.fused_steps if cfg.fused_steps > 1 else None, mesh=self.mesh)
         self.fused_step = step if cfg.fused_steps > 1 else None
         self.step = step.single if cfg.fused_steps > 1 else step
         self._eval_step = None
@@ -579,9 +670,12 @@ class EgoExoTrainer(BaseTrainer):
         the view-invariant ones; trainer.py:702-777). At ``test`` for
         grounding / joint: 'Rank r mean IoU' / 'Rank r count' over the
         valid narrations by camera rank, and ``test_results_epoch_{epoch}
-        .json`` under ``log_path``."""
+        .json`` under ``log_path``. Sharded over the mesh: a ragged tail is
+        padded with masked rows ('row_valid'), and the binning reads the
+        host's rows, gathered from its ranks; the chief writes the file."""
         if self._eval_step is None:
-            self._eval_step = make_grounding_eval_step(self.model, self.loss_cfg)
+            self._eval_step = make_grounding_eval_step(self.model, self.loss_cfg,
+                                                       mesh=self.mesh)
         binned = test and self.cfg.model in ("grounding", "joint")
         vi_mode = self.cfg.model == "view_invariant"
         meters: Dict[str, AverageMeter] = {}
@@ -594,7 +688,7 @@ class EgoExoTrainer(BaseTrainer):
             for raw in loader:
                 batch = self.prepare_batch(raw)
                 metas.append((raw.get("metadata", {}), batch["narration_padding_mask"]))
-                yield batch
+                yield shard_batch(self._pad_rows(batch, "zeros"), self.mesh)
 
         for batch in device_prefetch(prepared(), self.device, size=2):
             meta, narr_pad = metas.popleft()
@@ -610,7 +704,7 @@ class EgoExoTrainer(BaseTrainer):
             loss_meter.update(values["loss"], b if vi_mode else n_valid)
             if not binned:
                 continue
-            ious_np = ious.float().cpu().numpy()[:b]
+            ious_np = self._host_rows(ious)[:b]
             save_list.append({
                 "loss_dict": ious_np.tolist(),
                 "metadata": {"narration": meta.get("narrations"),
@@ -631,7 +725,7 @@ class EgoExoTrainer(BaseTrainer):
         for r, vals in sorted(rank_iou.items()):
             results[f"Rank {r} mean IoU"] = float(np.mean(vals))
             results[f"Rank {r} count"] = len(vals)
-        if test and save_list and self.cfg.log_path:
+        if test and save_list and self.cfg.log_path and self.is_chief:
             with open(os.path.join(self.cfg.log_path, f"test_results_epoch_{epoch}.json"),
                       "w") as f:
                 json.dump(save_list, f)

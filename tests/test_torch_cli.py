@@ -540,7 +540,9 @@ def test_main_backprop_freq_and_resume_from_a_jax_file(htm_tree, in_tmp, monkeyp
 
 # the routes of later slices raise NotImplementedError naming their item; a
 # grounding-family model on an HTM dataset raises ValueError (no JAX route
-# trains it: the JAX command line hands it to the TAN trainer)
+# trains it: the JAX command line hands it to the TAN trainer). The
+# data-parallel slice's: --multihost outside a torch.distributed.run launch
+# raises RuntimeError naming it, and --gather_negatives (exc None) trains
 LATER = {
     "htm_aa": (["--dataset", "htm-aa"], NotImplementedError, "item 9"),
     "grounding": (["--dataset", "htm-370k", "--model", "grounding"], ValueError,
@@ -548,14 +550,27 @@ LATER = {
     "view_invariant": (["--dataset", "htm-370k", "--model", "view_invariant"], ValueError,
                        "--model view_invariant does not train on --dataset htm-370k"),
     "multihost": (["--dataset", "htm-370k", "--model", "init", "--multihost"],
-                  NotImplementedError, "item 4"),
-    "gather_negatives": (ARGV + ["--gather_negatives"], NotImplementedError, "item 4"),
+                  RuntimeError, "torch.distributed.run"),
+    "gather_negatives": (ARGV + ["--gather_negatives"], None, None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(LATER))
 def test_routes_of_later_slices_raise(htm_tree, in_tmp, case):
     argv, exc, match = LATER[case]
+    if exc is None:
+        # without a process group there is nothing to gather: the epoch's
+        # checkpoint equals the run's without the flag bit for bit
+        blobs = []
+        for extra in ([], ["--gather_negatives"]):
+            prefix = "_g" if extra else "_l"
+            main_mod.main(ARGV + extra + ["--data_root", htm_tree, "--epochs", "1", "--prefix",
+                                          prefix], device="cpu")
+            (path,) = glob.glob(f"log{prefix}/*/model/epoch0.pth.tar")
+            blobs.append(torch.load(path, weights_only=True))
+        for k, v in blobs[0]["state_dict"].items():
+            assert torch.equal(blobs[1]["state_dict"][k], v), k
+        return
     with pytest.raises(exc, match=match):
         main_mod.main(argv + ["--data_root", htm_tree], device="cpu")
 

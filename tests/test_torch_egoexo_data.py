@@ -251,6 +251,34 @@ def test_table_types_columns_as_pandas(tmp_path):
     assert open(tmp_path / "w.csv").read() == open(tmp_path / "p.csv").read()
 
 
+def test_window_cache_is_never_seen_half_written(tmp_path, monkeypatch):
+    """The ranks of a data-parallel run on one host write the same window
+    cache; a rank that finds it (``os.path.exists``) reads it whole, so the
+    file appears only complete, renamed into place."""
+    from exoground_tpu_torch.data import table
+
+    path = str(tmp_path / "windows.csv")
+    seen = []
+    real = table.csv.writer
+
+    def writer(f, **kw):
+        w = real(f, **kw)
+
+        class Spy:
+            def writerow(self, row):
+                seen.append(os.path.exists(path))
+                return w.writerow(row)
+
+        return Spy()
+
+    monkeypatch.setattr(table.csv, "writer", writer)
+    records = [{"video_id": f"v{i}", "start_sec": i} for i in range(5)]
+    write_csv_records(path, records)
+    assert seen == [False] * 6  # the header and 5 rows, none with the file in place
+    assert os.listdir(tmp_path) == ["windows.csv"]  # no temporary left behind
+    assert read_csv_records(path) == records
+
+
 @pytest.fixture(scope="module")
 def synth_trees(tmp_path_factory):
     root = tmp_path_factory.mktemp("synth")

@@ -160,13 +160,28 @@ def test_alignment_service_matches_jax(models, items, with_ts):
 
 @pytest.mark.parametrize("field,value", [("preproject", True), ("eval_devices", 2)])
 def test_later_slice_config_values_raise(models, items, field, value):
-    """eval_devices > 1 waits for the multi-device slice. preproject=True
-    arrived with resident serving: the config builds, and the streaming
-    paths refuse it with ValueError (there is no preload to amortize the
-    input stages into)."""
+    """Both values raised once. eval_devices=2 arrived with the
+    data-parallel slice: on the CPU it clamps to the one device and scores
+    as the JAX evaluator at 2 (round robin over two of its 8 CPU devices),
+    and the round robin of ``_placed_plan`` over two devices (the CPU and
+    'meta' here, told apart) puts each group where the JAX ``_placed_plan``
+    does. preproject=True arrived with resident serving: the config
+    builds, and the streaming paths refuse it with ValueError (there is no
+    preload to amortize the input stages into)."""
     if field == "eval_devices":
-        with pytest.raises(NotImplementedError, match="slice"):
-            AlignEvalConfig(**{field: value})
+        from exoground_tpu.evals.align_fused import _placed_plan as jax_placed_plan
+        from exoground_tpu_torch.evals.align_fused import _placed_plan
+
+        jm, params, tm = models
+        cfg = dict(CFG, group_videos=1, eval_devices=value)
+        want = JaxEvaluator(jm, params, JaxConfig(**cfg))(items)
+        ev = FusedAlignEvaluator(tm, AlignEvalConfig(**cfg), device="cpu")
+        assert ev.devices == [torch.device("cpu")]
+        _close_metrics(ev(items), want)
+        jax_seq = [e[4] for e in jax_placed_plan(items, JaxConfig(**cfg)) if e[0] == "group"]
+        seq = [e[2][0].device.type for e in _placed_plan(items, AlignEvalConfig(**cfg),
+                                                          ["cpu", "meta"]) if e[0] == "group"]
+        assert len(jax_seq) == 3 and jax_seq == [("cpu", "meta").index(d) for d in seq]
         return
     ev = FusedAlignEvaluator(models[2], AlignEvalConfig(**CFG, preproject=True), device="cpu")
     with pytest.raises(ValueError, match="resident-serving"):

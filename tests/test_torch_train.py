@@ -300,11 +300,24 @@ def test_volume_mode_step_matches_feature_mode():
 
 
 def test_step_options_of_later_slices_raise():
+    """gather_negatives, which raised until the data-parallel slice, builds
+    now; with no process group (world 1, nothing to gather) its step equals
+    the local step bit for bit on the fused grid and on the volumes."""
     tm = TemporalAligner(**SMALL, device="cpu")
+    load_tan_params(tm, {"params": _numpy_params(JaxAligner(**SMALL), 5)["params"]})
     p = {k: v.detach() for k, v in tm.named_parameters()}
     tx = make_fused_optimizer(p)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_tan_train_step(tm, TANLossConfig(), tx, gather_negatives=True)
+    b = {k: torch.from_numpy(v) for k, v in _batch(6).items()}
+    for fused in (True, False):
+        got, want = (make_tan_train_step(tm, TANLossConfig(**LOSS), tx, ema_momentum=0.9,
+                                         gather_negatives=g, fused_grid=fused
+                                         ).loss_and_grads(p, ema_init(p), b)
+                     for g in (True, False))
+        assert set(got[0]) == set(want[0])
+        for k in want[0]:
+            assert torch.equal(got[0][k], want[0][k]), (fused, k)
+        for k, g in want[1].items():
+            assert (g is None and got[1][k] is None) or torch.equal(got[1][k], g), (fused, k)
 
 
 # ------------------------------------------------------------------ model
