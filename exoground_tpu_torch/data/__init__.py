@@ -1,5 +1,5 @@
 """Host data layer of the port (counterpart of ``exoground_tpu/data``): the
-HowTo100M, EgoExo4D, LEMMA and YouCook2 readers, samplers, collate and the threaded
+HowTo100M, HTM-AA clip, EgoExo4D, LEMMA and YouCook2 readers, samplers, collate and the threaded
 loader with pinned copies to the card."""
 
 from exoground_tpu_torch.data.collate import (  # noqa: F401
@@ -35,4 +35,10 @@ from exoground_tpu_torch.data.sampling import (  # noqa: F401
     get_phase,
 )
 from exoground_tpu_torch.data.table import read_csv_records, write_csv_records  # noqa: F401
+from exoground_tpu_torch.data.video_clips import (  # noqa: F401
+    ClipConfig,
+    HTMClipDataset,
+    decode_clip,
+    ffmpeg_available,
+)
 from exoground_tpu_torch.data.youcook2 import YouCook2Config, YouCook2Dataset  # noqa: F401

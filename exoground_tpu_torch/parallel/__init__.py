@@ -6,11 +6,13 @@ from exoground_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_
 from exoground_tpu_torch.parallel.train_step import (  # noqa: F401
     GroundingEvalStep,
     GroundingTrainStep,
+    S3DNceStep,
     ScanStep,
     TanEvalStep,
     TanTrainStep,
     make_grounding_eval_step,
     make_grounding_train_step,
+    make_s3d_nce_step,
     make_tan_eval_step,
     make_tan_train_step,
 )

@@ -57,6 +57,20 @@ grounding scalars, rows x steps for the view-invariant ones), the joint
 loss reassembled from its two halves, and the (B, N) IoU map, under
 ``torch.no_grad()`` with the inference kernels on.
 
+``S3DNceStep`` is the JAX ``make_s3d_nce_step`` (:381-509), the end-to-end
+S3D finetune on HTM-AA clips: uint8 clips divided by 255 in float32 on the
+device, then cast to the compute dtype; the (B, n) clips flattened through
+the S3D trunk (``models/s3d.py``, parameters ``s3d.*``) and the text module
+(``text.*``) over the tokens, each text repeated for its n clips; the
+symmetric InfoNCE and its five metrics. Its BN running stats ride in the
+``target`` slot of the protocol: frozen (--freezeBN) they are cast with the
+parameters; under ``train_bn`` they stay float32 and the step writes the new
+ones into them in place (averaged over the ranks: each rank normalizes with
+its own batch's moments, and only the stats are averaged, as the JAX step's
+``pmean``). It draws no pos start, so ``make_s3d_nce_step(scan_steps=N)``
+replays it through the same ``ScanStep``. No kernel of the port is on this
+path: cuDNN's 3-D convolutions stand where XLA's convolutions stand.
+
 Data parallel (``mesh``, ``parallel/mesh.py``; the group's, world 1 without
 one): each rank runs the step on its block of the batch and reduces where
 the JAX step reduces over its 'data' axis. The float32 grads (zeros where the
@@ -84,6 +98,7 @@ loss math stays float32.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, Optional
 
@@ -92,7 +107,9 @@ import torch
 from torch.func import functional_call
 
 from exoground_tpu_torch.losses.grounding import GroundingLossConfig, egoexo_loss
+from exoground_tpu_torch.losses.infonce import symmetric_info_nce
 from exoground_tpu_torch.losses.milnce import TANLossConfig, tan_loss
+from exoground_tpu_torch.models.s3d import sentence_embedding_forward
 from exoground_tpu_torch.models.word2vec import word2vec_forward
 from exoground_tpu_torch.ops import _kernels
 from exoground_tpu_torch.ops.fused_mlp import disable_fused_kernels
@@ -107,6 +124,22 @@ _FEATURE_KEYS = (
     "dual_feature_video", "dual_feature_text",
     "joint_feature_video", "joint_feature_text",
 )
+
+
+@contextlib.contextmanager
+def _ieee_float32():
+    """cuDNN's and cuBLAS's float32 work inside the block in float32, not
+    TF32 (PyTorch lets cuDNN's convolutions take TF32 by default); the flags
+    as they were after it."""
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    old = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, allow in zip(flags, old):
+            f.allow_tf32 = allow
 
 
 def _cast_floats(tree: Dict[str, torch.Tensor], dtype) -> Dict[str, torch.Tensor]:
@@ -330,8 +363,9 @@ class ScanStep:
     target, opt_state, metrics)``: N optimizer steps a call (the JAX
     ``scan_steps`` contract). ``batches`` carries a leading (N, ...) axis;
     each metric comes back stacked (N,); ``opt_state.count`` advances by N.
-    ``single`` is the one-step ``TanTrainStep`` or ``GroundingTrainStep`` it
-    repeats (``target`` is None for the latter).
+    ``single`` is the one-step ``TanTrainStep``, ``GroundingTrainStep`` or
+    ``S3DNceStep`` it repeats (``target`` is None for the second, the BN
+    stats for the third).
 
     On a card: one graph per batch shapes and dtypes, compute dtype,
     ``attn_impl`` and train mode (``graphs``); each records its capture
@@ -602,6 +636,133 @@ def make_grounding_train_step(model, loss_cfg: GroundingLossConfig, optimizer,
     the card a replayed CUDA graph)."""
     step = GroundingTrainStep(model, loss_cfg, optimizer, compute_dtype=compute_dtype,
                               mesh=mesh)
+    return step if scan_steps is None else ScanStep(step, scan_steps)
+
+
+def _subtree(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+class S3DNceStep:
+    """``step(params, batch_stats, opt_state, batch, generator) -> (params,
+    batch_stats, opt_state, metrics)``: the end-to-end S3D finetune (the JAX
+    ``make_s3d_nce_step``; reference end2end/main_nce.py:30-47, 60-137).
+
+    params: ``s3d.<S3D name>`` and ``text.<tower key>`` float32 masters;
+    ``batch_stats`` the S3D's running stats by name (updated in place under
+    ``train_bn``, passed through as they are otherwise); batch: video (B,
+    n_clips, T, H, W, 3) uint8 or float, token (B, L) int. Metrics: loss,
+    loss-per-text, loss-per-video, top1-per-text, top1-per-video, averaged
+    over the ranks of ``mesh``. ``gather_negatives`` gathers the video and
+    text embeddings over the ranks so the InfoNCE batch is global."""
+
+    batch_key = "video"
+
+    def __init__(self, model, optimizer, temperature: float = 0.07, freeze_early: bool = True,
+                 gather_negatives: bool = False, compute_dtype: str = "float32",
+                 train_bn: bool = False, mesh=None):
+        self.model = model
+        self.optimizer = optimizer
+        self.temperature = temperature
+        self.freeze_early = freeze_early
+        self.gather = gather_negatives
+        self.cdt = getattr(torch, compute_dtype)
+        self.train_bn = train_bn
+        self.mesh = make_mesh() if mesh is None else mesh
+
+    def n_pos_starts(self, batch: Dict[str, torch.Tensor]) -> int:
+        return 0
+
+    def draw(self, batch: Dict[str, torch.Tensor], generator, count: int):
+        """(no pos start, the optimizer's scalars for ``count``)."""
+        return np.zeros(0, np.int64), self.optimizer.scalars(count)
+
+    def loss_and_grads(self, params: Dict[str, torch.Tensor],
+                       batch_stats: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]):
+        """(metrics, grads by name, the new stats: None when frozen), the
+        metrics, grads and stats averaged over the ranks under a group. The
+        frozen early blocks' and the word embedding's grads are zeros. The
+        float32 route's convolutions and matmuls, forward and backward, run
+        in float32 (``_ieee_float32``)."""
+        with _ieee_float32():
+            return self._loss_and_grads(params, batch_stats, batch)
+
+    def _loss_and_grads(self, params, batch_stats, batch):
+        video = batch["video"]
+        if video.dtype == torch.uint8:
+            # exact in float32, and a true division by a tensor (a CUDA
+            # division by a Python scalar multiplies by its reciprocal): the
+            # host's / 255 bit for bit
+            video = video.float() / torch.full((), 255.0, device=video.device)
+        video = video.to(self.cdt)
+        b, n = video.shape[:2]
+        # (B n, T, H, W, 3) -> NCDHW
+        flat = video.reshape((b * n,) + tuple(video.shape[2:])).permute(0, 4, 1, 2, 3)
+        # updated stats accumulate in float32; frozen ones are constants in
+        # the compute dtype
+        stats = batch_stats if self.train_bn else _cast_floats(batch_stats, self.cdt)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        p_c = _cast_floats(leaves, self.cdt)
+        out = functional_call(self.model, _subtree(p_c, "s3d."), (flat, stats),
+                              dict(train_bn=self.train_bn, freeze_early=self.freeze_early))
+        v, new_stats = out if self.train_bn else (out, None)
+        # the loss in float32 (float64 when the step computes in float64)
+        ldt = torch.promote_types(self.cdt, torch.float32)
+        v = v.to(ldt)
+        t = sentence_embedding_forward(_subtree(p_c, "text."), batch["token"])[
+            "text_embedding"].to(ldt)
+        t = t.repeat_interleave(n, dim=0)
+        if self.gather:
+            v = collectives.all_gather_tiled(v, self.mesh)
+            t = collectives.all_gather_tiled(t, self.mesh)
+        loss, parts = symmetric_info_nce(v, t, self.temperature)
+        sim = parts["sim"].detach()
+        labels = torch.arange(sim.shape[0], device=sim.device)
+        metrics = {"loss": loss.detach(), "loss-per-text": parts["loss-per-text"].detach(),
+                   "loss-per-video": parts["loss-per-video"].detach(),
+                   "top1-per-text": (sim.argmax(-1) == labels).float().mean(),
+                   "top1-per-video": (sim.argmax(0) == labels).float().mean()}
+        names = list(leaves)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
+        metrics, grads = _pmean_grads(self.mesh, metrics, dict(zip(names, grads)), params)
+        if new_stats is not None:  # each rank saw its own batch
+            keys = list(new_stats)
+            new_stats = dict(zip(keys, collectives.pmean([new_stats[k] for k in keys],
+                                                         self.mesh)))
+        return metrics, grads, new_stats
+
+    def device_step(self, params, batch_stats, opt_state, batch, pos_starts: torch.Tensor,
+                    scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The device half of one step: the parameters, moments and (under
+        ``train_bn``) the stats updated in place; ``opt_state.count`` is the
+        caller's to advance. Returns the metrics."""
+        metrics, grads, new_stats = self.loss_and_grads(params, batch_stats, batch)
+        if new_stats is not None:
+            with torch.no_grad():
+                for k, t in batch_stats.items():
+                    t.copy_(new_stats[k])
+        self.optimizer.apply(params, opt_state, grads, scalars)
+        return metrics
+
+    def __call__(self, params, batch_stats, opt_state, batch, generator=None):
+        dev = batch[self.batch_key].device
+        _, scalars = self.draw(batch, generator, opt_state.count)
+        metrics = self.device_step(params, batch_stats, opt_state, batch, None,
+                                   to_device(scalars, dev))
+        opt_state.count += 1
+        return params, batch_stats, opt_state, metrics
+
+
+def make_s3d_nce_step(model, optimizer, mesh=None, temperature: float = 0.07,
+                      freeze_early: bool = True, gather_negatives: bool = False,
+                      compute_dtype: str = "float32", scan_steps: Optional[int] = None,
+                      train_bn: bool = False):
+    """The end-to-end S3D finetune step (``S3DNceStep``) over ``mesh``, or
+    with ``scan_steps=N`` the N-step runner (``ScanStep``: on the card a
+    replayed CUDA graph, the stats updated inside it)."""
+    step = S3DNceStep(model, optimizer, temperature=temperature, freeze_early=freeze_early,
+                      gather_negatives=gather_negatives, compute_dtype=compute_dtype,
+                      train_bn=train_bn, mesh=mesh)
     return step if scan_steps is None else ScanStep(step, scan_steps)
 
 

@@ -13,4 +13,4 @@ from exoground_tpu_torch.train.optim import (  # noqa: F401
     warmup_cosine_schedule,
     weight_decay_mask,
 )
-from exoground_tpu_torch.train.trainer import EgoExoTrainer, TANTrainer  # noqa: F401
+from exoground_tpu_torch.train.trainer import EgoExoTrainer, S3DTrainer, TANTrainer  # noqa: F401

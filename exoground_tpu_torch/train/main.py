@@ -3,7 +3,8 @@
 
 Counterpart of ``exoground_tpu/train/main.py`` (``main`` :179, ``build_model``
 :119, ``build_egoexo_dataset`` :28, ``build_lemma_dataset`` :81,
-``load_frozen_vi_encoder`` :156, ``run_htm_tan`` :344-469) for two routes:
+``load_frozen_vi_encoder`` :156, ``run_htm_e2e`` :247-338, ``run_htm_tan``
+:344-469) for three routes:
 
   * ``--dataset egoexo4d | lemma`` with ``--model view_invariant |
     grounding | joint``: keystep grounding and its view-invariant
@@ -15,7 +16,13 @@ Counterpart of ``exoground_tpu/train/main.py`` (``main`` :179, ``build_model``
     grounding / joint) and writes ``test_results_epoch_0.json``;
   * ``--dataset htm-*`` with ``--model init | cotrain``: TAN on HowTo100M
     features, with the frozen word2vec tower inside the step, a validation
-    loss and the in-loop HTM-Align eval every ``--eval_freq`` epochs.
+    loss and the in-loop HTM-Align eval every ``--eval_freq`` epochs;
+  * ``--dataset htm-aa --model s3d``: the end-to-end S3D-G finetune on
+    HTM-AA clips (``S3DTrainer``), the repo's ``scripts/train_e2e.sh``
+    (``--freezeBN``, 16 frames at 5 fps, 224² crops), the MIL-NCE trunk
+    from ``s3d_howto100m.pth`` unless ``--no-pt_backbone``, ``--lr_backbone``
+    its second LR; it prints how many clips ffmpeg decoded and how many
+    came out grey (``clips {...}``).
 
 Both checkpoint every epoch; ``--resume``, ``--pretrain`` and ``--test``
 load them back, or load the JAX package's checkpoint files (flax msgpack,
@@ -27,9 +34,7 @@ and ``--amp`` computes in bfloat16 with float32 masters.
 
 The command line always takes the card (``main`` raises without one);
 ``main(argv, device="cpu")`` runs the plain path on the CPU, as the tests
-do. HTM-AA / S3D (item 9) raises ``NotImplementedError`` naming its ROADMAP
-item (queue 1); a model on a dataset of the other family raises
-``ValueError``.
+do. A model on a dataset of the other family raises ``ValueError``.
 
 Data parallel, one process a card (``parallel/mesh.py``; the JAX command
 line's ``--dp_devices`` / ``--multihost``, main.py:186-201):
@@ -60,6 +65,12 @@ Expected --data_root layouts (as the JAX routes'):
     htm_holdout_vid.txt, htm_vlen.csv        filters (optional)
     s3d_dict.npy + s3d_howto100m.pth         word2vec tokenizer + tower
     htm_align.json (optional)                in-loop HTM-Align eval
+  HTM-AA (tools/synth_htm_aa.py writes one):
+    {auto_align_tag}.csv                     vid,timestamp,text alignment rows
+    htm_vlen.csv (optional)                  vid,vlen: keeps 64 < vlen < 2000
+    videos/{vid}.mp4                         raw videos (ffmpeg decode; grey
+                                             frames where it fails)
+    s3d_dict.npy + s3d_howto100m.pth         tokenizer + the MIL-NCE weights
 """
 
 from __future__ import annotations
@@ -73,7 +84,6 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-_LATER = "a later slice of the port (ROADMAP.md, queue 1 item {})"
 _TAN_MODELS = ("init", "cotrain")
 _GROUNDING_MODELS = ("view_invariant", "grounding", "joint")
 _GROUNDING_DATASETS = ("egoexo4d", "lemma")
@@ -82,8 +92,9 @@ _GROUNDING_DATASETS = ("egoexo4d", "lemma")
 def _check_model(cfg) -> None:
     """The model must be one of its dataset's family (the JAX route would
     hand it to the other family's trainer, which cannot train it)."""
-    if cfg.model == "s3d":
-        raise NotImplementedError(f"--model s3d waits for {_LATER.format(9)}")
+    if cfg.dataset == "htm-aa" or cfg.model == "s3d":
+        cfg.validate()  # s3d trains on htm-aa alone, and htm-aa trains s3d
+        return
     family = _GROUNDING_MODELS if cfg.dataset in _GROUNDING_DATASETS else _TAN_MODELS
     if cfg.model not in family:
         raise ValueError(f"--model {cfg.model} does not train on --dataset {cfg.dataset}: "
@@ -141,8 +152,6 @@ def main(argv=None, device="cuda"):
     argv = sys.argv[1:] if argv is None else list(argv)
     cfg = parse_args(argv)
     dev = resolve_device(device)
-    if cfg.dataset == "htm-aa":
-        raise NotImplementedError(f"--dataset htm-aa waits for {_LATER.format(9)}")
     if cfg.dataset not in _GROUNDING_DATASETS and not cfg.dataset.startswith("htm"):
         raise SystemExit(f"unknown --dataset {cfg.dataset}")
     _check_model(cfg)  # before set_path writes the experiment directory
@@ -186,6 +195,8 @@ def _run(cfg, device, mesh):
     set_path(cfg, timestamp=timestamp, write=chief)
     if cfg.dataset in _GROUNDING_DATASETS:
         return run_egoexo(cfg, device, mesh)
+    if cfg.dataset == "htm-aa":
+        return run_htm_e2e(cfg, device, mesh)
     return run_htm_tan(cfg, device, mesh)
 
 
@@ -263,7 +274,7 @@ def _summary(trainer) -> None:
         step_ms=[t * 1e3 for s in stats for t in s["step_s"]], timing=timing,
         collectives=dict(collectives.COLLECTIVES),
         launches={k: v for k, v in _kernels.LAUNCHES.items() if v},
-        captures=getattr(trainer.fused_step, "captures", 0))), flush=True)
+        captures=getattr(getattr(trainer, "fused_step", None), "captures", 0))), flush=True)
 
 
 @dataclass
@@ -273,14 +284,15 @@ class TrainRun:
 
     trainer: object
     train_loader: object
-    val_loader: object
+    val_loader: object = None
     downstream: Optional[Callable] = None
     dataset: object = None
 
     def close(self):
         self.trainer.close()
         self.train_loader.close()
-        self.val_loader.close()
+        if self.val_loader is not None:
+            self.val_loader.close()
 
 
 # ------------------------------------------------------------ EgoExo4D / LEMMA
@@ -576,6 +588,99 @@ def run_htm_tan(cfg, device, mesh=None):
         best = trainer.fit(run.train_loader, run.val_loader, downstream_eval=run.downstream)
         _summary(trainer)
         return best
+    finally:
+        run.close()
+
+
+# ------------------------------------------------------------------ HTM-AA
+
+
+def htm_aa_pairs(cfg) -> list:
+    """The clip windows of ``{auto_align_tag}.csv`` under ``--data_root``
+    (read without pandas): rows of videos whose ``htm_vlen.csv`` length
+    is in (64, 2000) when that file exists (video_loader.py:70-73), each a
+    ``num_frames / fps`` window centred on its timestamp, clamped at 0
+    (video_loader.py:125-131)."""
+    from exoground_tpu_torch.data.table import read_csv_records
+
+    root = cfg.data_root
+    rows = read_csv_records(os.path.join(root, f"{cfg.auto_align_tag}.csv"))
+    vlen_path = os.path.join(root, "htm_vlen.csv")
+    if os.path.exists(vlen_path):
+        keep = {r["vid"] for r in read_csv_records(vlen_path) if 64 < r["vlen"] < 2000}
+        rows = [r for r in rows if r["vid"] in keep]
+    half = cfg.num_frames / cfg.fps / 2
+    return [{"vid": r["vid"], "text": r["text"],
+             "start": max(float(r["timestamp"]) - half, 0.0),
+             "end": float(r["timestamp"]) + half} for r in rows]
+
+
+def build_htm_e2e(cfg, device, mesh=None) -> TrainRun:
+    """The tokenizer, the MIL-NCE checkpoint (``--convert_from_frozen_bn``
+    renames a FrozenBN file's ``.scale`` to ``.weight``, main_nce.py:
+    303-310), the clip reader and loader (sharded by host under ``mesh``),
+    S3D-G (seeded by ``cfg.seed``; ``fc`` as wide as the text module's
+    output) and the trainer, the trunk loaded unless ``--no-pt_backbone``."""
+    from exoground_tpu_torch.data import ShardedSampler, ThreadedLoader
+    from exoground_tpu_torch.data.video_clips import ClipConfig, HTMClipDataset
+    from exoground_tpu_torch.models.s3d import S3D
+    from exoground_tpu_torch.models.word2vec import Word2VecTokenizer
+    from exoground_tpu_torch.train.trainer import S3DTrainer
+    from exoground_tpu_torch.utils.convert import (
+        convert_s3d_state_dict,
+        convert_sentence_embedding_from_s3d,
+        load_torch_checkpoint,
+    )
+
+    root = cfg.data_root
+    tokenizer = Word2VecTokenizer.from_dict_file(os.path.join(root, "s3d_dict.npy"))
+    ckpt = load_torch_checkpoint(os.path.join(root, "s3d_howto100m.pth"))
+    if cfg.convert_from_frozen_bn:
+        ckpt = {(k.replace(".scale", ".weight") if ".bn" in k else k): v
+                for k, v in ckpt.items()}
+    text_params = convert_sentence_embedding_from_s3d(ckpt)
+    pairs = htm_aa_pairs(cfg)
+    if not pairs:
+        raise SystemExit(f"no HTM-AA pairs under {root}")
+    train_ds = HTMClipDataset(ClipConfig(video_root=os.path.join(root, "videos"), fps=cfg.fps,
+                                         num_frames=cfg.num_frames, seed=cfg.seed),
+                              pairs, tokenizer)
+    train_loader = ThreadedLoader(
+        train_ds, cfg.batch_size,
+        sampler=ShardedSampler(len(train_ds), seed=cfg.seed, **_hosts(mesh)),
+        num_workers=cfg.num_workers)
+    torch.manual_seed(cfg.seed)  # the model's initial weights
+    model = S3D(num_classes=int(text_params["fc2.weight"].shape[0]), device=device)
+    trainer = S3DTrainer(model, cfg, text_params, iters_per_epoch=len(train_loader),
+                         device=device, mesh=mesh)
+    if cfg.pt_backbone:
+        trainer.load_backbone(convert_s3d_state_dict(ckpt))
+    return TrainRun(trainer, train_loader, dataset=train_ds)
+
+
+def run_htm_e2e(cfg, device, mesh=None):
+    """The end-to-end S3D finetune (reference end2end/main_nce.py:275-403):
+    ``--resume`` / ``--pretrain`` load a checkpoint, then ``fit``; the chief
+    prints the clips ffmpeg decoded and those that came out grey, and the
+    reader's ms a batch (its items' seconds over the batches read). Returns
+    the last epoch's loss."""
+    from exoground_tpu_torch.data.video_clips import ffmpeg_available
+
+    run = build_htm_e2e(cfg, device, mesh)
+    trainer, ds = run.trainer, run.dataset
+    try:
+        if cfg.resume:
+            trainer.load_checkpoint(cfg.resume, mode="resume")
+        elif cfg.pretrain:
+            trainer.load_checkpoint(cfg.pretrain, mode="pretrain")
+        last = trainer.fit(run.train_loader)
+        if trainer.is_chief:
+            batches = sum(s["steps"] for s in trainer.epoch_stats)
+            print("clips " + json.dumps(dict(
+                ffmpeg=ffmpeg_available(), decoded=ds.decoded, grey=ds.grey,
+                reader_ms_a_batch=ds.item_s * 1e3 / max(batches, 1))), flush=True)
+        _summary(trainer)
+        return last
     finally:
         run.close()
 

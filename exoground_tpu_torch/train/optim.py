@@ -42,6 +42,8 @@ from exoground_tpu_torch.train.checkpoint import restore_into
 from exoground_tpu_torch.utils.device import to_device
 
 NO_DECAY = ("ln_", "bias", "logit_scale", "entropy_scale")
+# the parameters that ``backbone_lr`` puts on the second LR: the S3D trunk
+BACKBONE_KEYS = ("s3d",)
 
 
 def _has(name: str, substrings: Iterable[str]) -> bool:
@@ -96,8 +98,10 @@ class FusedAdamWEMA:
     read before the count increments, so step 0 has lr 0 under warmup),
     policy freeze (the update is zeroed, not the moments), then the EMA
     teacher from the new parameters. Moments are float32 or bfloat16; the
-    update math runs in float32. The S3D backbone's second LR group waits
-    for the S3D slice.
+    update math runs in float32. ``backbone_lr`` (the S3D finetune's
+    --lr_backbone) puts every parameter whose name holds one of
+    ``BACKBONE_KEYS`` on a second LR: its step, decay included, is scaled by
+    ``backbone_lr / lr`` (the JAX ``_lr_scale``, optim.py:163-170).
 
     API: ``init(params) -> state``; ``step(params, state, grads, target,
     ema_momentum) -> (params, state, target)``, with every tensor updated
@@ -108,7 +112,7 @@ class FusedAdamWEMA:
                  weight_decay: float = 1e-5, total_iterations: int = 100_000,
                  warmup_iterations: int = 1000, policy: str = "default", betas=(0.9, 0.999),
                  eps: float = 1e-8, grad_clip: Optional[float] = None,
-                 moment_dtype: str = "float32"):
+                 backbone_lr: Optional[float] = None, moment_dtype: str = "float32"):
         self.schedule = warmup_cosine_schedule(lr, total_iterations, warmup_iterations)
         self.b1, self.b2 = betas
         self.eps = eps
@@ -117,11 +121,13 @@ class FusedAdamWEMA:
         self.moment_dtype = getattr(torch, moment_dtype)
         wd = weight_decay_mask(params)
         train = trainable_mask(params, policy)
+        factor = backbone_lr / lr if backbone_lr is not None and backbone_lr != lr else None
         groups: Dict[tuple, list] = {}
         for k in params:
-            groups.setdefault((wd[k], train[k]), []).append(k)
+            scale = factor if factor is not None and _has(k, BACKBONE_KEYS) else None
+            groups.setdefault((wd[k], train[k], scale), []).append(k)
         self._groups = [(names, *flags) for flags, names in groups.items()]
-        self._names = [k for names, _, _ in self._groups for k in names]
+        self._names = [k for names, *_ in self._groups for k in names]
 
     def init(self, params: Dict[str, torch.Tensor]) -> FusedAdamWState:
         def zeros():
@@ -172,6 +178,12 @@ class FusedAdamWEMA:
         self._update(params, state, self._clip(self._dense_grads(params, grads)), lr, bc1, bc2,
                      target, ema_momentum)
 
+    @staticmethod
+    def _scale_by_lr(upd: list, lr: torch.Tensor, scale: Optional[float]) -> None:
+        """``upd *= lr * scale`` as the fused JAX step multiplies: the
+        learning rate of the parameter's group first."""
+        torch._foreach_mul_(upd, lr if scale is None else lr * scale)
+
     def _update(self, params, state, g: list, lr, bc1, bc2, target, ema_momentum,
                 emit=None) -> None:
         """AdamW from the float32 grads ``g`` (``_names`` order), group by
@@ -181,7 +193,7 @@ class FusedAdamWEMA:
         g = dict(zip(self._names, g))
         do_ema = target is not None and ema_momentum is not None
         f32_moments = self.moment_dtype == torch.float32
-        for names, wd_on, trainable in self._groups:
+        for names, wd_on, trainable, scale in self._groups:
             p = [params[k] for k in names]
             gg = [g[k] for k in names]
             m = [state.mu[k] if f32_moments else state.mu[k].float() for k in names]
@@ -202,7 +214,7 @@ class FusedAdamWEMA:
             if wd_on and self.weight_decay:
                 torch._foreach_add_(upd, p, alpha=self.weight_decay)
             if trainable:  # the policy freeze: a frozen parameter's update is zero
-                torch._foreach_mul_(upd, lr)
+                self._scale_by_lr(upd, lr, scale)
                 if emit is not None:
                     torch._foreach_mul_(upd, emit)
                 torch._foreach_sub_(p, upd)
@@ -225,11 +237,12 @@ def make_fused_optimizer(params: Dict[str, torch.Tensor], lr: float = 1e-4,
                          warmup_iterations: int = 1000, policy: str = "default",
                          betas=(0.9, 0.999), grad_clip: Optional[float] = None,
                          grad_clip_mode: str = "per_param", accumulate_steps: int = 1,
+                         backbone_lr: Optional[float] = None,
                          moment_dtype: str = "float32") -> Optional[FusedAdamWEMA]:
-    """FusedAdamWEMA with the JAX ``make_optimizer`` signature (less the S3D
-    backbone LR), or None when the configuration needs the optax chain
-    (gradient accumulation, global-norm clipping): callers then take
-    ``make_optimizer`` with the same arguments."""
+    """FusedAdamWEMA with the JAX ``make_fused_optimizer`` signature, or None
+    when the configuration needs the optax chain (gradient accumulation,
+    global-norm clipping): callers then take ``make_optimizer`` with the
+    same arguments."""
     if accumulate_steps > 1:
         return None
     if grad_clip and grad_clip_mode != "per_param":
@@ -237,7 +250,7 @@ def make_fused_optimizer(params: Dict[str, torch.Tensor], lr: float = 1e-4,
     return FusedAdamWEMA(
         params, lr=lr, weight_decay=weight_decay, total_iterations=total_iterations,
         warmup_iterations=warmup_iterations, policy=policy, betas=betas,
-        grad_clip=grad_clip, moment_dtype=moment_dtype)
+        grad_clip=grad_clip, backbone_lr=backbone_lr, moment_dtype=moment_dtype)
 
 
 @dataclasses.dataclass
@@ -278,8 +291,9 @@ class OptaxChain(FusedAdamWEMA):
         and the select on the device, with no host read);
       * AdamW: ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2) g^2``,
         ``u = mu_hat / (sqrt(nu_hat) + eps)``, ``+ wd p`` under the decay
-        mask, ``x -lr``; the policy freeze zeroes the update of frozen
-        parameters while their moments move.
+        mask, ``x -lr``; then ``x backbone_lr / lr`` for the backbone group
+        (``scale_selected``, optim.py:83-101); the policy freeze zeroes the
+        update of frozen parameters while their moments move.
 
     The host scalars (``scalars``) are (lr, bc1, bc2) of the inner count,
     and under k > 1 also emit and ``mini_step + 1``. The EMA twin follows
@@ -290,13 +304,14 @@ class OptaxChain(FusedAdamWEMA):
                  weight_decay: float = 1e-5, total_iterations: int = 100_000,
                  warmup_iterations: int = 1000, policy: str = "default", betas=(0.9, 0.999),
                  grad_clip: Optional[float] = None, grad_clip_mode: str = "per_param",
-                 every_k: int = 1):
+                 every_k: int = 1, backbone_lr: Optional[float] = None):
         if grad_clip_mode not in ("per_param", "global"):
             raise ValueError(f"grad_clip_mode {grad_clip_mode!r}: per_param or global")
         super().__init__(params, lr=lr, weight_decay=weight_decay,
                          total_iterations=total_iterations,
                          warmup_iterations=warmup_iterations, policy=policy, betas=betas,
-                         grad_clip=grad_clip, moment_dtype="float32")
+                         grad_clip=grad_clip, backbone_lr=backbone_lr,
+                         moment_dtype="float32")
         self.grad_clip_mode = grad_clip_mode
         self.every_k = every_k
 
@@ -306,6 +321,14 @@ class OptaxChain(FusedAdamWEMA):
 
         return ChainState(count=0, mu=zeros(), nu=zeros(),
                           acc_grads=zeros() if self.every_k > 1 else {}, every_k=self.every_k)
+
+    @staticmethod
+    def _scale_by_lr(upd: list, lr: torch.Tensor, scale: Optional[float]) -> None:
+        """``upd *= lr``, then the backbone group's ``*= scale``, as the
+        chain's ``scale_by_learning_rate`` and ``scale_selected`` do."""
+        torch._foreach_mul_(upd, lr)
+        if scale is not None:
+            torch._foreach_mul_(upd, scale)
 
     def scalars(self, count: int) -> np.ndarray:
         """(lr, bc1, bc2) of the inner count of mini-batch ``count``, and
@@ -353,24 +376,23 @@ def make_optimizer(params: Dict[str, torch.Tensor], lr: float = 1e-4,
                    warmup_iterations: int = 1000, policy: str = "default",
                    betas=(0.9, 0.999), grad_clip: Optional[float] = None,
                    grad_clip_mode: str = "per_param", accumulate_steps: int = 1,
-                   backbone_lr: Optional[float] = None, backbone_keys=("s3d",)) -> OptaxChain:
+                   backbone_lr: Optional[float] = None) -> OptaxChain:
     """The JAX ``make_optimizer`` (``OptaxChain``): AdamW with the two-group
     decay and the warmup-cosine schedule, an optional per-parameter or
     global-norm clip, the policy freeze, and ``accumulate_steps`` k > 1 as
     ``optax.MultiSteps``, whose inner schedule counts real optimizer steps:
     its total and warmup are divided by k (at least 1 each), so warmup still
-    spans the same mini-batches of data. ``backbone_lr`` (the S3D second LR
-    group) raises: it comes with the S3D slice (ROADMAP.md, queue 1 item 9)."""
-    if backbone_lr is not None and backbone_lr != lr:
-        raise NotImplementedError("backbone_lr (the S3D LR group) waits for a later slice "
-                                  "of the port (ROADMAP.md, queue 1 item 9)")
+    spans the same mini-batches of data. ``backbone_lr`` (the S3D finetune's
+    --lr_backbone) scales the step of the ``BACKBONE_KEYS`` parameters by
+    ``backbone_lr / lr`` after AdamW, decay included."""
     if accumulate_steps > 1:
         total_iterations = max(1, total_iterations // accumulate_steps)
         warmup_iterations = max(1, warmup_iterations // accumulate_steps)
     return OptaxChain(params, lr=lr, weight_decay=weight_decay,
                       total_iterations=total_iterations, warmup_iterations=warmup_iterations,
                       policy=policy, betas=betas, grad_clip=grad_clip,
-                      grad_clip_mode=grad_clip_mode, every_k=max(1, accumulate_steps))
+                      grad_clip_mode=grad_clip_mode, every_k=max(1, accumulate_steps),
+                      backbone_lr=backbone_lr)
 
 
 def optimizer_state_dict(state) -> Dict:

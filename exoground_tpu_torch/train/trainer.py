@@ -26,7 +26,10 @@ grounding-family step, ``prepare_batch`` (the (B, V) view mask, the
 positive view's ego features, the same-view negatives gathered from the
 model's input), ``evaluate`` with exact meters and, at ``--test``, the IoU
 binned by camera rank and ``test_results_epoch_{epoch}.json``, and ``fit``
-with the curriculum phases.
+with the curriculum phases. ``S3DTrainer`` (the JAX ``S3DTrainer``,
+trainer.py:810-924) finetunes S3D-G end to end on HTM-AA clips; its BN
+running stats (``batch_stats``) are checkpointed and restored with the
+parameters, as the JAX ``_ckpt_state`` / ``load_checkpoint`` do.
 
 With ``fused_steps`` N > 1 each N batches that stack run as one call of
 the N-step runner (``make_tan_train_step(scan_steps=N)``: on the card a
@@ -73,6 +76,7 @@ from exoground_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
 from exoground_tpu_torch.parallel.train_step import (
     make_grounding_eval_step,
     make_grounding_train_step,
+    make_s3d_nce_step,
     make_tan_eval_step,
     make_tan_train_step,
 )
@@ -93,6 +97,7 @@ from exoground_tpu_torch.train.optim import (
 )
 from exoground_tpu_torch.utils.convert import (
     grounding_checkpoint_from_jax,
+    s3d_checkpoint_from_jax,
     tan_checkpoint_from_jax,
 )
 from exoground_tpu_torch.utils.device import resolve_device
@@ -157,11 +162,13 @@ class BaseTrainer:
     """Checkpoints, prefetch and the epoch loop shared by the trainers;
     a subclass sets ``params``, ``target_params``, ``opt_state``, ``model``
     and ``prepare_batch``, the batch entry whose rows it counts
-    (``batch_key``) and the bridge of the JAX package's checkpoints
-    (``from_jax``). ``mesh``: the data-parallel group (``make_mesh()``'s
-    when None)."""
+    (``batch_key``, rows on axis ``rows_axis``) and the bridge of the JAX
+    package's checkpoints (``from_jax``); ``batch_stats`` when it has BN
+    running stats. ``mesh``: the data-parallel group (``make_mesh()``'s when
+    None)."""
 
     batch_key = "video"
+    rows_axis = -3  # (B, T, D), stacked (N, B, T, D)
     from_jax = staticmethod(tan_checkpoint_from_jax)
 
     def __init__(self, cfg: ExperimentConfig, device="cuda", mesh=None):
@@ -194,6 +201,8 @@ class BaseTrainer:
         }
         if getattr(self, "is_cotrain", False):
             state["target_state_dict"] = self.target_params
+        if getattr(self, "batch_stats", None) is not None:
+            state["batch_stats"] = self.batch_stats  # learned state under train_bn
         return state
 
     def save_epoch(self, epoch: int, is_best: bool = False, keep_all: bool = False):
@@ -240,14 +249,17 @@ class BaseTrainer:
                 print("[checkpoint] optimizer state not restored: no count / mu / nu")
         if getattr(self, "target_params", None) is not None:
             restore_into(self.target_params, blob.get("target_state_dict", blob["state_dict"]))
+        if getattr(self, "batch_stats", None) is not None and "batch_stats" in blob:
+            restore_into(self.batch_stats, blob["batch_stats"])
         self._replicate()
 
     def _replicate(self):
-        """Rank 0's parameters, EMA twin and optimizer moments (and the
-        accumulator) on every rank (the JAX ``_replicate``, trainer.py:198-
-        204); nothing without a group."""
+        """Rank 0's parameters, EMA twin, BN stats and optimizer moments (and
+        the accumulator) on every rank (the JAX ``_replicate``, trainer.py:
+        198-204); nothing without a group."""
         trees = [self.params, getattr(self, "target_params", None) or {},
-                 self.opt_state.mu, self.opt_state.nu, getattr(self.opt_state, "acc_grads", {})]
+                 self.opt_state.mu, self.opt_state.nu, getattr(self.opt_state, "acc_grads", {}),
+                 getattr(self, "batch_stats", None) or {}]
         replicate({f"{i}.{k}": v for i, d in enumerate(trees) for k, v in d.items()},
                   self.mesh)
 
@@ -368,7 +380,7 @@ class BaseTrainer:
                 metrics = do_step(batch)
                 losses = [float(metrics["loss"])]  # waits for the step
                 last = metrics
-            rows = batch[self.batch_key].shape[-3] * self.mesh.world
+            rows = batch[self.batch_key].shape[self.rows_axis] * self.mesh.world
             step_losses += losses
             for loss in losses:
                 samples += rows
@@ -767,3 +779,92 @@ class EgoExoTrainer(BaseTrainer):
                 self.writer.add_dict({k: v for k, v in stats.items()
                                       if k in ("val_s", "save_s")}, epoch, prefix="time/")
         return best
+
+
+class S3DTrainer(BaseTrainer):
+    """End-to-end S3D finetune on HTM-AA clips (the JAX ``S3DTrainer``;
+    reference end2end/main_nce.py:60-137, 275-403): the symmetric InfoNCE
+    between the S3D-G video embeddings and the MIL-NCE sentence embedding,
+    the early blocks frozen (``freeze_early``).
+
+    ``model``: a port ``S3D`` (its initial weights as they are; the MIL-NCE
+    trunk through ``load_backbone``); ``text_params``: the text module's
+    tensors (``convert_sentence_embedding_from_s3d``). Parameters are
+    ``s3d.<name>`` (shared by storage with the model) and ``text.<key>``;
+    ``batch_stats`` are the S3D's BN running stats, flax's initial ones until
+    loaded, trained unless ``cfg.freezeBN`` (the reference's default mode;
+    --freezeBN keeps them frozen, end2end/freeze_bn.py) and checkpointed.
+    ``--lr_backbone`` puts the ``s3d.*`` parameters on a second LR. The best
+    epoch is the one of lowest train loss (main_nce.py:293, 385-387), and
+    every epoch is saved. As in the JAX trainer, ``--fused_steps`` and
+    ``--sim`` are ignored: every step runs eagerly, and the InfoNCE takes
+    the embeddings' dot products as they are."""
+
+    rows_axis = -6  # video (B, n_clips, T, H, W, 3)
+    from_jax = staticmethod(s3d_checkpoint_from_jax)
+
+    def __init__(self, model, cfg: ExperimentConfig, text_params: Dict[str, torch.Tensor],
+                 iters_per_epoch: int = 1000, freeze_early: bool = True, device="cuda",
+                 mesh=None):
+        cfg.validate()
+        super().__init__(cfg, device, mesh)
+        self.model = model.to(self.device)
+        self.best_acc = 1e5  # the lowest train loss
+        self.params = {**{f"s3d.{k}": p.detach() for k, p in self.model.named_parameters()},
+                       **{f"text.{k}": torch.as_tensor(v, dtype=torch.float32,
+                                                       device=self.device).clone()
+                          for k, v in text_params.items()}}  # owned: trained in place
+        self.batch_stats = self.model.init_batch_stats()
+        self.target_params = None
+        self.tx = _build_optimizer(cfg, self.params, cfg.epochs * iters_per_epoch,
+                                   backbone_lr=cfg.lr_backbone or None)
+        self.opt_state = self.tx.init(self.params)
+        self._replicate()
+        self.train_bn = not cfg.freezeBN
+        self.step = make_s3d_nce_step(
+            self.model, self.tx, mesh=self.mesh, freeze_early=freeze_early,
+            gather_negatives=cfg.gather_negatives,
+            compute_dtype="bfloat16" if cfg.amp else "float32", train_bn=self.train_bn)
+
+    def load_backbone(self, s3d_state: Dict):
+        """The trunk from a MIL-NCE checkpoint (``convert_s3d_state_dict``'s
+        ``{'params', 'batch_stats'}``), non-strict: a parameter the
+        checkpoint lacks (an ``fc`` of another width) keeps its value."""
+        restore_into({k[4:]: v for k, v in self.params.items() if k.startswith("s3d.")},
+                     s3d_state["params"])
+        restore_into(self.batch_stats, s3d_state["batch_stats"])
+        self._replicate()
+
+    def prepare_batch(self, batch: Dict) -> Dict[str, np.ndarray]:
+        """uint8 clips as they are (the step divides by 255 on the card),
+        other clips as float32; tokens as int32."""
+        video = np.asarray(batch["video"])
+        if video.dtype != np.uint8:
+            video = video.astype(np.float32)
+        return {"video": video, "token": np.asarray(batch["token"], np.int32)}
+
+    def _do_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        self.params, self.batch_stats, self.opt_state, metrics = self.step(
+            self.params, self.batch_stats, self.opt_state, batch, self.generator)
+        return metrics
+
+    def train_epoch(self, loader: Iterable[Dict], epoch: int) -> float:
+        """One pass over ``loader``; the mean finite loss, weighted by rows."""
+        self.model.train()
+        return self._run_train_epoch(loader, epoch, self._do_step)
+
+    def fit(self, train_loader, epochs: Optional[int] = None) -> float:
+        """Train from ``start_epoch`` to ``epochs`` (``cfg.epochs``), saving
+        every epoch; the best is the lowest train loss. Returns the last
+        epoch's loss."""
+        last = float("nan")
+        best = self.best_acc
+        for epoch in range(self.start_epoch, epochs or self.cfg.epochs):
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            last = self.train_epoch(train_loader, epoch)
+            is_best = last < best
+            best = min(last, best)
+            self.best_acc = best
+            self.save_epoch(epoch, is_best=is_best)
+        return last

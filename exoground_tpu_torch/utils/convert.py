@@ -26,6 +26,20 @@ reference checkpoint needs no mapping at all (``load_reference_state``).
 ``load_torch_checkpoint`` and ``convert_word2vec_from_s3d`` read the MIL-NCE
 S3D checkpoint's text tower (the JAX package's functions of the same names,
 in the tower's torch layout).
+
+The S3D finetune (``models/s3d.py``) takes the MIL-NCE checkpoint as it is
+(``convert_s3d_state_dict``: its names are the port's, the BN running stats
+split off into ``batch_stats``; ``convert_sentence_embedding_from_s3d``: the
+text module). ``s3d_state_dict_from_jax`` maps the JAX S3D's variables to
+the port's tensors:
+
+  Conv kernel (kT, kH, kW, I, O)   -> Conv3d weight (O, I, kT, kH, kW)
+  Dense kernel (in, out)           -> Linear weight (out, in)
+  BatchNorm scale / bias           -> weight / bias
+  batch_stats mean / var           -> running_mean / running_var
+
+and ``s3d_checkpoint_from_jax`` a JAX ``S3DTrainer`` checkpoint (parameters
+``s3d.*`` and ``text.*``, their Adam moments, ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -278,3 +292,64 @@ def convert_word2vec_from_s3d(state: Mapping) -> Dict[str, torch.Tensor]:
     fc1, fc2}); keys as ``models/word2vec.py::TOWER_KEYS``, float32."""
     prefix = "text_module." if any(k.startswith("text_module.") for k in state) else ""
     return {k: torch.as_tensor(np.asarray(state[prefix + k], np.float32)) for k in TOWER_KEYS}
+
+
+# JAX leaf names -> the port's (a kernel is transposed as its rank says)
+_JAX_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var",
+             "word_embd": "word_embd.weight"}
+
+
+def _tree_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested JAX tree of the S3D family as named float32 tensors: conv
+    kernels (kT, kH, kW, I, O) -> (O, I, kT, kH, kW), Dense kernels
+    transposed, the other leaves renamed by ``_JAX_LEAF``."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_tree_from_jax(v, f"{prefix}{k}."))
+        elif k == "kernel":
+            a = _t(v)
+            out[prefix + "weight"] = (a.permute(4, 3, 0, 1, 2) if a.dim() == 5 else a.T).contiguous()
+        else:
+            out[prefix + _JAX_LEAF[k]] = _t(v)
+    return out
+
+
+def s3d_state_dict_from_jax(variables: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX S3D's ``{'params', 'batch_stats'}`` (numpy or JAX arrays) ->
+    ``{'params', 'batch_stats'}`` of the port's ``S3D`` (float32 CPU
+    tensors by the reference's names)."""
+    return {"params": _tree_from_jax(variables["params"]),
+            "batch_stats": _tree_from_jax(variables.get("batch_stats", {}))}
+
+
+def s3d_checkpoint_from_jax(blob: Mapping) -> Dict:
+    """A JAX ``S3DTrainer`` checkpoint (``{'s3d', 'text'}`` parameters, Adam
+    moments, ``batch_stats``) in the port's layout (``checkpoint_from_jax``):
+    parameters ``s3d.<name>`` and ``text.<tower key>``, the stats by the
+    S3D's names."""
+    out = checkpoint_from_jax(blob, _tree_from_jax)
+    if "batch_stats" in blob:
+        out["batch_stats"] = _tree_from_jax(blob["batch_stats"])
+    return out
+
+
+def convert_s3d_state_dict(state: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The MIL-NCE S3D checkpoint (reference s3dg.py:250-310 names; DDP
+    ``module.`` stripped) -> ``{'params', 'batch_stats'}`` of the port's
+    ``S3D`` as float32 tensors: the names are the same, the BN running stats
+    go to ``batch_stats`` (``num_batches_tracked`` dropped) and the text
+    module is left out (``convert_sentence_embedding_from_s3d``)."""
+    state = strip_prefix(state, "module.")
+    trunk = {k: _t(v) for k, v in state.items()
+             if not k.startswith("text_module.") and not k.endswith(".num_batches_tracked")}
+    stat = (".running_mean", ".running_var")
+    return {"params": {k: v for k, v in trunk.items() if not k.endswith(stat)},
+            "batch_stats": {k: v for k, v in trunk.items() if k.endswith(stat)}}
+
+
+def convert_sentence_embedding_from_s3d(state: Mapping) -> Dict[str, torch.Tensor]:
+    """The S3D checkpoint's Sentence_Embedding (s3dg.py:186-239), DDP prefix
+    stripped: the word2vec tower's tensors (``convert_word2vec_from_s3d``),
+    the reference's two text modules sharing one layout."""
+    return convert_word2vec_from_s3d(strip_prefix(state, "module."))

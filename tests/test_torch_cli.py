@@ -538,13 +538,15 @@ def test_main_backprop_freq_and_resume_from_a_jax_file(htm_tree, in_tmp, monkeyp
     assert set(res) == {"Recall", "AUC"}
 
 
-# the routes of later slices raise NotImplementedError naming their item; a
-# grounding-family model on an HTM dataset raises ValueError (no JAX route
-# trains it: the JAX command line hands it to the TAN trainer). The
+# a model of another family raises: a TAN model on HTM-AA (which trains the
+# S3D backbone, tests/test_torch_s3d_train.py) as the configuration's check
+# asserts, and a grounding-family model on an HTM dataset ValueError (no JAX
+# route trains it: the JAX command line hands it to the TAN trainer). The
 # data-parallel slice's: --multihost outside a torch.distributed.run launch
 # raises RuntimeError naming it, and --gather_negatives (exc None) trains
 LATER = {
-    "htm_aa": (["--dataset", "htm-aa"], NotImplementedError, "item 9"),
+    "htm_aa": (["--dataset", "htm-aa", "--model", "init"], AssertionError,
+               "htm-aa trains the S3D backbone"),
     "grounding": (["--dataset", "htm-370k", "--model", "grounding"], ValueError,
                   "--model grounding does not train on --dataset htm-370k"),
     "view_invariant": (["--dataset", "htm-370k", "--model", "view_invariant"], ValueError,

@@ -146,8 +146,12 @@ def test_chain_scalars_and_schedule_of_inner_steps():
         np.testing.assert_array_equal(s[:3], fused.scalars(inner))
         assert (s[3], s[4]) == (float(mini == 2), mini + 1)
     assert make_optimizer(p).scalars(4).shape == (3,)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_optimizer(p, lr=1e-3, backbone_lr=1e-4)
+    # --lr_backbone: the s3d leaves' steps scaled by backbone_lr / lr
+    # (tests/test_torch_s3d.py holds the update against the JAX chain)
+    two = {"s3d.w": torch.zeros(2), "text.w": torch.zeros(2)}
+    groups = make_optimizer(two, lr=1e-3, backbone_lr=1e-4)._groups
+    assert {k: scale for names, *_, scale in groups for k in names} == pytest.approx(
+        {"s3d.w": 0.1, "text.w": None})
 
 
 # ------------------------------------------------------------- train step
