@@ -148,7 +148,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      2 (the optax chain: the 4 mini-batches of a replay accumulate and every
      second updates; the accumulator compared too), and one
      `graph_accum {...}` line sets its step times and pool beside the fused
-     optimizer's case.
+     optimizer's case. Then the carried-cast A/B (``carry_cast_bench``): a
+     replayed bf16 group carries the compute-dtype casts of the parameters
+     from step to step (parallel/train_step.py::_CarriedCasts); on the B64
+     TAN step and on a grounding step (train_grounding.sh's trunk, batch 16,
+     64 frames, 16 narrations), from one state, a runner as built against
+     the same runner recasting the masters each step: the same warm-up
+     group and one replay each (TAN: 2 + 2 grid launches a step; grounding:
+     none, counted), the parameters, EMA twin and moments after it equal bit
+     for bit, then replays timed in turns (recast, carried, carried, recast;
+     the median ms a step of each).
   3c. flash kernels: forward (o; lse on rows with a valid key, +1e30 exactly
      on the rest), dq and dk/dv against autograd of flash_attention_plain on
      the card for the same random upstream grad, at the global path's shapes
@@ -275,8 +284,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and one train step (metrics as the scalars); one `gnd_bench {...}` line a
      training run (samples/s over the epoch and its second half before the
      last 8 steps, which are profiled for the device's busy ms a step and idle
-     share; validation ms), `gnd_agreement {...}` and `gnd_phase {...}`. The
-     trees are removed after.
+     share; validation ms), `gnd_agreement {...}` and `gnd_phase {...}`.
+     The grounding run's epoch-0 file (the port's own torch.save checkpoint)
+     is served on the card through GroundingService.from_checkpoint into a
+     fresh model of the run's configuration (16 requests, one bucket: 24 + 24
+     launches), its intervals within 1e-4 of max|.| of the in-memory model's
+     ground_batch (`gnd_served_checkpoint {...}`). The trees are removed
+     after.
   10. the inference front at phase 8's model (TemporalAligner E6D6 width 512,
      8 heads, 512-d video and text; seeded) with the word2vec tower at the
      MIL-NCE widths (66,249 words x 300 -> 2,048 -> 512) and its tokenizer
@@ -352,6 +366,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      eager steps; the nine kernels' counters 0 in every run (``s3d command
      line``, ``s3d agreement``, ``s3d timing``, ``s3d scan_steps`` and one
      short ``s3d_bench {...}`` line). The tree is removed after.
+  13. sequence parallelism (parallel/sequence.py): sequence_parallel_sim over
+     the three global-mode videos (evals/bench_items.py::GLOBAL_VLENS, 2,048,
+     2,400 and 3,000 frames with their 170-250 sentences) at phase 6's model
+     (E6D6 width 512, 4096-d, seeded through the JAX->port bridge), dual and
+     joint towers, interpolate_from 64, in a world-1 NCCL group of this
+     process (at world 1 the rotation is the identity: nothing is sent),
+     counted a video (12 fused MLP launches, 6 dual + 6 joint; 2 gathers;
+     nothing else), against text_visual_sim's last stage under
+     attn_impl='xla' (<= 1e-4 absolute on both similarities, f32, TF32 off)
+     and beside 'auto' (flash: the gap printed, not failed on); the first
+     video again on the CPU without a group (<= 1e-4); ms a video of the ring
+     and both model paths, median of 3 in turns; apart from the ring, the
+     rotation's NCCL send/recv of one layer's K/V/mask block from the rank to
+     itself, the block received equal to the block sent, its ms printed
+     beside (`seq_bench {...}`).
+  14. the feature-extraction tool (tools/extract_features.py) over 300 seeded
+     frames of 224² (the card's machine has no ffmpeg) at fps 1 (two buckets
+     of 256, the last ragged) and fps 8, with an image encoder built here
+     from port modules (a 32-pixel patch projection, two
+     ResidualAttentionBlocks at width 768 / 12 heads on 50 tokens, LN, a
+     projection to 512) cast as the tool casts it (bf16, norms in float32),
+     counted (2 fused MHA + 2 fused MLP launches a bucket, bf16), fps 1 on
+     the card against the CPU (<= 1e-2 of max|CPU|), frames/s of a call and
+     of a call handed the cast module (median of 3, `extract_bench {...}`).
 
 Float32 products of the plain versions and library calls run in full
 float32 (TF32 off for matmul and cuDNN); the f32 bodies of the fused MLP
@@ -2292,6 +2330,140 @@ def graph_case(model, card, raw, amp, attn_impl, backprop_freq=1):
     return launches, bench
 
 
+CARRY_AB_ROUNDS = 5  # interleaved rounds of the carried-cast A/B (recast, carried x2, recast)
+# the grounding step of the A/B: train_grounding.sh's trunk (E6D6, width
+# 512, 4096-d; batch 16, 64-frame windows) without its frozen pre-pass, 16
+# narrations a window
+CARRY_GND = dict(batch=16, frames=64, narrations=16)
+
+
+def _carry_ab(label, run, states, groups, want_launches) -> dict:
+    """The carried-cast A/B of one replayed bf16 step: ``run[c](group)``
+    runs a group of GRAPH_N steps on the runner that carries its casts (c
+    True, as the port builds it) or recasts the masters each step (c False:
+    the same runner with ``carry_casts`` turned off), both from one state
+    and one generator seed; ``states[c]()`` gives its trees by name. The
+    warm-up group (eager, then the capture) and one replay each, counted;
+    the trees after the replay must be equal bit for bit; then replays
+    timed in turns (recast, carried, carried, recast; the median ms a step
+    of each)."""
+    from exoground_tpu_torch.ops import _kernels
+
+    n = GRAPH_N
+    losses, replay_launches = {}, {}
+    for c in (False, True):
+        losses[c] = run[c](groups[0])["loss"].tolist()  # eager warm-up, capture
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        losses[c] += run[c](groups[1])["loss"].tolist()  # the replay
+        torch.cuda.synchronize()
+        replay_launches[c] = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        if replay_launches[c] != want_launches:
+            fail(f"{label} carried casts {c}: replay launches {replay_launches[c]}")
+    bit_equal = losses[False] == losses[True]
+    carried = states[True]()
+    for name, want in states[False]().items():
+        for k in want:
+            if not torch.equal(carried[name][k], want[k]):
+                bit_equal = False
+                print(f"{label}: carried vs recast {name} {k} differs", flush=True)
+    times = {False: [], True: []}
+    for _ in range(CARRY_AB_ROUNDS):
+        for c in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run[c](groups[1])["loss"].tolist()
+            times[c].append((time.perf_counter() - t0) * 1e3 / n)
+    return dict(recast_step_ms=round(statistics.median(times[False]), 3),
+                carried_step_ms=round(statistics.median(times[True]), 3),
+                recast_all=[round(t, 3) for t in times[False]],
+                carried_all=[round(t, 3) for t in times[True]], bit_equal=bit_equal,
+                losses_equal=losses[False] == losses[True],
+                replay_launches={"carried" if c else "recast": v
+                                 for c, v in replay_launches.items()})
+
+
+def carry_cast_case(model, card, raw):
+    """Phase 5b's carried-cast A/B (``_carry_ab``), on the replayed bf16 B64
+    TAN step (the trainer's, from one state) and on the replayed bf16
+    grounding step (CARRY_GND, seeded weights, one state): the port carries
+    its casts in both (``ScanStep.carry_casts``), the A/B turns it off on
+    one runner to time the recast. Returns the ``carry_cast_bench`` dict,
+    by step."""
+    import copy
+
+    from exoground_tpu_torch.losses.grounding import GroundingLossConfig
+    from exoground_tpu_torch.models import ExoGroundingTransformer
+    from exoground_tpu_torch.parallel import make_grounding_train_step
+    from exoground_tpu_torch.train import ExperimentConfig, FusedAdamWEMA, TANTrainer
+
+    n = GRAPH_N
+    bench = dict(card=card, dtype="bfloat16", n=n)
+    trainers = {}
+    for c in (False, True):
+        cfg = ExperimentConfig(amp=True, fused_steps=n, **BENCH_TRAIN)
+        trainers[c] = TANTrainer(copy.deepcopy(model), cfg, iters_per_epoch=1000, device="cuda")
+        if not trainers[c].fused_step.carry_casts:
+            fail("the replayed bf16 TAN step does not carry its casts")
+    trainers[False].fused_step.carry_casts = False
+    groups = [trainers[False].to_device({k: np.stack([r[k] for r in raw[g * n:(g + 1) * n]])
+                                         for k in raw[0]}) for g in (0, 1)]
+    bench["tan"] = dict(batch=raw[0]["video"].shape[0], **_carry_ab(
+        "TAN", {c: tr._do_fused for c, tr in trainers.items()},
+        {c: (lambda tr=tr: {"params": tr.params, "ema": tr.target_params,
+                            "mu": tr.opt_state.mu, "nu": tr.opt_state.nu})
+         for c, tr in trainers.items()},
+        groups, {"milnce_grid_fwd": 2 * n, "milnce_grid_bwd": 2 * n}))
+    del trainers, groups
+
+    torch.manual_seed(0)
+    gnd = ExoGroundingTransformer(num_encoder_layers=6, num_decoder_layers=6, feature_dim=512,
+                                  video_embed_dim=4096, text_embed_dim=4096, device="cuda")
+    gnd.train()
+    b, t, k = CARRY_GND["batch"], CARRY_GND["frames"], CARRY_GND["narrations"]
+    rng = np.random.RandomState(60)
+    groups = []
+    for _ in range(2):
+        starts = rng.rand(n, b, k).astype(np.float32) * 0.7
+        dur = 0.05 + rng.rand(n, b, k).astype(np.float32) * 0.25
+        npad = np.arange(k)[None, None, :] >= rng.randint(4, k + 1, (n, b, 1))
+        vpad = np.arange(t)[None, None, :] >= rng.randint(16, t + 1, (n, b, 1))
+        groups.append({key: torch.from_numpy(v).cuda() for key, v in dict(
+            video_features=rng.randn(n, b, t, 4096).astype(np.float32),
+            narration_features=rng.randn(n, b, k, 4096).astype(np.float32),
+            video_padding_mask=vpad, narration_padding_mask=npad,
+            starts=starts, ends=starts + dur, mean=starts + dur / 2,
+            duration=dur).items()})
+    params0 = {key: v.detach() for key, v in gnd.named_parameters()}
+    arms = {}
+    for c in (False, True):
+        params = {key: v.clone() for key, v in params0.items()}
+        tx = FusedAdamWEMA(params, lr=1e-4, weight_decay=1e-5, total_iterations=1000,
+                           warmup_iterations=1)
+        step = make_grounding_train_step(gnd, GroundingLossConfig(model="grounding"), tx,
+                                         compute_dtype="bfloat16", scan_steps=n)
+        if not step.carry_casts:
+            fail("the replayed bf16 grounding step does not carry its casts")
+        step.carry_casts = c
+        arms[c] = (step, params, tx.init(params), torch.Generator().manual_seed(5))
+
+    def run(c):
+        step, params, opt, gen = arms[c]
+        return lambda group: step(params, None, opt, group, gen)[3]
+
+    bench["grounding"] = dict(**CARRY_GND, **_carry_ab(
+        "grounding", {c: run(c) for c in arms},
+        {c: (lambda a=a: {"params": a[1], "mu": a[2].mu, "nu": a[2].nu})
+         for c, a in arms.items()}, groups, {}))
+    print("carry_cast_bench", json.dumps(bench), flush=True)
+    bad = [name for name in ("tan", "grounding") if not bench[name]["bit_equal"]]
+    if bad:
+        fail(f"carried and recast casts disagree after a replay: {bad}")
+    del arms, groups, gnd
+    torch.cuda.empty_cache()
+    return bench
+
+
 def graph_path(model, card):
     """Phase 5b: the train step as a replayed CUDA graph (scan_steps=N) at
     B64 float32 and bfloat16, B16 under attn_impl='flash' and B64 float32
@@ -2307,6 +2479,7 @@ def graph_path(model, card):
                                                               else "")
         out[name] = graph_case(model, card, raw[b], amp, impl, k)
     GRAPH_BENCH.update({name: bench for name, (_, bench) in out.items()})
+    GRAPH_BENCH["carry_cast"] = carry_cast_case(model, card, raw[64])
     fused, chain = out["B64 f32 auto"][1], out["B64 f32 auto backprop_freq 2"][1]
     print("graph_accum", json.dumps(dict(
         card=card, batch=64, dtype="float32", n=GRAPH_N,
@@ -3311,6 +3484,42 @@ def gnd_agreement(argv) -> dict:
                 eval_launches=launches, loss_card=gm["loss"], loss_cpu=cm["loss"])
 
 
+def served_checkpoint_case(card, rec, path):
+    """Phase 9's serving check: ``GroundingService.from_checkpoint`` of the
+    grounding run's epoch-0 file (a port ``torch.save`` file) into a fresh
+    model of the run's configuration, on the card, against the in-memory
+    model's ``ground_batch`` (phase 7's f32 bar: 1e-4 of max|in memory|; the
+    same weights and kernels, so 0 expected)."""
+    from exoground_tpu_torch.evals.bench_items import make_grounding_requests
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.serve import GroundingService
+    from exoground_tpu_torch.train import main as cli
+
+    cfg = rec["cfg"]
+    reqs = make_grounding_requests(3, 16, video_dim=cfg.video_feature_dim,
+                                   text_dim=cfg.text_feature_dim)
+    t0 = time.perf_counter()
+    served = GroundingService.from_checkpoint(path, model=cli.build_model(cfg, device="cpu"))
+    load_s = time.perf_counter() - t0
+    _kernels.reset_launches()
+    got = served.ground_batch(reqs)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    want = GroundingService(rec["trainer"].model).ground_batch(reqs)
+    scale = max(np.abs(w[k]).max() for w in want for k in ("start", "end"))
+    err = max(float(np.abs(np.asarray(g[k]) - np.asarray(w[k])).max())
+              for g, w in zip(got, want) for k in ("start", "end")) / scale
+    row = dict(card=card, requests=len(reqs), rel_err=float(f"{err:.3g}"),
+               load_s=round(load_s, 2), launches=launches)
+    print("gnd_served_checkpoint", json.dumps(row), flush=True)
+    if not err <= TOL[torch.float32]:
+        fail(f"grounding checkpoint served: {err:.3e} of max|in memory|")
+    if launches != {"fused_mha": GND_FWD, "fused_mlp": GND_FWD}:
+        fail(f"grounding checkpoint served: launches {launches}")
+    del served
+    return row
+
+
 def grounding_train_path(card):
     """Phase 9: the grounding scripts through ``exoground_tpu_torch.train.main``
     on the card, one epoch each over a seeded full-width tree: train_vi.sh,
@@ -3417,6 +3626,7 @@ def grounding_train_path(card):
         recs["grounding"] = run("grounding", GND_SCRIPTS["grounding"] + root + [
             "--vi_encoder_path", vi_ckpt, "--prefix", "_gnd"])
         (g0,) = glob.glob(os.path.join(work, "log_gnd", "*", "model", "epoch0.pth.tar"))
+        served = served_checkpoint_case(card, recs["grounding"], g0)
         recs["grounding_resume"] = run("grounding --resume", GND_SCRIPTS["grounding"] + root + [
             "--vi_encoder_path", vi_ckpt, "--epochs", "2", "--resume", g0])
         resumed = recs["grounding_resume"]["trainer"]
@@ -3467,7 +3677,7 @@ def grounding_train_path(card):
     print("gnd_phase", json.dumps(dict(
         card=card, tree_s=round(tree_s, 1), test_s=round(recs["test"]["run_s"], 1),
         replayed_vs_eager=dict(bit_equal=replayed["bit_equal"], replays=len(replays),
-                               distinct_starts=fresh),
+                               distinct_starts=fresh), served_checkpoint_rel=served["rel_err"],
         phase_s=round(time.perf_counter() - t_phase, 1))), flush=True)
     return {rec["tag"]: rec["launches"] for rec in recs.values()}
 
@@ -4127,7 +4337,7 @@ def _dp_expect(steps, val_batches, replays):
     validation batch all-reduces its weighted sums; a replay first agrees
     on re-capture (one all-reduce)."""
     return dict(all_reduce=steps + val_batches + replays, all_gather=3 * steps,
-                reduce_scatter=2 * steps, broadcast=2)
+                reduce_scatter=2 * steps, broadcast=2, ppermute=0)
 
 
 def dp_collectives_case(n_grad):
@@ -4795,6 +5005,258 @@ def s3d_path(card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+# Sequence parallelism on the card: parallel/sequence.py's ring in a world-1
+# NCCL group of this process (one H100: one rank, which passes its K/V block
+# to itself once a layer), over the three global-mode bench videos at E6D6
+# full width, held against the model path's last stage.
+SEQ_INTERP = 64  # the global mode's interpolate_from (its seq_len)
+SEQ_TOL = 1e-4  # absolute, on both similarities (f32, TF32 off)
+SEQ_TIMED = 3  # timed calls a path and video, in turns, after a warm-up
+
+
+def self_p2p(mesh, frames, model) -> tuple:
+    """The ring rotation's NCCL send/recv (``collectives.send_recv``) from
+    the rank of a world-1 group to itself, on one layer's block at
+    ``frames`` frames (K and V (1, heads, frames, width / heads) float32, the
+    mask as bytes): the block received must be the block sent. Returns (the
+    median ms of SEQ_TIMED * 2 timed calls after one warm-up, the
+    collectives the checked call issued)."""
+    from exoground_tpu_torch.parallel import collectives
+
+    gen = torch.Generator(device="cuda").manual_seed(frames)
+    attn = model.video_temporal_encoder.resblocks[0].attn
+    h = attn.num_heads
+    kv = (1, h, frames, attn.in_proj_weight.shape[1] // h)
+    block = [torch.randn(kv, device="cuda", generator=gen),
+             torch.randn(kv, device="cuda", generator=gen),
+             (torch.rand((1, frames), device="cuda", generator=gen) < 0.1).to(torch.uint8)]
+    collectives.reset()
+    got = collectives.send_recv(block, mesh, mesh.rank, mesh.rank)()
+    torch.cuda.synchronize()
+    issued = {k: v for k, v in collectives.COLLECTIVES.items() if v}
+    if issued != {"ppermute": 1} or not all(torch.equal(a, b) for a, b in zip(got, block)):
+        fail(f"sequence parallel: the self send/recv of {frames} frames gave another block "
+             f"({issued})")
+    times = []
+    for _ in range(SEQ_TIMED * 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives.send_recv(block, mesh, mesh.rank, mesh.rank)()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return round(statistics.median(times), 3), issued
+
+
+def sequence_path(card):
+    """Phase 13: ``sequence_parallel_sim`` (dual + joint, 6 + 6 layers) in a
+    world-1 NCCL group on each ``GLOBAL_VLENS`` video with its sentences,
+    counted (12 fused MLP launches a video and 2 gathers; at world 1 the
+    rotation is the identity and sends nothing), against
+    ``text_visual_sim``'s last stage under attn_impl='xla' (<= SEQ_TOL
+    absolute) and beside 'auto' (flash: the gap printed); the first video
+    again on the CPU (``Mesh()``: no group); ms a video of the three. Apart
+    from the ring, the rotation's NCCL send/recv (``collectives.send_recv``)
+    of one layer's K/V/mask block at the video's length, from the rank to
+    itself: the block received must be the block sent, and its ms is
+    printed beside the ring's (``self_p2p_ms``), not in it.
+    Returns the launches of the ring runs."""
+    import copy
+
+    import torch.distributed as dist
+
+    from exoground_tpu_torch.evals.bench_items import make_bench_params, make_global_items
+    from exoground_tpu_torch.models import TemporalAligner
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.parallel import Mesh, collectives, sequence_parallel_sim
+    from exoground_tpu_torch.parallel.mesh import free_port, make_mesh
+    from exoground_tpu_torch.utils.convert import load_tan_params
+
+    t_phase = time.perf_counter()
+    model = TemporalAligner(num_encoder_layers=6, num_joint_layers=6, width=512, heads=8,
+                            input_dim=4096, device="cpu")
+    load_tan_params(model, make_bench_params(0))
+    gpu = copy.deepcopy(model).to("cuda")
+    items = make_global_items(4096, 4096)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    launches, rows = {k: 0 for k in _kernels.LAUNCHES}, []
+    try:
+        mesh = make_mesh(device=dev)
+        if (mesh.world, mesh.backend) != (1, "nccl"):
+            fail(f"sequence parallel: world {mesh.world} over {mesh.backend}")
+
+        def ring(video, text, on=mesh):
+            out = sequence_parallel_sim(gpu, video, text, on, num_joint_layers=6,
+                                        interpolate_from=SEQ_INTERP)
+            torch.cuda.synchronize()
+            return out
+
+        def model_path(video, text, impl):
+            gpu.attn_impl = impl
+            with torch.inference_mode():
+                out = gpu.text_visual_sim(video, text[None], interpolate_from=SEQ_INTERP)
+            torch.cuda.synchronize()
+            return {k: out[k][:, -1] for k in ("dual-sim", "sim")}
+
+        for i, it in enumerate(items):
+            video = torch.tensor(it["video"][None], device="cuda")
+            text = torch.tensor(it["text_embed"], device="cuda")
+            _kernels.reset_launches()
+            collectives.reset()
+            got = ring(video, text)
+            counts, issued = dict(_kernels.LAUNCHES), dict(collectives.COLLECTIVES)
+            want = {k: 0 for k in counts}
+            want["fused_mlp"] = 12
+            _check_counts(f"sequence parallel video {i}", counts, want)
+            if issued != dict(all_reduce=0, all_gather=2, reduce_scatter=0, broadcast=0,
+                              ppermute=0):
+                fail(f"sequence parallel video {i}: collectives {issued}")
+            for k, v in counts.items():
+                launches[k] += v
+            xla, auto = model_path(video, text, "xla"), model_path(video, text, None)
+            err = {k: (got[k] - xla[k]).abs().max().item() for k in xla}
+            gap = {k: (got[k] - auto[k]).abs().max().item() for k in auto}
+            finite = all(torch.isfinite(v).all().item() for v in got.values())
+            shape = (1, len(it["video"]), len(it["text_embed"]))
+            if not finite or any(tuple(v.shape) != shape for v in got.values()):
+                fail(f"sequence parallel video {i}: shapes "
+                     f"{ {k: tuple(v.shape) for k, v in got.items()} } != {shape} or not finite")
+            if not max(err.values()) <= SEQ_TOL:
+                fail(f"sequence parallel video {i}: ring vs 'xla' model path {err} > {SEQ_TOL}")
+            p2p_ms, p2p_issued = self_p2p(mesh, len(it["video"]), gpu)
+            times = {"ring": [], "xla": [], "auto": []}
+            runs = {"ring": lambda: ring(video, text),
+                    "xla": lambda: model_path(video, text, "xla"),
+                    "auto": lambda: model_path(video, text, None)}
+            for _ in range(SEQ_TIMED):
+                for name in ("ring", "xla", "auto", "auto", "xla", "ring"):
+                    t0 = time.perf_counter()
+                    runs[name]()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+            row = dict(card=card, frames=shape[1], texts=shape[2],
+                       collectives={k: v for k, v in issued.items() if v},
+                       self_p2p_ms=p2p_ms, self_p2p_collectives=p2p_issued,
+                       ring_vs_xla_abs={k: float(f"{v:.3g}") for k, v in err.items()},
+                       ring_vs_auto_abs={k: float(f"{v:.3g}") for k, v in gap.items()},
+                       **{f"{k}_ms": round(statistics.median(v), 3) for k, v in times.items()})
+            if i == 0:  # the first video again on the CPU, no group
+                t0 = time.perf_counter()
+                cpu = sequence_parallel_sim(model, video.cpu(), text.cpu(), Mesh(),
+                                            num_joint_layers=6, interpolate_from=SEQ_INTERP)
+                row["cpu_s"] = round(time.perf_counter() - t0, 1)
+                row["card_vs_cpu_abs"] = {k: float(f"{(got[k].cpu() - cpu[k]).abs().max():.3g}")
+                                          for k in cpu}
+                if not max(row["card_vs_cpu_abs"].values()) <= SEQ_TOL:
+                    fail(f"sequence parallel: card vs CPU {row['card_vs_cpu_abs']}")
+            print("seq_bench", json.dumps(row), flush=True)
+            rows.append(row)
+            gpu.attn_impl = None
+            del video, text, got, xla, auto
+    finally:
+        dist.destroy_process_group()
+    del gpu
+    torch.cuda.empty_cache()
+    print(f"sequence parallel: launches {launches}, {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 14
+# The feature-extraction tool (tools/extract_features.py) on the card over
+# seeded frames (the card's machine has no ffmpeg), with an image encoder
+# built here from port modules: a 32-pixel patch projection, two
+# ResidualAttentionBlocks at width 768 / 12 heads (49 patches + a class
+# token: 50 tokens, so under 'auto' the bf16 fused MHA and fused MLP
+# launch), then LN and a projection to 512.
+EXTRACT_FRAMES, EXTRACT_SIZE, EXTRACT_WIDTH = 300, 224, 768
+
+
+class PatchEncoder(torch.nn.Module):
+    """(B, H, W, 3) frames in [0, 1] -> (B, 512)."""
+
+    def __init__(self, width=EXTRACT_WIDTH, heads=12, layers=2, patch=32, out=512):
+        from exoground_tpu_torch.ops.blocks import ResidualAttentionBlock
+
+        super().__init__()
+        n = (EXTRACT_SIZE // patch) ** 2 + 1
+        self.conv1 = torch.nn.Conv2d(3, width, patch, stride=patch, bias=False)
+        self.class_embedding = torch.nn.Parameter(torch.randn(width) * width ** -0.5)
+        self.positional_embedding = torch.nn.Parameter(torch.randn(n, width) * width ** -0.5)
+        self.ln_pre = torch.nn.LayerNorm(width)
+        self.resblocks = torch.nn.ModuleList(
+            ResidualAttentionBlock(width, heads) for _ in range(layers))
+        self.ln_post = torch.nn.LayerNorm(width)
+        self.proj = torch.nn.Linear(width, out, bias=False)
+
+    def forward(self, frames):
+        x = self.conv1(frames.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
+        x = self.ln_pre(torch.cat([cls, x], 1) + self.positional_embedding.to(x.dtype))
+        for blk in self.resblocks:
+            x, _ = blk(x)
+        return self.proj(self.ln_post(x[:, 0]))
+
+
+def extraction_path(card):
+    """Phase 14: ``extract_video_features`` over EXTRACT_FRAMES seeded
+    frames of EXTRACT_SIZE² at fps 1 (two buckets of 256, the last ragged)
+    and fps 8, counted (2 fused MHA + 2 fused MLP a bucket, bf16), the card
+    against the CPU (<= 1e-2 of max|CPU|), frames/s (median of 3, a call as
+    it casts the module and with the cast module handed in). Returns the
+    launches of the two counted runs."""
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.tools import ExtractConfig, extract_video_features, half_copy
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(0)
+    enc = PatchEncoder()
+    frames = np.random.RandomState(0).rand(EXTRACT_FRAMES, EXTRACT_SIZE, EXTRACT_SIZE,
+                                           3).astype(np.float32)
+    buckets = -(-EXTRACT_FRAMES // ExtractConfig.frame_bucket)
+    launches, out = {k: 0 for k in _kernels.LAUNCHES}, {}
+    for fps in (1, 8):
+        cfg = ExtractConfig(fps=fps)
+        _kernels.reset_launches()
+        out[fps] = extract_video_features(enc, frames, cfg)
+        counts = dict(_kernels.LAUNCHES)
+        want = {k: 0 for k in counts}
+        want.update(fused_mha=2 * buckets, fused_mlp=2 * buckets)
+        _check_counts(f"feature extraction fps {fps}", counts, want)
+        for k, v in counts.items():
+            launches[k] += v
+        rows = EXTRACT_FRAMES // fps
+        if out[fps].shape != (rows, 512) or out[fps].dtype != np.float16 or not np.isfinite(
+                out[fps]).all():
+            fail(f"feature extraction fps {fps}: {out[fps].shape} {out[fps].dtype}")
+    t0 = time.perf_counter()
+    cpu = extract_video_features(enc, frames, ExtractConfig(fps=1), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    c, g = cpu.astype(np.float32), out[1].astype(np.float32)
+    rel = float(np.abs(g - c).max() / np.abs(c).max())
+    if not rel <= TOL[torch.bfloat16]:
+        fail(f"feature extraction: card vs CPU {rel:.3e} of max|CPU|")
+    # a call as a caller pays it (the module cast anew), and with the cast
+    # module passed as a plain callable (as extract_corpus runs a corpus)
+    prepared = half_copy(enc).to("cuda")
+    times = {"call": [], "prepared": []}
+    for _ in range(3):
+        for name, e in (("call", enc), ("prepared", lambda x: prepared(x))):
+            t0 = time.perf_counter()
+            extract_video_features(e, frames, ExtractConfig(fps=1))
+            times[name].append(time.perf_counter() - t0)
+    bench = dict(card=card, frames=EXTRACT_FRAMES, size=EXTRACT_SIZE, width=EXTRACT_WIDTH,
+                 buckets=buckets, **{f"{k}_frames_per_s": round(
+                     EXTRACT_FRAMES / statistics.median(v), 1) for k, v in times.items()},
+                 **{f"{k}_ms": [round(t * 1e3, 2) for t in v] for k, v in times.items()},
+                 card_vs_cpu_rel=float(f"{rel:.3g}"),
+                 cpu_s=round(cpu_s, 1), launches={k: v for k, v in launches.items() if v},
+                 phase_s=round(time.perf_counter() - t_phase, 1))
+    print("extract_bench", json.dumps(bench), flush=True)
+    return launches
+
+
 def _grid_part_cases(part, cases):
     """The grid cases with the ``fwd_`` or ``bwd_`` (``part``) numbers as
     the kernels line's, the other part's dropped."""
@@ -5102,6 +5564,22 @@ def main():
             e["launches_by_path"][f"S3D finetune {path} (phase 12)"] = n[e["name"]]
             if n[e["name"]]:
                 fail(f"S3D finetune {path}: {n[e['name']]} {e['name']} launches (want 0)")
+    mark("13")
+    # phase 13: sequence parallelism, the ring in a world-1 NCCL group
+    seq_launches = sequence_path(card)
+    mark("14")
+    # phase 14: the feature-extraction tool
+    extract_launches = extraction_path(card)
+    carry = GRAPH_BENCH["carry_cast"]["tan"]["replay_launches"]
+    for e in kernels:
+        for path, n in (("sequence parallel ring, world-1 NCCL group (phase 13)", seq_launches),
+                        ("feature extraction, fps 1 and 8 (phase 14)", extract_launches),
+                        ("train step, graph replay B64 bf16, casts recast (phase 5b A/B)",
+                         carry["recast"]),
+                        ("train step, graph replay B64 bf16, casts carried (phase 5b A/B)",
+                         carry["carried"])):
+            if n.get(e["name"]):
+                e["launches_by_path"][path] = n[e["name"]]
     mark(None)
     print("phase_s", json.dumps(phase_s), flush=True)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)

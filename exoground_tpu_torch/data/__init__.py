@@ -11,6 +11,7 @@ from exoground_tpu_torch.data.collate import (  # noqa: F401
 )
 from exoground_tpu_torch.data.egoexo4d import (  # noqa: F401
     EgoExo4DDataset,
+    EgoExo4DTANDataset,
     EgoExoConfig,
     EgoExoSource,
     camera_view_order,

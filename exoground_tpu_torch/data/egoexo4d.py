@@ -14,8 +14,9 @@ order of the draws of its per-item ``RandomState``, is the JAX reader's.
 The JAX reader reads its CSV files with pandas; the port reads and writes
 them with ``data/table.py``, which types each column as pandas does, so a
 window cache written by either package reads back to the same windows in
-both. ``EgoExo4DTANDataset`` (the JAX :662-726) is not ported: no route of
-the command line uses it.
+both. ``EgoExo4DTANDataset`` (the JAX :662-726) is the TAN-protocol variant:
+raw video windows with ragged start / end lists for ``mask_from_time``; no
+route of either command line uses it.
 
 Intended-behavior fixes vs the reference, as in the JAX package:
   * multi-view stitching places EVERY view's features at view_idx*duration
@@ -654,3 +655,65 @@ class EgoExo4DDataset:
         return out
 
     collate_fn = staticmethod(collate_dicts)
+
+
+class EgoExo4DTANDataset(EgoExo4DDataset):
+    """TAN-protocol variant (the JAX :662-726; reference
+    loader_egoexo4d_tan.py:270-342): returns the raw 'video' window and its
+    'padding_mask', the per-window unnormalised start/end lists for
+    ``mask_from_time``, and the narration features."""
+
+    def __getitem__(self, idx: int) -> Dict:
+        cfg = self.cfg
+        w = self.windows[idx]
+        take = w["video_id"]
+        start, end = int(w["start_sec"]), int(w["end_sec"])
+        exo_cam = w["exo_cam"] if isinstance(w["exo_cam"], str) else w["exo_cam"][0]
+        nids = [n for n in str(w["narration_ids"]).split(",") if n]
+
+        video = self.src.video_store.read(f"{take}_{exo_cam}", start, end)
+
+        narr_feats, texts, starts, ends = [], [], [], []
+        for nid in nids:
+            key = f"{take}/{nid}"
+            if not self.src.narration_store.exists(key):
+                continue
+            a = self._anno_by_id[nid]
+            narr_feats.append(self.src.narration_store.read(key).reshape(-1))
+            texts.append(a["narration"])
+            starts.append(max(a["start_frame"] / cfg.fps - start, 0))
+            ends.append(min(a["end_frame"] / cfg.fps - start, cfg.duration))
+        narr_feats = narr_feats[: cfg.duration]
+        texts, starts, ends = (texts[: cfg.duration], starts[: cfg.duration],
+                               ends[: cfg.duration])
+
+        n_pad = int(cfg.duration)
+        pad_narr = np.zeros((n_pad, cfg.feature_dim), np.float32)
+        narr_mask = np.ones(n_pad, bool)
+        if narr_feats:
+            pad_narr[: len(narr_feats)] = np.stack(narr_feats)[:, : cfg.feature_dim]
+            narr_mask[: len(narr_feats)] = False
+
+        return {
+            "video": video,
+            "padding_mask": np.zeros(video.shape[0], bool),
+            "start": starts,
+            "end": ends,
+            "narration_features": pad_narr,
+            "narration_padding_mask": narr_mask,
+            "metadata": {"narrations": texts, "video_id": take, "exo_camera": exo_cam,
+                         "start_sec": start},
+        }
+
+    @staticmethod
+    def collate_fn(items: List[Dict]) -> Dict:
+        """Arrays stacked; start/end stay ragged lists (reference tan collate
+        :123-139), for the trainer's ``mask_from_time`` with its text
+        bucket; the metadata by key."""
+        rest = [{k: v for k, v in it.items() if k not in ("metadata", "start", "end")}
+                for it in items]
+        out = collate_dicts(rest, meta_keys=())
+        out["start"] = [it["start"] for it in items]
+        out["end"] = [it["end"] for it in items]
+        out["metadata"] = {k: [it["metadata"][k] for it in items] for k in items[0]["metadata"]}
+        return out

@@ -15,6 +15,13 @@ as the backward: the sum over ranks of each rank's slice of the gradient, a
 reduce-scatter on NCCL and on gloo an all-reduce of which each rank keeps
 its slice.
 
+``ring_shift`` is ``jax.lax.ppermute`` with ``perm = [(i, (i + 1) % n)]``:
+each rank sends its tensors to the next rank and receives the previous
+rank's, in one ``batch_isend_irecv`` (``send_recv``); at world 1, whatever
+the backend, it is the identity, as ``ppermute`` is on a one-device axis.
+The sequence-parallel ring (``parallel/sequence.py``) starts it before it
+folds the block it holds and waits for it after.
+
 ``COLLECTIVES`` counts the collectives issued by kind, one where each is
 issued and nowhere else, as ``ops/_kernels.py`` counts kernel launches; a
 collective issued during a CUDA graph capture runs only at replay, so
@@ -26,13 +33,13 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
 
 COLLECTIVES: Dict[str, int] = {name: 0 for name in (
-    "all_reduce", "all_gather", "reduce_scatter", "broadcast")}
+    "all_reduce", "all_gather", "reduce_scatter", "broadcast", "ppermute")}
 _lock = threading.Lock()
 # (the default group it was made for, a gloo group over the same ranks)
 _host = [None, None]
@@ -144,6 +151,37 @@ def all_gather_tiled(x: torch.Tensor, mesh) -> torch.Tensor:
     if not mesh.grouped:
         return x
     return _AllGatherTiled.apply(x, mesh)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], mesh) -> Callable[[], List[torch.Tensor]]:
+    """Start sending ``tensors`` to rank ``(rank + 1) % world`` and receiving
+    the same shapes from ``(rank - 1) % world`` (``send_recv``); returns
+    ``finish``, which waits and gives the received tensors. The tensors must
+    stay as they are until then. At world 1 ``finish`` gives ``tensors`` as
+    they are, and nothing is sent."""
+    if mesh.world == 1:
+        return lambda: list(tensors)
+    return send_recv(tensors, mesh, (mesh.rank + 1) % mesh.world,
+                     (mesh.rank - 1) % mesh.world)
+
+
+def send_recv(tensors: Sequence[torch.Tensor], mesh, dst: int,
+              src: int) -> Callable[[], List[torch.Tensor]]:
+    """Start sending ``tensors`` to rank ``dst`` and receiving the same
+    shapes from rank ``src``, in one ``batch_isend_irecv`` over ``mesh``'s
+    group (counted as one ``ppermute``); returns ``finish``, which waits and
+    gives the received tensors."""
+    out = [torch.empty_like(t) for t in tensors]
+    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, t, dst) for t in tensors]
+                                   + [dist.P2POp(dist.irecv, t, src) for t in out])
+    count("ppermute")
+
+    def finish() -> List[torch.Tensor]:
+        for w in works:
+            w.wait()
+        return out
+
+    return finish
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], mesh, src: int = 0) -> None:

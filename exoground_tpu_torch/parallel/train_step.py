@@ -37,7 +37,9 @@ moments (and the accumulator of gradient accumulation) are updated in
 place, so the graph's addresses stay theirs; a tensor that moved (replaced,
 not updated in place) makes the runner capture anew before it replays. Under
 accumulation over k mini-batches the graph updates on the k-th of each, as
-the eager step does: the emit flag is a replayed scalar, not a branch.
+the eager step does: the emit flag is a replayed scalar, not a branch. In a
+compute dtype other than float32 a group casts the masters once and carries
+the casts from step to step (``_CarriedCasts``).
 
 ``TanEvalStep`` is the JAX ``make_tan_eval_step`` (:607-676) on one device:
 inference-shaped, under ``torch.no_grad()`` with the kernels on (fused MHA
@@ -126,6 +128,36 @@ _FEATURE_KEYS = (
 )
 
 
+class _CarriedCasts:
+    """The compute-dtype casts of the parameters (and of the EMA twin) that
+    a group of steps (``ScanStep``) carries from step to step when the
+    compute dtype is not float32: persistent buffers (their addresses stay a
+    captured graph's), filled from the float32 masters when the group
+    begins, then written by the optimizer's pass (``apply(casts=)``), so no
+    step of the group casts the masters again. The results are the same bit
+    for bit: the gradient through a cast is the upcast of the gradient of
+    the cast. (The JAX package's ``CARRY_CAST``, train_step.py:47-57, a
+    switch there, off after a TPU measurement; the port always carries: on
+    an H100 the carried group was as exact and faster, PERF.md §5.)"""
+
+    _casts = None
+
+    def begin_group(self, params, target=None) -> Dict:
+        """{'params'[, 'target']: casts by name} of the masters a group
+        starts from."""
+        trees = {"params": params}
+        if target is not None:
+            trees["target"] = target
+        if self._casts is None or any(set(self._casts.get(n, ())) != set(t)
+                                      for n, t in trees.items()):
+            self._casts = {n: {k: torch.empty_like(v, dtype=self.cdt) for k, v in t.items()}
+                           for n, t in trees.items()}
+        with torch.no_grad():
+            for n, t in trees.items():
+                torch._foreach_copy_([self._casts[n][k] for k in t], list(t.values()))
+        return self._casts
+
+
 @contextlib.contextmanager
 def _ieee_float32():
     """cuDNN's and cuBLAS's float32 work inside the block in float32, not
@@ -186,7 +218,7 @@ def _batch_text(batch: Dict[str, torch.Tensor], tower) -> torch.Tensor:
     return emb.reshape(b, n, -1)
 
 
-class TanTrainStep:
+class TanTrainStep(_CarriedCasts):
     """``step(params, target, opt_state, batch, generator) -> (params,
     target, opt_state, metrics)``; ``loss_and_grads`` is its first half.
 
@@ -241,15 +273,22 @@ class TanTrainStep:
                 self.optimizer.scalars(count))
 
     def loss_and_grads(self, params: Dict[str, torch.Tensor], target: Dict[str, torch.Tensor],
-                       batch: Dict[str, torch.Tensor], generator=None, pos_starts=None):
+                       batch: Dict[str, torch.Tensor], generator=None, pos_starts=None,
+                       casts=None):
         """(metrics, grads): the loss dict's scalars and float32 grads by
         parameter name (zeros where the loss does not reach a parameter),
         averaged over the ranks under a group. The
         random pos starts come from ``pos_starts`` (on the device) or else
-        from ``generator``."""
+        from ``generator``. ``casts`` (``begin_group``) stand for the
+        compute-dtype casts of the parameters and the twin."""
         with disable_fused_kernels():
-            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            p_c = _cast_floats(leaves, self.cdt)
+            if casts is None:
+                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                p_c = _cast_floats(leaves, self.cdt)
+            else:  # the grads of the casts, upcast below: the masters' grads
+                leaves = {k: v.detach().requires_grad_(True)
+                          for k, v in casts["params"].items()}
+                p_c = leaves
             batch_c = _cast_floats({"video": batch["video"],
                                     "text": _batch_text(batch, self.tower)}, self.cdt)
             out = self._forward(p_c, batch_c, batch, False, generator, pos_starts)
@@ -271,7 +310,8 @@ class TanTrainStep:
                     logits = self._gathered_logits(logits)
             if self.cotrain:
                 with torch.no_grad():
-                    ema_out = self._forward(_cast_floats(target, self.cdt), batch_c, batch, True)
+                    t_c = _cast_floats(target, self.cdt) if casts is None else casts["target"]
+                    ema_out = self._forward(t_c, batch_c, batch, True)
                 if self.fused_grid:
                     # the agreement reads the diagonal block alone: local
                     # EMA features suffice
@@ -313,19 +353,25 @@ class TanTrainStep:
                                              text_nj)}
 
     def device_step(self, params, target, opt_state, batch, pos_starts: torch.Tensor,
-                    scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    scalars: torch.Tensor, casts=None) -> Dict[str, torch.Tensor]:
         """The device half of one step, from ``draw``'s starts and scalars on
-        the device; updates the parameters, moments and twin in place and
-        leaves ``opt_state.count`` to the caller. Returns the metrics."""
-        metrics, grads = self.loss_and_grads(params, target, batch, pos_starts=pos_starts)
-        self.optimizer.apply(params, opt_state, grads, scalars, target, self.ema_momentum)
+        the device; updates the parameters, moments and twin in place (and
+        ``casts``, the carried casts, with them) and leaves
+        ``opt_state.count`` to the caller. Returns the metrics."""
+        metrics, grads = self.loss_and_grads(params, target, batch, pos_starts=pos_starts,
+                                             casts=casts)
+        kw = {} if casts is None else {"casts": casts}
+        self.optimizer.apply(params, opt_state, grads, scalars, target, self.ema_momentum, **kw)
         return metrics
 
-    def __call__(self, params, target, opt_state, batch, generator=None):
+    def begin_group(self, params, target=None):
+        return super().begin_group(params, target if self.cotrain else None)
+
+    def __call__(self, params, target, opt_state, batch, generator=None, casts=None):
         dev = batch[self.batch_key].device
         starts, scalars = self.draw(batch, generator, opt_state.count)
         metrics = self.device_step(params, target, opt_state, batch, to_device(starts, dev),
-                                   to_device(scalars, dev))
+                                   to_device(scalars, dev), casts)
         opt_state.count += 1
         return params, target, opt_state, metrics
 
@@ -380,6 +426,8 @@ class ScanStep:
         if n < 1:
             raise ValueError(f"scan_steps must be at least 1, got {n}")
         self.single, self.n = single, n
+        # carried casts (``_CarriedCasts``) where the step has them and casts
+        self.carry_casts = isinstance(single, _CarriedCasts) and single.cdt != torch.float32
         self.graphs: Dict[tuple, _Graph] = {}
         self.captures = 0
         self._stream = None
@@ -389,11 +437,18 @@ class ScanStep:
                 self.single.cdt, getattr(self.single.model, "attn_impl", None),
                 self.single.model.training)
 
+    def _group_casts(self, params, target):
+        """The carried casts a group starts from, or None (``carry_casts``)."""
+        return self.single.begin_group(params, target) if self.carry_casts else None
+
     def _loop(self, params, target, opt_state, batches, generator):
         ms = []
+        casts = self._group_casts(params, target)
+        kw = {} if casts is None else {"casts": casts}
         for i in range(self.n):
             params, target, opt_state, m = self.single(
-                params, target, opt_state, {k: v[i] for k, v in batches.items()}, generator)
+                params, target, opt_state, {k: v[i] for k, v in batches.items()}, generator,
+                **kw)
             ms.append(m)
         return params, target, opt_state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
@@ -444,9 +499,11 @@ class ScanStep:
         with _kernels.captured_launches() as launches, collectives.captured() as issued, \
                 torch.cuda.graph(graph, stream=self._stream,
                                  capture_error_mode="thread_local"):
+            casts = self._group_casts(params, target)
+            kw = {} if casts is None else {"casts": casts}
             ms = [self.single.device_step(params, target, opt_state,
                                           {key: v[i] for key, v in static.items()},
-                                          starts[i], scalars[i]) for i in range(self.n)]
+                                          starts[i], scalars[i], **kw) for i in range(self.n)]
             metrics = {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
         torch.cuda.synchronize(dev)
         self.captures += 1
@@ -554,7 +611,7 @@ def _grounding_lengths(batch: Dict[str, torch.Tensor]) -> tuple:
             "audio_features" in batch)
 
 
-class GroundingTrainStep:
+class GroundingTrainStep(_CarriedCasts):
     """``step(params, None, opt_state, batch, generator) -> (params, None,
     opt_state, metrics)`` for the view-invariant, grounding and joint models
     (the TAN step's protocol, with no EMA twin).
@@ -589,19 +646,24 @@ class GroundingTrainStep:
                 self.optimizer.scalars(count))
 
     def loss_and_grads(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-                       generator=None, pos_starts=None):
+                       generator=None, pos_starts=None, casts=None):
         """(metrics, float32 grads by name; zeros where the loss does not
         reach a parameter, as for the frozen VI pre-pass), averaged over the
-        ranks under a group."""
+        ranks under a group. ``casts`` stand for the parameters' casts."""
         with disable_fused_kernels():
-            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            if casts is None:
+                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                p_c = _cast_floats(leaves, self.cdt)
+            else:
+                leaves = {k: v.detach().requires_grad_(True)
+                          for k, v in casts["params"].items()}
+                p_c = leaves
             batch_c = _cast_floats({k: v for k, v in batch.items()
                                     if k in ("video_features", "narration_features",
                                              "audio_features", "ego_video_features_flat")},
                                    self.cdt)
-            out = _grounding_forward(self.model, _cast_floats(leaves, self.cdt), batch,
-                                     batch_c, deterministic=False, generator=generator,
-                                     pos_starts=pos_starts)
+            out = _grounding_forward(self.model, p_c, batch, batch_c, deterministic=False,
+                                     generator=generator, pos_starts=pos_starts)
             out = {k: v.float() for k, v in out.items()}
             ld, _ = egoexo_loss(out, batch, batch["narration_padding_mask"], self.loss_cfg)
             loss = ld["loss"]
@@ -613,17 +675,18 @@ class GroundingTrainStep:
         return _pmean_grads(self.mesh, metrics, dict(zip(names, grads)), params)
 
     def device_step(self, params, target, opt_state, batch, pos_starts: torch.Tensor,
-                    scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    scalars: torch.Tensor, casts=None) -> Dict[str, torch.Tensor]:
         """The device half of one step (see ``TanTrainStep.device_step``)."""
-        metrics, grads = self.loss_and_grads(params, batch, pos_starts=pos_starts)
-        self.optimizer.apply(params, opt_state, grads, scalars)
+        metrics, grads = self.loss_and_grads(params, batch, pos_starts=pos_starts, casts=casts)
+        kw = {} if casts is None else {"casts": casts}
+        self.optimizer.apply(params, opt_state, grads, scalars, **kw)
         return metrics
 
-    def __call__(self, params, target, opt_state, batch, generator=None):
+    def __call__(self, params, target, opt_state, batch, generator=None, casts=None):
         dev = batch[self.batch_key].device
         starts, scalars = self.draw(batch, generator, opt_state.count)
         metrics = self.device_step(params, None, opt_state, batch, to_device(starts, dev),
-                                   to_device(scalars, dev))
+                                   to_device(scalars, dev), casts)
         opt_state.count += 1
         return params, target, opt_state, metrics
 

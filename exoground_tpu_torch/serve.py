@@ -13,8 +13,9 @@ Counterpart of ``exoground_tpu/serve.py`` for these paths:
     ``GroundingModel``; a request is one video window plus narration
     embeddings, the response per-narration (start, end) in [0, 1] of the
     window. Requests are bucketed by padded narration count, one forward
-    per bucket. ``from_checkpoint`` serves a JAX package checkpoint file
-    (flax msgpack, read without ``msgpack`` or ``flax``).
+    per bucket. ``from_checkpoint`` serves the port's own checkpoint files
+    and the JAX package's (flax msgpack, read without ``msgpack`` or
+    ``flax``).
   * ``_CoalescingFront`` — concurrent ``align()`` / ``ground()`` calls
     coalesce into one batched call (the evaluator packs up to
     ``group_videos`` videos per device pass; a grounding bucket is one
@@ -366,23 +367,25 @@ class GroundingService:
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str, model=None, device="cuda", **kw):
-        """Serve a JAX package checkpoint file (the JAX ``from_checkpoint``,
-        serve.py:440-446): its ``state_dict`` through
-        ``grounding_state_dict_from_jax`` into ``model``, by default a
+        """Serve a grounding checkpoint file into ``model``, by default a
         ``GroundingModel`` without a view-invariant pre-pass at the fields of
-        the JAX default ``ExoGroundingTransformer()``. Every key of the model
-        must be filled (``load_grounding_params``)."""
+        the JAX default ``ExoGroundingTransformer()``; a caller whose file
+        holds a pre-pass passes a model with one. The file's ``state_dict``
+        (a port file's as ``EgoExoTrainer.save_epoch`` writes it; a JAX
+        package file's, the JAX ``from_checkpoint``, serve.py:440-446,
+        through ``grounding_state_dict_from_jax``) must fit the model
+        (``load_checked``: a missing, unexpected or misshapen key raises,
+        naming it)."""
         from exoground_tpu_torch.models.grounding import GroundingModel
         from exoground_tpu_torch.train.checkpoint import checkpoint_format, load_state
-        from exoground_tpu_torch.utils.convert import load_grounding_params
+        from exoground_tpu_torch.utils.convert import grounding_state_dict_from_jax, load_checked
 
-        if checkpoint_format(checkpoint_path) != "flax_msgpack":
-            raise ValueError(f"{checkpoint_path} is not a JAX package checkpoint; the port's "
-                             "own grounding checkpoints come with ROADMAP.md queue 1 item 7")
-        blob = load_state(checkpoint_path)
+        state = load_state(checkpoint_path)["state_dict"]
+        if checkpoint_format(checkpoint_path) != "torch":
+            state = grounding_state_dict_from_jax(state)
         model = model if model is not None else GroundingModel(vi_encoder_type="none",
                                                                device="cpu")
-        load_grounding_params(model, blob["state_dict"])
+        load_checked(model, state)
         return cls(model, device=device, **kw)
 
     def _run(self, host: np.ndarray, b: int, kpad: int, dv: int, dt: int) -> np.ndarray:

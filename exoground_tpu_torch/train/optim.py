@@ -105,7 +105,11 @@ class FusedAdamWEMA:
 
     API: ``init(params) -> state``; ``step(params, state, grads, target,
     ema_momentum) -> (params, state, target)``, with every tensor updated
-    in place and returned.
+    in place and returned. ``apply(..., casts=)`` also writes the new
+    parameters (and the new EMA twin) into the compute-dtype copies of
+    ``casts`` in the same pass: the carried casts of a group of steps
+    (``parallel/train_step.py::_CarriedCasts``; the JAX ``step(...,
+    cast_dtype=)``, optim.py:181-239).
     """
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float = 1e-4,
@@ -170,13 +174,15 @@ class FusedAdamWEMA:
     def apply(self, params: Dict[str, torch.Tensor], state: FusedAdamWState,
               grads: Dict[str, torch.Tensor], scalars: torch.Tensor,
               target: Optional[Dict[str, torch.Tensor]] = None,
-              ema_momentum: Optional[float] = None) -> None:
+              ema_momentum: Optional[float] = None, casts: Optional[Dict] = None) -> None:
         """The update of ``step`` from ``scalars`` (``scalars(state.count)``
         on the parameters' device), with no host work and no host read:
-        ``state.count`` is the caller's to advance."""
+        ``state.count`` is the caller's to advance. ``casts`` ({'params':
+        ..., 'target': ...}, compute-dtype tensors by name) receive the new
+        parameters and, when the twin moves, the new twin."""
         lr, bc1, bc2 = scalars.unbind(0)[:3]
         self._update(params, state, self._clip(self._dense_grads(params, grads)), lr, bc1, bc2,
-                     target, ema_momentum)
+                     target, ema_momentum, casts=casts)
 
     @staticmethod
     def _scale_by_lr(upd: list, lr: torch.Tensor, scale: Optional[float]) -> None:
@@ -185,11 +191,13 @@ class FusedAdamWEMA:
         torch._foreach_mul_(upd, lr if scale is None else lr * scale)
 
     def _update(self, params, state, g: list, lr, bc1, bc2, target, ema_momentum,
-                emit=None) -> None:
+                emit=None, casts=None) -> None:
         """AdamW from the float32 grads ``g`` (``_names`` order), group by
         group, then the EMA twin. With ``emit`` (a 0-d 0/1 tensor, the optax
         chain's accumulation) the new moments are kept where it is 1, through
-        ``torch.where`` as optax selects, and the step is scaled by it."""
+        ``torch.where`` as optax selects, and the step is scaled by it. With
+        ``casts`` each group's new parameters (and twin) are copied into
+        their compute-dtype casts."""
         g = dict(zip(self._names, g))
         do_ema = target is not None and ema_momentum is not None
         f32_moments = self.moment_dtype == torch.float32
@@ -230,6 +238,10 @@ class FusedAdamWEMA:
                 t = [target[k] for k in names]
                 torch._foreach_mul_(t, ema_momentum)
                 torch._foreach_add_(t, p, alpha=1.0 - ema_momentum)
+            if casts is not None:
+                torch._foreach_copy_([casts["params"][k] for k in names], p)
+                if do_ema and "target" in casts:
+                    torch._foreach_copy_([casts["target"][k] for k in names], t)
 
 
 def make_fused_optimizer(params: Dict[str, torch.Tensor], lr: float = 1e-4,
@@ -353,21 +365,24 @@ class OptaxChain(FusedAdamWEMA):
     def apply(self, params: Dict[str, torch.Tensor], state: ChainState,
               grads: Dict[str, torch.Tensor], scalars: torch.Tensor,
               target: Optional[Dict[str, torch.Tensor]] = None,
-              ema_momentum: Optional[float] = None) -> None:
+              ema_momentum: Optional[float] = None, casts: Optional[Dict] = None) -> None:
         """The update of ``step`` from ``scalars`` (``scalars(state.count)``
         on the parameters' device), with no host work and no host read:
-        ``state.count`` is the caller's to advance."""
+        ``state.count`` is the caller's to advance. ``casts`` as
+        ``FusedAdamWEMA.apply``'s."""
         parts = scalars.unbind(0)
         g = self._dense_grads(params, grads)
         if self.every_k == 1:
-            self._update(params, state, self._clip(g), *parts[:3], target, ema_momentum)
+            self._update(params, state, self._clip(g), *parts[:3], target, ema_momentum,
+                         casts=casts)
             return
         emit, n = parts[3:]
         acc = [state.acc_grads[k] for k in self._names]
         step = torch._foreach_sub(g, acc)
         torch._foreach_div_(step, n)
         torch._foreach_add_(acc, step)  # the running mean
-        self._update(params, state, self._clip(acc), *parts[:3], target, ema_momentum, emit)
+        self._update(params, state, self._clip(acc), *parts[:3], target, ema_momentum, emit,
+                     casts)
         torch._foreach_mul_(acc, 1.0 - emit)
 
 

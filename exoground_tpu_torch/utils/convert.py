@@ -44,12 +44,18 @@ and ``s3d_checkpoint_from_jax`` a JAX ``S3DTrainer`` checkpoint (parameters
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
+from exoground_tpu_torch.models.grounding import GroundingModel
+from exoground_tpu_torch.models.s3d import BatchNorm as S3DBatchNorm
+from exoground_tpu_torch.models.vi_encoder import ViewInvariantMLP
 from exoground_tpu_torch.models.word2vec import TOWER_KEYS
+from exoground_tpu_torch.ops.attention import MultiHeadAttention
 
 # in the reference's state dict and the port's model, but in no JAX tree:
 # the reference's TemporalAligner and ExoGroundingTransformer hold an ``mlp``
@@ -71,22 +77,70 @@ def _tt(a) -> torch.Tensor:
     return _t(a).T.contiguous()
 
 
+# The converters' renames, leaf by leaf, by the kind of module that holds
+# the leaf: JAX leaf -> the port's name under that module (``jax_name``
+# inverts them). A JAX embedding table is a leaf of its parent, the port's
+# the ``weight`` of an ``nn.Embedding``.
+_DENSE_LEAF = {"kernel": "weight", "bias": "bias"}  # Dense and Conv; kernels transposed
+_NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_ATTN_LEAF = {"in_proj_kernel": "in_proj_weight", "in_proj_bias": "in_proj_bias",
+              "out_proj_kernel": "out_proj.weight", "out_proj_bias": "out_proj.bias"}
+_EMBED_LEAF = {"": "weight"}
+# module names that differ: a ViewInvariantMLP's nn.Sequential indices, and
+# a GroundingModel's trunk, which the port inlines at its top level
+_VI_MLP = {"mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
+_TRUNK = "trunk"
+NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._NormBase, S3DBatchNorm)
+
+
 def _dense(out, key, p, bias=True):
-    out[f"{key}.weight"] = _tt(p["kernel"])
+    out[f"{key}.{_DENSE_LEAF['kernel']}"] = _tt(p["kernel"])
     if bias and "bias" in p:
-        out[f"{key}.bias"] = _t(p["bias"])
+        out[f"{key}.{_DENSE_LEAF['bias']}"] = _t(p["bias"])
 
 
 def _ln(out, key, p):
-    out[f"{key}.weight"] = _t(p["scale"])
-    out[f"{key}.bias"] = _t(p["bias"])
+    for leaf in ("scale", "bias"):
+        out[f"{key}.{_NORM_LEAF[leaf]}"] = _t(p[leaf])
 
 
 def _attn(out, key, p):
-    out[f"{key}.in_proj_weight"] = _tt(p["in_proj_kernel"])
-    out[f"{key}.in_proj_bias"] = _t(p["in_proj_bias"])
-    out[f"{key}.out_proj.weight"] = _tt(p["out_proj_kernel"])
-    out[f"{key}.out_proj.bias"] = _t(p["out_proj_bias"])
+    for leaf, name in _ATTN_LEAF.items():
+        out[f"{key}.{name}"] = (_tt if leaf.endswith("kernel") else _t)(p[leaf])
+
+
+def _leaf_renames(m: nn.Module) -> Mapping:
+    """The leaf renames of the kind of module ``m`` is."""
+    if isinstance(m, nn.Embedding):
+        return _EMBED_LEAF
+    if isinstance(m, MultiHeadAttention):
+        return _ATTN_LEAF
+    return _NORM_LEAF if isinstance(m, NORMS) else _DENSE_LEAF
+
+
+def jax_name(name: str, module: nn.Module) -> str:
+    """The JAX name ('/'-joined) that the converters of this module map to
+    the port tensor ``name`` of ``module`` (a parameter, a buffer, or an S3D
+    running stat): the leaf through the renames of its module's kind (a
+    leaf they do not rename keeps its name; an attention's ``out_proj.*``
+    are leaves of the attention), ``resblocks.i`` as ``resblocks_i``, a
+    ViewInvariantMLP's ``mlp.0`` / ``mlp.2`` as ``mlp_fc1`` / ``mlp_fc2``,
+    a GroundingModel's tensors outside ``vi_encoder`` under ``trunk``."""
+    owner, _, leaf = name.rpartition(".")
+    parent, _, last = owner.rpartition(".")
+    if last == "out_proj" and isinstance(module.get_submodule(parent), MultiHeadAttention):
+        owner, leaf = parent, f"out_proj.{leaf}"
+    jax_leaf = {port: j for j, port in _leaf_renames(module.get_submodule(owner)).items()}
+    leaf = jax_leaf.get(leaf, leaf)
+    for j, port in _VI_MLP.items():
+        head = owner[:-len(port)].rstrip(".")
+        if (owner == port or owner.endswith(f".{port}")) and isinstance(
+                module.get_submodule(head), ViewInvariantMLP):
+            owner = f"{head}.{j}" if head else j
+    owner = re.sub(r"(^|\.)resblocks\.(\d+)(?=\.|$)", r"\1resblocks_\2", owner)
+    if isinstance(module, GroundingModel) and not name.startswith("vi_encoder."):
+        owner = f"{_TRUNK}.{owner}"
+    return "/".join(p for p in owner.split(".") + [leaf] if p)
 
 
 def encoder_state_dict_from_jax(stack: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -206,8 +260,8 @@ def _vi_encoder(p: Mapping) -> Dict[str, torch.Tensor]:
     _dense(out, "video_pre_proj", p["video_pre_proj"], bias=False)
     _ln(out, "ln_video_init", p["ln_video_init"])
     if "mlp_fc1" in p:  # ViewInvariantMLP: the reference's nn.Sequential indices
-        _dense(out, "mlp.0", p["mlp_fc1"])
-        _dense(out, "mlp.2", p["mlp_fc2"])
+        for leaf, name in _VI_MLP.items():
+            _dense(out, name, p[leaf])
         return out
     out.update(encoder_state_dict_from_jax(p["video_unimodal_encoder"],
                                            "video_unimodal_encoder."))
@@ -227,35 +281,39 @@ def grounding_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     p = params.get("params", params)
     if "mlp_fc1" in p:  # the view_invariant model itself
         return _vi_encoder(p)
-    if "trunk" not in p:
+    if _TRUNK not in p:
         return _grounding_trunk(p)
-    out = _grounding_trunk(p["trunk"])
+    out = _grounding_trunk(p[_TRUNK])
     if "vi_encoder" in p:
         out.update({f"vi_encoder.{k}": v for k, v in _vi_encoder(p["vi_encoder"]).items()})
     return out
 
 
-def _load_checked(model: torch.nn.Module, state: Mapping) -> None:
-    """Load ``state``; every key of the model must be filled, apart from the
+def load_checked(model: torch.nn.Module, state: Mapping) -> None:
+    """Load ``state`` (a converted JAX tree, or a port checkpoint's
+    ``state_dict``); every key of the model must be filled, apart from the
     reference's unused ``mlp`` and the buffers the model computes itself (a
-    sine pos table)."""
-    missing, unexpected = model.load_state_dict(state, strict=False)
+    sine pos table); a missing or unexpected key raises ``KeyError``, then a
+    shape the model does not have ``RuntimeError`` (``load_state_dict``),
+    naming them."""
+    own = set(model.state_dict())
     allowed = set(UNUSED_REFERENCE_KEYS) | {name for name, _ in model.named_buffers()}
-    bad = sorted(set(missing) - allowed)
+    bad, unexpected = sorted(own - set(state) - allowed), sorted(set(state) - own)
     if bad or unexpected:
-        raise KeyError(f"JAX params do not fit the model: missing {bad}, "
-                       f"unexpected {sorted(unexpected)}")
+        raise KeyError(f"the state does not fit the model: missing {bad}, "
+                       f"unexpected {unexpected}")
+    model.load_state_dict(state, strict=False)
 
 
 def load_tan_params(model: torch.nn.Module, params: Mapping) -> None:
-    """Load JAX params into a port TemporalAligner (``_load_checked``)."""
-    _load_checked(model, tan_state_dict_from_jax(params))
+    """Load JAX params into a port TemporalAligner (``load_checked``)."""
+    load_checked(model, tan_state_dict_from_jax(params))
 
 
 def load_grounding_params(model: torch.nn.Module, params: Mapping) -> None:
     """Load JAX params into a port ExoGroundingTransformer or GroundingModel
-    (``_load_checked``)."""
-    _load_checked(model, grounding_state_dict_from_jax(params))
+    (``load_checked``)."""
+    load_checked(model, grounding_state_dict_from_jax(params))
 
 
 def strip_prefix(state: Mapping, prefix: str) -> Dict:
@@ -295,8 +353,7 @@ def convert_word2vec_from_s3d(state: Mapping) -> Dict[str, torch.Tensor]:
 
 
 # JAX leaf names -> the port's (a kernel is transposed as its rank says)
-_JAX_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var",
-             "word_embd": "word_embd.weight"}
+_JAX_LEAF = {**_NORM_LEAF, "word_embd": f"word_embd.{_EMBED_LEAF['']}"}
 
 
 def _tree_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -309,7 +366,8 @@ def _tree_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
             out.update(_tree_from_jax(v, f"{prefix}{k}."))
         elif k == "kernel":
             a = _t(v)
-            out[prefix + "weight"] = (a.permute(4, 3, 0, 1, 2) if a.dim() == 5 else a.T).contiguous()
+            out[prefix + _DENSE_LEAF[k]] = (a.permute(4, 3, 0, 1, 2) if a.dim() == 5
+                                            else a.T).contiguous()
         else:
             out[prefix + _JAX_LEAF[k]] = _t(v)
     return out

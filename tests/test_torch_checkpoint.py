@@ -358,7 +358,7 @@ def test_grounding_service_from_a_jax_checkpoint(tmp_path):
             assert np.abs(np.asarray(g[k]) - w[k]).max() <= 1e-5 * scale
     port = str(tmp_path / "port.pth.tar")
     ckpt.save_state(port, {"state_dict": {}})
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(KeyError, match="missing"):
         GroundingService.from_checkpoint(port, device="cpu")
 
 

@@ -177,7 +177,8 @@ def test_all_gather_tiled_matches_jax(request, w):
         np.testing.assert_allclose(got["grad"], np.asarray(gx)[r * b:(r + 1) * b], rtol=1e-6,
                                    atol=1e-6)
         # gloo: the backward is an all-reduce of which each rank keeps its slice
-        assert got["issued"] == dict(all_reduce=1, all_gather=1, reduce_scatter=0, broadcast=0)
+        assert got["issued"] == dict(all_reduce=1, all_gather=1, reduce_scatter=0, broadcast=0,
+                                     ppermute=0)
 
 
 # ------------------------------------------------------------- TAN step

@@ -7,6 +7,10 @@
   configurations also against
   ``tests/golden/egoexo_loader.npz`` at the JAX golden test's tolerance
   (1e-6). The first batch of each collated as the JAX collate does.
+* ``EgoExo4DTANDataset`` over the same world (the configuration of
+  ``world_egoexo.make_our_tan_loader``, and the training split over all
+  views): every item and a collated batch, the ragged start / end lists
+  and the metadata too, equal to the JAX reader's.
 * ``LemmaDataset`` over ``tests/world_lemma.py`` likewise, against
   ``tests/golden/lemma_loader.npz``.
 * The window cache: a cache written by the port reads back to the same
@@ -31,12 +35,18 @@ import pytest
 
 from exoground_tpu.data import collate as jcollate
 from exoground_tpu.data.egoexo4d import EgoExo4DDataset as JaxEgoExo
+from exoground_tpu.data.egoexo4d import EgoExo4DTANDataset as JaxEgoExoTAN
 from exoground_tpu.data.egoexo4d import EgoExoConfig as JaxEgoExoConfig
 from exoground_tpu.data.egoexo4d import EgoExoSource as JaxSource
 from exoground_tpu.train import main as jax_main
 from exoground_tpu.train.config import parse_args as jax_parse_args
 from exoground_tpu_torch.data import collate_dicts
-from exoground_tpu_torch.data.egoexo4d import EgoExo4DDataset, EgoExoConfig, EgoExoSource
+from exoground_tpu_torch.data.egoexo4d import (
+    EgoExo4DDataset,
+    EgoExo4DTANDataset,
+    EgoExoConfig,
+    EgoExoSource,
+)
 from exoground_tpu_torch.data.io import FeatureStore
 from exoground_tpu_torch.data.lemma import LemmaConfig, LemmaDataset
 from exoground_tpu_torch.data.table import read_csv_records, write_csv_records
@@ -127,6 +137,41 @@ EXTRA = {
     "randomized": dict(split="train", views="exo", model="joint", use_distill_nce_loss=True,
                        randomize_ranking=True, randomize_narration_order=True, epoch=3),
 }
+
+
+TAN = {"val_exo": dict(split="val", views="exo", model="joint"),
+       "train_all": dict(split="train", views="all", model="joint")}
+
+
+@pytest.mark.parametrize("tag", sorted(TAN))
+def test_egoexo_tan_items_match_jax(world, tag):
+    flags = dict(TAN[tag])
+    split = flags.pop("split")
+    kw = dict(duration=W.DUR, hop_length=W.HOP, fps=W.FPS, feature_dim=W.NDIM, **flags)
+    port = EgoExo4DTANDataset(EgoExoConfig(**kw), _source(world, EgoExoSource), split=split)
+    jax_ds = JaxEgoExoTAN(JaxEgoExoConfig(**kw), _source(world, JaxSource), split=split)
+    assert len(port) == len(jax_ds) > 1
+    items = [port[i] for i in range(len(port))]
+    assert any(it["start"] for it in items)  # windows with narrations
+    for i, item in enumerate(items):
+        want = jax_ds[i]
+        assert set(item) == set(want)
+        for k in want:
+            if isinstance(want[k], np.ndarray):
+                assert item[k].dtype == want[k].dtype, k
+                np.testing.assert_array_equal(item[k], want[k], err_msg=f"{tag}[{i}] {k}")
+            else:
+                assert item[k] == want[k], f"{tag}[{i}] {k}"
+    n = min(4, len(items))
+    got = port.collate_fn(items[:n])
+    want = JaxEgoExoTAN.collate_fn([jax_ds[i] for i in range(n)])
+    assert set(got) == set(want)
+    for k in want:
+        if isinstance(want[k], np.ndarray):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            assert got[k] == want[k], k
+    assert isinstance(got["start"], list) and len(got["start"]) == n
 
 
 @pytest.mark.parametrize("tag", sorted(EXTRA))
