@@ -231,7 +231,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (write_jax_checkpoint: the flax msgpack map of the JAX trainer, its
      MultiStepsState at full width; the restored parameters, EMA twin,
      moments, accumulator and counts bit for bit the port file's; its
-     load_checkpoint seconds and peak host MB), and one epoch at
+     load_checkpoint seconds and peak host MB), then --resume from the same
+     tree written as the JAX package's orbax checkpoint directory (OCDBT,
+     zarr v2, zstd: restored bit for bit, the msgpack resume's launches;
+     `orbax_resume {...}`: the directory's MB, write / read /
+     load_checkpoint seconds, decode MB/s), and one epoch at
      --no-fused_optimizer (the optax chain; its epoch-0 checkpoint within
      1e-5 of max|.| of the first run's); then the card against the CPU with the
      command line's build_htm_tan on the whole first batch, B64 (step and
@@ -248,11 +252,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8b. a JAX package checkpoint resumed on the card: for each committed
      fixture (exoground_tpu_torch/testdata/: the fused optimizer's state and
      the optax chain's MultiStepsState at --backprop_freq 2, written by the
-     JAX TANTrainer of tests/jax_tan_fixtures.py at width 32), a TANTrainer
+     JAX TANTrainer of tests/jax_tan_fixtures.py at width 32, each as a
+     msgpack file and as an orbax directory of the same state), a TANTrainer
      of the fixture's configuration on the card runs load_checkpoint(mode=
-     "resume"), what --resume runs, through the pure-Python msgpack reader;
+     "resume"), what --resume runs, through the pure-Python msgpack reader
+     or the port's orbax reader (OCDBT, zarr v2, the system's libzstd);
      every restored tensor (parameters, EMA twin, moments, accumulator) must
-     equal the fixture's array bit for bit, with the counts; then one step
+     equal the msgpack fixture's array bit for bit, with the counts; then one step
      on the card against the same resume and step on the CPU (loss within
      1e-4 relative; the parameters, EMA twin, moments and accumulator after
      it within 1e-3 of each tensor's max|CPU|, the parameters moved); one
@@ -289,8 +295,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      is served on the card through GroundingService.from_checkpoint into a
      fresh model of the run's configuration (16 requests, one bucket: 24 + 24
      launches), its intervals within 1e-4 of max|.| of the in-memory model's
-     ground_batch (`gnd_served_checkpoint {...}`). The trees are removed
-     after.
+     ground_batch (`gnd_served_checkpoint {...}`); then the same weights
+     written as the JAX package's orbax checkpoint directory (its param tree
+     by jax_grounding_tree, through the port's save_state_orbax) and served
+     the same way (`gnd_served_orbax {...}`: equal to the port file's service
+     bit for bit, the same launches). The trees are removed after.
   10. the inference front at phase 8's model (TemporalAligner E6D6 width 512,
      8 heads, 512-d video and text; seeded) with the word2vec tower at the
      MIL-NCE widths (66,249 words x 300 -> 2,048 -> 512) and its tokenizer
@@ -404,6 +413,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import io
+import itertools
 import json
 import statistics
 import struct
@@ -2952,16 +2962,12 @@ def _msgpack(f, node) -> None:
         f.write(a.tobytes() if a.ndim == 0 else a.data)
 
 
-def write_jax_checkpoint(port_path, path) -> int:
-    """The port checkpoint at ``port_path`` written to ``path`` as the JAX
-    package writes its own (exoground_tpu/train/checkpoint.py::save_state:
-    one flax msgpack map of the JAX trainer's ``_ckpt_state``): the trees
-    through ``_jax_param_tree``, the optimizer's state in the JAX layout of
-    the port's (the fused ``{count, mu, nu}``, or the chain's
-    ``MultiStepsState`` under accumulation, nested as the committed
-    jax_tan_multisteps_k2 fixture holds it). Returns the file's bytes."""
-    import os
-
+def jax_checkpoint_tree(port_path) -> dict:
+    """The port checkpoint at ``port_path`` as the JAX trainer's
+    ``_ckpt_state`` tree: the trees through ``_jax_param_tree``, the
+    optimizer's state in the JAX layout of the port's (the fused ``{count,
+    mu, nu}``, or the chain's ``MultiStepsState`` under accumulation,
+    nested as the committed jax_tan_multisteps_k2 fixture holds it)."""
     blob = torch.load(port_path, map_location="cpu", weights_only=True)
     opt = blob["optimizer"]
     count = np.int32(opt["count"])
@@ -2971,13 +2977,53 @@ def write_jax_checkpoint(port_path, path) -> int:
                  "inner_opt_state": {"0": {"0": state, "1": {"inner_state": {}},
                                            "2": {"count": count}}},
                  "acc_grads": _jax_param_tree(opt["acc_grads"]), "skip_state": {}}
+    return {"epoch": int(blob["epoch"]), "state_dict": _jax_param_tree(blob["state_dict"]),
+            "best_acc": float(blob["best_acc"]), "optimizer": state,
+            "iteration": int(blob["iteration"]),
+            "target_state_dict": _jax_param_tree(blob["target_state_dict"])}
+
+
+def write_jax_checkpoint(source, path, fmt="flax_msgpack") -> int:
+    """``source`` (a port checkpoint's path, or the tree
+    ``jax_checkpoint_tree`` made of one) written to ``path`` as the JAX
+    package writes its own: one flax msgpack map
+    (exoground_tpu/train/checkpoint.py::save_state) or, ``fmt`` "orbax", an
+    orbax checkpoint directory (its save_state_orbax, through the port's
+    ``save_state_orbax``). Returns the bytes written."""
+    import os
+
+    from exoground_tpu_torch.train.checkpoint import save_state_orbax
+    from exoground_tpu_torch.utils.orbax import directory_bytes
+
+    tree = source if isinstance(source, dict) else jax_checkpoint_tree(source)
+    if fmt == "orbax":
+        save_state_orbax(path, tree)
+        return directory_bytes(path)
     with open(path, "wb") as f:
-        _msgpack(f, {"epoch": int(blob["epoch"]),
-                     "state_dict": _jax_param_tree(blob["state_dict"]),
-                     "best_acc": float(blob["best_acc"]), "optimizer": state,
-                     "iteration": int(blob["iteration"]),
-                     "target_state_dict": _jax_param_tree(blob["target_state_dict"])})
+        _msgpack(f, tree)
     return os.path.getsize(path)
+
+
+def jax_grounding_tree(model) -> dict:
+    """A port grounding model's parameters as the JAX package's param tree
+    (the inverse of utils/convert.py::grounding_state_dict_from_jax): each
+    tensor at its ``jax_name``, Dense and attention kernels transposed back;
+    the buffers (a sine table) and the reference's unused ``mlp``, in no
+    JAX tree, left out."""
+    from exoground_tpu_torch.utils.convert import UNUSED_REFERENCE_KEYS, jax_name
+
+    skip = set(UNUSED_REFERENCE_KEYS) | {name for name, _ in model.named_buffers()}
+    tree = {}
+    for name, t in model.state_dict().items():
+        if name in skip:
+            continue
+        *path, leaf = jax_name(name, model).split("/")
+        a = t.detach().cpu().numpy()
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a.T if leaf.endswith("kernel") and a.ndim == 2 else a)
+    return tree
 
 
 def _host_cost(fn) -> tuple:
@@ -3066,6 +3112,46 @@ def _spy_trainers(refs=None):
     return trainers, loads, costs, undo
 
 
+def _orbax_resume(run, tree, path, tree_s, want_launches, loads, costs, trainers) -> dict:
+    """Phase 8's orbax resume: the JAX tree of the --backprop_freq 2 run's
+    epoch-0 checkpoint written as the JAX package's orbax directory
+    (``write_jax_checkpoint(..., "orbax")``), read back alone (``load_state``:
+    OCDBT, zarr, zstd), then ``--backprop_freq 2 --resume <directory>``: the
+    spy holds the restored state to the port file's bit for bit, the run
+    takes its 8 steps with the launches of the msgpack file's resume. Prints
+    ``orbax_resume {...}`` (the directory's MB, write, read and
+    load_checkpoint seconds, decode MB/s, the run's seconds)."""
+    from exoground_tpu_torch.train.checkpoint import load_state
+
+    t0 = time.perf_counter()
+    dir_mb = write_jax_checkpoint(tree, path, "orbax") / 2**20
+    write_s = time.perf_counter() - t0 + tree_s
+    t0 = time.perf_counter()
+    load_state(path)
+    read_s = time.perf_counter() - t0
+    best, run_s, launches = run(["--backprop_freq", "2", "--resume", path])
+    tr = trainers[-1]
+    steps = sum(s["steps"] for s in tr.epoch_stats)
+    if (not loads or loads[-1]["mode"] != "resume" or not all(loads[-1].values())
+            or "acc" not in loads[-1] or costs[-1]["path"] != path):
+        fail(f"--resume from the orbax directory did not restore exactly: {loads[-1:]}")
+    if steps != 8 or not np.isfinite(best) or getattr(tr.tx, "every_k", 1) != 2:
+        fail(f"cli --backprop_freq 2 --resume <orbax directory>: {steps} steps (want 8), "
+             f"best {best}")
+    _check_counts("cli --backprop_freq 2 --resume <orbax directory>", launches,
+                  _cli_expect(steps, 1, 1))
+    if launches != want_launches:
+        fail(f"--resume <orbax directory> launched {launches}, the msgpack file's resume "
+             f"{want_launches}")
+    row = dict(dir_mb=round(dir_mb, 1), write_s=round(write_s, 2), read_s=round(read_s, 2),
+               decode_mb_per_s=round(dir_mb / read_s, 1),
+               load_checkpoint_s=round(costs[-1]["s"], 3),
+               peak_host_mb=round(costs[-1]["peak_mb"], 1), run_s=round(run_s, 1),
+               restored_bit_equal=True, launches={k: v for k, v in launches.items() if v})
+    print("orbax_resume", json.dumps(row), flush=True)
+    return row
+
+
 def cli_path(card):
     """Phase 8: ``exoground_tpu_torch.train.main`` on the card over a seeded
     tree (cotrain, 2 epochs, validation and HTM-Align every epoch), the same
@@ -3090,7 +3176,8 @@ def cli_path(card):
     work = tempfile.mkdtemp(prefix="cli_", dir=build)
     cwd = os.getcwd()
     jax0 = os.path.join(work, "jax_run", "model", "epoch0.pth.tar")
-    refs = {}  # the JAX-format file: the port file it was written from
+    jax_dir = os.path.join(work, "jax_run", "model", "epoch0.orbax")
+    refs = {}  # a JAX-format file or directory: the port file it was written from
     trainers, loads, costs, undo = _spy_trainers(refs)
     try:
         t0 = time.perf_counter()
@@ -3164,10 +3251,13 @@ def cli_path(card):
         # at full width) written again as a JAX package file, then --resume
         # from it: the spy holds the restored state to the port file's
         os.makedirs(os.path.dirname(jax0))  # --resume writes beside its file
-        refs[jax0] = accum[1][0]
+        refs[jax0] = refs[jax_dir] = accum[1][0]
         t0 = time.perf_counter()
-        jax_mb = write_jax_checkpoint(accum[1][0], jax0) / 2**20
-        jax_write_s = time.perf_counter() - t0
+        jax_tree = jax_checkpoint_tree(accum[1][0])
+        jax_tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jax_mb = write_jax_checkpoint(jax_tree, jax0) / 2**20
+        jax_write_s = time.perf_counter() - t0 + jax_tree_s
         best_j, jax_resume_s, launches_j = run(["--backprop_freq", "2", "--resume", jax0])
         trj = trainers[-1]
         steps_j = sum(s["steps"] for s in trj.epoch_stats)
@@ -3185,6 +3275,9 @@ def cli_path(card):
                           run_s=round(jax_resume_s, 1), restored_bit_equal=True)
         print(f"cli --resume from its --backprop_freq 2 checkpoint written as a JAX file: "
               f"{jax_resume}", flush=True)
+        orbax_resume = _orbax_resume(run, jax_tree, jax_dir, jax_tree_s, launches_j, loads,
+                                     costs, trainers)
+        del jax_tree
 
         best_nf, nofused_s, launches_nf = run(["--no-fused_optimizer", "--epochs", "1",
                                                "--prefix", "_nf"])
@@ -3256,12 +3349,14 @@ def cli_path(card):
         card=card, backprop_freq_2_run_s={n: round(t, 1) for n, t in accum_s.items()},
         backprop_freq_2_f4_vs_f1=dict(max_err=float(f"{accum_vs_single['max_err']:.3g}"),
                                       bit_equal=accum_vs_single["bit_equal"]),
-        jax_file_resume=jax_resume, no_fused_optimizer_run_s=round(nofused_s, 1),
+        jax_file_resume=jax_resume, orbax_resume=orbax_resume,
+        no_fused_optimizer_run_s=round(nofused_s, 1),
         no_fused_vs_fused=dict(max_err=float(f"{chain_vs_fused['max_err']:.3g}"),
                                bit_equal=chain_vs_fused["bit_equal"]))), flush=True)
     return launches, launches4, {f"--backprop_freq 2 --fused_steps {n}": accum[n][1]
                                  for n in accum} | {
         "--backprop_freq 2 --resume <JAX file>": launches_j,
+        "--backprop_freq 2 --resume <orbax directory>": orbax_resume["launches"],
         "--no-fused_optimizer": launches_nf}
 
 
@@ -3305,9 +3400,10 @@ def _fixture_trees(tr, blob) -> dict:
 
 
 def jax_resume_path(card):
-    """Phase 8b: each committed JAX checkpoint resumed on the card by
-    TANTrainer.load_checkpoint (what --resume runs), every restored tensor
-    held bit for bit to the file's arrays, then one step against the same
+    """Phase 8b: each committed JAX checkpoint, its msgpack file and its
+    orbax directory, resumed on the card by TANTrainer.load_checkpoint (what
+    --resume runs), every restored tensor held bit for bit to the msgpack
+    file's arrays, then one step against the same
     resume and step on the CPU: the loss, and the parameters, EMA twin,
     moments and accumulator after it (each tensor within 1e-3 of its
     max|CPU|; the step must move the parameters: both fixtures' next step
@@ -3319,13 +3415,18 @@ def jax_resume_path(card):
     from exoground_tpu_torch.train.checkpoint import load_state
     from exoground_tpu_torch.utils.convert import tan_checkpoint_from_jax
 
+    from exoground_tpu_torch.utils.orbax import directory_bytes
+
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exoground_tpu_torch",
                         "testdata")
     out = {}
-    for layout, kw in JAX_FIXTURE_LAYOUTS.items():
-        path = os.path.join(here, f"jax_tan_{layout}.pth.tar")
+    for (layout, kw), suffix in itertools.product(JAX_FIXTURE_LAYOUTS.items(),
+                                                  (".pth.tar", ".orbax")):
+        # the msgpack file's state is the one every restore is held to
+        blob = tan_checkpoint_from_jax(load_state(os.path.join(here, f"jax_tan_{layout}.pth.tar")))
+        path = os.path.join(here, f"jax_tan_{layout}{suffix}")
         t0 = time.perf_counter()
-        blob = tan_checkpoint_from_jax(load_state(path))
+        tan_checkpoint_from_jax(load_state(path))
         read_s = time.perf_counter() - t0
         res = {}
         for dev in ("cuda", "cpu"):
@@ -3346,8 +3447,8 @@ def jax_resume_path(card):
                       == (blob["optimizer"]["count"], blob["optimizer"].get("mini_step"),
                           blob["iteration"]))
             if unequal or not counts:
-                fail(f"resume from the JAX file {layout} on {dev}: unequal {unequal[:4]}, "
-                     f"counts {counts}")
+                fail(f"resume from the JAX checkpoint {layout}{suffix} on {dev}: unequal "
+                     f"{unequal[:4]}, counts {counts}")
             loss = tr.train_epoch([_fixture_batch(10)], 1)
             state = optimizer_state_dict(tr.opt_state)
             after = {name: {k: got[k].float().cpu() for k in want}
@@ -3360,7 +3461,9 @@ def jax_resume_path(card):
                            for k, w in want[name].items()) for name in want}
         moved = max((want["params"][k] - w).abs().max().item()
                     for k, w in blob["state_dict"].items())
-        out[layout] = dict(file_kb=round(os.path.getsize(path) / 1024, 1),
+        name = layout if suffix == ".pth.tar" else f"{layout}.orbax"
+        size = directory_bytes(path) if os.path.isdir(path) else os.path.getsize(path)
+        out[name] = dict(file_kb=round(size / 1024, 1),
                            read_s=round(read_s, 4), load_checkpoint_s=round(res["cuda"][1], 4),
                            loss=res["cuda"][0], loss_cpu=res["cpu"][0],
                            loss_rel=float(f"{rel:.3g}"), restored_bit_equal=True,
@@ -3368,8 +3471,8 @@ def jax_resume_path(card):
                            counts=res["cuda"][3])
         if (not np.isfinite(res["cuda"][0]) or not rel <= 1e-4 or not moved > 0
                 or res["cuda"][3] != res["cpu"][3] or not max(worst.values()) <= 1e-3):
-            fail(f"the step after resuming {layout} on the card disagrees with the CPU "
-                 f"(parameters moved {moved:.3g}): {out[layout]}")
+            fail(f"the step after resuming {name} on the card disagrees with the CPU "
+                 f"(parameters moved {moved:.3g}): {out[name]}")
     print("jax_resume", json.dumps(dict(card=card, **out)), flush=True)
 
 
@@ -3489,22 +3592,33 @@ def served_checkpoint_case(card, rec, path):
     grounding run's epoch-0 file (a port ``torch.save`` file) into a fresh
     model of the run's configuration, on the card, against the in-memory
     model's ``ground_batch`` (phase 7's f32 bar: 1e-4 of max|in memory|; the
-    same weights and kernels, so 0 expected)."""
+    same weights and kernels, so 0 expected); then the same weights as the
+    JAX package's orbax directory (``jax_grounding_tree``, written beside
+    the file by ``save_state_orbax``), served the same way: equal to the
+    file's service bit for bit, with its launches."""
+    import os
+
     from exoground_tpu_torch.evals.bench_items import make_grounding_requests
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.serve import GroundingService
     from exoground_tpu_torch.train import main as cli
+    from exoground_tpu_torch.train.checkpoint import load_state, save_state_orbax
+    from exoground_tpu_torch.utils.orbax import directory_bytes
 
     cfg = rec["cfg"]
     reqs = make_grounding_requests(3, 16, video_dim=cfg.video_feature_dim,
                                    text_dim=cfg.text_feature_dim)
-    t0 = time.perf_counter()
-    served = GroundingService.from_checkpoint(path, model=cli.build_model(cfg, device="cpu"))
-    load_s = time.perf_counter() - t0
-    _kernels.reset_launches()
-    got = served.ground_batch(reqs)
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+    def serve(ckpt):
+        t0 = time.perf_counter()
+        served = GroundingService.from_checkpoint(ckpt, model=cli.build_model(cfg, device="cpu"))
+        load_s = time.perf_counter() - t0
+        _kernels.reset_launches()
+        got = served.ground_batch(reqs)
+        torch.cuda.synchronize()
+        return got, load_s, {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+    got, load_s, launches = serve(path)
     want = GroundingService(rec["trainer"].model).ground_batch(reqs)
     scale = max(np.abs(w[k]).max() for w in want for k in ("start", "end"))
     err = max(float(np.abs(np.asarray(g[k]) - np.asarray(w[k])).max())
@@ -3516,8 +3630,24 @@ def served_checkpoint_case(card, rec, path):
         fail(f"grounding checkpoint served: {err:.3e} of max|in memory|")
     if launches != {"fused_mha": GND_FWD, "fused_mlp": GND_FWD}:
         fail(f"grounding checkpoint served: launches {launches}")
-    del served
-    return row
+
+    orbax_dir = os.path.join(os.path.dirname(path), "epoch0.orbax")
+    t0 = time.perf_counter()
+    model = cli.build_model(cfg, device="cpu")
+    model.load_state_dict(load_state(path)["state_dict"])
+    save_state_orbax(orbax_dir, {"epoch": 0, "state_dict": jax_grounding_tree(model),
+                                 "best_acc": 0.0})
+    write_s = time.perf_counter() - t0
+    got_o, load_o, launches_o = serve(orbax_dir)
+    equal = all(np.array_equal(np.asarray(g[k]), np.asarray(w[k]))
+                for g, w in zip(got_o, got) for k in ("start", "end"))
+    row_o = dict(card=card, dir_mb=round(directory_bytes(orbax_dir) / 2**20, 1),
+                 write_s=round(write_s, 2), load_s=round(load_o, 2), bit_equal=equal,
+                 launches=launches_o)
+    print("gnd_served_orbax", json.dumps(row_o), flush=True)
+    if not equal or launches_o != launches:
+        fail(f"grounding orbax directory served: {row_o}")
+    return dict(row, orbax=row_o)
 
 
 def grounding_train_path(card):

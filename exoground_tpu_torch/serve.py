@@ -14,8 +14,8 @@ Counterpart of ``exoground_tpu/serve.py`` for these paths:
     embeddings, the response per-narration (start, end) in [0, 1] of the
     window. Requests are bucketed by padded narration count, one forward
     per bucket. ``from_checkpoint`` serves the port's own checkpoint files
-    and the JAX package's (flax msgpack, read without ``msgpack`` or
-    ``flax``).
+    and the JAX package's (flax msgpack files and orbax directories, read
+    without ``msgpack``, ``flax``, orbax or TensorStore).
   * ``_CoalescingFront`` — concurrent ``align()`` / ``ground()`` calls
     coalesce into one batched call (the evaluator packs up to
     ``group_videos`` videos per device pass; a grounding bucket is one
@@ -372,16 +372,17 @@ class GroundingService:
         the JAX default ``ExoGroundingTransformer()``; a caller whose file
         holds a pre-pass passes a model with one. The file's ``state_dict``
         (a port file's as ``EgoExoTrainer.save_epoch`` writes it; a JAX
-        package file's, the JAX ``from_checkpoint``, serve.py:440-446,
+        package file's or orbax directory's, the JAX ``from_checkpoint``,
+        serve.py:440-446,
         through ``grounding_state_dict_from_jax``) must fit the model
         (``load_checked``: a missing, unexpected or misshapen key raises,
         naming it)."""
         from exoground_tpu_torch.models.grounding import GroundingModel
-        from exoground_tpu_torch.train.checkpoint import checkpoint_format, load_state
+        from exoground_tpu_torch.train.checkpoint import checkpoint_format, jax_layout, load_state
         from exoground_tpu_torch.utils.convert import grounding_state_dict_from_jax, load_checked
 
         state = load_state(checkpoint_path)["state_dict"]
-        if checkpoint_format(checkpoint_path) != "torch":
+        if jax_layout(checkpoint_format(checkpoint_path)):
             state = grounding_state_dict_from_jax(state)
         model = model if model is not None else GroundingModel(vi_encoder_type="none",
                                                                device="cpu")

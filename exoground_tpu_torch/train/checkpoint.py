@@ -15,14 +15,23 @@ Lifecycle as utils/utils.py:23-57 of the reference:
   * save_runtime_checkpoint: a timestamped snapshot, keeping only the newest;
   * load modes (the trainer's ``load_checkpoint``): resume, pretrain, test.
 
-``load_state`` also reads the JAX package's checkpoint files (one flax
-msgpack map, ``exoground_tpu/train/checkpoint.py:32-51``) through the
-port's own pure-Python reader (``utils/flax_msgpack.py``): it tells the two
-formats apart by their first bytes (``checkpoint_format``) and returns the
-JAX file's tree as flax would, which ``utils/convert.py::
-tan_checkpoint_from_jax`` bridges to this module's layout. An orbax
-checkpoint directory (the JAX ``load_state_orbax``) raises
-``NotImplementedError``: it waits for ROADMAP.md queue 1 item 11.
+``load_state`` also reads the JAX package's two formats, and
+``checkpoint_format`` tells the three apart:
+
+  * 'torch': a ``torch.save`` zip (the port's own file);
+  * 'flax_msgpack': one flax msgpack map, the JAX ``save_state``
+    (``exoground_tpu/train/checkpoint.py:32-44``), read by the port's own
+    pure-Python reader (``utils/flax_msgpack.py``);
+  * 'orbax': an orbax checkpoint directory, the JAX ``save_state_orbax``
+    (:54-70; its ``load_state`` sends every directory there), read by
+    ``utils/orbax.py`` over the port's OCDBT store (``utils/ocdbt.py``) and
+    the system's zstd (``utils/zstd.py``), none of them orbax or
+    TensorStore. ``save_state_orbax`` writes such a directory.
+
+Either JAX format returns the tree as the JAX package's loader would (a
+``bfloat16`` array as a ``torch.bfloat16`` tensor) in the JAX package's
+layout (``jax_layout``), which ``utils/convert.py::tan_checkpoint_from_jax``
+bridges to this module's.
 """
 
 from __future__ import annotations
@@ -35,9 +44,10 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
-from exoground_tpu_torch.utils import flax_msgpack
+from exoground_tpu_torch.utils import flax_msgpack, orbax
 
 _ZIP = b"PK\x03\x04"  # torch.save's zip container
+ORBAX_FILES = ("_METADATA", "manifest.ocdbt")
 
 
 def _to_cpu(tree):
@@ -55,14 +65,24 @@ def save_state(path: str, state: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+def save_state_orbax(path: str, state: Dict[str, Any]) -> None:
+    """``state`` as an orbax checkpoint directory at ``path``, as the JAX
+    ``save_state_orbax`` writes one (``utils/orbax.py``), replacing what
+    was there."""
+    orbax.save(path, _to_cpu(state))
+
+
 def checkpoint_format(path: str) -> str:
     """'torch' (a ``torch.save`` zip) or 'flax_msgpack' (the JAX package's
-    file: a msgpack map), from the file's first bytes; anything else raises
-    ``ValueError``, an orbax directory ``NotImplementedError``."""
+    file: a msgpack map), from the file's first bytes, or 'orbax' (a
+    directory holding ``_METADATA`` and ``manifest.ocdbt``); anything else
+    raises ``ValueError``, saying what was missing."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint?): reading orbax checkpoints "
-            "waits for a later slice of the port (ROADMAP.md, queue 1 item 11)")
+        missing = [f for f in ORBAX_FILES if not os.path.isfile(os.path.join(path, f))]
+        if missing:
+            raise ValueError(f"{path} is a directory without {' and '.join(missing)}: "
+                             "not an orbax checkpoint")
+        return "orbax"
     with open(path, "rb") as f:
         head = f.read(4)
     if head == _ZIP:
@@ -73,12 +93,21 @@ def checkpoint_format(path: str) -> str:
                      f"(first bytes {head!r})")
 
 
+def jax_layout(fmt: str) -> bool:
+    """Whether a checkpoint of format ``fmt`` holds the JAX package's
+    layout (its trainer writes both of its formats from one tree)."""
+    return fmt in ("flax_msgpack", "orbax")
+
+
 def load_state(path: str) -> Dict[str, Any]:
     """The checkpoint at ``path``: a port file as ``torch.load`` reads it
-    (tensors on the CPU), a JAX package file as ``flax.serialization.
-    msgpack_restore`` would return it (``flax_msgpack``)."""
-    if checkpoint_format(path) == "torch":
+    (tensors on the CPU), a JAX package file or directory as its
+    ``load_state`` would return it (``flax_msgpack``, ``orbax``)."""
+    fmt = checkpoint_format(path)
+    if fmt == "torch":
         return torch.load(path, map_location="cpu", weights_only=True)
+    if fmt == "orbax":
+        return orbax.load(path)
     return flax_msgpack.load(path)
 
 

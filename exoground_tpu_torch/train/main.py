@@ -25,9 +25,9 @@ Counterpart of ``exoground_tpu/train/main.py`` (``main`` :179, ``build_model``
     came out grey (``clips {...}``).
 
 Both checkpoint every epoch; ``--resume``, ``--pretrain`` and ``--test``
-load them back, or load the JAX package's checkpoint files (flax msgpack,
-told apart by their first bytes: no flag), so a run trained with the JAX
-package continues here. The optimizer is the JAX command line's: fused
+load them back, or load the JAX package's checkpoints (flax msgpack files,
+told apart by their first bytes, and orbax directories: no flag), so a
+run trained with the JAX package continues here. The optimizer is the JAX command line's: fused
 AdamW, or the optax chain under ``--no-fused_optimizer`` or
 ``--backprop_freq k``; ``--fused_steps N`` replays N steps as one CUDA graph
 and ``--amp`` computes in bfloat16 with float32 masters.
@@ -377,7 +377,8 @@ def load_frozen_vi_encoder(trainer, cfg) -> bool:
     checkpoint at ``--vi_encoder_path`` (the port's or the JAX package's),
     non-strict, as the JAX ``load_frozen_vi_encoder`` (main.py:156-176);
     nothing when the path is unset or missing. Returns whether it loaded."""
-    from exoground_tpu_torch.train.checkpoint import checkpoint_format, load_state, restore_into
+    from exoground_tpu_torch.train.checkpoint import (checkpoint_format, jax_layout, load_state,
+                                                      restore_into)
     from exoground_tpu_torch.utils.convert import grounding_state_dict_from_jax
 
     path = cfg.vi_encoder_path
@@ -389,7 +390,7 @@ def load_frozen_vi_encoder(trainer, cfg) -> bool:
         return False
     blob = load_state(path)
     state = blob["state_dict"]
-    if checkpoint_format(path) == "flax_msgpack":
+    if jax_layout(checkpoint_format(path)):
         state = grounding_state_dict_from_jax(state)
     restore_into(branch, state)  # in place: the branch shares the model's storage
     print(f"[main] loaded frozen VI encoder from {path}", flush=True)

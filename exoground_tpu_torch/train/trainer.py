@@ -14,8 +14,8 @@ chooses (trainer.py:56-71).
 ``BaseTrainer`` holds what the JAX one does: checkpoints
 (``save_epoch``, ``maybe_save_runtime`` on an iteration threshold,
 ``load_checkpoint`` in resume / pretrain / test mode, from the port's
-files or the JAX package's msgpack files), batches copied to
-the card one ahead of the step through pinned buffers (``_prefetched``,
+files or the JAX package's msgpack files and orbax directories), batches
+copied to the card one ahead of the step through pinned buffers (``_prefetched``,
 depth 2 as in the JAX package; ``_prefetched_groups`` stacks
 ``fused_steps`` of them into one upload), and the shared
 epoch loop (meters, the finite-loss guard, every-5 logging, runtime
@@ -82,6 +82,7 @@ from exoground_tpu_torch.parallel.train_step import (
 )
 from exoground_tpu_torch.train.checkpoint import (
     checkpoint_format,
+    jax_layout,
     load_state,
     restore_into,
     save_checkpoint,
@@ -228,14 +229,14 @@ class BaseTrainer:
         """resume: parameters, EMA twin, optimizer state, iteration, epoch
         and best; pretrain / test: parameters (and the twin) only, non-strict
         (reference main.py:452-484). ``path`` is the port's checkpoint or the
-        JAX package's msgpack one (``checkpoint_format``), bridged by
-        ``from_jax``; the optimizer state of either layout is
+        JAX package's msgpack file or orbax directory (``checkpoint_format``,
+        ``jax_layout``), bridged by ``from_jax``; the optimizer state of either layout is
         adapted to this trainer's optimizer (``adapt_optimizer_state``).
         Every rank reads the file; rank 0's state is then broadcast."""
         if mode not in ("resume", "pretrain", "test"):
             raise ValueError(f"checkpoint mode {mode!r}: resume, pretrain or test")
         blob = load_state(path)
-        if checkpoint_format(path) == "flax_msgpack":
+        if jax_layout(checkpoint_format(path)):
             blob = self.from_jax(blob)
         restore_into(self.params, blob["state_dict"])
         if mode == "resume":

@@ -7,10 +7,14 @@ from files the JAX package wrote here. Each is a JAX ``TANTrainer``'s
 layers, width 32, 24-d video and text) from ``SEED``: one with the fused
 optimizer's state, one with the optax chain's ``MultiStepsState`` at
 ``--backprop_freq 2`` (saved at mini step 1, its accumulator holding the
-third mini-batch). Adam's eps is 1e-3 (for the reason
+third mini-batch). Each is written twice from the same state: as the
+JAX ``save_state`` writes it (``jax_tan_<layout>.pth.tar``, flax msgpack)
+and with the JAX ``save_state_orbax`` (``jax_tan_<layout>.orbax/``, an
+orbax checkpoint directory). Adam's eps is 1e-3 (for the reason
 tests/test_torch_train.py gives), so a resumed step compares at the train
 step's tolerances. tests/test_torch_checkpoint.py rebuilds them and holds
-the committed files to the rebuilt ones.
+the committed files to the rebuilt ones (the orbax twins by the trees
+read: their file names are random).
 
 Write the committed files again with
 ``JAX_PLATFORMS=cpu python tests/jax_tan_fixtures.py``.
@@ -40,6 +44,10 @@ ITERS_PER_EPOCH = 4
 
 def fixture_path(layout: str) -> str:
     return os.path.join(FIXTURE_DIR, f"jax_tan_{layout}.pth.tar")
+
+
+def orbax_fixture_path(layout: str) -> str:
+    return os.path.join(FIXTURE_DIR, f"jax_tan_{layout}.orbax")
 
 
 def batch(seed: int, b: int = 4, t: int = 16, n: int = 5) -> dict:
@@ -75,15 +83,21 @@ def jax_trainer(layout: str, model_path: str):
     return tr
 
 
-def write(layout: str, path: str):
+def write(layout: str, path: str, orbax_path: str = None):
     """Train 3 steps of ``layout`` from ``SEED`` and save epoch 0 to
-    ``path``; returns the JAX trainer, ready to take the next step."""
+    ``path`` (and, given ``orbax_path``, the same state there with the JAX
+    ``save_state_orbax``); returns the JAX trainer, ready to take the next
+    step."""
+    from exoground_tpu.train.checkpoint import save_state_orbax
+
     tmp = tempfile.mkdtemp()
     try:
         tr = jax_trainer(layout, tmp)
         tr.train_epoch([batch(SEED + 1 + i) for i in range(3)], 0)
         tr.save_epoch(0)
         shutil.move(os.path.join(tmp, "epoch0.pth.tar"), path)
+        if orbax_path is not None:
+            save_state_orbax(orbax_path, tr._ckpt_state(0))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return tr
@@ -96,5 +110,8 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(FIXTURE_DIR, exist_ok=True)
     for name in LAYOUTS:
-        write(name, fixture_path(name))
+        write(name, fixture_path(name), orbax_fixture_path(name))
         print(fixture_path(name), os.path.getsize(fixture_path(name)))
+        print(orbax_fixture_path(name), sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(orbax_fixture_path(name)) for f in fs))

@@ -39,6 +39,7 @@ from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.ops.activations import quick_gelu
 from exoground_tpu_torch.serve import AlignmentService, AlignRequest
 from exoground_tpu_torch.utils.convert import encoder_state_dict_from_jax, load_tan_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 C, H = 128, 4
 ATOL, RTOL = 5e-5, 1e-4  # float32, as tests/test_ops.py:402-405

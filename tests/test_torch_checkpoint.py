@@ -9,10 +9,12 @@
   ``MAX_CHUNK_SIZE`` patched small). Arrays equal, bfloat16 ones as
   ``torch.bfloat16`` tensors.
 * ``load_state`` / ``checkpoint_format``: the two formats told apart by
-  their first bytes; anything else raises ``ValueError``, a directory
-  ``NotImplementedError``.
+  their first bytes; anything else raises ``ValueError``, a directory that
+  is not an orbax checkpoint too, naming the ``_METADATA`` it lacks (orbax
+  directories: tests/test_torch_orbax.py).
 * Resume from a JAX ``TANTrainer``'s file of each optimizer layout (fused,
-  ``MultiStepsState`` at k = 2): the restored tensors equal the file's, and
+  ``MultiStepsState`` at k = 2), and from its orbax directory of the same
+  state: the restored tensors equal the msgpack file's, and
   the port's next step equals the JAX trainer's next step from the same
   file at tests/test_torch_train.py's train-step tolerances (loss 1e-4
   relative, first moments 1e-4 of their largest entry, parameters and EMA
@@ -21,7 +23,8 @@
   the arrays of the files rebuilt here from their seed
   (tests/jax_tan_fixtures.py): structure and integers equal, floats within
   1e-6 of each tensor's largest entry (XLA's CPU code may round
-  differently on another host).
+  differently on another host); the committed orbax twins, read by the
+  port, to the rebuilt directories as the JAX package reads them.
 * ``GroundingService.from_checkpoint`` on a JAX file against the JAX
   service on the same file (1e-5 of the largest interval end), and the
   default model's tensors against the JAX default ``ExoGroundingTransformer``.
@@ -59,6 +62,7 @@ from exoground_tpu_torch.utils.convert import (
 from tests import jax_tan_fixtures as F
 from tests.test_torch_grounding import SVC
 from tests.test_torch_small import jax_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 
 @contextlib.contextmanager
@@ -176,24 +180,25 @@ def test_format_detection_and_malformed_files(tmp_path):
     truncated.write_bytes(truncated.read_bytes()[:-10])
     with pytest.raises(ValueError, match="truncated"):
         ckpt.load_state(str(truncated))
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="without _METADATA"):
         ckpt.load_state(str(tmp_path))
 
 
 # ------------------------------------------------------- resume from JAX files
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
-    """Each layout's JAX trainer, its file (3 steps from the seed) and the
-    JAX trainer's next step from that file."""
+    """Each layout's JAX trainer, its file and orbax directory (3 steps from
+    the seed) and the JAX trainer's next step from that file."""
     d = tmp_path_factory.mktemp("jax_tan")
     out = {}
     for layout in F.LAYOUTS:
         path = str(d / f"{layout}.pth.tar")
-        tr = F.write(layout, path)
+        tr = F.write(layout, path, str(d / f"{layout}.orbax"))
         tr.load_checkpoint(path, mode="resume")
         loss = tr.train_epoch([F.batch(F.SEED + 10)], 1)
         state = serialization.to_state_dict(jax.device_get(tr.opt_state))
-        out[layout] = dict(path=path, loss=loss, params=jax.device_get(tr.params),
+        out[layout] = dict(path=path, orbax=str(d / f"{layout}.orbax"), loss=loss,
+                           params=jax.device_get(tr.params),
                            target=jax.device_get(tr.target_params), opt=state)
     return out
 
@@ -209,10 +214,21 @@ def _port_trainer(layout):
 
 @pytest.mark.parametrize("layout", sorted(F.LAYOUTS))
 def test_resume_from_a_jax_file_continues_the_jax_step(jax_runs, layout):
-    run = jax_runs[layout]
+    _resume_and_step(jax_runs[layout], layout, jax_runs[layout]["path"])
+
+
+@pytest.mark.parametrize("layout", sorted(F.LAYOUTS))
+def test_resume_from_a_jax_orbax_directory_continues_the_jax_step(jax_runs, layout):
+    """The same state as the JAX ``save_state_orbax`` wrote it (the JAX
+    package reads either to the same arrays): restored as the msgpack file's,
+    then the JAX trainer's next step."""
+    _resume_and_step(jax_runs[layout], layout, jax_runs[layout]["orbax"])
+
+
+def _resume_and_step(run, layout, path):
     blob = tan_checkpoint_from_jax(ckpt.load_state(run["path"]))
     tr = _port_trainer(layout)
-    tr.load_checkpoint(run["path"], mode="resume")
+    tr.load_checkpoint(path, mode="resume")
     assert (tr.iteration, tr.start_epoch) == (3, 1)
     state = optimizer_state_dict(tr.opt_state)
     assert state["count"] == blob["optimizer"]["count"] == (3 if layout == "fused" else 1)
@@ -250,26 +266,42 @@ def test_resume_from_a_jax_file_continues_the_jax_step(jax_runs, layout):
                                        err_msg=f"{name} {k}")
 
 
+def _rebuilt_same(got, want, path=""):
+    """A committed fixture's tree against a rebuilt one's: structure and
+    integers equal, floats within 1e-6 of each tensor's largest entry."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _rebuilt_same(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, np.ndarray) and want.dtype.kind == "f":
+        assert got.dtype == want.dtype and got.shape == want.shape, path
+        scale = max(float(np.abs(want).max()), 1e-30) if want.size else 1.0
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale, err_msg=path)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=path)
+
+
 @pytest.mark.parametrize("layout", sorted(F.LAYOUTS))
 def test_committed_fixtures_decode_to_the_rebuilt_files(jax_runs, layout):
     committed = ckpt.load_state(F.fixture_path(layout))
     with open(jax_runs[layout]["path"], "rb") as f:
         rebuilt = serialization.msgpack_restore(f.read())
-
-    def same(got, want, path=""):
-        if isinstance(want, dict):
-            assert set(got) == set(want), path
-            for k in want:
-                same(got[k], want[k], f"{path}/{k}")
-        elif isinstance(want, np.ndarray) and want.dtype.kind == "f":
-            assert got.dtype == want.dtype and got.shape == want.shape, path
-            scale = max(float(np.abs(want).max()), 1e-30) if want.size else 1.0
-            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale, err_msg=path)
-        else:
-            np.testing.assert_array_equal(got, want, err_msg=path)
-
-    same(committed, rebuilt)
+    _rebuilt_same(committed, rebuilt)
     assert os.path.getsize(F.fixture_path(layout)) < 2**20
+
+
+@pytest.mark.parametrize("layout", sorted(F.LAYOUTS))
+def test_committed_orbax_fixtures_read_as_the_rebuilt_directories(jax_runs, layout):
+    """The orbax twins (their file names are random hashes, so the trees
+    read are compared, not the bytes)."""
+    from exoground_tpu.train.checkpoint import load_state_orbax
+    from exoground_tpu_torch.utils.orbax import directory_bytes
+
+    path = F.orbax_fixture_path(layout)
+    assert ckpt.checkpoint_format(path) == "orbax"
+    _rebuilt_same(ckpt.load_state(path), load_state_orbax(jax_runs[layout]["orbax"]))
+    _rebuilt_same(ckpt.load_state(path), ckpt.load_state(F.fixture_path(layout)))
+    assert directory_bytes(path) < 2**20
 
 
 def test_chip_smoke_resumes_the_fixtures_as_they_were_written():

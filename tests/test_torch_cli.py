@@ -63,6 +63,7 @@ from exoground_tpu_torch.utils.convert import (
     tan_state_dict_from_jax,
 )
 from tests.torch_cli_common import in_tmp  # noqa: F401  (a fixture)
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(num_encoder_layers=2, num_joint_layers=2, width=128, heads=4, max_pos=256,
              use_alignability_head=1, random_pos_start=0)

@@ -26,6 +26,7 @@ from exoground_tpu.train import main as jax_main
 from exoground_tpu.train.config import parse_args as jax_parse_args
 from exoground_tpu_torch.train import main as main_mod
 from tests.torch_cli_common import in_tmp  # noqa: F401  (a fixture)
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 # ------------------------------------------- EgoExo4D / LEMMA grounding
 # the repo's scripts' flags (scripts/train_*.sh, scripts/test_*.sh), then the

@@ -39,6 +39,7 @@ from exoground_tpu_torch.train import ExperimentConfig, FusedAdamWEMA, TANTraine
 from exoground_tpu_torch.utils.convert import load_tan_params, tan_state_dict_from_jax
 from tests.test_torch_mha_family import _product
 from tests.test_torch_train import LOSS, SMALL, _batch, _numpy_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 
 def _rand(*shape, seed=0):

@@ -45,6 +45,7 @@ from exoground_tpu_torch.parallel.train_step import ScanStep, TanTrainStep
 from exoground_tpu_torch.train import ExperimentConfig, FusedAdamWEMA, TANTrainer
 from exoground_tpu_torch.utils.convert import load_tan_params, tan_state_dict_from_jax
 from tests.test_torch_train import LOSS, SMALL, _batch, _numpy_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 OPT = dict(lr=1e-3, weight_decay=1e-2, total_iterations=20, warmup_iterations=2)
 

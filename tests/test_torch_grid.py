@@ -37,6 +37,7 @@ from exoground_tpu_torch.ops import _kernels
 from exoground_tpu_torch.ops import milnce_grid as tgrid
 from exoground_tpu_torch.ops.milnce_grid import NEG_FILL, grid_lse2_plain
 from tests.test_torch_mlp_family import _tf32
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}

@@ -47,6 +47,7 @@ from exoground_tpu_torch.utils.convert import (
 )
 from tests import golden_common as G
 from tests.test_torch_small import jax_params as _params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 C, H = 128, 4
 CLOSE = dict(atol=2e-5, rtol=1e-4)

@@ -62,6 +62,7 @@ from exoground_tpu_torch.utils.convert import (
 )
 from tests import golden_common as G
 from tests.test_torch_small import jax_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 C, W, B, T, N, V = 32, 64, 4, 16, 6, 3
 TRUNK = dict(num_encoder_layers=1, num_decoder_layers=1, video_embed_dim=C, text_embed_dim=C,

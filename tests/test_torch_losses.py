@@ -30,6 +30,7 @@ from exoground_tpu_torch.ops.milnce_grid import (
     kernel_eligible,
 )
 from tests import golden_common as G
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 
 def _t(a):

@@ -24,6 +24,7 @@ from exoground_tpu_torch.ops import _kernels, quant
 from exoground_tpu_torch.ops import attention as tattn
 from exoground_tpu_torch.ops.fused_mlp import LN_EPS, layernorm_f32
 from tests.test_torch_mlp_family import _tf32
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 BODIES = ("mha_int8", "block", "block_int8")
 # max error / max|reference|: float32 summation order (the int8 block body: a

@@ -24,6 +24,7 @@ from exoground_tpu.ops import fused_mlp as jmlp
 from exoground_tpu_torch.ops import _kernels, quant
 from exoground_tpu_torch.ops import fused_mlp as tmlp
 from exoground_tpu_torch.ops.activations import quick_gelu
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 BODIES = ("mlp_int8", "block", "block_int8")
 # max error / max|reference|: float32 summation order (the int8 block body:

@@ -15,6 +15,7 @@ import torch
 from exoground_tpu.models import TemporalAligner as JaxAligner
 from exoground_tpu_torch.models import TemporalAligner
 from exoground_tpu_torch.utils.convert import load_tan_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 SMALL = dict(num_encoder_layers=2, num_joint_layers=2, width=128, heads=4,
              input_dim=48, max_pos=256, use_alignability_head=1)

@@ -56,6 +56,7 @@ from exoground_tpu_torch.train import (
 )
 from exoground_tpu_torch.utils.convert import find_adam, load_tan_params, tan_state_dict_from_jax
 from tests.test_torch_train import LOSS, SMALL, _batch, _flat, _numpy_params, _tree, _unflat
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 OPT = dict(lr=1e-3, weight_decay=1e-2, total_iterations=50, warmup_iterations=2)
 # the step and trainer cases' aligner: tests/test_torch_train.py's SMALL at 1 + 1

@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port and its serving front.
 
 * The port (exoground_tpu_torch/ and chip_smoke.py) imports neither JAX,
-  Flax, optax, msgpack nor anything of the JAX package.
+  Flax, optax, msgpack, orbax, TensorStore, zstandard nor anything of the
+  JAX package.
 * Entry points default to the card and raise when CUDA is missing.
 * The coalescing front serves every request once, in fewer batches under
   concurrency, surfaces errors to every waiter and zips results strictly.
@@ -22,7 +23,8 @@ from exoground_tpu_torch.models import TemporalAligner
 from exoground_tpu_torch.serve import AlignmentService, _CoalescingFront
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "exoground_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "exoground_tpu", "orbax",
+             "tensorstore", "zstandard")
 
 
 def _port_files():

@@ -41,6 +41,7 @@ from exoground_tpu_torch.ops import fused_mlp as tmlp
 from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.serve import AlignmentService, AlignRequest
 from exoground_tpu_torch.utils.convert import load_tan_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 
 def _n(rng, *shape, scale=1.0):

@@ -33,6 +33,7 @@ from exoground_tpu_torch.models import TemporalAligner
 from exoground_tpu_torch.ops import quant
 from exoground_tpu_torch.serve import AlignmentService, AlignRequest
 from exoground_tpu_torch.utils.convert import load_tan_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 DIM = 32
 ARCH = dict(num_encoder_layers=1, num_joint_layers=1, width=128, heads=4,

@@ -46,6 +46,7 @@ from tests import golden_common as G
 from tests import world_yc2 as WY
 from tests.test_torch_small import jax_params
 from tests.torch_text_common import TEXT_DIM, VOCAB, sentences, tower_state
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 VDIM, TDIM, SEQ = 24, TEXT_DIM, 16
 ARCH = dict(num_encoder_layers=1, num_joint_layers=1, width=64, heads=4, max_pos=64,

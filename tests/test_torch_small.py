@@ -28,6 +28,7 @@ from exoground_tpu_torch.models import TemporalAligner
 from exoground_tpu_torch.ops import attention as tattn
 from exoground_tpu_torch.utils.convert import load_tan_params
 from tests.test_torch_flash import _mha_params
+from tests.torch_s3d_common import few_threads  # noqa: F401 (an autouse fixture)
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
