@@ -47,7 +47,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      block-attention cases also beside the exact fused_mha of the same call;
      then one `bar ✓/✗` line for each time bar of the attention kernels
      (attention_bars: the float32 fused MHA against F.multi_head_attention_forward
-     and the float32 flash forward against SDPA among them; printed, not
+     and the float32 flash forward and its dq + dk/dv pair against SDPA's
+     forward and backward among them; printed, not
      failed on; judged on back-to-back launches, single calls beside);
   4. main path: AlignmentService over TemporalAligner E6D6 (width 512, 8 heads,
      4096-d inputs, seeded random weights through the JAX->port weight bridge)
@@ -166,10 +167,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      tails, a batch row with no valid key and head sizes 16, 32, 40, 96 and
      128, in
      float32 (<= 1e-4 of max|plain|) and bfloat16 (<= 1e-2); at the four
-     long shapes each kernel's time beside the plain version's,
-     attention_plain's (the 'xla' route), F.scaled_dot_product_attention's
-     (a yardstick the port never calls) and the bound (float32: both
-     routes), and the forward and SDPA back to back;
+     long shapes and at the train steps' (B16 H8 S64, S76 and S128) each
+     kernel's time beside the plain version's, attention_plain's (the 'xla'
+     route), F.scaled_dot_product_attention's (a yardstick the port never
+     calls) and the bound (float32: both routes), and back to back the
+     forward beside SDPA's and the backward pair (dq then dk/dv, every body
+     on the tensor cores) beside SDPA's backward (one call gives all three
+     grads), judged at the four long shapes by attention_bars;
   6. global mode: test_alignment_htm(method='global') over three long videos
      (evals/bench_items.py::GLOBAL_VLENS) at E6D6 full width, auto dispatch,
      counted (12 flash forward and 12 fused MLP launches per video, no fused
@@ -926,9 +930,13 @@ def attention_bars(mha_cases, flash_cases, mha8_cases, block_cases):
             line(f"fused_mha float32 {c['shape']} <= F.multi_head_attention_forward",
                  *versus(c, "library_ms", 1.0))
     for c in timed(flash_cases, "fwd_ms_b2b"):
-        if c["dtype"] == "float32":
+        if c["dtype"] == "float32" and c["bar"]:
             line(f"flash_fwd float32 {c['shape']} <= SDPA",
                  *versus(c, "fwd_library_ms", 1.0, own="fwd_ms"))
+    for c in timed(flash_cases, "pair_ms_b2b"):
+        if c["dtype"] == "float32" and c["bar"]:
+            line(f"flash f32 dq + dk/dv {c['shape']} <= SDPA backward",
+                 *versus(c, "pair_library_ms", 1.0, own="pair_ms"))
     for name, cases in (("block_attn", block_cases["block_attn"]),
                         ("block_attn_int8", block_cases["block_attn_int8"])):
         for c in timed(cases):
@@ -1168,11 +1176,14 @@ def grid_bars(grid_cases):
 
 
 # ---------------------------------------------------------------- phase 3c
-def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=False):
+def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=False,
+               bar=False):
     """The flash kernels (forward, dq, dk/dv) against autograd of
     flash_attention_plain on the same inputs; with ``timed``, each beside the
     plain version, attention_plain (the 'xla' route), the library call and
-    the bound."""
+    the bound, and the forward and the backward pair (dq then dk/dv) back to
+    back beside SDPA's forward and backward; ``bar``: attention_bars judges
+    this case."""
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.ops.attention import (
         attention_plain, flash_attention_plain, flash_dkv, flash_dq, flash_forward)
@@ -1242,6 +1253,12 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
             lib_fwd_b2b = b2b_ms(lambda: sdpa(q4, k4, v4, attn_mask=attend, scale=1.0))
         dq_ms = time_ms(lambda: flash_dq(q, k, v, kpad, do, lse, delta))
         dkv_ms = time_ms(lambda: flash_dkv(q, k, v, kpad, do, lse, delta))
+
+        def bwd():
+            flash_dq(q, k, v, kpad, do, lse, delta)
+            flash_dkv(q, k, v, kpad, do, lse, delta)
+
+        bwd_ms, bwd_b2b = time_ms(bwd), b2b_ms(bwd)
         do4 = do.view(B, H, Sq, D)
         qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
         po, _ = flash_attention_plain(qq, kk, vv, kpad)
@@ -1254,18 +1271,57 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
         lo = sdpa(q4g, k4g, v4g, attn_mask=attend, scale=1.0)
         lib_dq = time_ms(lambda: torch.autograd.grad(lo, [q4g], do4, retain_graph=True))
         lib_dkv = time_ms(lambda: torch.autograd.grad(lo, [k4g, v4g], do4, retain_graph=True))
+
+        def lib_bwd():
+            torch.autograd.grad(lo, [q4g, k4g, v4g], do4, retain_graph=True)
+
+        lib_bwd_ms, lib_bwd_b2b = time_ms(lib_bwd), b2b_ms(lib_bwd)
         del po, xo, lo
         case.update(
             fwd_ms=fwd_ms, fwd_plain_ms=plain_fwd, fwd_library_ms=lib_fwd,
             fwd_ms_b2b=fwd_b2b, fwd_library_ms_b2b=lib_fwd_b2b, fwd_attention_plain_ms=xla_fwd,
             dq_ms=dq_ms, dq_plain_ms=plain_dq, dq_library_ms=lib_dq, dkv_ms=dkv_ms,
             dkv_plain_ms=plain_dkv, dkv_library_ms=lib_dkv, bwd_attention_plain_ms=xla_bwd,
+            pair_ms=bwd_ms, pair_ms_b2b=bwd_b2b, pair_library_ms=lib_bwd_ms,
+            pair_library_ms_b2b=lib_bwd_b2b,
+            pair_bound_ms=bounds["dq_bound_ms"] + bounds["dkv_bound_ms"], bar=bar,
             **bounds)
         torch.cuda.empty_cache()
     print("flash", json.dumps(case), flush=True)
     if not rel <= TOL[dtype] or not empty_exact or not lse_err <= 1e-3:
         fail(f"the flash kernels disagree with flash_attention_plain: {case}")
     return case
+
+
+def flash_kernel_cases():
+    """Phase 3c's cases, float32 then bfloat16: the global path's long shapes
+    (timed, judged by attention_bars), the train steps' (timed), ragged tails,
+    an empty batch row and head sizes 16, 32, 40, 96 and 128."""
+    flash_cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_cases.append(flash_case(1, 8, 2048, 2048, 64, dtype, seed=30, timed=True,
+                                      bar=True))
+        flash_cases.append(flash_case(1, 8, 2096, 2096, 64, dtype, seed=31, pad_tail=48,
+                                      timed=True, bar=True))
+        flash_cases.append(flash_case(1, 8, 4096, 4096, 64, dtype, seed=32, timed=True,
+                                      bar=True))
+        flash_cases.append(flash_case(1, 8, 1024, 1024, 64, dtype, seed=33, timed=True,
+                                      bar=True))
+        # the train steps' shapes: TAN dual and joint (T64, N12), grounding's
+        # joint self-attention (S128; its 64 x 64 cross-attention is B16 S64)
+        flash_cases.append(flash_case(16, 8, 64, 64, 64, dtype, seed=34, timed=True))
+        flash_cases.append(flash_case(16, 8, 76, 76, 64, dtype, seed=35, timed=True))
+        flash_cases.append(flash_case(16, 8, 128, 128, 64, dtype, seed=43, timed=True))
+        flash_cases.append(flash_case(1, 8, 96, 200, 64, dtype, seed=36, pad_tail=60))
+        flash_cases.append(flash_case(2, 2, 130, 257, 32, dtype, seed=37, empty_row=True))
+        flash_cases.append(flash_case(2, 4, 300, 300, 128, dtype, seed=38, pad_tail=20))
+        flash_cases.append(flash_case(2, 3, 50, 70, 40, dtype, seed=39, empty_row=True))
+        flash_cases.append(flash_case(2, 2, 70, 90, 16, dtype, seed=41, pad_tail=9))
+        flash_cases.append(flash_case(1, 2, 100, 130, 96, dtype, seed=42, empty_row=True))
+        # D 96 again with a batch row that has valid keys (above, the one row is empty)
+        flash_cases.append(flash_case(2, 2, 100, 130, 96, dtype, seed=44, pad_tail=10,
+                                      empty_row=True))
+    return flash_cases
 
 
 # ----------------------------------------------------------------- phase 4
@@ -5473,21 +5529,7 @@ def main():
 
     mark("3c")
     # phase 3c: the flash kernels against their plain version
-    flash_cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        flash_cases.append(flash_case(1, 8, 2048, 2048, 64, dtype, seed=30, timed=True))
-        flash_cases.append(flash_case(1, 8, 2096, 2096, 64, dtype, seed=31, pad_tail=48,
-                                      timed=True))
-        flash_cases.append(flash_case(1, 8, 4096, 4096, 64, dtype, seed=32, timed=True))
-        flash_cases.append(flash_case(1, 8, 1024, 1024, 64, dtype, seed=33, timed=True))
-        flash_cases.append(flash_case(16, 8, 64, 64, 64, dtype, seed=34))
-        flash_cases.append(flash_case(16, 8, 76, 76, 64, dtype, seed=35))
-        flash_cases.append(flash_case(1, 8, 96, 200, 64, dtype, seed=36, pad_tail=60))
-        flash_cases.append(flash_case(2, 2, 130, 257, 32, dtype, seed=37, empty_row=True))
-        flash_cases.append(flash_case(2, 4, 300, 300, 128, dtype, seed=38, pad_tail=20))
-        flash_cases.append(flash_case(2, 3, 50, 70, 40, dtype, seed=39, empty_row=True))
-        flash_cases.append(flash_case(2, 2, 70, 90, 16, dtype, seed=41, pad_tail=9))
-        flash_cases.append(flash_case(1, 2, 100, 130, 96, dtype, seed=42, empty_row=True))
+    flash_cases = flash_kernel_cases()
 
     mark("3d")
     # phase 3d: the int8 kernels against their plain versions

@@ -18,11 +18,10 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
     autograd Function ``FlashAttention``), on a CPU tensor
     ``flash_attention_plain``. A row with no valid key gives 0 here, not
     the uniform average of ``attention_plain``.
-  Both kernels run their products on the tensor cores, bfloat16 as
-  ``mma.sync`` bf16 and float32 in 3xTF32 (float32 accuracy), apart from
-  flash's float32 dq and dk/dv, which stay on the CUDA cores; the tensor-core
-  bodies stage their operands by 16-byte ``cp.async`` and the wrappers raise
-  on a misaligned one (``_kernels.check_aligned``).
+  Both kernels run every product on the tensor cores, bfloat16 as
+  ``mma.sync`` bf16 and float32 in 3xTF32 (float32 accuracy); their bodies
+  stage their operands by 16-byte ``cp.async`` and the wrappers raise on a
+  misaligned one (``_kernels.check_aligned``).
   * ``small_attention`` — the window-attention core of an explicit
     'small' (counterpart of ``small_attention``/``_small``): on a CUDA
     tensor the kernel of ``csrc/small_attn.cu``, on a CPU tensor
@@ -157,10 +156,9 @@ def flash_attention_plain(q, k, v, kpad):
     return o.to(q.dtype), lse[..., 0]
 
 
-def _flash_check(name, q, k, v, kpad, staged):
-    """The flash wrappers' checks; ``staged``: the kernel stages q, k and v
-    by 16-byte cp.async (the forward in both types, the backward in bf16),
-    so each must be 16-byte aligned."""
+def _flash_check(name, q, k, v, kpad):
+    """The flash wrappers' checks. Every body stages q, k and v by 16-byte
+    cp.async, so each must be 16-byte aligned."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"{name}: q, k, v must be (BH, S, D)")
     bh, sq, d = q.shape
@@ -180,8 +178,7 @@ def _flash_check(name, q, k, v, kpad, staged):
         raise ValueError(f"{name}: the kernels take CUDA tensors, got {q.device}")
     _kernels.check_cuda_inputs(name, q.device, q.dtype, q=q, k=k, v=v)
     _kernels.check_cuda_inputs(name, q.device, torch.int32, kpad=kpad)
-    if staged:
-        _kernels.check_aligned(name, q=q, k=k, v=v)
+    _kernels.check_aligned(name, q=q, k=k, v=v)
     return bh, bh // kpad.shape[0], sq, sk, d
 
 
@@ -189,7 +186,7 @@ def flash_forward(q, k, v, kpad):
     """Launch the forward kernel: (o, lse) as ``flash_attention_plain``,
     from contiguous CUDA tensors (kpad int32)."""
     name = "flash_fwd"
-    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad, staged=True)
+    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad)
     o = torch.empty_like(q)
     lse = q.new_empty((bh, sq), dtype=torch.float32)
     rc = _kernels.library("flash_attn").flash_attn_forward(
@@ -201,12 +198,10 @@ def flash_forward(q, k, v, kpad):
 
 
 def _flash_bwd_check(name, q, k, v, kpad, do, lse, delta):
-    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad,
-                                    staged=q.dtype == torch.bfloat16)
+    bh, h, sq, sk, d = _flash_check(name, q, k, v, kpad)
     _kernels.check_cuda_inputs(name, q.device, q.dtype, do=do)
     _kernels.check_cuda_inputs(name, q.device, torch.float32, lse=lse, delta=delta)
-    if q.dtype == torch.bfloat16:
-        _kernels.check_aligned(name, do=do)
+    _kernels.check_aligned(name, do=do)
     if do.shape != q.shape or lse.shape != (bh, sq) or delta.shape != (bh, sq):
         raise ValueError(f"{name}: do {tuple(do.shape)}, lse {tuple(lse.shape)} or delta "
                          f"{tuple(delta.shape)} does not fit q {tuple(q.shape)}")
@@ -258,6 +253,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, kpad, o, lse = ctx.saved_tensors
         do = do.contiguous()
+        if do.data_ptr() % 16:
+            # the kernels stage do by 16-byte copies; a contiguous view at an
+            # odd offset (a slice of a larger grad) gets a fresh copy
+            do = do.clone()
         # a plain float32 reduction, as the JAX package computes it outside
         # Pallas (attention.py:322)
         delta = (do.float() * o.float()).sum(dim=-1)

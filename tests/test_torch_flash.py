@@ -13,6 +13,8 @@ flash against XLA); lse atol 1e-5 / rtol 1e-6; the global-mode sims within
 of tests/test_torch_train.py.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -280,6 +282,119 @@ def test_float32_forward_tiles_keep_the_empty_row_rule():
     assert (o - po).abs().max() <= 1e-4 * po.abs().max()
 
 
+# ------------------------------------------- the float32 backward, 3xTF32
+def _dq_tiles_tf32(q, k, v, kpad, do, lse, delta, tile=64, terms=3):
+    """flash_dq_tf32_kernel's order of work on float32 (BH, S, D) tensors
+    (q pre-scaled): key tiles of 64 walked in order, s = q . k^T and dp =
+    do . v^T in 3xTF32, p = exp(s - lse) at valid keys (0 elsewhere; an
+    empty row's lse = +1e30 makes every p 0), ds = p (dp - delta) in
+    float32, dq += ds . k in 3xTF32 with ds unrounded. ``terms=1``: plain
+    TF32 products."""
+    bh = q.shape[0]
+    b, sk = kpad.shape
+    valid = (kpad == 0).repeat_interleave(bh // b, dim=0)[:, None, :]
+    dq = torch.zeros_like(q)
+    for k0 in range(0, sk, tile):
+        sl = slice(k0, k0 + tile)
+        s = _product(q, k[:, sl], terms)
+        dp = _product(do, v[:, sl], terms)
+        p = torch.where(valid[..., sl], torch.exp(s - lse[..., None]), torch.zeros(()))
+        ds = p * (dp - delta[..., None])
+        dq = dq + _product(ds, k[:, sl].transpose(1, 2), terms)
+    return dq
+
+
+def _dkv_tiles_tf32(q, k, v, kpad, do, lse, delta, cols=64, terms=3):
+    """flash_dkv_tf32_kernel's order of work: the query tiles walked in
+    order, ``cols`` query columns at a time (64, or 32 at head tiles above
+    64), s^T = k . q^T and dp^T = v . do^T in 3xTF32, p^T = exp(s^T - lse)
+    at valid keys, ds^T = p^T (dp^T - delta), then dv += p^T . do (the
+    unrounded p) and dk += ds^T . q in 3xTF32, all float32."""
+    bh, sq, _ = q.shape
+    b = kpad.shape[0]
+    valid = (kpad == 0).repeat_interleave(bh // b, dim=0)[:, :, None]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, sq, cols):
+        sl = slice(q0, q0 + cols)
+        s = _product(k, q[:, sl], terms)
+        dp = _product(v, do[:, sl], terms)
+        p = torch.where(valid, torch.exp(s - lse[:, None, sl]), torch.zeros(()))
+        ds = p * (dp - delta[:, None, sl])
+        dv = dv + _product(p, do[:, sl].transpose(1, 2), terms)
+        dk = dk + _product(ds, q[:, sl].transpose(1, 2), terms)
+    return dk, dv
+
+
+def _bwd_case(b, h, sq, sk, d, seed, pad_tail, empty_row):
+    """float32 inputs, the upstream grad and the key padding of one case,
+    with the forward's lse and delta = sum(do * o) from the plain version."""
+    q, k, v = _qkv(b, h, sq, sk, d, seed=seed)
+    do = _rand(b, h, sq, d, seed=seed + 3)
+    kpad = np.zeros((b, sk), bool)
+    if pad_tail:
+        kpad[:, sk - pad_tail:] = True
+    if empty_row:
+        kpad[0] = True
+    flat = [torch.from_numpy(a.reshape(b * h, -1, d)) for a in (q, k, v, do)]
+    flat[0] = flat[0] * np.float32(1.0 / np.sqrt(d))  # pre-scaled, as the kernels get it
+    o, lse = tattn.flash_attention_plain(*flat[:3], _t(kpad).int())
+    delta = (flat[3] * o).sum(-1)
+    return (q, k, v, do, kpad), flat, lse, delta
+
+
+BWD_CASES = [
+    (1, 2, 96, 200, 64, 50, False),   # ragged last tiles on both axes, padded keys
+    (2, 2, 130, 257, 32, 0, True),    # a batch row with no valid key
+    (1, 2, 100, 130, 96, 7, False),   # D 96 in the 128 tile: 32-column query tiles
+    (1, 2, 96, 140, 128, 12, False),  # D 128
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,pad_tail,empty_row", BWD_CASES)
+def test_float32_backward_tiles_in_3xtf32_match_jax_and_plain(b, h, sq, sk, d, pad_tail,
+                                                              empty_row):
+    """The f32 dq and dk/dv bodies' order of work against autograd of
+    flash_attention_plain and the JAX kernel's gradients (dq and dk/dv
+    kernels in interpret mode) for the same upstream grad, each within 1e-4
+    of max|ref| (chip_smoke's float32 limit); an empty batch row gives
+    exactly zero gradients."""
+    arrays, (qs, kf, vf, dof), lse, delta = _bwd_case(b, h, sq, sk, d, 90 + d, pad_tail,
+                                                      empty_row)
+    q, k, v, do, kpad = arrays
+    kp = _t(kpad).int()
+    dq = _dq_tiles_tf32(qs, kf, vf, kp, dof, lse, delta)
+    dk, dv = _dkv_tiles_tf32(qs, kf, vf, kp, dof, lse, delta, cols=64 if d <= 64 else 32)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (qs, kf, vf))
+    tattn.flash_attention_plain(qq, kk, vv, kp)[0].backward(dof)
+    _, vjp = jax.vjp(lambda q, k, v: jattn.flash_attention(q, k, v, jnp.asarray(kpad)),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    # the JAX gradient is taken at the unscaled q: dq there is ours times the scale
+    scale = np.float32(1.0 / np.sqrt(d))
+    want = [np.asarray(w).reshape(b * h, -1, d) for w in vjp(jnp.asarray(do))]
+    for name, got, plain, jax_ref, f in (("dq", dq, qq.grad, want[0], scale),
+                                         ("dk", dk, kk.grad, want[1], 1.0),
+                                         ("dv", dv, vv.grad, want[2], 1.0)):
+        assert (got - plain).abs().max() <= 1e-4 * plain.abs().max(), name
+        g = got.numpy() * f
+        assert np.abs(g - jax_ref).max() <= 1e-4 * np.abs(jax_ref).max(), name
+        if empty_row:
+            assert not got[:h].any() and not plain[:h].any(), name
+
+
+def test_float32_backward_needs_3xtf32():
+    """Plain TF32 products (hi halves alone) in the same order of work miss
+    the float32 limit of 1e-4 of max|plain| by a wide margin, for dq and
+    dk/dv alike: the bodies' three products are needed."""
+    arrays, (qs, kf, vf, dof), lse, delta = _bwd_case(1, 2, 96, 200, 64, 90, 50, False)
+    kp = _t(arrays[4]).int()
+    qq, kk, vv = (x.clone().requires_grad_() for x in (qs, kf, vf))
+    tattn.flash_attention_plain(qq, kk, vv, kp)[0].backward(dof)
+    one = (_dq_tiles_tf32(qs, kf, vf, kp, dof, lse, delta, terms=1),
+           *_dkv_tiles_tf32(qs, kf, vf, kp, dof, lse, delta, terms=1))
+    for got, plain in zip(one, (qq.grad, kk.grad, vv.grad)):
+        assert (got - plain).abs().max() > 10 * 1e-4 * plain.abs().max()
+
+
 class _OnCard(torch.Tensor):
     """A CPU tensor that reports a CUDA device, so that the flash wrappers'
     checks run and a stand-in library takes the call."""
@@ -289,41 +404,109 @@ class _OnCard(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-def test_float32_forward_refuses_an_unaligned_operand(monkeypatch):
-    """The f32 forward stages q, k and v by 16-byte cp.async, as the bf16
-    one does: an offset view of any of them raises ValueError before a
-    launch. The f32 dq and dk/dv (CUDA cores) read value by value and take
-    any offset."""
+def _stand_in_library(monkeypatch):
+    """The flash wrappers' C calls go to a stand-in library that records
+    (entry point, arguments) and returns 0; the counters start at 0."""
     calls = []
 
     class Lib:
         def __getattr__(self, fn):
-            return lambda *args: calls.append(fn) or 0
+            return lambda *args: calls.append((fn, args)) or 0
 
     monkeypatch.setattr(tattn._kernels, "library", lambda name: Lib())
     monkeypatch.setattr(tattn._kernels, "stream_of", lambda t: 0)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         monkeypatch.setitem(tattn._kernels.LAUNCHES, name, 0)
+    return calls
 
-    def card(t):
-        return t.as_subclass(_OnCard)
 
-    def offset(t):
-        buf = torch.zeros(t.numel() + 4)
-        return card(buf[1:1 + t.numel()].view(t.shape))
+def _card(t):
+    return t.as_subclass(_OnCard)
 
-    q = card(torch.zeros(2, 64, 32))
-    kpad = card(torch.zeros(1, 64, dtype=torch.int32))
-    lse, delta = card(torch.zeros(2, 64)), card(torch.zeros(2, 64))
+
+def _offset(t):
+    """A contiguous view of t's shape 4 bytes past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 4)
+    return _card(buf[1:1 + t.numel()].view(t.shape))
+
+
+def test_float32_forward_refuses_an_unaligned_operand(monkeypatch):
+    """Every f32 body stages its operands by 16-byte cp.async, as the bf16
+    ones do: the forward, dq and dk/dv raise ValueError on an offset view of
+    q, k, v or (dq, dk/dv) do before any launch, and aligned operands reach
+    the library once each."""
+    calls = _stand_in_library(monkeypatch)
+    q = _card(torch.zeros(2, 64, 32))
+    kpad = _card(torch.zeros(1, 64, dtype=torch.int32))
+    lse, delta = _card(torch.zeros(2, 64)), _card(torch.zeros(2, 64))
     tattn.flash_forward(q, q, q, kpad)
-    for arg in range(3):
-        qkv = [q, q, q]
-        qkv[arg] = offset(q)
-        with pytest.raises(ValueError, match=f"{'qkv'[arg]} must start on a 16-byte boundary"):
-            tattn.flash_forward(*qkv, kpad)
-        tattn.flash_dq(*qkv, kpad, offset(q), lse, delta)
-        tattn.flash_dkv(*qkv, kpad, offset(q), lse, delta)
-    assert calls == ["flash_attn_forward"] + ["flash_attn_dq", "flash_attn_dkv"] * 3
+    tattn.flash_dq(q, q, q, kpad, q, lse, delta)
+    tattn.flash_dkv(q, q, q, kpad, q, lse, delta)
+    for arg, name in enumerate(("q", "k", "v", "do")):
+        ops = [q, q, q, q]
+        ops[arg] = _offset(q)
+        match = f"{name} must start on a 16-byte boundary"
+        if arg < 3:
+            with pytest.raises(ValueError, match=match):
+                tattn.flash_forward(*ops[:3], kpad)
+        with pytest.raises(ValueError, match=match):
+            tattn.flash_dq(*ops[:3], kpad, ops[3], lse, delta)
+        with pytest.raises(ValueError, match=match):
+            tattn.flash_dkv(*ops[:3], kpad, ops[3], lse, delta)
+    assert [fn for fn, _ in calls] == ["flash_attn_forward", "flash_attn_dq", "flash_attn_dkv"]
+    assert [tattn._kernels.LAUNCHES[n] for n in ("flash_fwd", "flash_dq", "flash_dkv")] == \
+        [1, 1, 1]
+
+
+def test_flash_backward_hands_the_kernels_an_aligned_upstream_grad(monkeypatch):
+    """FlashAttention.backward on an upstream grad that is a contiguous view
+    at an offset (a slice of a larger grad): dq and dk/dv get a 16-byte
+    aligned copy of the same values (so their checks pass and both reach the
+    library), with delta = sum(do * o) over it."""
+    calls = _stand_in_library(monkeypatch)
+    seen = []
+    for name in ("flash_dq", "flash_dkv"):
+        real = getattr(tattn, name)
+        monkeypatch.setattr(tattn, name, lambda *a, _f=real: seen.append(a) or _f(*a))
+    rng = np.random.RandomState(60)
+    q, k, v, o = (_card(_t(rng.standard_normal((2, 64, 32)).astype(np.float32)))
+                  for _ in range(4))
+    kpad = _card(torch.zeros(1, 64, dtype=torch.int32))
+    lse = _card(torch.zeros(2, 64))
+    do = _offset(q)
+    do.copy_(_t(rng.standard_normal((2, 64, 32)).astype(np.float32)))
+    assert do.is_contiguous() and do.data_ptr() % 16
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, kpad, o, lse))
+    tattn.FlashAttention.backward(ctx, do)
+    assert [fn for fn, _ in calls] == ["flash_attn_dq", "flash_attn_dkv"]
+    for args in seen:
+        got_do, delta = args[4], args[6]
+        assert got_do.data_ptr() % 16 == 0 and torch.equal(got_do, do)
+        torch.testing.assert_close(delta, (do * o).sum(-1), rtol=0, atol=0)
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    """tools/ptxas_usage.py's parser on ptxas's verbose log (the form nvcc
+    -Xptxas -v prints for sm_90a): one row a kernel, its registers, spill
+    bytes, stack and static shared memory."""
+    from exoground_tpu_torch.tools import ptxas_usage
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN2tf20flash_dq_tf32_kernelILi64EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tf20flash_dq_tf32_kernelILi64EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 232 registers, used 1 barriers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3tcb20flash_fwd_bf16_kernelILi128EEEvPK' for 'sm_90a'
+ptxas info    : Function properties for _ZN3tcb20flash_fwd_bf16_kernelILi128EEEvPK
+    24 bytes stack frame, 28 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 512 bytes smem, 400 bytes cmem[0]
+"""
+    rows = ptxas_usage.parse(log)
+    assert [r["mangled"] for r in rows] == [
+        "_ZN2tf20flash_dq_tf32_kernelILi64EEEvPKf", "_ZN3tcb20flash_fwd_bf16_kernelILi128EEEvPK"]
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"], r["stack"], r["static_smem"])
+            for r in rows] == [(232, 0, 0, 0, 0), (255, 28, 36, 24, 512)]
+    assert all(isinstance(r["kernel"], str) and r["kernel"] for r in rows)
 
 
 # ---------------------------------------------------------------- dispatch
