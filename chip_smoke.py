@@ -211,6 +211,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      of 16 under 'small' (30 small_attn launches and nothing else; against
      the CPU within 2x the CPU's own change under a 1e-7 relative change of
      the inputs, at least 1e-3: a rounding step upstream flips int8 steps).
+  7b. keystep grounding at --feature_dim 1024 and 2048 (8 heads: head sizes
+     128 and 256, the wide-head bodies): the same model at those widths
+     (seeded weights: make_grounding_params at C 1024, the model's own
+     seeded init at C 2048), float32, GroundingService
+     batches of 64 requests counted per forward: C 1024 under 'auto' (24
+     fused_mha + 24 fused_mlp), 'small' (30 small_attn + 24 fused_mlp) and
+     'fused' (18 block_attn + 18 block_mlp + 6 fused_mha + 6 fused_mlp), then
+     its forward under quant.matmul_impl('int8', min_cols=2048) under 'auto'
+     (24 fused_mha_int8 + 24 fused_mlp_int8) and 'fused' (their block twins
+     and 6 + 6); C 2048 under 'auto' and 'small'; 4 requests of each run
+     against the CPU under the same impl (<= 1e-4 of max|CPU|; int8 at
+     phase 7's floor over 3 noise draws); requests/s of each
+     (`wide_ground_bench {...}`). The wide cases of the kernel phases: 3
+     (fused MHA at Dh 72, 96, 128, 256, each at two of S 17, 64, 96, 128
+     and each S at two heads, one fully-masked window each, and the full
+     widths C 1024 / 2048 timed at B64 S128 and S64, single calls), 3d and 3e (the same for the int8 MHA and both block
+     bodies), 3c (flash at D 136, 192, 256 with a ragged tail and an empty
+     row, D 60 through flash_attention's zero-column padding, D 128 and 256
+     timed at B64 H8 S128 and S64) and 3f (the window core at D 60, 136,
+     192, 256, S 17 and 100, and D 128 / 256 timed at B64 H8 S128 and S64).
   8. the training command line: ``exoground_tpu_torch.train.main`` (``--dataset
      htm-370k --model cotrain``, E6D6 width 512, seq 64, text bucket 32, token
      length 32, B64, seed 0) over a seeded tree under build/ (tools/synth_htm.py:
@@ -272,13 +292,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      train_joint_model.sh, train_joint_model_lemma.sh; E6D6 width 512, 8 heads,
      4096-d EgoVLPv2 video and narration features, seq 64, B16), one epoch each
      over seeded trees under build/ (tools/synth_egoexo.py, takes with an ego
-     and 4 exo cameras: 4 training takes of 220 s for the view-invariant and
-     grounding scripts, 2 of 180 s for the joint script, whose curriculum
-     makes 11 windows a start, each tree with 1 validation and 1 test take;
-     LEMMA 3 videos of 200 s and 1 each to validate and test; at least 512
-     training windows a script but LEMMA's): the view-invariant run,
-     the grounding run on its checkpoint (--vi_encoder_path) and --resume from
-     its epoch-0 checkpoint for a second epoch, the joint run
+     and 4 exo cameras: 4 training takes of 150 s for the view-invariant and
+     grounding scripts (18 steps), 2 of 120 s for the joint script (16),
+     whose curriculum makes 11 windows a start, each tree with 1 validation
+     and 1 test take; LEMMA 3 videos of 150 s and 1 each to validate and
+     test): the view-invariant run,
+     the grounding run on its checkpoint (--vi_encoder_path), the grounding
+     run again at --feature_dim 1024 under --attn_impl flash (flash at D 128
+     in the steps) and --resume from its epoch-0 checkpoint for a second
+     epoch under 'auto' (the wide-head fused MHA in validation), the joint run
      eager, at --fused_steps 4 (its epoch-0 checkpoint bit for bit the eager
      run's, one capture, the replays' pos starts not all equal), --amp and
      --attn_impl flash, test_joint_model.sh's --test on the eager checkpoint
@@ -293,7 +315,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      map is mostly 0, so the predictions carry the check)
      and one train step (metrics as the scalars); one `gnd_bench {...}` line a
      training run (samples/s over the epoch and its second half before the
-     last 8 steps, which are profiled for the device's busy ms a step and idle
+     last 4 steps, which are profiled for the device's busy ms a step and idle
      share; validation ms), `gnd_agreement {...}` and `gnd_phase {...}`.
      The grounding run's epoch-0 file (the port's own torch.save checkpoint)
      is served on the card through GroundingService.from_checkpoint into a
@@ -631,12 +653,12 @@ def _int8_inputs(rng, dtype, x_shape):
     return x
 
 
-def mha_int8_case(B, S, C, H, dtype, seed, timed=False):
+def mha_int8_case(B, S, C, H, dtype, seed, timed=False, b2b=True):
     """fused_mha_int8 against mha_int8_plain on the card: one fully-masked
     window (a padded group window), ragged lengths and a zero row; with
     ``timed``, beside the plain version, torch._int_mm of the int8 qkv
     product alone (a yardstick), the exact fused_mha in the same dtype and
-    the bound."""
+    the bound, and with ``b2b`` the kernel and the exact one back to back."""
     from exoground_tpu_torch.ops import _kernels, quant
     from exoground_tpu_torch.ops.attention import fused_mha, fused_mha_int8, mha_int8_plain
 
@@ -673,9 +695,10 @@ def mha_int8_case(B, S, C, H, dtype, seed, timed=False):
             case.update(ms=time_ms(lambda: fused_mha_int8(*args)),
                         plain_ms=time_ms(lambda: mha_int8_plain(*args)),
                         int_mm_ms=time_ms(lambda: quant._int_mm(xq2, wq)),
-                        exact_kernel_ms=time_ms(lambda: fused_mha(*args)),
-                        ms_b2b=b2b_ms(lambda: fused_mha_int8(*args)),
-                        exact_kernel_ms_b2b=b2b_ms(lambda: fused_mha(*args)))
+                        exact_kernel_ms=time_ms(lambda: fused_mha(*args)))
+            if b2b:
+                case.update(ms_b2b=b2b_ms(lambda: fused_mha_int8(*args)),
+                            exact_kernel_ms_b2b=b2b_ms(lambda: fused_mha(*args)))
             item = x.element_size()
             nbytes = (2 * B * S * C + 4 * C * C + 4 * C) * item + 4 * B * S
             case.update(routes_bound(6.0 * B * S * C * C,
@@ -775,14 +798,15 @@ def _block_check(kind, case, dtype, int8):
         fail(f"{kind} x_norm disagrees with its plain version: {case}")
 
 
-def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False):
+def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True):
     """fused_block_attn (exact or int8 body) against block_attn_plain /
     block_attn_int8_plain on the card: one fully-masked window, ragged
     lengths, a zero row; the output and x_norm apart. With ``timed``, beside
     the plain version, the per-module kernels of the same run
     (F.layer_norm + fused_mha or fused_mha_int8 + the add; no single
     PyTorch call computes the block), for the int8 body the exact fused_mha
-    on the same x, and the bound."""
+    on the same x, and the bound; with ``b2b`` the block and the per-module
+    kernels back to back too."""
     import torch.nn.functional as F
 
     from exoground_tpu_torch.ops import _kernels
@@ -827,9 +851,10 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False):
                 return x + mha(xn_, kpad, w_in, b_in, w_out, b_out, H), xn_
 
             case.update(ms=time_ms(lambda: fused_block_attn(*args, int8_qkv=int8)),
-                        plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module),
-                        ms_b2b=b2b_ms(lambda: fused_block_attn(*args, int8_qkv=int8)),
-                        per_module_ms_b2b=b2b_ms(per_module))
+                        plain_ms=time_ms(lambda: plain(*args)), per_module_ms=time_ms(per_module))
+            if b2b:
+                case.update(ms_b2b=b2b_ms(lambda: fused_block_attn(*args, int8_qkv=int8)),
+                            per_module_ms_b2b=b2b_ms(per_module))
             if int8:  # the exact fused MHA of the same call, the int8 MHA's yardstick
                 case["exact_kernel_ms"] = time_ms(
                     lambda: fused_mha(x, kpad, w_in, b_in, w_out, b_out, H))
@@ -995,7 +1020,8 @@ def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
     tensors. With ``timed``, beside the plain version,
     F.scaled_dot_product_attention with the boolean mask on the same
     tensors (a yardstick the path never calls) and the bound max(4 BH S^2 D
-    / peak, 4 BH S D bytes / 3.35 TB/s)."""
+    FLOPs by routes_bound (float32: the lesser of the CUDA cores and 3xTF32,
+    both given), 4 BH S D bytes / 3.35 TB/s)."""
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.ops.attention import (
         _split_heads, small_attention, small_attention_plain)
@@ -1030,12 +1056,11 @@ def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
         if timed:
             attend = ~mask[:, None, None, :]
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            bms, by = bound_ms(4.0 * B * H * S * S * D, 4.0 * B * H * S * D * q.element_size(),
-                               dtype)
             case.update(ms=time_ms(lambda: small_attention(q, k, v, mask)),
                         plain_ms=time_ms(lambda: small_attention_plain(qs, k, v, kpad)),
                         library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=attend)),
-                        bound_ms=bms, bound_by=by)
+                        **routes_bound(0, 4.0 * B * H * S * S * D,
+                                       4.0 * B * H * S * D * q.element_size(), dtype))
     print("small_attn", json.dumps(case), flush=True)
     if not case["max_rel_err"] <= TOL[dtype]:
         fail(f"small_attn disagrees with small_attention_plain: {case}")
@@ -1322,6 +1347,127 @@ def flash_kernel_cases():
         flash_cases.append(flash_case(2, 2, 100, 130, 96, dtype, seed=44, pad_tail=10,
                                       empty_row=True))
     return flash_cases
+
+
+# ------------------------------------------- wide heads (phases 3, 3c-3f)
+# The head sizes past the fixed head tiles, served by the wide-head bodies
+# (csrc/wide_window.cuh): the MHA family's (C, H) at Dh 72, 96, 128 and 256,
+# each at two of the windows S 17, 64, 96 and 128 and each window at two of
+# the heads (B 3, one fully-masked window each);
+# the flash and window cores at D 60 (not a multiple of 8: the wrappers pad),
+# 136, 192 and 256 with ragged tails and an empty row; and the grounding
+# model's full widths, C 1024 (Dh 128) and C 2048 (Dh 256) at 8 heads, timed
+# at B64 S128 (its joint windows) and B64 S64.
+WIDE_MHA_GRID = ((1152, 16, 17), (1152, 16, 128), (768, 8, 64), (768, 8, 96), (1024, 8, 17),
+                 (1024, 8, 96), (2048, 8, 64), (2048, 8, 128))  # (C, H, S)
+WIDE_CORE_D = (60, 136, 192, 256)
+WIDE_FULL_C = (1024, 2048)
+WIDE_FULL_BS = ((64, 128), (64, 64))
+
+
+def wide_mha_family_cases(label, case, seed, **timed):
+    """``case(B, S, C, H, dtype, seed, **kw)`` (mha_case, mha_int8_case or a
+    block_attn_case partial) over the wide-head grid, then at the full widths
+    with ``timed`` (single calls: the back-to-back series are the main-path
+    shapes' bars), float32 then bfloat16. Prints the seconds it took."""
+    t0, out = time.perf_counter(), []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (c, h, s) in enumerate(WIDE_MHA_GRID):
+            out.append(case(3, s, c, h, dtype, seed + i))
+        for i, c in enumerate(WIDE_FULL_C):
+            for j, (b, s) in enumerate(WIDE_FULL_BS):
+                out.append(case(b, s, c, 8, dtype, seed + 16 + 2 * i + j, **timed))
+    print(f"wide cases of {label}: {len(out)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def flash_padded_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False):
+    """``flash_attention`` (the public entry, under autograd) at a head size
+    that is not a multiple of 8: the wrapper pads q, k and v with zero
+    columns to the next multiple and slices o; o and the three gradients
+    against autograd of flash_attention_plain on the unpadded inputs, one
+    launch of each kernel counted."""
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype, device="cuda")
+
+    q, k, v, do = t(B, H, Sq, D), t(B, H, Sk, D), t(B, H, Sk, D), t(B, H, Sq, D)
+    kp = np.zeros((B, Sk), bool)
+    if pad_tail:
+        kp[:, Sk - pad_tail:] = True
+    if empty_row:
+        kp[0] = True
+    mask = torch.tensor(kp, device="cuda")
+    n0 = dict(_kernels.LAUNCHES)
+    got = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = flash_attention(*got, mask)
+    o.backward(do)
+    torch.cuda.synchronize()
+    if any(_kernels.LAUNCHES[n] != n0[n] + 1 for n in ("flash_fwd", "flash_dq", "flash_dkv")):
+        fail("flash_attention at a padded head size did not count its three launches")
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    po, _ = flash_attention_plain(ref[0].reshape(B * H, Sq, D) * D ** -0.5,
+                                  ref[1].reshape(B * H, Sk, D), ref[2].reshape(B * H, Sk, D),
+                                  mask.to(torch.int32))
+    po.reshape(B, H, Sq, D).backward(do)
+    errs = {}
+    for name, g, w in (("o", o, po.reshape(B, H, Sq, D)), ("dq", got[0].grad, ref[0].grad),
+                       ("dk", got[1].grad, ref[1].grad), ("dv", got[2].grad, ref[2].grad)):
+        if not torch.isfinite(g.float()).all():
+            fail(f"flash_attention: non-finite {name} at {(B, H, Sq, Sk, D)} {dtype}")
+        err = (g.float() - w.float()).abs().max().item()
+        errs[name] = (err, err / max(w.float().abs().max().item(), 1e-30))
+    rel = max(r for _, r in errs.values())
+    case = dict(shape=f"B{B} H{H} Sq{Sq} Sk{Sk} D{D} (flash_attention, padded to "
+                f"{-(-D // 8) * 8})", dtype=str(dtype).split(".")[-1], pad_tail=pad_tail,
+                empty_row=empty_row, max_abs_err=max(e for e, _ in errs.values()),
+                max_rel_err=rel, rel_err={n: r for n, (_, r) in errs.items()})
+    print("flash", json.dumps(case), flush=True)
+    if not rel <= TOL[dtype]:
+        fail(f"flash_attention at a padded head size disagrees with its plain version: {case}")
+    return case
+
+
+def wide_flash_cases():
+    """Phase 3c's wide heads, float32 then bfloat16: D 136, 192 and 256 (the
+    wide bodies) with a ragged tail and an empty batch row, D 60 through
+    flash_attention's padding, and the full widths' D 128 and 256 timed at
+    B64 H8 S128 and S64."""
+    t0, out = time.perf_counter(), []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, d in enumerate(WIDE_CORE_D[1:]):
+            out.append(flash_case(2, 2, 130, 200, d, dtype, seed=150 + i, pad_tail=30,
+                                  empty_row=True))
+            out.append(flash_case(1, 3, 77, 64, d, dtype, seed=155 + i, pad_tail=5))
+        out.append(flash_padded_case(2, 2, 100, 130, 60, dtype, seed=159, pad_tail=10,
+                                     empty_row=True))
+        for i, d in enumerate((128, 256)):
+            for j, (b, s) in enumerate(WIDE_FULL_BS):
+                out.append(flash_case(b, 8, s, s, d, dtype, seed=160 + 2 * i + j, timed=True))
+    print(f"wide cases of flash: {len(out)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def wide_small_cases():
+    """Phase 3f's wide heads, float32 then bfloat16: D 60, 136, 192 and 256 at
+    S 17 and 100 (a fully-masked window and ragged lengths; packed-qkv views
+    and contiguous tensors), and the full widths' D 128 and 256 timed at B64
+    H8 S128 and S64 on the packed views grounding hands over."""
+    t0, out = time.perf_counter(), []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, d in enumerate(WIDE_CORE_D):
+            out.append(small_case(3, 2, 17, d, dtype, seed=170 + i, packed=True))
+            out.append(small_case(3, 2, 100, d, dtype, seed=175 + i))
+        for i, d in enumerate((128, 256)):
+            for j, (b, s) in enumerate(WIDE_FULL_BS):
+                out.append(small_case(b, 8, s, d, dtype, seed=180 + 2 * i + j, timed=True,
+                                      packed=True))
+    print(f"wide cases of small_attn: {len(out)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 # ----------------------------------------------------------------- phase 4
@@ -2835,6 +2981,200 @@ def grounding_path(card):
     return outs["small"][1]
 
 
+# ---------------------------------------------------------------- phase 7b
+# Keystep grounding at the full widths of --feature_dim 1024 and 2048: 8
+# heads, so head sizes 128 and 256, served by the wide-head bodies. Launches
+# per forward by impl, at every width: the trunk's 18 encoder blocks (video,
+# text, joint) and 6 decoder blocks; 'small' adds the decoder's 6
+# cross-attentions (square 64 x 64 windows) to the window core; 'fused'
+# takes the whole-block path in the encoders and fused MHA in the decoder.
+# Under quant.matmul_impl('int8', min_cols=2048) the gate quantizes the
+# 3C-column qkv and the 4C-column c_fc but not the C-column products at C
+# 1024 (the JAX gate, attention.py:1098-1099), so the int8 kernels launch.
+WIDE_GND_LAUNCHES = {
+    "auto": dict(fused_mha=24, fused_mlp=24),
+    "small": dict(small_attn=30, fused_mlp=24),
+    "fused": dict(block_attn=18, block_mlp=18, fused_mha=6, fused_mlp=6),
+    "int8 auto": dict(fused_mha_int8=24, fused_mlp_int8=24),
+    "int8 fused": dict(block_attn_int8=18, block_mlp_int8=18, fused_mha_int8=6,
+                       fused_mlp_int8=6),
+}
+WIDE_GND_REQS = 64  # requests a served batch: one bucket of 64-frame windows, 64 narrations
+WIDE_GND_CPU_REQS = 4  # of them run again on the CPU for agreement
+WIDE_GND_INT8_MIN_COLS = 2048
+# the int8 floor's noise draws: at C 1024 one draw's change ranged 5e-4-7e-3
+# on the CPU (values at a quantizer's rounding boundary are many), so the
+# floor is the largest of a few
+WIDE_GND_NOISE_DRAWS = 3
+
+
+def _ground_preds(svc, reqs, ctx):
+    """interval_preds (B, K, 2) of one bucket of ``reqs`` through the
+    service's model as ``GroundingService._run`` feeds it, under ``ctx``
+    (the service's own matmul context replaced, so that a quant policy
+    other than its own can be served)."""
+    b, kpad, t = len(reqs), 64, svc.seq_len
+    host, dv, dt = svc._pack(reqs, list(range(b)), kpad)
+    buf = torch.from_numpy(host).to(svc.device)
+    video, narr, vmask, nmask = torch.split(buf, [b * t * dv, b * kpad * dt, b * t, b * kpad])
+    with torch.no_grad(), ctx:
+        preds = svc.model(video.view(b, t, dv), narr.view(b, kpad, dt), vmask.view(b, t) > 0,
+                          nmask.view(b, kpad) > 0, deterministic=True)["interval_preds"]
+    return preds.float().cpu().numpy()
+
+
+def _served_rows(results, preds, reqs):
+    """(start, end) rows of each request's narrations, stacked: from
+    ``ground_batch(..., use_center_duration=False)`` results, and from
+    ``_ground_preds``'s (B, K, 2) for the same requests (its padded
+    narration rows dropped)."""
+    got = np.concatenate([np.stack([r["start"], r["end"]], -1) for r in results])
+    want = np.concatenate([preds[i, :r["narration_embeds"].shape[0]]
+                           for i, r in enumerate(reqs)])
+    return got, want
+
+
+def wide_grounding_path(card):
+    """Phase 7b: GroundingModel (the MLP VI pre-pass, the trunk E6D6, 8 heads,
+    4096-d; seeded weights: make_grounding_params at C 1024, loaded through
+    load_grounding_params, the model's own init from a seed at C 2048) at
+    feature_dim 1024 (Dh 128) and 2048 (Dh 256), float32, served by
+    GroundingService: C 1024 under 'auto' (row 1's wide body and row 2 at C
+    1024), 'small' (row 9 at D 128) and 'fused' (row 7's wide body, row 8),
+    then its forward under quant.matmul_impl('int8', min_cols=2048) under
+    'auto' (rows 5 and 6) and 'fused' (row 7's int8 body); C 2048 under
+    'auto' and 'small' (rows 1 and 9 at 256). Each run counted per forward
+    (WIDE_GND_LAUNCHES); the counted forward's first WIDE_GND_CPU_REQS
+    requests against the CPU's answer to them (<= 1e-4 of max|CPU| in f32;
+    int8 at phase 7's floor: twice the CPU's largest own change under 1e-7
+    input noise over WIDE_GND_NOISE_DRAWS draws, at least 1e-3, taken once
+    under 'auto' for both paths); requests/s of a 64-request batch (median
+    of 3, in turns). Returns the launches by run."""
+    import copy
+
+    from exoground_tpu_torch.evals.bench_items import (
+        GROUNDING, make_grounding_params, make_grounding_requests)
+    from exoground_tpu_torch.models import GroundingModel
+    from exoground_tpu_torch.ops import _kernels, blocks, quant
+    from exoground_tpu_torch.serve import GroundingService
+    from exoground_tpu_torch.utils.convert import load_grounding_params
+
+    t_phase = time.perf_counter()
+    reqs = make_grounding_requests(5, WIDE_GND_REQS)
+    few = reqs[:WIDE_GND_CPU_REQS]
+    counted, bench = {}, {}
+
+    def on_cpu(cpu_svc, impl, r, ctx):
+        """The CPU's answer under ``impl``, its blocks dispatched as on the
+        card (on the CPU 'fused' would keep the per-module path: the MLP's
+        'auto' resolves to 'xla' there), so that the whole-block path's
+        plain versions are the reference of its kernels."""
+        cpu_svc.model.attn_impl = impl
+        real = blocks.resolve_mlp_impl
+        blocks.resolve_mlp_impl = lambda mlp_impl, c, device: real(mlp_impl, c, "cuda")
+        try:
+            return _ground_preds(cpu_svc, r, ctx)
+        finally:
+            blocks.resolve_mlp_impl = real
+
+    def check(label, launches, n_fwd, want):
+        per = {k: v / n_fwd for k, v in launches.items() if v}
+        print(f"wide grounding {label}: {n_fwd} forwards, launches {launches}, {card}",
+              flush=True)
+        if per != want:
+            fail(f"wide grounding {label}: launches per forward {per} != {want}")
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    setup_s = {}  # host seconds building each width's model and its card copy
+    for width, impls in ((1024, ("auto", "small", "fused")), (2048, ("auto", "small"))):
+        t0 = time.perf_counter()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(width)
+            cpu_model = GroundingModel(**dict(GROUNDING, feature_dim=width), device="cpu")
+        if width == 1024:
+            load_grounding_params(cpu_model, make_grounding_params(0, width=width))
+        # C 2048 keeps the model's own init from that seed: make_grounding_params
+        # draws its 1.2 B values one at a time in numpy (~1 min of host time)
+        cpu_svc = GroundingService(cpu_model, device="cpu")
+        svc = GroundingService(copy.deepcopy(cpu_model), device="cuda")
+        setup_s[f"C{width}"] = round(time.perf_counter() - t0, 1)
+        times = {impl: [] for impl in impls}
+        for impl in impls:
+            svc.model.attn_impl = impl
+            svc.ground_batch(reqs)  # warm-up
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            served = svc.ground_batch(reqs, use_center_duration=False)
+            torch.cuda.synchronize()
+            launches = dict(_kernels.LAUNCHES)
+            label = f"C{width} '{impl}'"
+            check(label, launches, 1, WIDE_GND_LAUNCHES[impl])
+            counted[label] = launches
+            t0 = time.perf_counter()
+            cpu = on_cpu(cpu_svc, impl, few, contextlib.nullcontext())
+            cpu_s = time.perf_counter() - t0
+            got, want = _served_rows(served[:len(few)], cpu, few)
+            err = rel(got, want)
+            print(f"wide grounding {label} card vs CPU (the counted {len(reqs)}-request "
+                  f"batch's first {len(few)}, CPU {cpu_s:.1f} s): rel err {err:.3e}",
+                  flush=True)
+            if not (np.isfinite(got).all() and err <= TOL[torch.float32]):
+                fail(f"wide grounding {label}: the card disagrees with the CPU ({err:.3e})")
+        for rep in range(3):
+            for impl in (impls if rep % 2 == 0 else impls[::-1]):
+                svc.model.attn_impl = impl
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                svc.ground_batch(reqs)
+                torch.cuda.synchronize()
+                times[impl].append(time.perf_counter() - t0)
+        for impl, ts in times.items():
+            bench[f"C{width} {impl}"] = dict(batch_ms=statistics.median(ts) * 1e3,
+                                             requests_per_s=len(reqs) / statistics.median(ts))
+        if width != 1024:
+            continue
+        # the int8 kernels at C 1024, through the model under the JAX gate's policy
+        def ctx():
+            return quant.matmul_impl("int8", min_cols=WIDE_GND_INT8_MIN_COLS)
+
+        draws = []
+        for seed in range(WIDE_GND_NOISE_DRAWS):
+            rng = np.random.RandomState(seed)
+            draws.append([dict(r, video=(r["video"] * (1.0 + 1e-7 * rng.standard_normal(
+                r["video"].shape))).astype(np.float32)) for r in few])
+        # the floor is the quantized model's sensitivity to its inputs, taken
+        # once (under 'auto') for both paths
+        cpu8 = on_cpu(cpu_svc, "auto", few, ctx())
+        floor = max(rel(on_cpu(cpu_svc, "auto", nudged, ctx()), cpu8) for nudged in draws)
+        limit = max(1e-3, 2.0 * floor)
+        for impl in ("auto", "fused"):
+            if impl != "auto":
+                cpu8 = on_cpu(cpu_svc, impl, few, ctx())
+            svc.model.attn_impl = impl
+            _kernels.reset_launches()
+            got = _ground_preds(svc, reqs, ctx())
+            torch.cuda.synchronize()
+            launches = dict(_kernels.LAUNCHES)
+            label = f"C{width} int8 '{impl}' (min_cols {WIDE_GND_INT8_MIN_COLS})"
+            check(label, launches, 1, WIDE_GND_LAUNCHES[f"int8 {impl}"])
+            counted[label] = launches
+            err = rel(got[:len(few)], cpu8)
+            print(f"wide grounding {label} card vs CPU: rel err {err:.3e}, limit {limit:.3e} "
+                  f"(the CPU's largest own change under 1e-7 input noise, "
+                  f"{WIDE_GND_NOISE_DRAWS} draws: {floor:.3e})", flush=True)
+            if not (np.isfinite(got).all() and err <= limit):
+                fail(f"wide grounding {label}: the card disagrees with the CPU")
+        del svc, cpu_svc, cpu_model
+        torch.cuda.empty_cache()
+    print("wide_ground_bench", json.dumps(dict(requests=len(reqs), card=card, **bench,
+                                               setup_s=setup_s,
+                                               phase_s=round(time.perf_counter() - t_phase, 1))),
+          flush=True)
+    return counted
+
+
 # ----------------------------------------------------------------- phase 8
 # The training command line at the HTM TAN configuration: E6D6 width 512 on
 # 512-d S3D video features, seq 64, text bucket 32, token length 32, B 64,
@@ -3537,16 +3877,17 @@ def jax_resume_path(card):
 # 8 heads, 4096-d EgoVLPv2 video and narration features, seq 64, B16) over
 # seeded trees (tools/synth_egoexo.py) cut in scale only, each take with an ego
 # camera and 4 exo cameras: for the view-invariant and grounding scripts 4
-# training takes of 220 s (512 windows, 32 steps), 1 validation and 1 test
-# take (128 windows, 8 batches); for the joint script, whose curriculum makes
-# 11 windows of each start (every pair of the 5 cameras and the ego alone), 2
-# training takes of 180 s (528 windows, 33 steps), 1 validation and 1 test
-# take (96 windows, 6 batches); LEMMA 3 training videos of 200 s (84
-# windows) and 1 each to validate and test.
-GND_TAKES, GND_SECONDS = {"train": 4, "val": 1, "test": 1}, 220
-GND_JOINT_TAKES, GND_JOINT_SECONDS = {"train": 2, "val": 1, "test": 1}, 180
-GND_LEMMA, GND_LEMMA_SECONDS = {"train": 3, "val": 1, "test": 1}, 200
-GND_PROFILED = 8  # steps at an epoch's end profiled for the device's busy time
+# training takes of 150 s (18 steps), 1 validation and 1 test take (5
+# batches); for the joint script, whose curriculum makes 11 windows of each
+# start (every pair of the 5 cameras and the ego alone), 2 training takes of
+# 120 s (16 steps), 1 validation and 1 test take (3 batches); LEMMA 3
+# training videos of 150 s (3 steps) and 1 each to validate and test. (The
+# takes were 220 / 180 / 200 s, 32 / 33 / 5 steps, before phase 7b and the
+# --feature_dim 1024 runs: cut to keep the script within its time limit.)
+GND_TAKES, GND_SECONDS = {"train": 4, "val": 1, "test": 1}, 150
+GND_JOINT_TAKES, GND_JOINT_SECONDS = {"train": 2, "val": 1, "test": 1}, 120
+GND_LEMMA, GND_LEMMA_SECONDS = {"train": 3, "val": 1, "test": 1}, 150
+GND_PROFILED = 4  # steps at an epoch's end profiled for the device's busy time
 _GND_EGO = ["--dataset", "egoexo4d", "--batch_size", "16", "--num_workers", "0",
             "--use_keysteps", "--views", "all", "--exos", "all", "--print_freq", "100"]
 GND_SCRIPTS = {
@@ -3813,11 +4154,22 @@ def grounding_train_path(card):
             "--vi_encoder_path", vi_ckpt, "--prefix", "_gnd"])
         (g0,) = glob.glob(os.path.join(work, "log_gnd", "*", "model", "epoch0.pth.tar"))
         served = served_checkpoint_case(card, recs["grounding"], g0)
-        recs["grounding_resume"] = run("grounding --resume", GND_SCRIPTS["grounding"] + root + [
-            "--vi_encoder_path", vi_ckpt, "--epochs", "2", "--resume", g0])
+        # --feature_dim 1024 (8 heads: head size 128): under --attn_impl flash
+        # the steps run row 4's three bodies at D 128 (and its validation
+        # forward the flash forward); then --resume from its epoch 0 for a
+        # second epoch under 'auto', whose validation runs row 1's wide-head
+        # body and row 2 at C 1024 (the resume check rides on it; it ran at
+        # width 512 before)
+        wide = GND_SCRIPTS["grounding"] + root + ["--vi_encoder_path", vi_ckpt,
+                                                  "--feature_dim", "1024"]
+        recs["grounding_c1024_flash"] = run("grounding --feature_dim 1024 --attn_impl flash",
+                                            wide + ["--attn_impl", "flash", "--prefix", "_g1k"])
+        (g1k,) = glob.glob(os.path.join(work, "log_g1k", "*", "model", "epoch0.pth.tar"))
+        recs["grounding_resume"] = run("grounding --feature_dim 1024 --resume (auto)",
+                                       wide + ["--epochs", "2", "--resume", g1k])
         resumed = recs["grounding_resume"]["trainer"]
         if ([s["epoch"] for s in resumed.epoch_stats] != [1]
-                or resumed.iteration != 2 * recs["grounding"]["steps"]):
+                or resumed.iteration != 2 * recs["grounding_c1024_flash"]["steps"]):
             fail(f"grounding --resume: epochs {[s['epoch'] for s in resumed.epoch_stats]}, "
                  f"iteration {resumed.iteration}")
         joint = GND_SCRIPTS["joint"] + jroot
@@ -5503,6 +5855,7 @@ def main():
         # the window the bf16 body's 128-row tile serves whole, and head size 16
         mha_cases.append(mha_case(64, 128, 512, 8, dtype, seed=13))
         mha_cases.append(mha_case(2, 50, 256, 16, dtype, seed=14))
+    mha_cases += wide_mha_family_cases("fused_mha", mha_case, 100)  # the wide-head body
     mlp_cases += mlp_kernel_cases()
 
     mark("3b")
@@ -5528,21 +5881,31 @@ def main():
     grid_bars(grid_cases)
 
     mark("3c")
-    # phase 3c: the flash kernels against their plain version
-    flash_cases = flash_kernel_cases()
+    # phase 3c: the flash kernels against their plain version (the wide
+    # bodies too)
+    flash_cases = flash_kernel_cases() + wide_flash_cases()
 
     mark("3d")
-    # phase 3d: the int8 kernels against their plain versions
+    # phase 3d: the int8 kernels against their plain versions (row 5's
+    # wide-head body too)
     mha8_cases, mlp8_cases = int8_kernel_cases()
+    mha8_cases += wide_mha_family_cases("fused_mha_int8", mha_int8_case, 130, timed=True,
+                                        b2b=False)
 
     mark("3e")
-    # phase 3e: the whole-block kernels against their plain versions
+    # phase 3e: the whole-block kernels against their plain versions (row
+    # 7's wide-head bodies too)
     block_cases = block_kernel_cases()
+    for int8, name in ((False, "block_attn"), (True, "block_attn_int8")):
+        block_cases[name] += wide_mha_family_cases(
+            name, lambda *a, **kw: block_attn_case(*a, int8=int8, **kw), 200 + 30 * int8,
+            timed=True, b2b=False)
     attention_bars(mha_cases, flash_cases, mha8_cases, block_cases)
 
     mark("3f")
-    # phase 3f: the window-attention kernel against its plain version
-    small_cases = small_kernel_cases()
+    # phase 3f: the window-attention kernel against its plain version (the
+    # wide body too)
+    small_cases = small_kernel_cases() + wide_small_cases()
 
     mark("4")
     # phase 4: the serving path, counted
@@ -5598,6 +5961,11 @@ def main():
     # phase 7: keystep grounding served, counted; its 'small' run is this
     # slice's main path
     launches["small_attn"] = grounding_path(card)
+
+    mark("7b")
+    # phase 7b: keystep grounding at --feature_dim 1024 and 2048, served by
+    # the wide-head bodies, counted
+    wide_launches = wide_grounding_path(card)
 
     mark("8")
     # phase 8: the training command line, counted (this slice's main path),
@@ -5686,6 +6054,10 @@ def main():
     for e in kernels:
         if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):
             e["launches_by_path"] = {"train path (phase 5)": launches[e["name"]]}
+        for run, n in wide_launches.items():
+            if n.get(e["name"]):
+                e["launches_by_path"][f"wide-head grounding served {run} (phase 7b)"] = (
+                    n[e["name"]])
         if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):
             e["launches_by_path"].update({
                 f"train step, graph replay {case} (phase 5b)": n[e["name"]]

@@ -21,21 +21,23 @@
 // tile; bf16: the bf16 tile, both on the tensor cores); the out-projection of
 // mha_tail.cuh adds the residual x in f32 before its one rounding. The
 // sources build without fast math: the LN root and quotients are IEEE
-// operations, as in the plain version.
+// operations, as in the plain version. Above a head of 64 the attention
+// body is mha_tile.cuh's wide-head body (2d).
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, ln_w and ln_b (C), w_in
-// (3C, C), b_in (3C), w_out (C, C), b_out (C), attn scratch (B*S, C), out and
-// x_norm (B, S, C); all contiguous, of one type (dtype 0: float32, 1:
+// (3C, C), b_in (3C), w_out (C, C), b_out (C), attn scratch (B*S, C), qkv
+// scratch (B*S, 3C) for a head above 64 (the wide-head body; else null), out
+// and x_norm (B, S, C); all contiguous, of one type (dtype 0: float32, 1:
 // bfloat16) apart from kpad; S <= 128, C a multiple of 128, head size C/H a
-// multiple of 8 up to 64; w_in, w_out, attn and x_norm 16-byte aligned (x
-// 8-byte aligned in f32, 4-byte in bf16). Returns the first CUDA error of
+// multiple of 8; w_in, w_out, attn and x_norm 16-byte aligned (x 8-byte
+// aligned in f32, 4-byte in bf16). Returns the first CUDA error of
 // the launches, or 0.
 extern "C" int block_attn_forward(const void* x, const void* kpad, const void* ln_w,
                                   const void* ln_b, const void* w_in, const void* b_in,
-                                  const void* w_out, const void* b_out, void* attn, void* out,
-                                  void* x_norm, int B, int S, int C, int H, int dtype,
-                                  void* stream) {
+                                  const void* w_out, const void* b_out, void* attn, void* qkv,
+                                  void* out, void* x_norm, int B, int S, int C, int H,
+                                  int dtype, void* stream) {
   if (!exo::mha::valid_shape(B, S, C, H, 128)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return exo::mha::by_dtype(dtype, [&](auto tag) -> int {
@@ -43,7 +45,7 @@ extern "C" int block_attn_forward(const void* x, const void* kpad, const void* l
     cudaError_t err = exo::mha::row_prologue<T, exo::mha::kRowLn>(
         x, ln_w, ln_b, x_norm, nullptr, nullptr, B * S, C, st);
     if (err != cudaSuccess) return err;
-    err = exo::mha::attention_exact<T>(x_norm, kpad, w_in, b_in, attn, B, S, C, H, st);
+    err = exo::mha::attention_exact<T>(x_norm, kpad, w_in, b_in, attn, qkv, B, S, C, H, st);
     if (err != cudaSuccess) return err;
     return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, x);
   });

@@ -18,7 +18,8 @@
 // type into the x_norm output and quantizes the unrounded f32 xn into xq and
 // xs (the wrapper's scratch); then the int8 attention body (f32: the
 // (window, head) kernel on __dp4a; bf16: the tensor-core tile on m16n8k32
-// .s8) and the out-projection of mha_tail.cuh with the residual x.
+// .s8) and the out-projection of mha_tail.cuh with the residual x. Above a
+// head of 64: the wide-head body (mha_tile.cuh 2d) with the int8 projection.
 #include "mha_tile.cuh"
 
 // As block_attn_forward (csrc/block_attn.cu), with W_in quantized per row
@@ -27,8 +28,9 @@
 extern "C" int block_attn_int8_forward(const void* x, const void* kpad, const void* ln_w,
                                        const void* ln_b, const void* wq, const void* wsc,
                                        const void* b_in, const void* w_out, const void* b_out,
-                                       void* xq, void* xs, void* attn, void* out, void* x_norm,
-                                       int B, int S, int C, int H, int dtype, void* stream) {
+                                       void* xq, void* xs, void* attn, void* qkv, void* out,
+                                       void* x_norm, int B, int S, int C, int H, int dtype,
+                                       void* stream) {
   if (!exo::mha::valid_shape(B, S, C, H, 128)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return exo::mha::by_dtype(dtype, [&](auto tag) -> int {
@@ -36,7 +38,7 @@ extern "C" int block_attn_int8_forward(const void* x, const void* kpad, const vo
     cudaError_t err = exo::mha::row_prologue<T, exo::mha::kRowLnQuant>(
         x, ln_w, ln_b, x_norm, xq, xs, B * S, C, st);
     if (err != cudaSuccess) return err;
-    err = exo::mha::attention_int8<T>(xq, xs, kpad, wq, wsc, b_in, attn, B, S, C, H, st);
+    err = exo::mha::attention_int8<T>(xq, xs, kpad, wq, wsc, b_in, attn, qkv, B, S, C, H, st);
     if (err != cudaSuccess) return err;
     return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, x);
   });

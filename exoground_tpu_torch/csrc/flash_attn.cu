@@ -42,7 +42,8 @@
 //     registers, with no shared-memory round trip;
 //   - rows past Sq or Sk are zero-filled by cp.async and masked; head sizes
 //     that are multiples of 8 up to 128 run in a tile of 32, 48, 64 or 128
-//     columns with the rest zero-filled;
+//     columns with the rest zero-filled, larger ones in the wide bodies'
+//     slabs of 64 columns (namespace wd, below);
 //   - dk/dv take the walked query tile in 64 columns at head tiles <= 64 and
 //     in two halves of 32 at 128, to keep s^T, dp^T and the two D-wide
 //     accumulators within the register file.
@@ -90,6 +91,7 @@
 
 #include "common.cuh"
 #include "tc.cuh"
+#include "wide_window.cuh"
 
 namespace {
 
@@ -983,6 +985,293 @@ flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace tf
 
+
+// ============================================== wide heads (D > 128): slabs
+// The fixed head tiles end at 128: at D 256 the f32 forward's q tile and its
+// ring of k and v would take 333 KB of shared memory and o 128 registers a
+// thread (dk/dv twice that). Above 128 every body works in head-dimension
+// slabs of 64 columns (wide_window.cuh) and splits its output over CTAs by
+// column slab: grid z = ceil(D / 64), each CTA owning one 64-column slab of
+// o (dq; dk and dv). The products that reduce over the head (s = q . k^T,
+// dp = do . v^T and their transposes) run over every slab of D, staged one
+// slab at a time into 64 x 64 tiles, so each CTA recomputes the scores of
+// its rows (the design's price: at D 256 four times, ~2.5x the forward's
+// FLOPs); the online max and sum are the same in every slab's CTA (the same
+// operations on the same values), and slab 0 writes lse. The products that
+// produce the output (p . v, ds . k, p^T . do, ds^T . q) read only the
+// CTA's slab of their right-hand operand. Loads are not overlapped with the
+// products (one stage); 4 warps of 16 owned rows, as the fixed-tile bodies.
+// Shared memory: 3 (forward) or 4 (dq, dk/dv) slab tiles, 52-70 KB in f32.
+namespace wd {
+
+using exo::wide::kDS;
+using exo::wide::Pitch;
+using exo::wide::slab_pv;
+using exo::wide::slab_qk;
+using exo::wide::stage_slab;
+using exo::wide::store_slab;
+using exo::wide::zero;
+using tcb::kLog2e;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const int* __restrict__ kpad, T* __restrict__ o, float* __restrict__ lse,
+                      int H, int Sq, int Sk, int D) {
+  constexpr int P = Pitch<T>::P;
+  extern __shared__ __align__(16) unsigned char smem_wd[];
+  T* qs = reinterpret_cast<T*>(smem_wd);  // [kT][P]: q's slab d0
+  T* ks = qs + kT * P;                    // [kT][P]: k's slab d0
+  T* vs = ks + kT * P;                    // [kT][P]: v's output slab
+  int* valid = reinterpret_cast<int*>(vs + kT * P);  // [kT]
+  const int bh = blockIdx.y, q0 = blockIdx.x * kT, n0 = blockIdx.z * kDS;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
+  q += (size_t(bh) * Sq + q0) * D;
+  k += size_t(bh) * Sk * D;
+  v += size_t(bh) * Sk * D;
+  const int* pad = kpad + size_t(bh / H) * Sk;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kDS / 8][4];
+  zero(acc);
+  const int nk = (Sk + kT - 1) / kT;
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kT;
+    float s[8][4];
+    zero(s);
+    for (int d0 = 0; d0 < D; d0 += kDS) {
+      __syncthreads();  // every warp is done with the tiles about to be refilled
+      stage_slab(qs, q, D, kT, Sq - q0, d0, D);
+      stage_slab(ks, k + size_t(k0) * D, D, kT, Sk - k0, d0, D);
+      if (d0 == 0) stage_slab(vs, v + size_t(k0) * D, D, kT, Sk - k0, n0, D);
+      if (d0 == 0 && threadIdx.x < kT) {
+        const int t = k0 + threadIdx.x;
+        valid[threadIdx.x] = t < Sk && pad[t] == 0;
+      }
+      exo::tc::cp_async_commit();
+      exo::tc::cp_async_wait<0>();
+      __syncthreads();
+      slab_qk<8>(s, qs + 16 * w * P, ks, 8, D - d0, lane);
+    }
+    // online softmax on the fragments, as the fixed-tile forwards
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!valid[nt * 8 + c + e]) {
+          s[nt][e] = -INFINITY;
+          s[nt][2 + e] = -INFINITY;
+        }
+        mt[0] = fmaxf(mt[0], s[nt][e]);
+        mt[1] = fmaxf(mt[1], s[nt][2 + e]);
+      }
+    float alpha[2], ml[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], tcb::quad_max(mt[r]));
+      alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      ml[r] = m_new * kLog2e;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[nt][e], kLog2e, -ml[e / 2]));
+        s[nt][e] = p;
+        rs[e / 2] += p;  // l sums the unrounded p
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+#pragma unroll
+    for (int nt = 0; nt < kDS / 8; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    slab_pv<8, false>(acc, s, l, vs, 8, lane);  // o += p . v (bf16: p rounded, TPU :157)
+  }
+  float lm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = tcb::quad_sum(l[r]);
+    lm[r] = fmaxf(l[r], kTiny);
+    const int row = q0 + 16 * w + lane / 4 + 8 * r;
+    if (blockIdx.z == 0 && lane % 4 == 0 && row < Sq)
+      lse[size_t(bh) * Sq + row] = l[r] > 0.f ? m[r] + logf(lm[r]) : -kNegInf;
+  }
+  // o = acc / l (an empty row: 0 / 1e-30 = 0)
+  store_slab(acc, lm, o + (size_t(bh) * Sq + q0 + 16 * w) * D + n0, D, Sq - q0 - 16 * w, D - n0,
+             lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const int* __restrict__ kpad, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dq, int H, int Sq, int Sk, int D) {
+  constexpr int P = Pitch<T>::P;
+  extern __shared__ __align__(16) unsigned char smem_wd[];
+  T* qs = reinterpret_cast<T*>(smem_wd);  // [kT][P]: the slabs d0 of q, do, k, v
+  T* dos = qs + kT * P;
+  T* ks = dos + kT * P;                   // then k's output slab
+  T* vs = ks + kT * P;
+  int* valid = reinterpret_cast<int*>(vs + kT * P);  // [kT]
+  const int bh = blockIdx.y, q0 = blockIdx.x * kT, n0 = blockIdx.z * kDS;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
+  q += (size_t(bh) * Sq + q0) * D;
+  dout += (size_t(bh) * Sq + q0) * D;
+  k += size_t(bh) * Sk * D;
+  v += size_t(bh) * Sk * D;
+  const int* pad = kpad + size_t(bh / H) * Sk;
+  float lse_l[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * w + lane / 4 + 8 * r;
+    lse_l[r] = row < Sq ? lse[size_t(bh) * Sq + row] * kLog2e : 0.f;
+    delta_r[r] = row < Sq ? delta[size_t(bh) * Sq + row] : 0.f;
+  }
+  const float one[2] = {1.f, 1.f};
+  float acc[kDS / 8][4];
+  zero(acc);
+  const int nk = (Sk + kT - 1) / kT;
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kT;
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    for (int d0 = 0; d0 < D; d0 += kDS) {
+      __syncthreads();
+      stage_slab(qs, q, D, kT, Sq - q0, d0, D);
+      stage_slab(dos, dout, D, kT, Sq - q0, d0, D);
+      stage_slab(ks, k + size_t(k0) * D, D, kT, Sk - k0, d0, D);
+      stage_slab(vs, v + size_t(k0) * D, D, kT, Sk - k0, d0, D);
+      if (d0 == 0 && threadIdx.x < kT) {
+        const int t = k0 + threadIdx.x;
+        valid[threadIdx.x] = t < Sk && pad[t] == 0;
+      }
+      exo::tc::cp_async_commit();
+      exo::tc::cp_async_wait<0>();
+      __syncthreads();
+      slab_qk<8>(s, qs + 16 * w * P, ks, 8, D - d0, lane);
+      slab_qk<8>(dp, dos + 16 * w * P, vs, 8, D - d0, lane);
+    }
+    // ds = p (dp - delta), p = exp(s - lse) at valid keys (TPU :189)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = valid[nt * 8 + c + (e & 1)] != 0;
+        const float p = ok ? exp2f(fmaf(s[nt][e], kLog2e, -lse_l[e / 2])) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - delta_r[e / 2]);
+      }
+    __syncthreads();  // every warp is done with k's slab d0
+    stage_slab(ks, k + size_t(k0) * D, D, kT, Sk - k0, n0, D);
+    exo::tc::cp_async_commit();
+    exo::tc::cp_async_wait<0>();
+    __syncthreads();
+    slab_pv<8, false>(acc, s, one, ks, 8, lane);  // dq += ds . k (bf16: ds rounded, TPU :198)
+  }
+  store_slab(acc, one, dq + (size_t(bh) * Sq + q0 + 16 * w) * D + n0, D, Sq - q0 - 16 * w,
+             D - n0, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const int* __restrict__ kpad, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk, int D) {
+  constexpr int P = Pitch<T>::P;
+  extern __shared__ __align__(16) unsigned char smem_wd[];
+  T* ks = reinterpret_cast<T*>(smem_wd);  // [kT][P]: the slabs d0 of k, v, q, do
+  T* vs = ks + kT * P;
+  T* qs = vs + kT * P;                    // then q's and do's output slabs
+  T* dos = qs + kT * P;
+  float* lse_s = reinterpret_cast<float*>(dos + kT * P);  // [kT], times log2(e)
+  float* delta_s = lse_s + kT;                            // [kT]
+  const int bh = blockIdx.y, k0 = blockIdx.x * kT, n0 = blockIdx.z * kDS;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
+  q += size_t(bh) * Sq * D;
+  dout += size_t(bh) * Sq * D;
+  k += (size_t(bh) * Sk + k0) * D;
+  v += (size_t(bh) * Sk + k0) * D;
+  lse += size_t(bh) * Sq;
+  delta += size_t(bh) * Sq;
+  const int* pad = kpad + size_t(bh / H) * Sk;
+  bool kv_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + 16 * w + lane / 4 + 8 * r;
+    kv_ok[r] = key < Sk && pad[key] == 0;
+  }
+  const float one[2] = {1.f, 1.f};
+  float dk_acc[kDS / 8][4], dv_acc[kDS / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  const int nq = (Sq + kT - 1) / kT;
+  for (int i = 0; i < nq; ++i) {
+    const int q0 = i * kT;
+    // s^T = k . q^T and dp^T = v . do^T over every slab of the head
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+    for (int d0 = 0; d0 < D; d0 += kDS) {
+      __syncthreads();
+      stage_slab(ks, k, D, kT, Sk - k0, d0, D);
+      stage_slab(vs, v, D, kT, Sk - k0, d0, D);
+      stage_slab(qs, q + size_t(q0) * D, D, kT, Sq - q0, d0, D);
+      stage_slab(dos, dout + size_t(q0) * D, D, kT, Sq - q0, d0, D);
+      if (d0 == 0 && threadIdx.x < kT) {
+        const int t = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = t < Sq ? lse[t] * kLog2e : 0.f;
+        delta_s[threadIdx.x] = t < Sq ? delta[t] : 0.f;
+      }
+      exo::tc::cp_async_commit();
+      exo::tc::cp_async_wait<0>();
+      __syncthreads();
+      slab_qk<8>(s, ks + 16 * w * P, qs, 8, D - d0, lane);
+      slab_qk<8>(dp, vs + 16 * w * P, dos, 8, D - d0, lane);
+    }
+    // p^T = exp(s^T - lse) at valid keys and queries (TPU :226); ds^T = p^T
+    // (dp^T - delta) from the unrounded p
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + c + (e & 1);
+        const bool ok = kv_ok[e / 2] && q0 + col < Sq;
+        const float p = ok ? exp2f(fmaf(s[nt][e], kLog2e, -lse_s[col])) : 0.f;
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - delta_s[col]);
+      }
+    __syncthreads();  // every warp is done with q's and do's slabs d0
+    stage_slab(qs, q + size_t(q0) * D, D, kT, Sq - q0, n0, D);
+    stage_slab(dos, dout + size_t(q0) * D, D, kT, Sq - q0, n0, D);
+    exo::tc::cp_async_commit();
+    exo::tc::cp_async_wait<0>();
+    __syncthreads();
+    // dv += p^T . do (bf16: p^T rounded); dk += ds^T . q (bf16: rounded, :239)
+    slab_pv<8, false>(dv_acc, s, one, dos, 8, lane);
+    slab_pv<8, false>(dk_acc, dp, one, qs, 8, lane);
+  }
+  const size_t row0 = size_t(bh) * Sk + k0 + 16 * w;
+  store_slab(dk_acc, one, dk + row0 * D + n0, D, Sk - k0 - 16 * w, D - n0, lane);
+  store_slab(dv_acc, one, dv + row0 * D + n0, D, Sk - k0 - 16 * w, D - n0, lane);
+}
+
+// Shared memory of a wide body: `tiles` slab tiles and `words` 4-byte words.
+template <typename T>
+constexpr size_t smem_bytes(int tiles, int words) {
+  return sizeof(T) * size_t(tiles) * kT * Pitch<T>::P + 4 * size_t(words);
+}
+
+}  // namespace wd
+
 // ---------------------------------------------------------------- launch
 struct Shape {
   int BH, H, Sq, Sk, D;
@@ -1058,29 +1347,86 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* kpad, c
   return cudaGetLastError();
 }
 
+// The wide bodies (D > 128): one CTA per (64-row tile, bh, 64-column slab).
+template <typename T>
+dim3 wide_grid(int rows, const Shape& sh) {
+  return dim3((rows + kT - 1) / kT, sh.BH, (sh.D + wd::kDS - 1) / wd::kDS);
+}
+
+template <typename T>
+cudaError_t fwd_wide(const void* q, const void* k, const void* v, const void* kpad, void* o,
+                     void* lse, Shape sh, cudaStream_t st) {
+  auto kernel = wd::flash_fwd_wide_kernel<T>;
+  constexpr size_t bytes = wd::smem_bytes<T>(3, kT);
+  cudaError_t err = exo::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<wide_grid<T>(sh.Sq, sh), kThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(kpad), static_cast<T*>(o), static_cast<float*>(lse), sh.H, sh.Sq,
+      sh.Sk, sh.D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dq_wide(const void* q, const void* k, const void* v, const void* kpad,
+                    const void* dout, const void* lse, const void* delta, void* dq_out, Shape sh,
+                    cudaStream_t st) {
+  auto kernel = wd::flash_dq_wide_kernel<T>;
+  constexpr size_t bytes = wd::smem_bytes<T>(4, kT);
+  cudaError_t err = exo::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<wide_grid<T>(sh.Sq, sh), kThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(kpad), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq_out), sh.H, sh.Sq, sh.Sk, sh.D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dkv_wide(const void* q, const void* k, const void* v, const void* kpad,
+                     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                     Shape sh, cudaStream_t st) {
+  auto kernel = wd::flash_dkv_wide_kernel<T>;
+  constexpr size_t bytes = wd::smem_bytes<T>(4, 2 * kT);
+  cudaError_t err = exo::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<wide_grid<T>(sh.Sk, sh), kThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(kpad), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), sh.H, sh.Sq, sh.Sk, sh.D);
+  return cudaGetLastError();
+}
+
 // Every body stages q, k, v and do by 16-byte cp.async.
 bool aligned(const void* a, const void* b, const void* c, const void* d) {
   return exo::tc::aligned16(a) && exo::tc::aligned16(b) && exo::tc::aligned16(c) &&
          exo::tc::aligned16(d);
 }
 
-// D a multiple of 8 up to 128, in the head tile that holds it.
+// D any multiple of 8: up to 128 in the head tile that holds it, above in
+// the wide bodies' slabs.
 bool shape_ok(const Shape& sh) {
   return sh.H >= 1 && sh.BH >= 1 && sh.BH % sh.H == 0 && sh.BH <= 65535 && sh.Sq >= 1 &&
-         sh.Sk >= 1 && sh.D >= 8 && sh.D <= 128 && sh.D % 8 == 0;
+         sh.Sk >= 1 && sh.D >= 8 && sh.D % 8 == 0;
 }
+
+constexpr int kMaxTileD = 128;  // the largest fixed head tile
 
 int head_tile(int D) { return D <= 32 ? 32 : D <= 48 ? 48 : D <= 64 ? 64 : 128; }
 
 // Returns fn<T, DP>(args...) for the call's type (dtype 0: float32, 1:
-// bfloat16) and the head tile DP that holds sh.D.
-#define EXO_FLASH_TILE(fn, T, ...)                  \
-  do {                                              \
-    const int tt = head_tile(sh.D);                 \
-    if (tt == 32) return fn<T, 32>(__VA_ARGS__);    \
-    if (tt == 48) return fn<T, 48>(__VA_ARGS__);    \
-    if (tt == 64) return fn<T, 64>(__VA_ARGS__);    \
-    return fn<T, 128>(__VA_ARGS__);                 \
+// bfloat16) and the head tile DP that holds sh.D, or fn_wide<T>(args...)
+// above the largest tile.
+#define EXO_FLASH_TILE(fn, T, ...)                        \
+  do {                                                    \
+    if (sh.D > kMaxTileD) return fn##_wide<T>(__VA_ARGS__); \
+    const int tt = head_tile(sh.D);                       \
+    if (tt == 32) return fn<T, 32>(__VA_ARGS__);          \
+    if (tt == 48) return fn<T, 48>(__VA_ARGS__);          \
+    if (tt == 64) return fn<T, 64>(__VA_ARGS__);          \
+    return fn<T, 128>(__VA_ARGS__);                       \
   } while (0)
 #define EXO_FLASH_DISPATCH(fn, ...)                           \
   do {                                                        \
@@ -1094,8 +1440,8 @@ int head_tile(int D) { return D <= 32 ? 32 : D <= 48 ? 48 : D <= 64 ? 64 : 128; 
 // q (BH, Sq, D) pre-scaled, k and v (BH, Sk, D) of one type (dtype 0:
 // float32, 1: bfloat16), kpad (BH / H, Sk) int32; writes o (BH, Sq, D) in
 // the input type and lse (BH, Sq) float32. All contiguous, q, k and v
-// 16-byte aligned. D a multiple of 8 up to 128. Returns the CUDA error of
-// the launch, or 0.
+// 16-byte aligned. D any multiple of 8. Returns the CUDA error of the
+// launch, or 0.
 extern "C" int flash_attn_forward(const void* q, const void* k, const void* v, const void* kpad,
                                   void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
                                   int dtype, void* stream) {

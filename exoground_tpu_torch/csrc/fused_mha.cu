@@ -28,24 +28,28 @@
 // out-projection in 3xTF32 too.
 // bfloat16: mha_tc_kernel<DHP, false>, one CTA of 8 warps per (128-row tile,
 // head), mma.sync m16n8k16, then the bf16 out-projection.
+// Above a head of 64 (C 1024 at H 8): mha_tile.cuh's wide-head body (2d),
+// the qkv as the tail's GEMM into a scratch, then attention in head slabs.
 // x, W_in, W_out and the attn scratch must be 16-byte aligned (cp.async).
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, w_in (3C, C), b_in (3C),
-// w_out (C, C), b_out (C), attn scratch (B*S, C), out (B, S, C); all
+// w_out (C, C), b_out (C), attn scratch (B*S, C), qkv scratch (B*S, 3C) for
+// a head above 64 (the wide-head body; else null), out (B, S, C); all
 // contiguous, of one type (dtype 0: float32, 1: bfloat16) apart from kpad;
-// S <= 128, C a multiple of 32, head size C/H a multiple of 8 up to 64;
-// x, w_in, w_out and attn 16-byte aligned.
+// S <= 128, C a multiple of 32, head size C/H a multiple of 8; x, w_in, w_out
+// and attn 16-byte aligned.
 // Returns the first CUDA error of the launches, or 0.
 extern "C" int fused_mha_forward(const void* x, const void* kpad, const void* w_in,
                                  const void* b_in, const void* w_out, const void* b_out,
-                                 void* attn, void* out, int B, int S, int C, int H,
-                                 int dtype, void* stream) {
+                                 void* attn, void* qkv, void* out, int B, int S, int C,
+                                 int H, int dtype, void* stream) {
   if (!exo::mha::valid_shape(B, S, C, H, exo::mha::kKCf)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return exo::mha::by_dtype(dtype, [&](auto tag) -> int {
     using T = decltype(tag);
-    cudaError_t err = exo::mha::attention_exact<T>(x, kpad, w_in, b_in, attn, B, S, C, H, st);
+    cudaError_t err = exo::mha::attention_exact<T>(x, kpad, w_in, b_in, attn, qkv, B, S, C, H,
+                                                     st);
     if (err != cudaSuccess) return err;
     return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st);
   });

@@ -30,21 +30,24 @@
 // out-projection of mha_tail.cuh follows (f32: 3xTF32 on the tensor cores,
 // shared with the exact body). The f32 (window, head) kernel keeps its
 // CUDA-core design: only chip_smoke's f32 + int8 agreement check runs it.
+// Above a head of 64, both types run mha_tile.cuh's wide-head body (2d)
+// with the int8 qkv product as linear_s8_kernel (s8 mma.sync).
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, wq (3C, C) int8 and wsc
 // (3C) float32 (W_in quantized per row), b_in (3C), w_out (C, C), b_out (C),
 // xq (B*S, C) int8 and xs (B*S) float32 (the prologue's output), attn scratch
-// (B*S, C), out (B, S, C); all contiguous; x, b_in, w_out, b_out, attn and
-// out of one type (dtype 0: float32, 1: bfloat16); S <= 128, C a multiple of
-// 128, head size C/H a multiple of 8 up to 64; w_out and attn 16-byte
+// (B*S, C), qkv scratch (B*S, 3C) for a head above 64 (the wide-head body;
+// else null), out (B, S, C); all contiguous; x, b_in, w_out, b_out, attn, qkv
+// and out of one type (dtype 0: float32, 1: bfloat16); S <= 128, C a
+// multiple of 128, head size C/H a multiple of 8; w_out and attn 16-byte
 // aligned (bfloat16: wq and xq too). Returns the first CUDA error of the
 // launches, or 0.
 extern "C" int fused_mha_int8_forward(const void* x, const void* kpad, const void* wq,
                                       const void* wsc, const void* b_in, const void* w_out,
                                       const void* b_out, void* xq, void* xs, void* attn,
-                                      void* out, int B, int S, int C, int H, int dtype,
-                                      void* stream) {
+                                      void* qkv, void* out, int B, int S, int C, int H,
+                                      int dtype, void* stream) {
   if (!exo::mha::valid_shape(B, S, C, H, 128)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return exo::mha::by_dtype(dtype, [&](auto tag) -> int {
@@ -52,7 +55,7 @@ extern "C" int fused_mha_int8_forward(const void* x, const void* kpad, const voi
     cudaError_t err = exo::mha::row_prologue<T, exo::mha::kRowQuant>(
         x, nullptr, nullptr, nullptr, xq, xs, B * S, C, st);
     if (err != cudaSuccess) return err;
-    err = exo::mha::attention_int8<T>(xq, xs, kpad, wq, wsc, b_in, attn, B, S, C, H, st);
+    err = exo::mha::attention_int8<T>(xq, xs, kpad, wq, wsc, b_in, attn, qkv, B, S, C, H, st);
     if (err != cudaSuccess) return err;
     return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st);
   });

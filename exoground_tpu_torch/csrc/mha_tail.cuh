@@ -15,7 +15,9 @@
 // so an ldmatrix touches 8 distinct bank groups), the bias (and the block
 // bodies' residual, read as bf16 pairs: x 4-byte aligned) added to the f32
 // sum before the one rounding. It serves
-// every bf16 body of the family. K = C spans every head, so the heads are
+// every bf16 body of the family. The same two kernels, at N = 3C, are the
+// wide-head body's qkv projection (mha_tile.cuh 2d), and linear_s8_kernel
+// its int8 one (below). K = C spans every head, so the heads are
 // summed inside one dot product, with no atomics. It needs the attn scratch
 // and W_out 16-byte aligned (cp.async) and returns cudaErrorMisalignedAddress
 // otherwise.
@@ -170,26 +172,36 @@ linear_bias_tf32_kernel(const float* __restrict__ a, const float* __restrict__ w
     }
 }
 
+// y (M x N) = a (M x K) . w (N x K)^T + bias (+ res, the block bodies'
+// residual, when given) on the tensor cores. The primary template is the
+// f32 body; bf16 is specialized below. a and w 16-byte aligned (cp.async),
+// res 8-byte aligned (f32; 4-byte in bf16), N and K multiples of 8.
+template <typename T>
+inline cudaError_t linear(const void* a, const void* w, const void* bias, void* y, int M, int N,
+                          int K, cudaStream_t st, const void* res = nullptr) {
+  const dim3 grid((M + 127) / 128, (N + 127) / 128);
+  auto kernel = res ? linear_bias_tf32_kernel<true> : linear_bias_tf32_kernel<false>;
+  cudaError_t err = allow_smem(kernel, kLinTf32Bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 256, kLinTf32Bytes, st>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(res), static_cast<float*>(y), M, N, K);
+  return cudaGetLastError();
+}
+
 // The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out
-// (+ res, the block bodies' residual x, when given). The primary template is
-// the f32 body; bf16 is specialized below. attn and W_out 16-byte aligned
-// (cp.async), res 8-byte aligned.
+// (+ res, the block bodies' residual x, when given). attn and W_out
+// 16-byte aligned (cp.async), res 8-byte aligned in f32 and 4-byte in bf16.
 template <typename T>
 inline cudaError_t out_projection(const void* attn, const void* w_out, const void* b_out,
                                   void* out, int M, int C, cudaStream_t st,
                                   const void* res = nullptr) {
   if (!tc::aligned16(attn) || !tc::aligned16(w_out)) return cudaErrorMisalignedAddress;
-  if (res && reinterpret_cast<uintptr_t>(res) % 8) return cudaErrorMisalignedAddress;
+  if (res && reinterpret_cast<uintptr_t>(res) % (sizeof(T) == 4 ? 8 : 4)) {
+    return cudaErrorMisalignedAddress;
+  }
   if (C % 8) return cudaErrorInvalidValue;
-  const dim3 grid((M + 127) / 128, (C + 127) / 128);
-  auto kernel = res ? linear_bias_tf32_kernel<true> : linear_bias_tf32_kernel<false>;
-  cudaError_t err = allow_smem(kernel, kLinTf32Bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, 256, kLinTf32Bytes, st>>>(
-      static_cast<const float*>(attn), static_cast<const float*>(w_out),
-      static_cast<const float*>(b_out), static_cast<const float*>(res), static_cast<float*>(out),
-      M, C, C);
-  return cudaGetLastError();
+  return linear<T>(attn, w_out, b_out, out, M, C, C, st, res);
 }
 
 // y = a . w^T + bias (+ res) for bf16: the tensor-core body (see the note at
@@ -283,18 +295,113 @@ linear_bias_bf16_kernel(const __nv_bfloat16* __restrict__ a,
 
 // bf16: the tensor-core body.
 template <>
-inline cudaError_t out_projection<__nv_bfloat16>(const void* attn, const void* w_out,
-                                                 const void* b_out, void* out, int M, int C,
-                                                 cudaStream_t st, const void* res) {
-  if (!tc::aligned16(attn) || !tc::aligned16(w_out)) return cudaErrorMisalignedAddress;
-  if (res && reinterpret_cast<uintptr_t>(res) % 4) return cudaErrorMisalignedAddress;
-  if (C % 8) return cudaErrorInvalidValue;
-  const dim3 grid((M + kLinBM - 1) / kLinBM, (C + kLinBN - 1) / kLinBN);
+inline cudaError_t linear<__nv_bfloat16>(const void* a, const void* w, const void* bias, void* y,
+                                         int M, int N, int K, cudaStream_t st, const void* res) {
+  const dim3 grid((M + kLinBM - 1) / kLinBM, (N + kLinBN - 1) / kLinBN);
   auto kernel = res ? linear_bias_bf16_kernel<true> : linear_bias_bf16_kernel<false>;
   kernel<<<grid, 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(attn), static_cast<const __nv_bfloat16*>(w_out),
-      static_cast<const __nv_bfloat16*>(b_out), static_cast<const __nv_bfloat16*>(res),
-      static_cast<__nv_bfloat16*>(out), M, C, C);
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(res),
+      static_cast<__nv_bfloat16*>(y), M, N, K);
+  return cudaGetLastError();
+}
+
+// y (M x N) in T = float(aq . wq^T) * xs[m] * wsc[n] + bias[n], each step
+// rounded on its own (exo::dequant, the plain version's order), for the
+// int8 qkv product of the wide-head bodies (mha_tile.cuh 2d): the bf16
+// kernel's 128 x 128 tile and warp layout with the int8 operands seen as b16
+// (K / 2 of them a row, 64 int8 values a K chunk), mma.sync m16n8k32 .s8
+// (tc::mma_s8, exact int32 sums). aq (M x K) and wq (N x K) int8, 16-byte
+// aligned, K a multiple of 16; xs (M) and wsc (N) f32, bias (N) in T.
+template <typename T>
+__global__ void __launch_bounds__(256)
+linear_s8_kernel(const int8_t* __restrict__ aq, const float* __restrict__ xs,
+                 const int8_t* __restrict__ wq, const float* __restrict__ wsc,
+                 const T* __restrict__ bias, T* __restrict__ y, int M, int N, int K) {
+  using b16 = __nv_bfloat16;
+  __shared__ __align__(16) b16 as[2][kLinBM * kLinPitch];
+  __shared__ __align__(16) b16 bs[2][kLinBN * kLinPitch];
+  const b16* a = reinterpret_cast<const b16*>(aq);
+  const b16* w = reinterpret_cast<const b16*>(wq);
+  const int K2 = K / 2;  // b16 units a row
+  const int m0 = blockIdx.x * kLinBM, n0 = blockIdx.y * kLinBN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4, g = lane / 4, c = 2 * (lane % 4);
+  const int ar = tc::a_row(lane), ac = tc::a_col(lane), br = tc::b_row(lane),
+            bc = tc::b_col(lane);
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  const int nch = (K2 + kLinBK - 1) / kLinBK;
+  tc::cp_tile<kLinBM, kLinBK, 256>(as[0], kLinPitch, a, K2, m0, M, 0, K2);
+  tc::cp_tile<kLinBN, kLinBK, 256>(bs[0], kLinPitch, w, K2, n0, N, 0, K2);
+  tc::cp_async_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int st = ch & 1;
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    if (ch + 1 < nch) {
+      const int k0 = (ch + 1) * kLinBK;
+      tc::cp_tile<kLinBM, kLinBK, 256>(as[st ^ 1], kLinPitch, a, K2, m0, M, k0, K2);
+      tc::cp_tile<kLinBN, kLinBK, 256>(bs[st ^ 1], kLinPitch, w, K2, n0, N, k0, K2);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kLinBK / 16; ++kk) {  // 32 int8 values a k-step
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        tc::ldsm_x4(af[mt], as[st] + (wm * 64 + mt * 16 + ar) * kLinPitch + kk * 16 + ac);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        tc::ldsm_x4(b, bs[st] + (wn * 32 + np * 16 + br) * kLinPitch + kk * 16 + bc);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          tc::mma_s8(acc[mt][2 * np], af[mt], b[0], b[1]);
+          tc::mma_s8(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * 64 + mt * 16 + g + 8 * half;
+      if (m >= M) continue;
+      const float sm = xs[m];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + wn * 32 + nt * 8 + c;
+        if (n >= N) continue;
+        const float v0 = dequant(acc[mt][nt][2 * half], sm, wsc[n], to_f(bias[n]));
+        const float v1 = dequant(acc[mt][nt][2 * half + 1], sm, wsc[n + 1], to_f(bias[n + 1]));
+        if constexpr (sizeof(T) == 4) {
+          *reinterpret_cast<float2*>(y + size_t(m) * N + n) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<uint32_t*>(y + size_t(m) * N + n) = tc::pack_bf16(v0, v1);
+        }
+      }
+    }
+}
+
+template <typename T>
+inline cudaError_t linear_int8(const void* aq, const void* xs, const void* wq, const void* wsc,
+                               const void* bias, void* y, int M, int N, int K, cudaStream_t st) {
+  if (!tc::aligned16(aq) || !tc::aligned16(wq)) return cudaErrorMisalignedAddress;
+  if (K % 16 || N % 8) return cudaErrorInvalidValue;
+  const dim3 grid((M + kLinBM - 1) / kLinBM, (N + kLinBN - 1) / kLinBN);
+  linear_s8_kernel<T><<<grid, 256, 0, st>>>(
+      static_cast<const int8_t*>(aq), static_cast<const float*>(xs),
+      static_cast<const int8_t*>(wq), static_cast<const float*>(wsc),
+      static_cast<const T*>(bias), static_cast<T*>(y), M, N, K);
   return cudaGetLastError();
 }
 

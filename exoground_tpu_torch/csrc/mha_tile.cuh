@@ -89,10 +89,11 @@
 //    The template covers the head tile (Dhp = 16, 32, 48, 64) and the product
 //    kind; S and Dh are run-time values. Its operands must be 16-byte aligned
 //    (cp.async), C a multiple of 16.
-// Head sizes: multiples of 8 up to 64 in every body (the int8 f32 body's
-// shared-memory budget at S = 128: q/k/v and the scores take 164 KB at
-// Dh = 64); a head tile past Dh reads zero columns. Larger heads are not
-// served yet.
+// Head sizes: multiples of 8 up to 64 in the bodies 2a-2c (the int8 f32
+// body's shared-memory budget at S = 128: q/k/v and the scores take 164 KB
+// at Dh = 64; a head tile past Dh reads zero columns); larger multiples of 8
+// in 2d, the wide-head body: the qkv projection as a GEMM into a scratch,
+// then attention in head slabs of 64 columns (below).
 #pragma once
 
 #include <cstddef>
@@ -103,6 +104,7 @@
 #include "common.cuh"
 #include "mha_tail.cuh"
 #include "tc.cuh"
+#include "wide_window.cuh"
 
 namespace exo {
 namespace mha {
@@ -112,14 +114,17 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kTh = 256;    // the tensor-core tiles: 8 warps
 constexpr int kRows = 128;  // their row tile: packed windows of S <= 64, or one of S <= 128
-constexpr int kKC = 32;     // the int8 f32 body: K chunk (32 words of int8)
-constexpr int kMaxDh = 64;  // largest head size served
+constexpr int kKC = 32;       // the int8 f32 body: K chunk (32 words of int8)
+// the largest head the bodies 2a-2c hold; above it 2d, which takes the qkv
+// scratch (the wrapper allocates it above ops/attention.py's
+// MAX_TILE_HEAD_DIM, the same 64; a wide head handed none is refused)
+constexpr int kMaxTileDh = 64;
 
 // The entry points' shape checks: B, S <= 128 and H positive, C a multiple
-// of c_mult and of H, the head size a multiple of 8 up to 64.
+// of c_mult and of H, the head size a multiple of 8.
 inline bool valid_shape(int B, int S, int C, int H, int c_mult) {
   return B >= 1 && S >= 1 && S <= 128 && H >= 1 && C % H == 0 && C % c_mult == 0 &&
-         C / H <= kMaxDh && (C / H) % 8 == 0;
+         (C / H) % 8 == 0;
 }
 
 // ============================================================ 1. row prologue
@@ -907,12 +912,54 @@ inline cudaError_t attention_tc(const void* x, const void* xsc, const void* kpad
   }
 }
 
+// ============================================== 2d. wide heads (Dh > 64)
+// Past a head of 64 the bodies above no longer fit: the f32 tile's q, k and
+// v take 3 * 128 * (Dh + 4) floats (399 KB at Dh 256, past a CTA's 227 KB),
+// its o accumulator Dh / 2 registers a thread, and the int8 f32 body's S x Dh
+// tiles with the scores 164 KB already at Dh 64. So a wide head runs in two
+// kernels with the (B*S, 3C) qkv between them, in a scratch of its own that
+// the wrapper hands over beside the o scratch (null below a head of 64; a
+// wide head given none fails with cudaErrorInvalidValue):
+//   1. qkv = the row operand . W_in^T + b_in by the tail's 128 x 128
+//      tensor-core GEMM (mha_tail.cuh: 3xTF32 in f32, bf16 mma.sync, or for
+//      the int8 bodies linear_s8_kernel: mma.sync m16n8k32 .s8, exact int32
+//      sums dequantized as float(acc) * xs * wsc + b_in), q, k and v written
+//      in T (bf16: rounded, as the tile rounds them);
+//   2. the slab window kernel (wide_window.cuh) per (window, head), reading
+//      q, k and v where they lie in qkv (row pitch 3C), the MHA tile's order
+//      (scores times 1/sqrt(Dh), p / l before p . v), o into the o scratch.
+// The qkv round trip costs 2 * B*S*3C elements of device traffic (200 MB in
+// f32 at B64 S128 C1024, ~0.06 ms at 3.35 TB/s) against 8*B*S*C^2 FLOPs; in
+// exchange the projection runs in full 128 x 128 tiles, not a head's 3*Dh
+// columns a CTA, and shared memory and registers stay bounded at any head.
+// Then the out-projection, as every body.
+
+// Step 2: o of each (window, head) into attn from the packed qkv.
+template <typename T>
+inline cudaError_t attention_wide(const void* qkv, const void* kpad, void* attn, int B, int S,
+                                  int C, int H, cudaStream_t st) {
+  const long long DH = C / H, R = 3LL * C;
+  const wide::Window W{S * R, DH, R, S * R, DH, R, S * R, DH, R, (long long)S * C, DH, C};
+  const T* q = static_cast<const T*>(qkv);
+  return wide::window<T, false, int>(q, q + C, q + 2 * C, static_cast<const int*>(kpad), attn,
+                                     W, B, H, S, int(DH), 1.0f / sqrtf(static_cast<float>(DH)),
+                                     st);
+}
+
 // ================================================================ dispatch
-// The int8 bodies after their prologue: xq, xs -> o (attn) in T.
+// The int8 bodies after their prologue: xq, xs -> o (attn) in T; a wide
+// head takes 2d with the int8 projection into qkv (B*S, 3C) in T.
 template <typename T>
 inline cudaError_t attention_int8(const void* xq, const void* xs, const void* kpad,
                                   const void* wq, const void* wsc, const void* b_in,
-                                  void* attn, int B, int S, int C, int H, cudaStream_t st) {
+                                  void* attn, void* qkv, int B, int S, int C, int H,
+                                  cudaStream_t st) {
+  if (C / H > kMaxTileDh) {
+    if (qkv == nullptr) return cudaErrorInvalidValue;
+    cudaError_t err = linear_int8<T>(xq, xs, wq, wsc, b_in, qkv, B * S, 3 * C, C, st);
+    if (err != cudaSuccess) return err;
+    return attention_wide<T>(qkv, kpad, attn, B, S, C, H, st);
+  }
   if constexpr (std::is_same<T, float>::value) {
     return attention_int8_f32<T>(xq, xs, kpad, wq, wsc, b_in, attn, B, S, C, H, st);
   } else {
@@ -920,11 +967,19 @@ inline cudaError_t attention_int8(const void* xq, const void* xs, const void* kp
   }
 }
 
-// The exact bodies: a (x or xn) -> o (attn) in T.
+// The exact bodies: a (x or xn) -> o (attn) in T; a wide head takes 2d with
+// its projection into qkv (B*S, 3C) in T.
 template <typename T>
 inline cudaError_t attention_exact(const void* a, const void* kpad, const void* w_in,
-                                   const void* b_in, void* attn, int B, int S, int C, int H,
-                                   cudaStream_t st) {
+                                   const void* b_in, void* attn, void* qkv, int B, int S, int C,
+                                   int H, cudaStream_t st) {
+  if (C / H > kMaxTileDh) {
+    if (qkv == nullptr) return cudaErrorInvalidValue;
+    if (!tc::aligned16(a) || !tc::aligned16(w_in)) return cudaErrorMisalignedAddress;
+    cudaError_t err = linear<T>(a, w_in, b_in, qkv, B * S, 3 * C, C, st);
+    if (err != cudaSuccess) return err;
+    return attention_wide<T>(qkv, kpad, attn, B, S, C, H, st);
+  }
   if constexpr (std::is_same<T, float>::value) {
     return attention_f32<T>(a, kpad, w_in, b_in, attn, B, S, C, H, st);
   } else {

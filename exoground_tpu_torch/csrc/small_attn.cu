@@ -56,7 +56,15 @@
 // broadcast) feeds 8 FMAs per owned column pair (a 64-bit load a key), 8
 // rows at once.
 //
-// Head sizes: multiples of 8 up to 128.
+// Head sizes: multiples of 8 up to 128 in the bodies above; larger multiples
+// of 8 in the wide body (wide_window.cuh's window kernel in its SMALL order,
+// the same function: q scaled and rounded as it is loaded, p unnormalised in
+// p . v, o / l after): per (batch, head) window q and k in head slabs of 64
+// columns, the scores summed over the slabs in registers, the softmax once,
+// then o slab by slab from v's slabs, every product on the tensor cores
+// (3xTF32 in f32). Its tiles take 2 * 128 * 68 floats (70 KB) in f32 at S
+// 128 whatever the head size, where the f32 body above keeps all of k and v
+// (266 KB at D 256).
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
@@ -64,11 +72,12 @@
 
 #include "common.cuh"
 #include "tc.cuh"
+#include "wide_window.cuh"
 
 namespace {
 
 constexpr int kMaxS = 128;
-constexpr int kMaxD = 128;
+constexpr int kMaxTileD = 128;  // the largest head the bodies above hold; past it, slabs
 constexpr float kNegInf = -1e30f;  // finite fill, as the plain version's NEG_INF
 
 // Element strides of one (B, H, S, D) operand; the last dimension is contiguous.
@@ -517,14 +526,14 @@ static bool aligned(const void* p, const Strides& s, int size) {
 // row strides (elements), every base and stride 16-byte aligned; q unscaled
 // (scale = 1/sqrt(D) as a float is applied as q is loaded); kpad (B, S) bool
 // contiguous, true at padding keys, or null for none; 1 <= S <= 128, D a
-// multiple of 8 up to 128. Returns the first CUDA error, or 0.
+// multiple of 8. Returns the first CUDA error, or 0.
 extern "C" int small_attn_forward(const void* q, const void* k, const void* v,
                                   const void* kpad, void* o, int B, int H, int S, int D,
                                   long long qsb, long long qsh, long long qsr, long long ksb,
                                   long long ksh, long long ksr, long long vsb, long long vsh,
                                   long long vsr, long long osb, long long osh, long long osr,
                                   float scale, int dtype, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || S > kMaxS || D < 8 || D > kMaxD || D % 8 != 0) {
+  if (B < 1 || H < 1 || S < 1 || S > kMaxS || D < 8 || D % 8 != 0) {
     return cudaErrorInvalidValue;
   }
   const Window W{{qsb, qsh, qsr}, {ksb, ksh, ksr}, {vsb, vsh, vsr}, {osb, osh, osr}};
@@ -534,6 +543,17 @@ extern "C" int small_attn_forward(const void* q, const void* k, const void* v,
     return cudaErrorMisalignedAddress;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned char* kp = static_cast<const unsigned char*>(kpad);
+  if (D > kMaxTileD) {
+    const exo::wide::Window WW{qsb, qsh, qsr, ksb, ksh, ksr, vsb, vsh, vsr, osb, osh, osr};
+    if (dtype == 0) {
+      return exo::wide::window<float, true>(q, k, v, kp, o, WW, B, H, S, D, scale, st);
+    }
+    if (dtype == 1) {
+      return exo::wide::window<exo::wide::bf16, true>(q, k, v, kp, o, WW, B, H, S, D, scale, st);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) return f32::forward(q, k, v, kpad, o, W, B, H, S, D, scale, st);
   if (dtype == 1) return tcb::forward(q, k, v, kpad, o, W, B, H, S, D, scale, st);
   return cudaErrorInvalidValue;

@@ -52,9 +52,9 @@ _L = ctypes.c_longlong
 # C signatures of the entry points, by source
 SIGNATURES = {
     "fused_mha": {
-        # x, kpad, w_in, b_in, w_out, b_out, attn scratch, out,
-        # B, S, C, H, dtype (0 f32, 1 bf16), stream
-        "fused_mha_forward": (_P,) * 8 + (_I,) * 5 + (_P,),
+        # x, kpad, w_in, b_in, w_out, b_out, attn scratch, qkv scratch (wide
+        # heads; else null), out, B, S, C, H, dtype (0 f32, 1 bf16), stream
+        "fused_mha_forward": (_P,) * 9 + (_I,) * 5 + (_P,),
     },
     "fused_mlp": {
         # x, c_fc w, c_fc b, c_proj w, c_proj b, out, f32 workspace, rows, C,
@@ -63,8 +63,8 @@ SIGNATURES = {
     },
     "fused_mha_int8": {
         # x, kpad, w_in int8, w_in scales, b_in, w_out, b_out, x int8, x scales,
-        # attn scratch, out, B, S, C, H, dtype, stream
-        "fused_mha_int8_forward": (_P,) * 11 + (_I,) * 5 + (_P,),
+        # attn scratch, qkv scratch, out, B, S, C, H, dtype, stream
+        "fused_mha_int8_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
     },
     "fused_mlp_int8": {
         # x, c_fc w int8, c_fc scales, c_fc b, c_proj w, c_proj b, out, f32
@@ -80,15 +80,15 @@ SIGNATURES = {
         "milnce_grid_backward": (_P,) * 10 + (_I,) * 7 + (_F, _I, _P),
     },
     "block_attn": {
-        # x, kpad, ln w, ln b, w_in, b_in, w_out, b_out, attn scratch, out,
-        # x_norm, B, S, C, H, dtype, stream
-        "block_attn_forward": (_P,) * 11 + (_I,) * 5 + (_P,),
+        # x, kpad, ln w, ln b, w_in, b_in, w_out, b_out, attn scratch, qkv
+        # scratch, out, x_norm, B, S, C, H, dtype, stream
+        "block_attn_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
     },
     "block_attn_int8": {
         # x, kpad, ln w, ln b, w_in int8, w_in scales, b_in, w_out, b_out,
-        # x_norm int8, x_norm scales, attn scratch, out, x_norm, B, S, C, H,
-        # dtype, stream
-        "block_attn_int8_forward": (_P,) * 14 + (_I,) * 5 + (_P,),
+        # x_norm int8, x_norm scales, attn scratch, qkv scratch, out, x_norm,
+        # B, S, C, H, dtype, stream
+        "block_attn_int8_forward": (_P,) * 15 + (_I,) * 5 + (_P,),
     },
     "block_mlp": {
         # x, ln w, ln b, c_fc w, c_fc b, c_proj w, c_proj b, out, f32

@@ -53,7 +53,13 @@ Counterpart of ``exoground_tpu/ops/attention.py``:
   The four kernels share ``csrc/mha_tile.cuh``: tiles of packed windows
   per head on the tensor cores, bfloat16 (the int8 qkv as ``mma.sync`` .s8)
   and float32 exact in 3xTF32, and the int8 float32 body per (window,
-  head) on the CUDA cores; every launch goes through ``_launch_mha``.
+  head) on the CUDA cores, for heads up to ``MAX_TILE_HEAD_DIM``; a wider
+  head (any multiple of 8) runs the wide-head body, whose qkv goes through
+  a scratch (``mha_scratch``) into attention in head slabs
+  (``csrc/wide_window.cuh``); every launch goes through ``_launch_mha``.
+  The flash and window cores take any head size: above 128 their kernels
+  work in head slabs too, and a D that is not a multiple of 8 is padded
+  with zero columns (``_pad_head``).
   * ``MultiHeadAttention`` — the ``nn.MultiheadAttention`` parameter layout
     (packed ``in_proj_weight`` (3C, C), ``out_proj``) with the JAX module's
     dispatch: under 'auto' (outside ``disable_fused_kernels()``) or an
@@ -80,15 +86,16 @@ from exoground_tpu_torch.ops.fused_mlp import fused_kernels_disabled, layernorm_
 
 NEG_INF = -1e30  # finite "minus infinity": avoids NaN on fully-masked rows
 MAX_FUSED_S = 128  # windows the fused kernel serves (the TPU kernel's tile)
-MAX_KERNEL_HEAD_DIM = 64  # largest head size the fused-MHA and block CUDA kernels serve
-MAX_FLASH_HEAD_DIM = 128  # largest head size the flash CUDA kernels serve
+# the largest head the MHA family's fixed head tiles hold (csrc/mha_tile.cuh
+# kMaxTileDh); a wider one runs the wide-head body (2d), which takes a
+# (B*S, 3C) qkv scratch of its own
+MAX_TILE_HEAD_DIM = 64
 # 'auto' takes flash from this many scores per (batch, head) on: the JAX
 # package's gate (attention.py:77) as it stands, with "on the TPU" read as
 # "on the card". No H100 measurement has moved it yet (PERF.md §7).
 FLASH_MIN_SCORES = 2048 * 2048
 
 MAX_SMALL_S = 128  # windows the window-attention kernel serves (S == Sk)
-MAX_SMALL_HEAD_DIM = 128  # largest head size the window-attention kernel serves
 
 IMPLS = ("auto", "xla", "flash", "small", "fused")  # None means 'auto'
 
@@ -156,9 +163,19 @@ def flash_attention_plain(q, k, v, kpad):
     return o.to(q.dtype), lse[..., 0]
 
 
+def _pad_head(t, d8):
+    """t with zero columns appended to its last dimension up to ``d8``: the
+    kernels take head sizes that are multiples of 8, and zero columns add
+    nothing to q . k^T and give zero columns of o (and of dq, dk, dv), which
+    the caller slices off. Differentiable."""
+    d = t.shape[-1]
+    return t if d == d8 else F.pad(t, (0, d8 - d))
+
+
 def _flash_check(name, q, k, v, kpad):
     """The flash wrappers' checks. Every body stages q, k and v by 16-byte
-    cp.async, so each must be 16-byte aligned."""
+    cp.async, so each must be 16-byte aligned, and the head size a multiple
+    of 8 (``flash_attention`` pads any other)."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"{name}: q, k, v must be (BH, S, D)")
     bh, sq, d = q.shape
@@ -168,10 +185,9 @@ def _flash_check(name, q, k, v, kpad):
                          f"q {tuple(q.shape)}")
     if kpad.dim() != 2 or kpad.shape[1] != sk or bh % kpad.shape[0]:
         raise ValueError(f"{name}: kpad {tuple(kpad.shape)} does not fit BH={bh}, Sk={sk}")
-    if d % 8 or d > MAX_FLASH_HEAD_DIM:
-        raise NotImplementedError(
-            f"{name}: head size {d}; the CUDA kernels serve multiples of 8 up to "
-            f"{MAX_FLASH_HEAD_DIM}")
+    if d % 8:
+        raise ValueError(f"{name}: head size {d} is not a multiple of 8 (flash_attention "
+                         "pads it with zero columns)")
     if sq == 0 or sk == 0:
         raise ValueError(f"{name}: empty sequence (Sq={sq}, Sk={sk})")
     if q.device.type != "cuda":
@@ -270,7 +286,9 @@ def flash_attention(q, k, v, key_padding_mask=None):
     True/nonzero at PAD), differentiable in q, k and v. The 1/sqrt(D) scale
     is folded into q here, outside the autograd Function, so autograd
     chains it into dq (attention.py:410-413). CPU tensors take
-    ``flash_attention_plain``; CUDA tensors launch the kernels or raise."""
+    ``flash_attention_plain``; CUDA tensors launch the kernels or raise, at
+    any head size: one that is not a multiple of 8 gets zero columns up to
+    the next (``_pad_head``), the scale staying 1/sqrt(D) of the true D."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if key_padding_mask is None:
@@ -283,12 +301,14 @@ def flash_attention(q, k, v, key_padding_mask=None):
     vf = v.reshape(b * h, sk, d)
     if q.device.type == "cpu":
         o, _ = flash_attention_plain(qf, kf, vf, kpad)
-    elif torch.is_grad_enabled() and (qf.requires_grad or kf.requires_grad
-                                      or vf.requires_grad):
-        o = FlashAttention.apply(qf.contiguous(), kf.contiguous(), vf.contiguous(), kpad)
+        return o.reshape(b, h, sq, d)
+    d8 = -(-d // 8) * 8
+    qf, kf, vf = (_pad_head(t, d8).contiguous() for t in (qf, kf, vf))
+    if torch.is_grad_enabled() and (qf.requires_grad or kf.requires_grad or vf.requires_grad):
+        o = FlashAttention.apply(qf, kf, vf, kpad)
     else:
-        o, _ = flash_forward(qf.contiguous(), kf.contiguous(), vf.contiguous(), kpad)
-    return o.reshape(b, h, sq, d)
+        o, _ = flash_forward(qf, kf, vf, kpad)
+    return o[..., :d].reshape(b, h, sq, d)
 
 
 # ---------------------------------------------------------------------------
@@ -323,16 +343,15 @@ def small_attention(q, k, v, key_padding_mask=None):
     raises: it reads q, k and v where they lie (``_window_strides``: the
     strided views of a packed qkv need no copy) and scales q as it loads it,
     to the same q * scale in q's type; o comes back as a (B, H, S, D) view
-    of (B, S, H, D) memory. Head sizes: multiples of 8 up to 128 on every
-    device. Inference-only on the card."""
+    of (B, S, H, D) memory. Any head size, as the JAX function: on the card
+    one that is not a multiple of 8 gets zero columns up to the next
+    (``_pad_head``: a copy, sliced off o), the scale staying 1/sqrt(D) of
+    the true D. Inference-only on the card."""
     b, h, s, d = q.shape
     name = "small_attn"
     if k.shape != (b, h, s, d) or v.shape != (b, h, s, d) or s > MAX_SMALL_S:
         raise ValueError(f"{name}: serves self-attention windows of S <= {MAX_SMALL_S}; got "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d % 8 or d > MAX_SMALL_HEAD_DIM:
-        raise NotImplementedError(f"{name}: head size {d}; the CUDA kernel serves multiples "
-                                  f"of 8 up to {MAX_SMALL_HEAD_DIM}")
     if key_padding_mask is not None and key_padding_mask.shape != (b, s):
         raise ValueError(f"{name}: key_padding_mask {tuple(key_padding_mask.shape)} "
                          f"!= {(b, s)}")
@@ -354,19 +373,21 @@ def small_attention(q, k, v, key_padding_mask=None):
     if kpad is not None and not (kpad.dtype == torch.bool and kpad.get_device() == dev
                                  and kpad.is_contiguous()):
         kpad = kpad.to(device=q.device, dtype=torch.bool).contiguous()
+    d8 = -(-d // 8) * 8
+    q, k, v = (_pad_head(t, d8) for t in (q, k, v))
     # o in (B, S, H, D) memory, so that merging the heads back is a view; its
     # strides are known and aligned (D % 8 == 0)
-    o = torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1), dtype=q.dtype,
+    o = torch.empty_strided((b, h, s, d8), (s * h * d8, d8, h * d8, 1), dtype=q.dtype,
                             device=q.device)
     strides = (_window_strides(q, name) + _window_strides(k, name) + _window_strides(v, name)
-               + (s * h * d, d, h * d))
+               + (s * h * d8, d8, h * d8))
     rc = _kernels.library(name).small_attn_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kpad is None else kpad.data_ptr(),
-        o.data_ptr(), b, h, s, d,
+        o.data_ptr(), b, h, s, d8,
         *strides, scale, _kernels.dtype_code(q), _kernels.stream_of(q))
     _kernels.check(name, rc)
     _kernels.count_launch(name)
-    return o
+    return o if d8 == d else o[..., :d]
 
 
 def _window_strides(t, name="small_attn"):
@@ -460,10 +481,6 @@ def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, s
     if not kernel_eligible(s, c, num_heads):
         raise ValueError(f"{name}: S={s}, C={c}, H={num_heads} outside the fused test "
                          f"S <= {MAX_FUSED_S}, C % 128 == 0, (C/H) % 8 == 0")
-    if c // num_heads > MAX_KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"{name}: head size {c // num_heads} > {MAX_KERNEL_HEAD_DIM}; the CUDA "
-            "kernel does not serve it yet (ROADMAP.md, queue 2)")
     if w_in.shape != (3 * c, c) or w_out.shape != (c, c):
         raise ValueError(f"{name}: weights {tuple(w_in.shape)}, {tuple(w_out.shape)} "
                          f"do not fit width {c}")
@@ -485,17 +502,22 @@ def _check_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, s
     return key_padding_mask.to(device=x.device, dtype=torch.int32).contiguous()
 
 
-def mha_scratch(x, int8: bool):
+def mha_scratch(x, int8: bool, num_heads: int):
     """The device scratch of one launch of the MHA family, for x (B, S, C):
     with ``int8`` the row prologue's output, xq (B*S, C) int8 and its
-    scales xs (B*S,) float32, then the (B*S, C) o scratch in x's type that
-    the out-projection reads. Fresh allocations: 16-byte aligned."""
+    scales xs (B*S,) float32; then the (B*S, C) o scratch in x's type that
+    the out-projection reads, and the wide-head body's (B*S, 3C) qkv in x's
+    type at a head size above ``MAX_TILE_HEAD_DIM``, else None (a null
+    pointer: the library refuses a wide head without one). Fresh
+    allocations: 16-byte aligned."""
     b, s, c = x.shape
     attn = torch.empty((b * s, c), dtype=x.dtype, device=x.device)
+    qkv = (torch.empty((b * s, 3 * c), dtype=x.dtype, device=x.device)
+           if c // num_heads > MAX_TILE_HEAD_DIM else None)
     if not int8:
-        return (attn,)
+        return attn, qkv
     return (torch.empty((b * s, c), dtype=torch.int8, device=x.device),
-            torch.empty((b * s,), dtype=torch.float32, device=x.device), attn)
+            torch.empty((b * s,), dtype=torch.float32, device=x.device), attn, qkv)
 
 
 def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, *, ln=None,
@@ -519,8 +541,9 @@ def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, 
     w = quant.quantized_weight(w_in) if int8 else (w_in,)
     outs = (torch.empty_like(x), torch.empty_like(x)) if ln else (torch.empty_like(x),)
     entry = getattr(_kernels.library(name), f"{name}_forward")
-    ptrs = [t.data_ptr() for t in (x, kpad, *ln.values(), *w, b_in, w_out, b_out,
-                                   *mha_scratch(x, int8), *outs)]
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (x, kpad, *ln.values(), *w, b_in, w_out, b_out,
+                      *mha_scratch(x, int8, num_heads), *outs)]
     rc = entry(*ptrs, b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
     _kernels.check(name, rc)
     _kernels.count_launch(name)

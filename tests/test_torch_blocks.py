@@ -594,13 +594,22 @@ def _meta_args(c=512, requires_grad=False):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-def test_block_wrappers_check_before_any_launch(int8):
-    """On a card tensor the wrappers raise before any build: a head size
-    the kernel does not serve (> 64, NotImplementedError as fused_mha), a
-    LayerNorm of the wrong width, and an input that requires grad."""
+def test_block_wrappers_check_before_any_launch(monkeypatch, int8):
+    """On a card tensor the wrappers raise before any build on a LayerNorm
+    of the wrong width and an input that requires grad; a head of 128 (C
+    512, H 4), served by the wide-head body, passes the checks and reaches
+    the C entry (a stand-in library records it)."""
+    from tests.test_torch_mha_family import _fake_library
+
+    calls = []
+    _fake_library(monkeypatch, calls)
     x, ln, attn, mlp = _meta_args()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="head size"):
-        tattn.fused_block_attn(x, None, *ln, *attn, 4, int8_qkv=int8)
+    with torch.no_grad():
+        out, x_norm = tattn.fused_block_attn(x, None, *ln, *attn, 4, int8_qkv=int8)
+    assert out.shape == x_norm.shape == x.shape
+    ((fn, args),) = calls
+    name = "block_attn_int8" if int8 else "block_attn"
+    assert fn == f"{name}_forward" and args[-6:-2] == (2, 64, 512, 4)
     bad_ln = (torch.empty(256, device="meta"),) * 2
     with torch.no_grad(), pytest.raises(ValueError, match="LayerNorm"):
         tattn.fused_block_attn(x, None, *bad_ln, *attn, 8, int8_qkv=int8)

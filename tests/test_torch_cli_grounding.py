@@ -200,6 +200,23 @@ def test_test_of_a_jax_grounding_checkpoint_matches_jax(grounding_trees, in_tmp,
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)
 
 
+def test_test_at_feature_dim_1024_matches_jax(grounding_trees, in_tmp):
+    """The grounding command line at --feature_dim 1024 (8 heads: head size
+    128, which the wide-head bodies serve on the card), depth 1:
+    scripts/test_joint_model.sh's ``--test`` on a JAX package checkpoint of
+    that width, the port's results against the JAX command line's on the
+    same tree at 1e-4 relative (1e-6 absolute), the rank counts equal."""
+    argv = (TEST_SCRIPTS["joint"] + _root(grounding_trees, TEST_SCRIPTS["joint"]) + TINY
+            + ["--feature_dim", "1024"])
+    path = str(in_tmp / "jax_joint_1024.pth.tar")
+    _jax_grounding_file(jax_parse_args(argv), path, seed=4)
+    want = jax_main.main(argv + ["--test", path])
+    got = main_mod.main(argv + ["--test", path], device="cpu")
+    assert set(got) == set(want) and any(k.startswith("Rank ") for k in got)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
 def test_frozen_vi_encoder_from_a_jax_file(grounding_trees, in_tmp, monkeypatch):
     """``--vi_encoder_path`` naming a JAX package view_invariant checkpoint:
     the grounding model's VI branch holds its weights, bridged."""

@@ -204,16 +204,20 @@ def test_bfloat16_gradients_match_jax_flash(b, h, sq, sk, d, empty_row):
 
 
 def test_kernel_wrappers_refuse_cpu_and_unserved_head_sizes():
-    """The launch wrappers check before any build: CPU tensors and head
-    sizes outside multiples of 8 up to 128 never reach the library."""
-    q = torch.zeros(2, 8, 64)
+    """The launch wrappers check before any build: CPU tensors never reach
+    the library, at any head size (64, 136, 256: above 128 the wide bodies
+    serve it, so the device is the reason); a head size that is not a
+    multiple of 8 raises ValueError there, since ``flash_attention`` pads it
+    before the call; a kpad that does not fit raises."""
     kpad = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        tattn.flash_forward(q, q, q, kpad)
-    for d in (60, 136):
+    for d in (64, 136, 256):
         x = torch.zeros(2, 8, d)
-        with pytest.raises(NotImplementedError, match="head size"):
+        with pytest.raises(ValueError, match="CUDA"):
             tattn.flash_forward(x, x, x, kpad)
+    y = torch.zeros(2, 8, 60)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tattn.flash_forward(y, y, y, kpad)
+    q = torch.zeros(2, 8, 64)
     with pytest.raises(ValueError, match="kpad"):
         tattn.flash_forward(q, q, q, torch.zeros(3, 8, dtype=torch.int32))
 

@@ -486,32 +486,34 @@ def _call(name, block, int8, x, ln, w, h=8):
 @pytest.mark.parametrize("b,s,c", [(304, 64, 512), (304, 96, 512), (3, 17, 128),
                                    (4, 72, 640)])
 @pytest.mark.parametrize("name,block,int8", WRAPPERS)
+@pytest.mark.parametrize("dh", [64, 128])
 def test_wrappers_hand_the_kernel_its_operands_and_scratch(monkeypatch, name, block, int8,
-                                                           b, s, c, dtype):
+                                                           b, s, c, dtype, dh):
     """Each wrapper's C call: x, the key padding, the LayerNorm (block
     bodies), W_in or the cached int8 pair (quant.quantized_weight, the same
     tensors on every call), b_in, W_out, b_out, the prologue's xq (B*S, C)
     int8 and xs (B*S,) float32 (int8 bodies), the (B*S, C) o scratch in x's
-    type, out (and x_norm); then B, S, C, H, the type and the stream; one
-    count a call."""
+    type, the wide-head body's (B*S, 3C) qkv scratch in x's type at a head
+    above 64 (else None, a null pointer), out (and x_norm); then B, S, C, H, the
+    type and the stream; one count a call."""
     calls, seen = [], []
     _fake_library(monkeypatch, calls)
     real = tattn.mha_scratch
 
-    def scratch(t, q):
-        bufs = real(t, q)
+    def scratch(t, q, h):
+        bufs = real(t, q, h)
         seen.append(bufs)
         return bufs
 
     monkeypatch.setattr(tattn, "mha_scratch", scratch)
     x, ln, w = _wrapper_args(b, s, c, dtype)
-    h = c // 64
+    h = c // dh
     got = _call(name, block, int8, x, ln, w, h)
     outs = got if block else (got,)
     assert all(o.shape == x.shape and o.dtype == x.dtype for o in outs)
     ((fn, args),) = calls
     assert fn == f"{name}_forward"
-    n_ptrs = 2 + 2 * block + (2 if int8 else 1) + 3 + (3 if int8 else 1) + len(outs)
+    n_ptrs = 2 + 2 * block + (2 if int8 else 1) + 3 + (4 if int8 else 2) + len(outs)
     assert len(args) == n_ptrs + 6
     assert args[n_ptrs:n_ptrs + 5] == (b, s, c, h, 1 if dtype == torch.bfloat16 else 0)
     assert args[0] == x.data_ptr()
@@ -528,14 +530,19 @@ def test_wrappers_hand_the_kernel_its_operands_and_scratch(monkeypatch, name, bl
         assert args[wi] == w[0].data_ptr()
     (bufs, *_) = seen
     if int8:
-        xq, xs, attn = bufs
+        xq, xs, attn, qkv = bufs
         assert xq.shape == (b * s, c) and xq.dtype == torch.int8 and xq.is_contiguous()
         assert xs.shape == (b * s,) and xs.dtype == torch.float32
     else:
-        (attn,) = bufs
+        attn, qkv = bufs
     assert attn.shape == (b * s, c) and attn.dtype == dtype
+    if dh > 64:
+        assert qkv.shape == (b * s, 3 * c) and qkv.dtype == dtype and qkv.is_contiguous()
+    else:
+        assert qkv is None
     first = wi + (2 if int8 else 1) + 3
-    assert args[first:first + len(bufs)] == tuple(t.data_ptr() for t in bufs)
+    assert args[first:first + len(bufs)] == tuple(None if t is None else t.data_ptr()
+                                                  for t in bufs)
     assert args[first + len(bufs):n_ptrs] == tuple(o.data_ptr() for o in outs)
     assert _kernels.LAUNCHES[name] == (2 if int8 else 1)
 

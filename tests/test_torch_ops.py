@@ -194,16 +194,32 @@ def test_kernel_eligibility(s, c, h, ok):
     assert tattn.kernel_eligible(s, c, h) is ok
 
 
-@pytest.mark.parametrize("c,h", [(512, 4), (256, 2)])
-def test_module_raises_on_a_head_size_the_kernel_lacks(c, h):
+@pytest.mark.parametrize("c,h", [(512, 4), (256, 2), (1024, 8), (2048, 8), (640, 32)])
+def test_module_raises_on_a_head_size_the_kernel_lacks(monkeypatch, c, h):
     """An eligible self-attention off the CPU always goes to the kernel
-    wrapper; a head size the CUDA kernel does not serve (> 64) raises there
-    rather than taking the unfused composition. A meta tensor stands for a
-    card's: it reaches the wrapper's checks and nothing runs."""
+    wrapper, at every head size the JAX dispatch admits (Dh % 8 == 0): Dh
+    128 and 256 reach the C entry of fused_mha, the wide heads with a qkv
+    scratch of their own (a null pointer at Dh <= 64), and raise nowhere. A
+    head that is not a multiple of 8 (640 / 32 = 20) takes the unfused
+    composition, as in the JAX package. A meta tensor stands for a card's:
+    it reaches the wrapper's checks, and a stand-in library records the
+    call."""
+    from tests.test_torch_mha_family import _fake_library
+
+    calls = []
+    _fake_library(monkeypatch, calls)
     mod = tattn.MultiHeadAttention(c, h).to("meta")
     x = torch.empty(2, 16, c, device="meta")
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="head size"):
-        mod(x, x, x)
+    with torch.no_grad():
+        out = mod(x, x, x)
+    assert out.shape == x.shape
+    if (c // h) % 8:
+        assert calls == []
+        return
+    ((fn, args),) = calls
+    assert fn == "fused_mha_forward" and args[-6:-2] == (2, 16, c, h)
+    assert (args[7] is None) == (c // h <= tattn.MAX_TILE_HEAD_DIM)
+    assert _kernels.LAUNCHES["fused_mha"] == 1
 
 
 # ----------------------------------------------------------------- fused MLP

@@ -153,16 +153,22 @@ def test_gradients_on_the_cpu_match_jax():
 
 
 def test_wrapper_refuses_unserved_shapes_and_grad_on_the_card():
-    """Head sizes outside multiples of 8 up to 128 raise on every device;
-    a non-square or longer window raises in the wrapper (the dispatcher
-    never sends one); on a card tensor (meta stands for it) an input that
-    requires grad raises before any build."""
-    x = torch.zeros(1, 2, 16, 136)
-    with pytest.raises(NotImplementedError, match="head size 136"):
-        tattn.small_attention(x, x, x)
-    y = torch.zeros(1, 2, 16, 60)
-    with pytest.raises(NotImplementedError, match="head size 60"):
-        tattn.small_attention(y, y, y)
+    """Every head size is served, as by the JAX function: at 136 and 60,
+    seeded q, k, v and a ragged key padding give on the CPU the float64
+    softmax(q k^T / sqrt(D), padding keys excluded) v within 1e-5 of its
+    max; a non-square or longer window raises in the wrapper (the
+    dispatcher never sends one); on a card tensor (meta stands for it) an
+    input that requires grad raises before any build."""
+    for d in (136, 60):
+        q, k, v = _qkv(2, 2, 16, d, seed=d)
+        pad = np.arange(16)[None, :] >= np.array([[5], [16]])
+        got = tattn.small_attention(_t(q), _t(k), _t(v), torch.from_numpy(pad)).numpy()
+        s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) / np.sqrt(d)
+        s = np.where(pad[:, None, None, :], -np.inf, s)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+        assert got.shape == q.shape
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     with pytest.raises(ValueError, match="S <= 128"):
         z = torch.zeros(1, 2, 130, 64)
         tattn.small_attention(z, z, z)
