@@ -223,13 +223,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and 6 + 6); C 2048 under 'auto' and 'small'; 4 requests of each run
      against the CPU under the same impl (<= 1e-4 of max|CPU|; int8 at
      phase 7's floor over 3 noise draws); requests/s of each
-     (`wide_ground_bench {...}`). The wide cases of the kernel phases: 3
-     (fused MHA at Dh 72, 96, 128, 256, each at two of S 17, 64, 96, 128
-     and each S at two heads, one fully-masked window each, and the full
-     widths C 1024 / 2048 timed at B64 S128 and S64, single calls), 3d and 3e (the same for the int8 MHA and both block
-     bodies), 3c (flash at D 136, 192, 256 with a ragged tail and an empty
-     row, D 60 through flash_attention's zero-column padding, D 128 and 256
-     timed at B64 H8 S128 and S64) and 3f (the window core at D 60, 136,
+     (`wide_ground_bench {...}`); then at C 2048 the forwards of
+     WIDE_GND_HOPPER, each counted per forward against the f32 'auto' card
+     answer of the same batch: f32 'flash' (30 flash_fwd through the cluster
+     body + 24 fused_mlp; <= 1e-4) and a bf16 copy under 'auto' (24 fused_mha
+     with 48 wgmma_linear + 24 fused_mlp) and 'flash' (within 2x the bf16
+     model's error on its plain versions, at least 1e-3). The wide cases of
+     the kernel phases: 3 (fused MHA at Dh 72, 96, 128, 256, each at two of
+     S 17, 64, 96, 128 and each S at two heads, one fully-masked window
+     each, and the full widths C 1024 / 2048 timed at B64 S128 and S64,
+     single calls and back to back beside the library's back-to-back time;
+     the wgmma GEMM alone, `wgmma_linear {...}`, at the bodies' products and
+     at M, N, K tails), 3d and 3e (the same for the int8 MHA and both block
+     bodies; each call's wgmma launches, as the library counted them, held
+     to the design), 3c (flash at D 136, 192, 256, 520, 1024 and 1032 with
+     a ragged tail and an empty row, D 60 through flash_attention's zero-column padding, D 128 and
+     256 timed at B64 H8 S128 and S64) and 3f (the window core at D 60, 136,
      192, 256, S 17 and 100, and D 128 / 256 timed at B64 H8 S128 and S64).
   8. the training command line: ``exoground_tpu_torch.train.main`` (``--dataset
      htm-370k --model cotrain``, E6D6 width 512, seq 64, text bucket 32, token
@@ -456,6 +465,15 @@ H100_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+def card_normal(rng, shape, scale=1.0, dtype=torch.float32):
+    """Standard normal draws of ``shape`` times ``scale`` in ``dtype``, made
+    on the card by a generator seeded from ``rng``: the kernel cases' inputs
+    reach 17 M values at full width, which numpy drew at ~1 s a case of host
+    time."""
+    g = torch.Generator(device="cuda").manual_seed(int(rng.randint(2 ** 31)))
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -517,6 +535,21 @@ def routes_bound(int8_ops: float, exact_flops: float, nbytes: float, dtype) -> d
 
 
 # ----------------------------------------------------------------- phase 3
+def check_wgmma_launches(name, n0, C, H, dtype, int8):
+    """After one call of an MHA-family wrapper: the wgmma GEMM launches that
+    its library reported (counted in C where it launches them, read by the
+    wrapper after the call) are the bodies' design, two in the exact wide
+    bf16 bodies (qkv and out-projection), one in the int8 ones (the
+    out-projection), none at a head of 64 or in float32."""
+    from exoground_tpu_torch.ops import _kernels
+
+    want = (1 if int8 else 2) if dtype == torch.bfloat16 and C // H > 64 else 0
+    got = _kernels.LAUNCHES["wgmma_linear"] - n0
+    if got != want:
+        fail(f"{name} at C{C} H{H} {dtype}: the library launched the wgmma GEMM {got} times, "
+             f"the design {want}")
+
+
 def mha_case(B, S, C, H, dtype, seed, b2b=False):
     """fused_mha against mha_plain on the card, timed beside the plain
     version, F.multi_head_attention_forward (a yardstick the port never
@@ -529,7 +562,7 @@ def mha_case(B, S, C, H, dtype, seed, b2b=False):
     dev = "cuda"
 
     def t(*shape, scale=1.0):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=dev)
+        return card_normal(rng, shape, scale, dtype)
 
     x = t(B, S, C)
     w_in, b_in = t(3 * C, C, scale=C ** -0.5), t(3 * C, scale=0.02)
@@ -539,11 +572,12 @@ def mha_case(B, S, C, H, dtype, seed, b2b=False):
     lens[1] = S
     kpad = torch.tensor(np.arange(S)[None, :] >= lens[:, None], device=dev)
     with torch.inference_mode():
-        n0 = _kernels.LAUNCHES["fused_mha"]
+        n0, wg0 = _kernels.LAUNCHES["fused_mha"], _kernels.LAUNCHES["wgmma_linear"]
         out = fused_mha(x, kpad, w_in, b_in, w_out, b_out, H)
         torch.cuda.synchronize()
         if _kernels.LAUNCHES["fused_mha"] != n0 + 1:
             fail("fused_mha did not count its launch")
+        check_wgmma_launches("fused_mha", wg0, C, H, dtype, False)
         ref = mha_plain(x, kpad, w_in, b_in, w_out, b_out, H)
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
@@ -577,6 +611,72 @@ def mha_case(B, S, C, H, dtype, seed, b2b=False):
     return case
 
 
+def wgmma_linear_case(M, N, K, seed, res=False, timed=False):
+    """The wide-head bf16 bodies' wgmma GEMM alone (ops.attention.wide_linear:
+    y = a . w^T + bias (+ res) in bf16) against wide_linear_plain on the card,
+    its launch counted; with ``timed``, single calls and back to back beside
+    the plain version, F.linear on the same operands (a yardstick the port
+    never calls) and the bound (2*M*N*K FLOPs at the bf16 rate, or the bytes
+    of a, w, bias, res and y)."""
+    import torch.nn.functional as F
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.attention import wide_linear, wide_linear_plain
+
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0):
+        return card_normal(rng, shape, scale, torch.bfloat16)
+
+    a, w, b = t(M, K), t(N, K, scale=K ** -0.5), t(N, scale=0.02)
+    r = t(M, N) if res else None
+    with torch.inference_mode():
+        n0 = _kernels.LAUNCHES["wgmma_linear"]
+        y = wide_linear(a, w, b, r)
+        torch.cuda.synchronize()
+        if _kernels.LAUNCHES["wgmma_linear"] != n0 + 1:
+            fail("wgmma_linear did not count its launch")
+        ref = wide_linear_plain(a, w, b, r)
+        if not torch.isfinite(y.float()).all():
+            fail(f"wgmma_linear non-finite output at M{M} N{N} K{K}")
+        err = (y.float() - ref.float()).abs().max().item()
+        case = dict(shape=f"M{M} N{N} K{K}" + (" + res" if res else ""), dtype="bfloat16",
+                    max_abs_err=err, max_rel_err=err / ref.float().abs().max().item())
+        if timed:
+            flops = 2.0 * M * N * K
+            nbytes = 2.0 * (M * K + N * K + N + M * N * (2 if res else 1))
+            lib = (lambda: F.linear(a, w, b) + r) if res else (lambda: F.linear(a, w, b))
+            case.update(ms=time_ms(lambda: wide_linear(a, w, b, r)),
+                        plain_ms=time_ms(lambda: wide_linear_plain(a, w, b, r)),
+                        library_ms=time_ms(lib),
+                        ms_b2b=b2b_ms(lambda: wide_linear(a, w, b, r)),
+                        library_ms_b2b=b2b_ms(lib), **routes_bound(0.0, flops, nbytes,
+                                                                   torch.bfloat16))
+            case["tflops_b2b"] = flops / case["ms_b2b"] / 1e9
+            case["library_tflops_b2b"] = flops / case["library_ms_b2b"] / 1e9
+        else:
+            case.update(ms=None, plain_ms=None, library_ms=None, bound_ms=None, bound_by=None)
+    print("wgmma_linear", json.dumps(case), flush=True)
+    if not case["max_rel_err"] <= TOL[torch.bfloat16]:
+        fail(f"wgmma_linear disagrees with wide_linear_plain: {case}")
+    return case
+
+
+def wgmma_linear_cases():
+    """The GEMM at the wide bodies' products, timed: the qkv (N = 3C) and
+    the out-projection (N = C, the block bodies' residual) at C 2048 and
+    1024, B64 S128 (M 8192); then M, N and K tails (WIDE_MHA_GRID's C 1152
+    and 768 at S 17 and 64, B3)."""
+    out = [wgmma_linear_case(8192, 6144, 2048, 300, timed=True),
+           wgmma_linear_case(8192, 2048, 2048, 301, res=True, timed=True),
+           wgmma_linear_case(8192, 3072, 1024, 302, timed=True),
+           wgmma_linear_case(8192, 1024, 1024, 303, res=True, timed=True)]
+    for i, (m, n, k, res) in enumerate(((51, 3456, 1152, False), (51, 1152, 1152, True),
+                                        (192, 2304, 768, False), (192, 768, 768, True))):
+        out.append(wgmma_linear_case(m, n, k, 310 + i, res=res))
+    return out
+
+
 def mlp_case(rows, C, dtype, seed):
     """The fused MLP kernel against mlp_plain on the card, timed, with its
     launch plan (row tile, slab, hidden split, CTAs). The f32 bound is the
@@ -588,7 +688,7 @@ def mlp_case(rows, C, dtype, seed):
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+        return card_normal(rng, shape, scale, dtype)
 
     x = t(rows, C)
     fc_w, fc_b = t(4 * C, C, scale=C ** -0.5), t(4 * C, scale=0.02)
@@ -646,26 +746,42 @@ def mlp_kernel_cases():
 def _int8_inputs(rng, dtype, x_shape):
     """Random x with its second row, where there is one, zero (a zero row
     quantizes with scale 1)."""
-    x = torch.tensor(rng.standard_normal(x_shape), dtype=dtype, device="cuda")
+    x = card_normal(rng, x_shape, dtype=dtype)
     rows = x.view(-1, x_shape[-1])
     if len(rows) > 1:
         rows[1].zero_()
     return x
 
 
-def mha_int8_case(B, S, C, H, dtype, seed, timed=False, b2b=True):
+def _mha_library(x, kpad, w_in, b_in, w_out, b_out, H, ln=None):
+    """F.multi_head_attention_forward on (B, S, C) x (after F.layer_norm and
+    with the residual added, given ``ln``): the exact MHA (block) in one
+    PyTorch call, a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    a = x if ln is None else F.layer_norm(x, (x.shape[-1],), *ln, 1e-5)
+    o = F.multi_head_attention_forward(
+        a.transpose(0, 1), a.transpose(0, 1), a.transpose(0, 1), x.shape[-1], H, w_in, b_in,
+        None, None, False, 0.0, w_out, b_out, training=False, key_padding_mask=kpad,
+        need_weights=False)[0].transpose(0, 1)
+    return o if ln is None else x + o
+
+
+def mha_int8_case(B, S, C, H, dtype, seed, timed=False, b2b=True, library_b2b=False):
     """fused_mha_int8 against mha_int8_plain on the card: one fully-masked
     window (a padded group window), ragged lengths and a zero row; with
     ``timed``, beside the plain version, torch._int_mm of the int8 qkv
     product alone (a yardstick), the exact fused_mha in the same dtype and
-    the bound, and with ``b2b`` the kernel and the exact one back to back."""
+    the bound, and with ``b2b`` the kernel and the exact one back to back
+    (``library_b2b``: the exact F.multi_head_attention_forward too, the
+    int8 MHA's nearest library call)."""
     from exoground_tpu_torch.ops import _kernels, quant
     from exoground_tpu_torch.ops.attention import fused_mha, fused_mha_int8, mha_int8_plain
 
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+        return card_normal(rng, shape, scale, dtype)
 
     x = _int8_inputs(rng, dtype, (B, S, C))
     w_in, b_in = t(3 * C, C, scale=C ** -0.5), t(3 * C, scale=0.02)
@@ -676,11 +792,12 @@ def mha_int8_case(B, S, C, H, dtype, seed, timed=False, b2b=True):
     kpad = torch.tensor(np.arange(S)[None, :] >= lens[:, None], device="cuda")
     args = (x, kpad, w_in, b_in, w_out, b_out, H)
     with torch.inference_mode():
-        n0 = _kernels.LAUNCHES["fused_mha_int8"]
+        n0, wg0 = _kernels.LAUNCHES["fused_mha_int8"], _kernels.LAUNCHES["wgmma_linear"]
         out = fused_mha_int8(*args)
         torch.cuda.synchronize()
         if _kernels.LAUNCHES["fused_mha_int8"] != n0 + 1:
             fail("fused_mha_int8 did not count its launch")
+        check_wgmma_launches("fused_mha_int8", wg0, C, H, dtype, True)
         ref = mha_int8_plain(*args)
         if not torch.isfinite(out.float()).all():
             fail(f"fused_mha_int8 non-finite output at B{B} S{S} C{C} {dtype}")
@@ -699,6 +816,8 @@ def mha_int8_case(B, S, C, H, dtype, seed, timed=False, b2b=True):
             if b2b:
                 case.update(ms_b2b=b2b_ms(lambda: fused_mha_int8(*args)),
                             exact_kernel_ms_b2b=b2b_ms(lambda: fused_mha(*args)))
+            if b2b and library_b2b:
+                case["exact_library_ms_b2b"] = b2b_ms(lambda: _mha_library(*args))
             item = x.element_size()
             nbytes = (2 * B * S * C + 4 * C * C + 4 * C) * item + 4 * B * S
             case.update(routes_bound(6.0 * B * S * C * C,
@@ -721,7 +840,7 @@ def mlp_int8_case(rows, C, dtype, seed, timed=False):
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+        return card_normal(rng, shape, scale, dtype)
 
     x = _int8_inputs(rng, dtype, (rows, C))
     fc_w, fc_b = t(4 * C, C, scale=C ** -0.5), t(4 * C, scale=0.02)
@@ -798,7 +917,8 @@ def _block_check(kind, case, dtype, int8):
         fail(f"{kind} x_norm disagrees with its plain version: {case}")
 
 
-def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True):
+def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True,
+                    library_b2b=False):
     """fused_block_attn (exact or int8 body) against block_attn_plain /
     block_attn_int8_plain on the card: one fully-masked window, ragged
     lengths, a zero row; the output and x_norm apart. With ``timed``, beside
@@ -806,7 +926,9 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True):
     (F.layer_norm + fused_mha or fused_mha_int8 + the add; no single
     PyTorch call computes the block), for the int8 body the exact fused_mha
     on the same x, and the bound; with ``b2b`` the block and the per-module
-    kernels back to back too."""
+    kernels back to back too (``library_b2b``: F.layer_norm +
+    F.multi_head_attention_forward + the add, the exact block in library
+    calls)."""
     import torch.nn.functional as F
 
     from exoground_tpu_torch.ops import _kernels
@@ -816,7 +938,7 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True):
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+        return card_normal(rng, shape, scale, dtype)
 
     x = _int8_inputs(rng, dtype, (B, S, C))
     ln_w, ln_b = _ln_params(rng, C, dtype)
@@ -830,11 +952,12 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True):
     plain = block_attn_int8_plain if int8 else block_attn_plain
     args = (x, kpad, ln_w, ln_b, w_in, b_in, w_out, b_out, H)
     with torch.inference_mode():
-        n0 = _kernels.LAUNCHES[name]
+        n0, wg0 = _kernels.LAUNCHES[name], _kernels.LAUNCHES["wgmma_linear"]
         out, xn = fused_block_attn(*args, int8_qkv=int8)
         torch.cuda.synchronize()
         if _kernels.LAUNCHES[name] != n0 + 1:
             fail(f"{name} did not count its launch")
+        check_wgmma_launches(name, wg0, C, H, dtype, int8)
         ref, ref_n = plain(*args)
         if not (torch.isfinite(out.float()).all() and torch.isfinite(xn.float()).all()):
             fail(f"{name} non-finite output at B{B} S{S} C{C} {dtype}")
@@ -855,6 +978,9 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True):
             if b2b:
                 case.update(ms_b2b=b2b_ms(lambda: fused_block_attn(*args, int8_qkv=int8)),
                             per_module_ms_b2b=b2b_ms(per_module))
+            if b2b and library_b2b:
+                case["exact_library_ms_b2b"] = b2b_ms(lambda: _mha_library(
+                    x, kpad, w_in, b_in, w_out, b_out, H, ln=(ln_w, ln_b)))
             if int8:  # the exact fused MHA of the same call, the int8 MHA's yardstick
                 case["exact_kernel_ms"] = time_ms(
                     lambda: fused_mha(x, kpad, w_in, b_in, w_out, b_out, H))
@@ -883,7 +1009,7 @@ def block_mlp_case(rows, C, dtype, seed, int8=False, timed=False):
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+        return card_normal(rng, shape, scale, dtype)
 
     x = _int8_inputs(rng, dtype, (rows, C))
     ln_w, ln_b = _ln_params(rng, C, dtype)
@@ -1028,11 +1154,10 @@ def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
 
     rng = np.random.RandomState(seed)
     if packed:
-        qkv = torch.tensor(rng.standard_normal((B, S, 3 * H * D)), dtype=dtype, device="cuda")
+        qkv = card_normal(rng, (B, S, 3 * H * D), dtype=dtype)
         q, k, v = (_split_heads(t, H) for t in qkv.chunk(3, dim=-1))
     else:
-        q, k, v = (torch.tensor(rng.standard_normal((B, H, S, D)), dtype=dtype, device="cuda")
-                   for _ in range(3))
+        q, k, v = (card_normal(rng, (B, H, S, D), dtype=dtype) for _ in range(3))
     lens = rng.randint(1, S + 1, B)
     lens[0] = 0  # a fully-masked window
     lens[-1] = S
@@ -1216,7 +1341,7 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
-        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dtype, device="cuda")
+        return card_normal(rng, shape, scale, dtype)
 
     q = t(B * H, Sq, D, scale=D ** -0.5)  # pre-scaled, as flash_attention passes it
     k, v, do = t(B * H, Sk, D), t(B * H, Sk, D), t(B * H, Sq, D)
@@ -1249,7 +1374,7 @@ def flash_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False, timed=
     empty_exact = bool((lse[~has_key] == 1e30).all())
     rel = max(r for _, r in errs.values())
     case = dict(shape=f"B{B} H{H} Sq{Sq} Sk{Sk} D{D}", dtype=str(dtype).split(".")[-1],
-                pad_tail=pad_tail, empty_row=empty_row,
+                head_size=D, pad_tail=pad_tail, empty_row=empty_row,
                 max_abs_err=max(e for e, _ in errs.values()), max_rel_err=rel,
                 rel_err={n: r for n, (_, r) in errs.items()}, lse_abs_err=lse_err,
                 empty_rows=int((~has_key).sum()), empty_lse_exact=empty_exact)
@@ -1351,15 +1476,17 @@ def flash_kernel_cases():
 
 # ------------------------------------------- wide heads (phases 3, 3c-3f)
 # The head sizes past the fixed head tiles, served by the wide-head bodies
-# (csrc/wide_window.cuh): the MHA family's (C, H) at Dh 72, 96, 128 and 256,
-# each at two of the windows S 17, 64, 96 and 128 and each window at two of
-# the heads (B 3, one fully-masked window each);
+# (csrc/wide_window.cuh): the MHA family's (C, H) at Dh 72, 96 and 128, each
+# at two of the windows S 17, 64, 96 and 128 (B 3, one fully-masked window
+# each), Dh 256 at the full width only;
 # the flash and window cores at D 60 (not a multiple of 8: the wrappers pad),
 # 136, 192 and 256 with ragged tails and an empty row; and the grounding
 # model's full widths, C 1024 (Dh 128) and C 2048 (Dh 256) at 8 heads, timed
 # at B64 S128 (its joint windows) and B64 S64.
+# (C, H, S); C 2048 at S 64 and 128 runs in the full-width cases alone (B64),
+# not at B3 too, to keep the script well within its time limit
 WIDE_MHA_GRID = ((1152, 16, 17), (1152, 16, 128), (768, 8, 64), (768, 8, 96), (1024, 8, 17),
-                 (1024, 8, 96), (2048, 8, 64), (2048, 8, 128))  # (C, H, S)
+                 (1024, 8, 96))
 WIDE_CORE_D = (60, 136, 192, 256)
 WIDE_FULL_C = (1024, 2048)
 WIDE_FULL_BS = ((64, 128), (64, 64))
@@ -1368,8 +1495,9 @@ WIDE_FULL_BS = ((64, 128), (64, 64))
 def wide_mha_family_cases(label, case, seed, **timed):
     """``case(B, S, C, H, dtype, seed, **kw)`` (mha_case, mha_int8_case or a
     block_attn_case partial) over the wide-head grid, then at the full widths
-    with ``timed`` (single calls: the back-to-back series are the main-path
-    shapes' bars), float32 then bfloat16. Prints the seconds it took."""
+    with ``timed`` (single calls and back to back, beside the library call's
+    back-to-back time: a single call moved by +-20% between hosts), float32
+    then bfloat16. Prints the seconds it took."""
     t0, out = time.perf_counter(), []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (c, h, s) in enumerate(WIDE_MHA_GRID):
@@ -1393,7 +1521,7 @@ def flash_padded_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False)
     rng = np.random.RandomState(seed)
 
     def t(*shape):
-        return torch.tensor(rng.standard_normal(shape), dtype=dtype, device="cuda")
+        return card_normal(rng, shape, dtype=dtype)
 
     q, k, v, do = t(B, H, Sq, D), t(B, H, Sk, D), t(B, H, Sk, D), t(B, H, Sq, D)
     kp = np.zeros((B, Sk), bool)
@@ -1434,15 +1562,22 @@ def flash_padded_case(B, H, Sq, Sk, D, dtype, seed, pad_tail=0, empty_row=False)
 
 def wide_flash_cases():
     """Phase 3c's wide heads, float32 then bfloat16: D 136, 192 and 256 (the
-    wide bodies) with a ragged tail and an empty batch row, D 60 through
-    flash_attention's padding, and the full widths' D 128 and 256 timed at
-    B64 H8 S128 and S64."""
+    cluster bodies, one slab a CTA) with a ragged tail and an empty batch
+    row, D 520 (nine slabs: two a CTA, a cluster of five), D 1024 (a
+    cluster of eight) and D 1032 (two pairs of slabs a CTA) with a ragged
+    tail and an empty row, D 60 through flash_attention's padding, and the full
+    widths' D 128 and 256 timed at B64 H8 S128 and S64."""
     t0, out = time.perf_counter(), []
     for dtype in (torch.float32, torch.bfloat16):
         for i, d in enumerate(WIDE_CORE_D[1:]):
             out.append(flash_case(2, 2, 130, 200, d, dtype, seed=150 + i, pad_tail=30,
                                   empty_row=True))
             out.append(flash_case(1, 3, 77, 64, d, dtype, seed=155 + i, pad_tail=5))
+        out.append(flash_case(2, 2, 96, 77, 520, dtype, seed=158, pad_tail=13, empty_row=True))
+        # a cluster of 8 (the widest the portable limit admits, the most
+        # shared memory), and two pairs a CTA (a cluster of 5)
+        for d in (1024, 1032):
+            out.append(flash_case(2, 2, 96, 77, d, dtype, seed=d, pad_tail=13, empty_row=True))
         out.append(flash_padded_case(2, 2, 100, 130, 60, dtype, seed=159, pad_tail=10,
                                      empty_row=True))
         for i, d in enumerate((128, 256)):
@@ -3008,18 +3143,22 @@ WIDE_GND_INT8_MIN_COLS = 2048
 WIDE_GND_NOISE_DRAWS = 3
 
 
-def _ground_preds(svc, reqs, ctx):
+def _ground_preds(svc, reqs, ctx, model=None):
     """interval_preds (B, K, 2) of one bucket of ``reqs`` through the
     service's model as ``GroundingService._run`` feeds it, under ``ctx``
     (the service's own matmul context replaced, so that a quant policy
-    other than its own can be served)."""
+    other than its own can be served); ``model``: another model on the
+    same device in its stead, the features cast to its type."""
+    model = svc.model if model is None else model
+    dtype = next(model.parameters()).dtype
     b, kpad, t = len(reqs), 64, svc.seq_len
     host, dv, dt = svc._pack(reqs, list(range(b)), kpad)
     buf = torch.from_numpy(host).to(svc.device)
     video, narr, vmask, nmask = torch.split(buf, [b * t * dv, b * kpad * dt, b * t, b * kpad])
     with torch.no_grad(), ctx:
-        preds = svc.model(video.view(b, t, dv), narr.view(b, kpad, dt), vmask.view(b, t) > 0,
-                          nmask.view(b, kpad) > 0, deterministic=True)["interval_preds"]
+        preds = model(video.view(b, t, dv).to(dtype), narr.view(b, kpad, dt).to(dtype),
+                      vmask.view(b, t) > 0, nmask.view(b, kpad) > 0,
+                      deterministic=True)["interval_preds"]
     return preds.float().cpu().numpy()
 
 
@@ -3032,6 +3171,72 @@ def _served_rows(results, preds, reqs):
     want = np.concatenate([preds[i, :r["narration_embeds"].shape[0]]
                            for i, r in enumerate(reqs)])
     return got, want
+
+
+# Phase 7b's C 2048 forwards through the flash cluster bodies and the wgmma
+# GEMM: per forward, the float32 model under 'flash' (24 self-attentions and
+# the decoder's 6 cross-attentions through the flash forward, D 256), and a
+# bfloat16 copy under 'auto' (row 1's wide body, both projections on the
+# wgmma GEMM) and 'flash'; held to the float32 'auto' card answer of the same
+# batch (f32: 1e-4 of max|ref|; bf16: twice the error of the same bf16 model
+# on its plain versions, disable_fused_kernels() and 'xla', at least 1e-3).
+WIDE_GND_HOPPER = {
+    "f32 'flash'": dict(flash_fwd=30, flash_fwd_cluster=30, fused_mlp=24),
+    "bf16 'auto'": dict(fused_mha=24, fused_mlp=24, wgmma_linear=48),
+    "bf16 'flash'": dict(flash_fwd=30, flash_fwd_cluster=30, fused_mlp=24),
+}
+
+
+def wide_hopper_forwards(svc, reqs, check):
+    """The forwards of WIDE_GND_HOPPER over the counted batch ``reqs`` of
+    ``svc`` (the C 2048 service, float32), each counted per forward by
+    ``check``; returns the launches by run and prints the agreement."""
+    import copy
+
+    from exoground_tpu_torch.ops import _kernels
+    from exoground_tpu_torch.ops.fused_mlp import disable_fused_kernels
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def counted(label, model, impl, ctx=None):
+        model.attn_impl = impl
+        _ground_preds(svc, reqs, contextlib.nullcontext(), model)  # warm-up
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        got = _ground_preds(svc, reqs, ctx or contextlib.nullcontext(), model)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        if label is not None:
+            check(f"C2048 {label}", launches, 1, WIDE_GND_HOPPER[label])
+        return got, launches
+
+    t0, out, errs = time.perf_counter(), {}, {}
+    svc.model.attn_impl = "auto"
+    ref = _ground_preds(svc, reqs, contextlib.nullcontext())  # the f32 'auto' card answer
+    got, out["C2048 f32 'flash'"] = counted("f32 'flash'", svc.model, "flash")
+    errs["f32 'flash'"] = rel(got, ref)
+    svc.model.attn_impl = "auto"
+    bmodel = copy.deepcopy(svc.model).to(torch.bfloat16)
+    plain, n_plain = counted(None, bmodel, "xla", disable_fused_kernels())
+    if any(n_plain.values()):
+        fail(f"wide grounding C2048 bf16 plain: kernel launches {n_plain}")
+    errs["bf16 plain (disable_fused_kernels, 'xla')"] = floor = rel(plain, ref)
+    limit = max(1e-3, 2.0 * floor)
+    for impl in ("auto", "flash"):
+        got, out[f"C2048 bf16 '{impl}'"] = counted(f"bf16 '{impl}'", bmodel, impl)
+        err = errs[f"bf16 '{impl}'"] = rel(got, ref)
+        if not (np.isfinite(got).all() and err <= limit):
+            fail(f"wide grounding C2048 bf16 '{impl}': rel err {err:.3e} against the f32 "
+                 f"'auto' answer, limit {limit:.3e}")
+    if not errs["f32 'flash'"] <= TOL[torch.float32]:
+        fail(f"wide grounding C2048 f32 'flash': rel err {errs}")
+    del bmodel
+    torch.cuda.empty_cache()
+    print("wide grounding C2048 hopper forwards (rel err against the f32 'auto' card answer "
+          f"of the {len(reqs)}-request batch; bf16 limit {limit:.3e}):", json.dumps(errs),
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def wide_grounding_path(card):
@@ -3134,6 +3339,7 @@ def wide_grounding_path(card):
             bench[f"C{width} {impl}"] = dict(batch_ms=statistics.median(ts) * 1e3,
                                              requests_per_s=len(reqs) / statistics.median(ts))
         if width != 1024:
+            counted.update(wide_hopper_forwards(svc, reqs, check))
             continue
         # the int8 kernels at C 1024, through the model under the JAX gate's policy
         def ctx():
@@ -3197,10 +3403,10 @@ def _cli_expect(steps, val_passes, evals):
     step (dual and joint) and 2 grid forward a validation batch; fused MHA
     and MLP 12 + 12 a validation forward (online and EMA teacher under
     cotrain) and 12 + 12 a group of each HTM-Align eval."""
+    from exoground_tpu_torch.ops import _kernels
+
     mha = 2 * 12 * CLI_VAL_BATCHES * val_passes + 12 * CLI_ALIGN_GROUPS * evals
-    want = {k: 0 for k in ("fused_mha_int8", "fused_mlp_int8", "flash_fwd", "flash_dq",
-                           "flash_dkv", "block_attn", "block_mlp", "block_attn_int8",
-                           "block_mlp_int8", "small_attn")}
+    want = {k: 0 for k in _kernels.LAUNCHES}  # every counter but these at 0
     want.update(milnce_grid_fwd=2 * steps + 2 * CLI_VAL_BATCHES * val_passes,
                 milnce_grid_bwd=2 * steps, fused_mha=mha, fused_mlp=mha)
     return want
@@ -5855,7 +6061,8 @@ def main():
         # the window the bf16 body's 128-row tile serves whole, and head size 16
         mha_cases.append(mha_case(64, 128, 512, 8, dtype, seed=13))
         mha_cases.append(mha_case(2, 50, 256, 16, dtype, seed=14))
-    mha_cases += wide_mha_family_cases("fused_mha", mha_case, 100)  # the wide-head body
+    mha_cases += wide_mha_family_cases("fused_mha", mha_case, 100, b2b=True)  # the wide body
+    gemm_cases = wgmma_linear_cases()
     mlp_cases += mlp_kernel_cases()
 
     mark("3b")
@@ -5890,7 +6097,7 @@ def main():
     # wide-head body too)
     mha8_cases, mlp8_cases = int8_kernel_cases()
     mha8_cases += wide_mha_family_cases("fused_mha_int8", mha_int8_case, 130, timed=True,
-                                        b2b=False)
+                                        b2b=True, library_b2b=True)
 
     mark("3e")
     # phase 3e: the whole-block kernels against their plain versions (row
@@ -5899,7 +6106,7 @@ def main():
     for int8, name in ((False, "block_attn"), (True, "block_attn_int8")):
         block_cases[name] += wide_mha_family_cases(
             name, lambda *a, **kw: block_attn_case(*a, int8=int8, **kw), 200 + 30 * int8,
-            timed=True, b2b=False)
+            timed=True, b2b=True, library_b2b=True)
     attention_bars(mha_cases, flash_cases, mha8_cases, block_cases)
 
     mark("3f")
@@ -6007,10 +6214,10 @@ def main():
         return entry(f"milnce_grid_{part}", "exoground_tpu_torch/csrc/milnce_grid.cu",
                      replaces, _grid_part_cases(part, grid_cases))
 
-    def flash_entry(part, replaces):
+    def flash_entry(part, replaces, name=None, of=None):
         parts = ("fwd", "dq", "dkv")
         cases = []
-        for c in flash_cases:
+        for c in flash_cases if of is None else of:
             c = {k: v for k, v in c.items()
                  if not any(k.startswith(f"{p}_") for p in parts if p != part)}
             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "ms_b2b",
@@ -6018,9 +6225,20 @@ def main():
                 if f"{part}_{k}" in c:
                     c[k] = c.pop(f"{part}_{k}")
             cases.append(c)
-        e = entry(f"flash_{part}", "exoground_tpu_torch/csrc/flash_attn.cu", replaces, cases)
-        e["launches_by_path"] = flash_launches[f"flash_{part}"]
+        name = name or f"flash_{part}"
+        e = entry(name, "exoground_tpu_torch/csrc/flash_attn.cu", replaces, cases)
+        e["launches_by_path"] = dict(flash_launches.get(name, {}))
         return e
+
+    # the bodies behind a wrapper that phase 7b's C 2048 forwards launch: the
+    # flash forward's cluster body (D > 128; its cases the wide ones of phase
+    # 3c, the timed first) and the wgmma GEMM. The cluster dq and dk/dv run on
+    # no path yet (a D 256 training run waits for chip_smoke time): their cases
+    # stay in flash_dq's and flash_dkv's lines, held to the plain version there
+    for name in ("flash_fwd_cluster", "wgmma_linear"):
+        launches[name] = sum(n.get(name, 0) for n in wide_launches.values())
+    wide_flash = sorted((c for c in flash_cases if c.get("head_size", 0) > 128),
+                        key=lambda c: "fwd_ms" not in c)
 
     def by_path(e, first_path):
         e["launches_by_path"] = {first_path: launches[e["name"]],
@@ -6050,6 +6268,13 @@ def main():
         dict(entry("small_attn", "exoground_tpu_torch/csrc/small_attn.cu",
                    "exoground_tpu/ops/attention.py:514", small_cases),
              launches_by_path=small_launches),
+        flash_entry("fwd", "exoground_tpu/ops/attention.py:279", "flash_fwd_cluster",
+                    wide_flash),
+        dict(entry("wgmma_linear", "exoground_tpu_torch/csrc/wgmma_linear.cuh",
+                   "exoground_tpu/ops/attention.py:761", gemm_cases),
+             launches_by_path={}, part_of="rows 1, 5 and 7's wide bf16 bodies (qkv and "
+                                         "out-projection; the TPU kernels' products inside "
+                                         "_mha_kernel :658 and _mha_attention_tail :575)"),
     ]
     for e in kernels:
         if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):

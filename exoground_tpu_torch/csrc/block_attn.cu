@@ -22,7 +22,8 @@
 // mha_tail.cuh adds the residual x in f32 before its one rounding. The
 // sources build without fast math: the LN root and quotients are IEEE
 // operations, as in the plain version. Above a head of 64 the attention
-// body is mha_tile.cuh's wide-head body (2d).
+// body is mha_tile.cuh's wide-head body (2d); in bf16 its qkv and the
+// out-projection with the residual run the wgmma GEMM (wgmma_linear.cuh).
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, ln_w and ln_b (C), w_in
@@ -47,6 +48,7 @@ extern "C" int block_attn_forward(const void* x, const void* kpad, const void* l
     if (err != cudaSuccess) return err;
     err = exo::mha::attention_exact<T>(x_norm, kpad, w_in, b_in, attn, qkv, B, S, C, H, st);
     if (err != cudaSuccess) return err;
-    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, x);
+    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, x,
+                                   exo::mha::wide_head(C, H));
   });
 }

@@ -19,7 +19,8 @@
 // xs (the wrapper's scratch); then the int8 attention body (f32: the
 // (window, head) kernel on __dp4a; bf16: the tensor-core tile on m16n8k32
 // .s8) and the out-projection of mha_tail.cuh with the residual x. Above a
-// head of 64: the wide-head body (mha_tile.cuh 2d) with the int8 projection.
+// head of 64: the wide-head body (mha_tile.cuh 2d) with the int8 projection,
+// the bf16 out-projection on the wgmma GEMM (wgmma_linear.cuh).
 #include "mha_tile.cuh"
 
 // As block_attn_forward (csrc/block_attn.cu), with W_in quantized per row
@@ -40,6 +41,7 @@ extern "C" int block_attn_int8_forward(const void* x, const void* kpad, const vo
     if (err != cudaSuccess) return err;
     err = exo::mha::attention_int8<T>(xq, xs, kpad, wq, wsc, b_in, attn, qkv, B, S, C, H, st);
     if (err != cudaSuccess) return err;
-    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, x);
+    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, x,
+                                   exo::mha::wide_head(C, H));
   });
 }

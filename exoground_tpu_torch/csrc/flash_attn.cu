@@ -42,8 +42,8 @@
 //     registers, with no shared-memory round trip;
 //   - rows past Sq or Sk are zero-filled by cp.async and masked; head sizes
 //     that are multiples of 8 up to 128 run in a tile of 32, 48, 64 or 128
-//     columns with the rest zero-filled, larger ones in the wide bodies'
-//     slabs of 64 columns (namespace wd, below);
+//     columns with the rest zero-filled, larger ones in slabs of 64
+//     columns, one cluster of CTAs a tile (namespace cl, below);
 //   - dk/dv take the walked query tile in 64 columns at head tiles <= 64 and
 //     in two halves of 32 at 128, to keep s^T, dp^T and the two D-wide
 //     accumulators within the register file.
@@ -88,6 +88,8 @@
 // order. In f32 nothing is rounded between products.
 #include <cstddef>
 #include <math.h>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "tc.cuh"
@@ -986,24 +988,58 @@ flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace tf
 
 
-// ============================================== wide heads (D > 128): slabs
+// ============================================== wide heads (D > 128): clusters
 // The fixed head tiles end at 128: at D 256 the f32 forward's q tile and its
 // ring of k and v would take 333 KB of shared memory and o 128 registers a
-// thread (dk/dv twice that). Above 128 every body works in head-dimension
-// slabs of 64 columns (wide_window.cuh) and splits its output over CTAs by
-// column slab: grid z = ceil(D / 64), each CTA owning one 64-column slab of
-// o (dq; dk and dv). The products that reduce over the head (s = q . k^T,
-// dp = do . v^T and their transposes) run over every slab of D, staged one
-// slab at a time into 64 x 64 tiles, so each CTA recomputes the scores of
-// its rows (the design's price: at D 256 four times, ~2.5x the forward's
-// FLOPs); the online max and sum are the same in every slab's CTA (the same
-// operations on the same values), and slab 0 writes lse. The products that
-// produce the output (p . v, ds . k, p^T . do, ds^T . q) read only the
-// CTA's slab of their right-hand operand. Loads are not overlapped with the
-// products (one stage); 4 warps of 16 owned rows, as the fixed-tile bodies.
-// Shared memory: 3 (forward) or 4 (dq, dk/dv) slab tiles, 52-70 KB in f32.
-namespace wd {
+// thread (dk/dv twice that). Above 128 the head is cut into slabs of 64
+// columns (wide_window.cuh), and the CTAs that share one (64-row tile, bh)
+// form a thread-block cluster along grid z, each owning a pair of
+// consecutive slabs of every operand (ceil(D / 128) CTAs up to D 1024), or
+// above D 1024, where that would pass 8 CTAs (the portable cluster limit),
+// ceil(D / 1024) consecutive pairs (cta_pairs below). A CTA stages its own
+// slabs only: the owned tile's (q in the forward; q and do in dq; k and v in
+// dk/dv) once a pass, and each walked tile's (k and v; q and do in dk/dv)
+// as the walk reaches it, by 16-byte cp.async.
+// The products that reduce over the head (s = q . k^T, dp = do . v^T and
+// their transposes) are sums over the slabs: each CTA computes its partial
+// over its own slabs (16 KB of f32 fragments a 64 x 64 tile) and the cluster
+// sums the partials in rank order through distributed shared memory
+// (exchange() below), so that every CTA holds bit-identical scores, softmax
+// statistics and p. The score work is done once (the recompute bodies before
+// did it ceil(D / 64) times). The products that produce the output (p . v,
+// ds . k, p^T . do, ds^T . q) read the CTA's own slabs of their right-hand
+// operand, already staged. Rank 0 writes lse; no CTA leaves while a peer
+// may still read its partials. 4 warps of 16 owned rows, as the fixed-tile
+// bodies; products through the slab helpers (bf16 mma.sync m16n8k16, f32
+// 3xTF32), the masking and rounding as the fixed-tile bodies.
+// A CTA that owns np > 1 pairs walks them in turn, one pass of the whole
+// walk a pair, with that pair's accumulators in registers and its slabs
+// staged as above: shared memory and registers stay those of one pair at
+// any head size. Its partial scores still span all its slabs: at each step
+// of a pass it first stages its other pairs' slabs, a pair at a time,
+// through the step's buffers and adds their products, then the pass pair's.
+// So above D 1024 the scores are computed np times (once below), and the
+// passes add a CTA's slabs in different orders: within a pass every CTA
+// holds the same bits; two passes' outputs agree to rounding. Each body is
+// built twice: kMulti false (one pair a CTA, D <= 1024) compiles the passes
+// and the other pairs' loop away.
+// Measured at B64 H8 S64 and S128, D 256 (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6): the CTAs are short (one or two walked tiles) and wait on
+// loads and on the cluster, so their time follows how many share an SM and
+// what the exchange costs, more than the products:
+//   - two slabs a CTA (a cluster of 2 at D 256) against one (4): dq + dk/dv
+//     0.72x / 0.93x the time in f32 / bf16, the forward 1.0x / 0.80x;
+//   - the next walked tile staged when the current one is done, not in a
+//     two-stage ring: the shared memory that buys (f32 forward at one slab
+//     84 KB against 120 KB) let twice the CTAs share an SM, 0.58x the time;
+//   - every CTA reads every rank's partial into its own registers, from one
+//     buffer whose reuse a split cluster barrier guards (arrive once the
+//     peers' partials are read, wait before the next write: by then the wait
+//     is met); with a double buffer in its place dq + dk/dv took 1.6x as long
+//     in bf16 (the exchange's 64 KB held dq and dk/dv at one CTA an SM).
+namespace cl {
 
+namespace cg = cooperative_groups;
 using exo::wide::kDS;
 using exo::wide::Pitch;
 using exo::wide::slab_pv;
@@ -1013,115 +1049,264 @@ using exo::wide::store_slab;
 using exo::wide::zero;
 using tcb::kLog2e;
 
+constexpr int kMaxCluster = 8;       // the portable cluster size
+constexpr int kNS = 2;               // slabs of a pair
+constexpr int kPart = 8 * kThreads;  // float4s of one partial tile
+
+// The pairs a CTA owns at head size D: one up to D 1024, above it the
+// fewest that keep the cluster within kMaxCluster CTAs.
+__host__ __device__ inline int cta_pairs(int D) {
+  const int slabs = (D + kDS - 1) / kDS;
+  return (slabs + kNS * kMaxCluster - 1) / (kNS * kMaxCluster);
+}
+// The cluster's CTAs: as few as hold every slab at cta_pairs(D) pairs each.
+inline int cluster_ctas(int D) {
+  const int slabs = (D + kDS - 1) / kDS, per = kNS * cta_pairs(D);
+  return (slabs + per - 1) / per;
+}
+// The first column of pair p of rank r, at np pairs a CTA.
+__device__ __forceinline__ int pair_col(int r, int np, int p) { return (r * np + p) * kNS * kDS; }
+
+// This thread's 16 x 64 fragments (a warp's rows, s[nt] = n-tile nt) into a
+// partial tile laid out [n-tile][thread] in float4s: a warp reads or writes
+// 512 consecutive bytes.
+__device__ __forceinline__ void put_part(float4* part, const float (&s)[8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    part[nt * kThreads + threadIdx.x] = make_float4(s[nt][0], s[nt][1], s[nt][2], s[nt][3]);
+}
+
+// The halves of a cluster barrier: arrive (release this thread's writes and
+// reads of shared memory) and wait for every thread of the cluster to have
+// arrived (acquire theirs). cluster.sync() is the two in a row.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// s[m] = the cluster's partials of tile m (M tiles: s, or s and dp) summed
+// in rank order 0, 1, ..., nr - 1, in place, through buf (M partial tiles of
+// this CTA's shared memory); j: the walk's step. Each CTA writes its
+// partials, and after the barrier sums every rank's, read through
+// distributed shared memory, in its own registers: the same additions in the
+// same order in every CTA, so the same bits. It then arrives on a barrier
+// that it waits for before writing the next step's partials, so that no
+// peer still reads them (by then every peer has long arrived: the wait
+// costs little where a second full barrier would not). finish_exchange()
+// before the kernel ends. Called by every thread of every CTA.
+template <int M>
+__device__ __forceinline__ void exchange(float (&s)[M][8][4], cg::cluster_group& cluster,
+                                         float4* buf, int j, int nr) {
+  if (j > 0) cluster_wait();  // every peer has read step j - 1's partials
+#pragma unroll
+  for (int m = 0; m < M; ++m) put_part(buf + m * kPart, s[m]);
+  cluster.sync();
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    for (int r = 0; r < nr; ++r) {
+      const float4* p = cluster.map_shared_rank(buf + m * kPart, r);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float4 x = p[nt * kThreads + threadIdx.x];
+        if (r == 0) {
+          s[m][nt][0] = x.x;
+          s[m][nt][1] = x.y;
+          s[m][nt][2] = x.z;
+          s[m][nt][3] = x.w;
+        } else {
+          s[m][nt][0] += x.x;
+          s[m][nt][1] += x.y;
+          s[m][nt][2] += x.z;
+          s[m][nt][3] += x.w;
+        }
+      }
+    }
+  }
+  cluster_arrive();
+}
+
+// Before a CTA leaves: every peer is done reading its partials (the wait of
+// the last step's arrive).
+__device__ __forceinline__ void finish_exchange() { cluster_wait(); }
+
+// Shared memory: `tiles` slab tiles of T, `words` 4-byte words, `parts`
+// partial tiles (the exchange's buffer, last).
 template <typename T>
+constexpr size_t smem_bytes(int tiles, int words, int parts) {
+  return sizeof(T) * size_t(tiles) * kT * Pitch<T>::P + 4 * size_t(words) +
+         sizeof(float4) * size_t(parts) * kPart;
+}
+
+// Stage the kNS slabs of a pair (first column d0) of rows 0.. (nrows valid)
+// of a (., D) matrix into kNS consecutive slab tiles.
+template <typename T>
+__device__ __forceinline__ void stage_own(T* dst, const T* src, int nrows, int d0, int D) {
+#pragma unroll
+  for (int i = 0; i < kNS; ++i)
+    stage_slab(dst + i * kT * Pitch<T>::P, src, D, kT, nrows, d0 + i * kDS, D);
+}
+
+// One load of the walk's buffers: every warp done with the pass's last load
+// (`after` says there was one; it is set here), then this one staged (the
+// owned tiles with the pass's first, already issued).
+template <typename Load>
+__device__ __forceinline__ void walk_step(bool& after, Load load) {
+  if (after) __syncthreads();
+  after = true;
+  load();
+  exo::tc::cp_async_commit();
+  exo::tc::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- forward
+template <typename T, bool kMulti>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const int* __restrict__ kpad, T* __restrict__ o, float* __restrict__ lse,
-                      int H, int Sq, int Sk, int D) {
-  constexpr int P = Pitch<T>::P;
-  extern __shared__ __align__(16) unsigned char smem_wd[];
-  T* qs = reinterpret_cast<T*>(smem_wd);  // [kT][P]: q's slab d0
-  T* ks = qs + kT * P;                    // [kT][P]: k's slab d0
-  T* vs = ks + kT * P;                    // [kT][P]: v's output slab
-  int* valid = reinterpret_cast<int*>(vs + kT * P);  // [kT]
-  const int bh = blockIdx.y, q0 = blockIdx.x * kT, n0 = blockIdx.z * kDS;
+flash_fwd_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const int* __restrict__ kpad, T* __restrict__ o,
+                         float* __restrict__ lse, int H, int Sq, int Sk, int D) {
+  constexpr int P = Pitch<T>::P, TE = kT * P;
+  extern __shared__ __align__(16) unsigned char smem_cl[];
+  T* qs = reinterpret_cast<T*>(smem_cl);  // [kNS][TE]: q's slabs of the pass pair
+  T* ks = qs + kNS * TE;                   // [kNS][TE]: k's slabs of the step
+  T* vs = ks + kNS * TE;                   // [kNS][TE]: v's
+  int* valid = reinterpret_cast<int*>(vs + kNS * TE);      // [kT]
+  float4* buf = reinterpret_cast<float4*>(valid + kT);    // the exchange's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nr = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  const int np = kMulti ? cta_pairs(D) : 1, bh = blockIdx.y, q0 = blockIdx.x * kT;
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
   q += (size_t(bh) * Sq + q0) * D;
   k += size_t(bh) * Sk * D;
   v += size_t(bh) * Sk * D;
   const int* pad = kpad + size_t(bh / H) * Sk;
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[kDS / 8][4];
-  zero(acc);
   const int nk = (Sk + kT - 1) / kT;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kT;
-    float s[8][4];
-    zero(s);
-    for (int d0 = 0; d0 < D; d0 += kDS) {
-      __syncthreads();  // every warp is done with the tiles about to be refilled
-      stage_slab(qs, q, D, kT, Sq - q0, d0, D);
-      stage_slab(ks, k + size_t(k0) * D, D, kT, Sk - k0, d0, D);
-      if (d0 == 0) stage_slab(vs, v + size_t(k0) * D, D, kT, Sk - k0, n0, D);
-      if (d0 == 0 && threadIdx.x < kT) {
+  int x = 0;  // the exchanges so far
+  for (int pp = 0; pp < np; ++pp) {
+    const int d0 = pair_col(rank, np, pp);
+    if (pp > 0) __syncthreads();  // every warp done with the last pass's tiles
+    stage_own<T>(qs, q, Sq - q0, d0, D);
+    bool after = false;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[kNS][kDS / 8][4];
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) zero(acc[i]);
+    for (int j = 0; j < nk; ++j) {
+      const int k0 = j * kT;
+      float s[1][8][4];
+      zero(s[0]);
+      // the partial scores over the CTA's other pairs (np > 1), staged
+      // through the step's buffers: q's slabs into ks, k's into vs
+      for (int po = 0; po < np; ++po) {
+        if (po == pp) continue;
+        const int d1 = pair_col(rank, np, po);
+        walk_step(after, [&] {
+          stage_own<T>(ks, q, Sq - q0, d1, D);
+          stage_own<T>(vs, k + size_t(k0) * D, Sk - k0, d1, D);
+        });
+#pragma unroll
+        for (int i = 0; i < kNS; ++i)
+          slab_qk<8>(s[0], ks + i * TE + 16 * w * P, vs + i * TE, 8, D - d1 - i * kDS, lane);
+      }
+      walk_step(after, [&] {
+        stage_own<T>(ks, k + size_t(k0) * D, Sk - k0, d0, D);
+        stage_own<T>(vs, v + size_t(k0) * D, Sk - k0, d0, D);
+      });
+      if (threadIdx.x < kT) {
         const int t = k0 + threadIdx.x;
         valid[threadIdx.x] = t < Sk && pad[t] == 0;
       }
-      exo::tc::cp_async_commit();
-      exo::tc::cp_async_wait<0>();
-      __syncthreads();
-      slab_qk<8>(s, qs + 16 * w * P, ks, 8, D - d0, lane);
-    }
-    // online softmax on the fragments, as the fixed-tile forwards
-    float mt[2] = {kNegInf, kNegInf};
+      // the partial scores over the pass pair, then the cluster's sum
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int i = 0; i < kNS; ++i)
+        slab_qk<8>(s[0], qs + i * TE + 16 * w * P, ks + i * TE, 8, D - d0 - i * kDS, lane);
+      exchange<1>(s, cluster, buf, x++, nr);
+      // online softmax on the fragments, as the fixed-tile forwards
+      float mt[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (!valid[nt * 8 + c + e]) {
-          s[nt][e] = -INFINITY;
-          s[nt][2 + e] = -INFINITY;
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!valid[nt * 8 + c + e]) {
+            s[0][nt][e] = -INFINITY;
+            s[0][nt][2 + e] = -INFINITY;
+          }
+          mt[0] = fmaxf(mt[0], s[0][nt][e]);
+          mt[1] = fmaxf(mt[1], s[0][nt][2 + e]);
         }
-        mt[0] = fmaxf(mt[0], s[nt][e]);
-        mt[1] = fmaxf(mt[1], s[nt][2 + e]);
+      float alpha[2], ml[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], tcb::quad_max(mt[r]));
+        alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+        ml[r] = m_new * kLog2e;
       }
-    float alpha[2], ml[2];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(s[0][nt][e], kLog2e, -ml[e / 2]));
+          s[0][nt][e] = p;
+          rs[e / 2] += p;  // l sums the unrounded p
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+#pragma unroll
+        for (int nt = 0; nt < kDS / 8; ++nt) {
+          acc[i][nt][0] *= alpha[0];
+          acc[i][nt][1] *= alpha[0];
+          acc[i][nt][2] *= alpha[1];
+          acc[i][nt][3] *= alpha[1];
+        }
+        // o += p . v (bf16: p rounded, TPU :157)
+        slab_pv<8, false>(acc[i], s[0], l, vs + i * TE, 8, lane);
+      }
+    }
+    float lm[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], tcb::quad_max(mt[r]));
-      alpha[r] = exp2f((m[r] - m_new) * kLog2e);
-      m[r] = m_new;
-      ml[r] = m_new * kLog2e;
+      l[r] = tcb::quad_sum(l[r]);
+      lm[r] = fmaxf(l[r], kTiny);
+      const int row = q0 + 16 * w + lane / 4 + 8 * r;
+      if (pp == 0 && rank == 0 && lane % 4 == 0 && row < Sq)
+        lse[size_t(bh) * Sq + row] = l[r] > 0.f ? m[r] + logf(lm[r]) : -kNegInf;
     }
-    float rs[2] = {0.f, 0.f};
+    // o = acc / l (an empty row: 0 / 1e-30 = 0)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(fmaf(s[nt][e], kLog2e, -ml[e / 2]));
-        s[nt][e] = p;
-        rs[e / 2] += p;  // l sums the unrounded p
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
-#pragma unroll
-    for (int nt = 0; nt < kDS / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
+    for (int i = 0; i < kNS; ++i) {
+      const int n0 = d0 + i * kDS;
+      if (n0 < D)
+        store_slab(acc[i], lm, o + (size_t(bh) * Sq + q0 + 16 * w) * D + n0, D,
+                   Sq - q0 - 16 * w, D - n0, lane);
     }
-    slab_pv<8, false>(acc, s, l, vs, 8, lane);  // o += p . v (bf16: p rounded, TPU :157)
   }
-  float lm[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = tcb::quad_sum(l[r]);
-    lm[r] = fmaxf(l[r], kTiny);
-    const int row = q0 + 16 * w + lane / 4 + 8 * r;
-    if (blockIdx.z == 0 && lane % 4 == 0 && row < Sq)
-      lse[size_t(bh) * Sq + row] = l[r] > 0.f ? m[r] + logf(lm[r]) : -kNegInf;
-  }
-  // o = acc / l (an empty row: 0 / 1e-30 = 0)
-  store_slab(acc, lm, o + (size_t(bh) * Sq + q0 + 16 * w) * D + n0, D, Sq - q0 - 16 * w, D - n0,
-             lane);
+  finish_exchange();
 }
 
-template <typename T>
+// ---------------------------------------------------------------- dq
+template <typename T, bool kMulti>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const int* __restrict__ kpad, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dq, int H, int Sq, int Sk, int D) {
-  constexpr int P = Pitch<T>::P;
-  extern __shared__ __align__(16) unsigned char smem_wd[];
-  T* qs = reinterpret_cast<T*>(smem_wd);  // [kT][P]: the slabs d0 of q, do, k, v
-  T* dos = qs + kT * P;
-  T* ks = dos + kT * P;                   // then k's output slab
-  T* vs = ks + kT * P;
-  int* valid = reinterpret_cast<int*>(vs + kT * P);  // [kT]
-  const int bh = blockIdx.y, q0 = blockIdx.x * kT, n0 = blockIdx.z * kDS;
+flash_dq_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        const int* __restrict__ kpad, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dq, int H, int Sq, int Sk, int D) {
+  constexpr int P = Pitch<T>::P, TE = kT * P;
+  extern __shared__ __align__(16) unsigned char smem_cl[];
+  T* qs = reinterpret_cast<T*>(smem_cl);  // [kNS][TE]: q's slabs of the pass pair
+  T* dos = qs + kNS * TE;                  // [kNS][TE]: do's
+  T* ks = dos + kNS * TE;                  // [kNS][TE]: k's slabs of the step
+  T* vs = ks + kNS * TE;                   // [kNS][TE]: v's
+  int* valid = reinterpret_cast<int*>(vs + kNS * TE);      // [kT]
+  float4* buf = reinterpret_cast<float4*>(valid + kT);    // the exchange's (s, dp)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nr = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  const int np = kMulti ? cta_pairs(D) : 1, bh = blockIdx.y, q0 = blockIdx.x * kT;
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
   q += (size_t(bh) * Sq + q0) * D;
   dout += (size_t(bh) * Sq + q0) * D;
@@ -1136,65 +1321,101 @@ flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     delta_r[r] = row < Sq ? delta[size_t(bh) * Sq + row] : 0.f;
   }
   const float one[2] = {1.f, 1.f};
-  float acc[kDS / 8][4];
-  zero(acc);
   const int nk = (Sk + kT - 1) / kT;
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kT;
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    for (int d0 = 0; d0 < D; d0 += kDS) {
-      __syncthreads();
-      stage_slab(qs, q, D, kT, Sq - q0, d0, D);
-      stage_slab(dos, dout, D, kT, Sq - q0, d0, D);
-      stage_slab(ks, k + size_t(k0) * D, D, kT, Sk - k0, d0, D);
-      stage_slab(vs, v + size_t(k0) * D, D, kT, Sk - k0, d0, D);
-      if (d0 == 0 && threadIdx.x < kT) {
+  int x = 0;  // the exchanges so far
+  for (int pp = 0; pp < np; ++pp) {
+    const int d0 = pair_col(rank, np, pp);
+    if (pp > 0) __syncthreads();  // every warp done with the last pass's tiles
+    stage_own<T>(qs, q, Sq - q0, d0, D);
+    stage_own<T>(dos, dout, Sq - q0, d0, D);
+    bool after = false;
+    float acc[kNS][kDS / 8][4];
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) zero(acc[i]);
+    for (int j = 0; j < nk; ++j) {
+      const int k0 = j * kT;
+      float sd[2][8][4];
+      zero(sd[0]);
+      zero(sd[1]);
+      // partial s and dp over the CTA's other pairs (np > 1), staged through
+      // the step's buffers: q's and k's slabs, then do's and v's
+      for (int po = 0; po < np; ++po) {
+        if (po == pp) continue;
+        const int d1 = pair_col(rank, np, po);
+        walk_step(after, [&] {
+          stage_own<T>(ks, q, Sq - q0, d1, D);
+          stage_own<T>(vs, k + size_t(k0) * D, Sk - k0, d1, D);
+        });
+#pragma unroll
+        for (int i = 0; i < kNS; ++i)
+          slab_qk<8>(sd[0], ks + i * TE + 16 * w * P, vs + i * TE, 8, D - d1 - i * kDS, lane);
+        walk_step(after, [&] {
+          stage_own<T>(ks, dout, Sq - q0, d1, D);
+          stage_own<T>(vs, v + size_t(k0) * D, Sk - k0, d1, D);
+        });
+#pragma unroll
+        for (int i = 0; i < kNS; ++i)
+          slab_qk<8>(sd[1], ks + i * TE + 16 * w * P, vs + i * TE, 8, D - d1 - i * kDS, lane);
+      }
+      walk_step(after, [&] {
+        stage_own<T>(ks, k + size_t(k0) * D, Sk - k0, d0, D);
+        stage_own<T>(vs, v + size_t(k0) * D, Sk - k0, d0, D);
+      });
+      if (threadIdx.x < kT) {
         const int t = k0 + threadIdx.x;
         valid[threadIdx.x] = t < Sk && pad[t] == 0;
       }
-      exo::tc::cp_async_commit();
-      exo::tc::cp_async_wait<0>();
-      __syncthreads();
-      slab_qk<8>(s, qs + 16 * w * P, ks, 8, D - d0, lane);
-      slab_qk<8>(dp, dos + 16 * w * P, vs, 8, D - d0, lane);
-    }
-    // ds = p (dp - delta), p = exp(s - lse) at valid keys (TPU :189)
+      // partial s = q . k^T and dp = do . v^T over the pass pair, then the sums
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = valid[nt * 8 + c + (e & 1)] != 0;
-        const float p = ok ? exp2f(fmaf(s[nt][e], kLog2e, -lse_l[e / 2])) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - delta_r[e / 2]);
+      for (int i = 0; i < kNS; ++i) {
+        slab_qk<8>(sd[0], qs + i * TE + 16 * w * P, ks + i * TE, 8, D - d0 - i * kDS, lane);
+        slab_qk<8>(sd[1], dos + i * TE + 16 * w * P, vs + i * TE, 8, D - d0 - i * kDS, lane);
       }
-    __syncthreads();  // every warp is done with k's slab d0
-    stage_slab(ks, k + size_t(k0) * D, D, kT, Sk - k0, n0, D);
-    exo::tc::cp_async_commit();
-    exo::tc::cp_async_wait<0>();
-    __syncthreads();
-    slab_pv<8, false>(acc, s, one, ks, 8, lane);  // dq += ds . k (bf16: ds rounded, TPU :198)
+      exchange<2>(sd, cluster, buf, x++, nr);
+      // ds = p (dp - delta), p = exp(s - lse) at valid keys (TPU :189)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = valid[nt * 8 + c + (e & 1)] != 0;
+          const float p = ok ? exp2f(fmaf(sd[0][nt][e], kLog2e, -lse_l[e / 2])) : 0.f;
+          sd[0][nt][e] = p * (sd[1][nt][e] - delta_r[e / 2]);
+        }
+      // dq += ds . k over the pass pair (bf16: ds rounded, TPU :198)
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) slab_pv<8, false>(acc[i], sd[0], one, ks + i * TE, 8, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      const int n0 = d0 + i * kDS;
+      if (n0 < D)
+        store_slab(acc[i], one, dq + (size_t(bh) * Sq + q0 + 16 * w) * D + n0, D,
+                   Sq - q0 - 16 * w, D - n0, lane);
+    }
   }
-  store_slab(acc, one, dq + (size_t(bh) * Sq + q0 + 16 * w) * D + n0, D, Sq - q0 - 16 * w,
-             D - n0, lane);
+  finish_exchange();
 }
 
-template <typename T>
+// ---------------------------------------------------------------- dk/dv
+template <typename T, bool kMulti>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const int* __restrict__ kpad, const T* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, int H, int Sq, int Sk, int D) {
-  constexpr int P = Pitch<T>::P;
-  extern __shared__ __align__(16) unsigned char smem_wd[];
-  T* ks = reinterpret_cast<T*>(smem_wd);  // [kT][P]: the slabs d0 of k, v, q, do
-  T* vs = ks + kT * P;
-  T* qs = vs + kT * P;                    // then q's and do's output slabs
-  T* dos = qs + kT * P;
-  float* lse_s = reinterpret_cast<float*>(dos + kT * P);  // [kT], times log2(e)
-  float* delta_s = lse_s + kT;                            // [kT]
-  const int bh = blockIdx.y, k0 = blockIdx.x * kT, n0 = blockIdx.z * kDS;
+flash_dkv_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const int* __restrict__ kpad,
+                         const T* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                         int H, int Sq, int Sk, int D) {
+  constexpr int P = Pitch<T>::P, TE = kT * P;
+  extern __shared__ __align__(16) unsigned char smem_cl[];
+  T* ks = reinterpret_cast<T*>(smem_cl);  // [kNS][TE]: k's slabs of the pass pair
+  T* vs = ks + kNS * TE;                   // [kNS][TE]: v's
+  T* qs = vs + kNS * TE;                   // [kNS][TE]: q's slabs of the step
+  T* dos = qs + kNS * TE;                  // [kNS][TE]: do's
+  float* lse_s = reinterpret_cast<float*>(dos + kNS * TE);  // [kT], times log2(e)
+  float* delta_s = lse_s + kT;                             // [kT]
+  float4* buf = reinterpret_cast<float4*>(delta_s + kT);   // the exchange's (s^T, dp^T)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nr = int(cluster.num_blocks()), rank = int(cluster.block_rank());
+  const int np = kMulti ? cta_pairs(D) : 1, bh = blockIdx.y, k0 = blockIdx.x * kT;
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32, c = 2 * (lane % 4);
   q += size_t(bh) * Sq * D;
   dout += size_t(bh) * Sq * D;
@@ -1210,67 +1431,94 @@ flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     kv_ok[r] = key < Sk && pad[key] == 0;
   }
   const float one[2] = {1.f, 1.f};
-  float dk_acc[kDS / 8][4], dv_acc[kDS / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
   const int nq = (Sq + kT - 1) / kT;
-  for (int i = 0; i < nq; ++i) {
-    const int q0 = i * kT;
-    // s^T = k . q^T and dp^T = v . do^T over every slab of the head
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    for (int d0 = 0; d0 < D; d0 += kDS) {
-      __syncthreads();
-      stage_slab(ks, k, D, kT, Sk - k0, d0, D);
-      stage_slab(vs, v, D, kT, Sk - k0, d0, D);
-      stage_slab(qs, q + size_t(q0) * D, D, kT, Sq - q0, d0, D);
-      stage_slab(dos, dout + size_t(q0) * D, D, kT, Sq - q0, d0, D);
-      if (d0 == 0 && threadIdx.x < kT) {
+  int x = 0;  // the exchanges so far
+  for (int pp = 0; pp < np; ++pp) {
+    const int d0 = pair_col(rank, np, pp);
+    if (pp > 0) __syncthreads();  // every warp done with the last pass's tiles
+    stage_own<T>(ks, k, Sk - k0, d0, D);
+    stage_own<T>(vs, v, Sk - k0, d0, D);
+    bool after = false;
+    float dk_acc[kNS][kDS / 8][4], dv_acc[kNS][kDS / 8][4];
+#pragma unroll
+    for (int sl = 0; sl < kNS; ++sl) {
+      zero(dk_acc[sl]);
+      zero(dv_acc[sl]);
+    }
+    for (int i = 0; i < nq; ++i) {
+      const int q0 = i * kT;
+      float sd[2][8][4];
+      zero(sd[0]);
+      zero(sd[1]);
+      // partial s^T and dp^T over the CTA's other pairs (np > 1), staged
+      // through the step's buffers: k's and q's slabs, then v's and do's
+      for (int po = 0; po < np; ++po) {
+        if (po == pp) continue;
+        const int d1 = pair_col(rank, np, po);
+        walk_step(after, [&] {
+          stage_own<T>(qs, k, Sk - k0, d1, D);
+          stage_own<T>(dos, q + size_t(q0) * D, Sq - q0, d1, D);
+        });
+#pragma unroll
+        for (int sl = 0; sl < kNS; ++sl)
+          slab_qk<8>(sd[0], qs + sl * TE + 16 * w * P, dos + sl * TE, 8, D - d1 - sl * kDS, lane);
+        walk_step(after, [&] {
+          stage_own<T>(qs, v, Sk - k0, d1, D);
+          stage_own<T>(dos, dout + size_t(q0) * D, Sq - q0, d1, D);
+        });
+#pragma unroll
+        for (int sl = 0; sl < kNS; ++sl)
+          slab_qk<8>(sd[1], qs + sl * TE + 16 * w * P, dos + sl * TE, 8, D - d1 - sl * kDS, lane);
+      }
+      walk_step(after, [&] {
+        stage_own<T>(qs, q + size_t(q0) * D, Sq - q0, d0, D);
+        stage_own<T>(dos, dout + size_t(q0) * D, Sq - q0, d0, D);
+      });
+      if (threadIdx.x < kT) {
         const int t = q0 + threadIdx.x;
         lse_s[threadIdx.x] = t < Sq ? lse[t] * kLog2e : 0.f;
         delta_s[threadIdx.x] = t < Sq ? delta[t] : 0.f;
       }
-      exo::tc::cp_async_commit();
-      exo::tc::cp_async_wait<0>();
-      __syncthreads();
-      slab_qk<8>(s, ks + 16 * w * P, qs, 8, D - d0, lane);
-      slab_qk<8>(dp, vs + 16 * w * P, dos, 8, D - d0, lane);
-    }
-    // p^T = exp(s^T - lse) at valid keys and queries (TPU :226); ds^T = p^T
-    // (dp^T - delta) from the unrounded p
+      // partial s^T = k . q^T and dp^T = v . do^T over the pass pair, then the sums
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + c + (e & 1);
-        const bool ok = kv_ok[e / 2] && q0 + col < Sq;
-        const float p = ok ? exp2f(fmaf(s[nt][e], kLog2e, -lse_s[col])) : 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - delta_s[col]);
+      for (int sl = 0; sl < kNS; ++sl) {
+        slab_qk<8>(sd[0], ks + sl * TE + 16 * w * P, qs + sl * TE, 8, D - d0 - sl * kDS, lane);
+        slab_qk<8>(sd[1], vs + sl * TE + 16 * w * P, dos + sl * TE, 8, D - d0 - sl * kDS, lane);
       }
-    __syncthreads();  // every warp is done with q's and do's slabs d0
-    stage_slab(qs, q + size_t(q0) * D, D, kT, Sq - q0, n0, D);
-    stage_slab(dos, dout + size_t(q0) * D, D, kT, Sq - q0, n0, D);
-    exo::tc::cp_async_commit();
-    exo::tc::cp_async_wait<0>();
-    __syncthreads();
-    // dv += p^T . do (bf16: p^T rounded); dk += ds^T . q (bf16: rounded, :239)
-    slab_pv<8, false>(dv_acc, s, one, dos, 8, lane);
-    slab_pv<8, false>(dk_acc, dp, one, qs, 8, lane);
+      exchange<2>(sd, cluster, buf, x++, nr);
+      // p^T = exp(s^T - lse) at valid keys and queries (TPU :226); ds^T = p^T
+      // (dp^T - delta) from the unrounded p
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = nt * 8 + c + (e & 1);
+          const bool ok = kv_ok[e / 2] && q0 + col < Sq;
+          const float p = ok ? exp2f(fmaf(sd[0][nt][e], kLog2e, -lse_s[col])) : 0.f;
+          sd[0][nt][e] = p;
+          sd[1][nt][e] = p * (sd[1][nt][e] - delta_s[col]);
+        }
+      // dv += p^T . do (bf16: p^T rounded); dk += ds^T . q (bf16: rounded, :239)
+#pragma unroll
+      for (int sl = 0; sl < kNS; ++sl) {
+        slab_pv<8, false>(dv_acc[sl], sd[0], one, dos + sl * TE, 8, lane);
+        slab_pv<8, false>(dk_acc[sl], sd[1], one, qs + sl * TE, 8, lane);
+      }
+    }
+    const size_t row0 = size_t(bh) * Sk + k0 + 16 * w;
+#pragma unroll
+    for (int sl = 0; sl < kNS; ++sl) {
+      const int n0 = d0 + sl * kDS;
+      if (n0 < D) {
+        store_slab(dk_acc[sl], one, dk + row0 * D + n0, D, Sk - k0 - 16 * w, D - n0, lane);
+        store_slab(dv_acc[sl], one, dv + row0 * D + n0, D, Sk - k0 - 16 * w, D - n0, lane);
+      }
+    }
   }
-  const size_t row0 = size_t(bh) * Sk + k0 + 16 * w;
-  store_slab(dk_acc, one, dk + row0 * D + n0, D, Sk - k0 - 16 * w, D - n0, lane);
-  store_slab(dv_acc, one, dv + row0 * D + n0, D, Sk - k0 - 16 * w, D - n0, lane);
+  finish_exchange();
 }
 
-// Shared memory of a wide body: `tiles` slab tiles and `words` 4-byte words.
-template <typename T>
-constexpr size_t smem_bytes(int tiles, int words) {
-  return sizeof(T) * size_t(tiles) * kT * Pitch<T>::P + 4 * size_t(words);
-}
-
-}  // namespace wd
+}  // namespace cl
 
 // ---------------------------------------------------------------- launch
 struct Shape {
@@ -1347,56 +1595,76 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* kpad, c
   return cudaGetLastError();
 }
 
-// The wide bodies (D > 128): one CTA per (64-row tile, bh, 64-column slab).
-template <typename T>
-dim3 wide_grid(int rows, const Shape& sh) {
-  return dim3((rows + kT - 1) / kT, sh.BH, (sh.D + wd::kDS - 1) / wd::kDS);
+// The cluster bodies (D > 128): grid (row tiles, BH, the CTAs of a
+// cluster), launched by cudaLaunchKernelEx with a cluster of (1, 1, CTAs).
+// A refused launch (cudaOccupancyMaxActiveClusters gives 0 where no GPC
+// holds the cluster at this shared memory) returns its error; nothing
+// falls back.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int rows, const Shape& sh, size_t smem,
+                           cudaStream_t st, Args... args) {
+  cudaError_t err = exo::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int ncta = cl::cluster_ctas(sh.D);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((rows + kT - 1) / kT, sh.BH, ncta);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = ncta;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// Shared memory: the owned tiles and the step's (forward 3 kNS slab tiles,
+// dq and dk/dv 4 kNS), the key flags (lse and delta in dk/dv) and the
+// exchange's partial tiles (1 or 2 a product).
 template <typename T>
 cudaError_t fwd_wide(const void* q, const void* k, const void* v, const void* kpad, void* o,
                      void* lse, Shape sh, cudaStream_t st) {
-  auto kernel = wd::flash_fwd_wide_kernel<T>;
-  constexpr size_t bytes = wd::smem_bytes<T>(3, kT);
-  cudaError_t err = exo::allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<wide_grid<T>(sh.Sq, sh), kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kpad), static_cast<T*>(o), static_cast<float*>(lse), sh.H, sh.Sq,
-      sh.Sk, sh.D);
-  return cudaGetLastError();
+  const size_t bytes = cl::smem_bytes<T>(3 * cl::kNS, kT, 1);
+  auto kernel = cl::cta_pairs(sh.D) > 1 ? cl::flash_fwd_cluster_kernel<T, true>
+                                        : cl::flash_fwd_cluster_kernel<T, false>;
+  return launch_cluster(kernel, sh.Sq, sh, bytes, st,
+                        static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), static_cast<const int*>(kpad),
+                        static_cast<T*>(o), static_cast<float*>(lse), sh.H, sh.Sq, sh.Sk, sh.D);
 }
 
 template <typename T>
 cudaError_t dq_wide(const void* q, const void* k, const void* v, const void* kpad,
                     const void* dout, const void* lse, const void* delta, void* dq_out, Shape sh,
                     cudaStream_t st) {
-  auto kernel = wd::flash_dq_wide_kernel<T>;
-  constexpr size_t bytes = wd::smem_bytes<T>(4, kT);
-  cudaError_t err = exo::allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<wide_grid<T>(sh.Sq, sh), kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kpad), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq_out), sh.H, sh.Sq, sh.Sk, sh.D);
-  return cudaGetLastError();
+  const size_t bytes = cl::smem_bytes<T>(4 * cl::kNS, kT, 2);
+  auto kernel = cl::cta_pairs(sh.D) > 1 ? cl::flash_dq_cluster_kernel<T, true>
+                                        : cl::flash_dq_cluster_kernel<T, false>;
+  return launch_cluster(kernel, sh.Sq, sh, bytes, st,
+                        static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), static_cast<const int*>(kpad),
+                        static_cast<const T*>(dout), static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<T*>(dq_out), sh.H, sh.Sq,
+                        sh.Sk, sh.D);
 }
 
 template <typename T>
 cudaError_t dkv_wide(const void* q, const void* k, const void* v, const void* kpad,
                      const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                      Shape sh, cudaStream_t st) {
-  auto kernel = wd::flash_dkv_wide_kernel<T>;
-  constexpr size_t bytes = wd::smem_bytes<T>(4, 2 * kT);
-  cudaError_t err = exo::allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<wide_grid<T>(sh.Sk, sh), kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kpad), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), sh.H, sh.Sq, sh.Sk, sh.D);
-  return cudaGetLastError();
+  const size_t bytes = cl::smem_bytes<T>(4 * cl::kNS, 2 * kT, 2);
+  auto kernel = cl::cta_pairs(sh.D) > 1 ? cl::flash_dkv_cluster_kernel<T, true>
+                                        : cl::flash_dkv_cluster_kernel<T, false>;
+  return launch_cluster(kernel, sh.Sk, sh, bytes, st,
+                        static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), static_cast<const int*>(kpad),
+                        static_cast<const T*>(dout), static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<T*>(dk),
+                        static_cast<T*>(dv), sh.H, sh.Sq, sh.Sk, sh.D);
 }
 
 // Every body stages q, k, v and do by 16-byte cp.async.
@@ -1405,8 +1673,8 @@ bool aligned(const void* a, const void* b, const void* c, const void* d) {
          exo::tc::aligned16(d);
 }
 
-// D any multiple of 8: up to 128 in the head tile that holds it, above in
-// the wide bodies' slabs.
+// D a multiple of 8: up to 128 in the head tile that holds it, above in
+// the cluster bodies' slabs.
 bool shape_ok(const Shape& sh) {
   return sh.H >= 1 && sh.BH >= 1 && sh.BH % sh.H == 0 && sh.BH <= 65535 && sh.Sq >= 1 &&
          sh.Sk >= 1 && sh.D >= 8 && sh.D % 8 == 0;
@@ -1440,8 +1708,8 @@ int head_tile(int D) { return D <= 32 ? 32 : D <= 48 ? 48 : D <= 64 ? 64 : 128; 
 // q (BH, Sq, D) pre-scaled, k and v (BH, Sk, D) of one type (dtype 0:
 // float32, 1: bfloat16), kpad (BH / H, Sk) int32; writes o (BH, Sq, D) in
 // the input type and lse (BH, Sq) float32. All contiguous, q, k and v
-// 16-byte aligned. D any multiple of 8. Returns the CUDA error of the
-// launch, or 0.
+// 16-byte aligned. D a multiple of 8. Returns the CUDA error of
+// the launch, or 0.
 extern "C" int flash_attn_forward(const void* q, const void* k, const void* v, const void* kpad,
                                   void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
                                   int dtype, void* stream) {

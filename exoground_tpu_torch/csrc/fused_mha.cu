@@ -29,7 +29,8 @@
 // bfloat16: mha_tc_kernel<DHP, false>, one CTA of 8 warps per (128-row tile,
 // head), mma.sync m16n8k16, then the bf16 out-projection.
 // Above a head of 64 (C 1024 at H 8): mha_tile.cuh's wide-head body (2d),
-// the qkv as the tail's GEMM into a scratch, then attention in head slabs.
+// the qkv as a GEMM into a scratch (bf16: wgmma fed by TMA,
+// wgmma_linear.cuh, as its out-projection), then attention in head slabs.
 // x, W_in, W_out and the attn scratch must be 16-byte aligned (cp.async).
 #include "mha_tile.cuh"
 
@@ -51,6 +52,16 @@ extern "C" int fused_mha_forward(const void* x, const void* kpad, const void* w_
     cudaError_t err = exo::mha::attention_exact<T>(x, kpad, w_in, b_in, attn, qkv, B, S, C, H,
                                                      st);
     if (err != cudaSuccess) return err;
-    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st);
+    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, nullptr,
+                                   exo::mha::wide_head(C, H));
   });
+}
+
+// The wide-head bf16 bodies' GEMM alone (wgmma_linear.cuh): y (M, N) = a (M,
+// K) . w (N, K)^T + bias (N) (+ res (M, N), or null), bfloat16, contiguous;
+// a and w 16-byte aligned, N and K multiples of 8. For timing and checking
+// the kernel apart from the bodies that run it.
+extern "C" int wgmma_linear_forward(const void* a, const void* w, const void* bias,
+                                    const void* res, void* y, int M, int N, int K, void* stream) {
+  return exo::wg::linear(a, w, bias, y, M, N, K, static_cast<cudaStream_t>(stream), res);
 }

@@ -31,7 +31,8 @@
 // shared with the exact body). The f32 (window, head) kernel keeps its
 // CUDA-core design: only chip_smoke's f32 + int8 agreement check runs it.
 // Above a head of 64, both types run mha_tile.cuh's wide-head body (2d)
-// with the int8 qkv product as linear_s8_kernel (s8 mma.sync).
+// with the int8 qkv product as linear_s8_kernel (s8 mma.sync); the bf16
+// out-projection there is the wgmma GEMM of wgmma_linear.cuh.
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, wq (3C, C) int8 and wsc
@@ -57,6 +58,7 @@ extern "C" int fused_mha_int8_forward(const void* x, const void* kpad, const voi
     if (err != cudaSuccess) return err;
     err = exo::mha::attention_int8<T>(xq, xs, kpad, wq, wsc, b_in, attn, qkv, B, S, C, H, st);
     if (err != cudaSuccess) return err;
-    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st);
+    return exo::out_projection<T>(attn, w_out, b_out, out, B * S, C, st, nullptr,
+                                   exo::mha::wide_head(C, H));
   });
 }

@@ -15,9 +15,11 @@
 // so an ldmatrix touches 8 distinct bank groups), the bias (and the block
 // bodies' residual, read as bf16 pairs: x 4-byte aligned) added to the f32
 // sum before the one rounding. It serves
-// every bf16 body of the family. The same two kernels, at N = 3C, are the
-// wide-head body's qkv projection (mha_tile.cuh 2d), and linear_s8_kernel
-// its int8 one (below). K = C spans every head, so the heads are
+// every bf16 body of the family at a head of 64 or less; a wider head's bf16
+// bodies take the wgmma GEMM of wgmma_linear.cuh for the out-projection and
+// the exact qkv (N = 3C). The f32 kernel, at N = 3C, is also the wide f32
+// body's qkv projection (mha_tile.cuh 2d), and linear_s8_kernel the int8
+// one (below). K = C spans every head, so the heads are
 // summed inside one dot product, with no atomics. It needs the attn scratch
 // and W_out 16-byte aligned (cp.async) and returns cudaErrorMisalignedAddress
 // otherwise.
@@ -25,9 +27,11 @@
 
 #include <cfloat>
 #include <cstddef>
+#include <type_traits>
 
 #include "common.cuh"
 #include "tc.cuh"
+#include "wgmma_linear.cuh"
 
 namespace exo {
 
@@ -191,16 +195,21 @@ inline cudaError_t linear(const void* a, const void* w, const void* bias, void* 
 
 // The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out
 // (+ res, the block bodies' residual x, when given). attn and W_out
-// 16-byte aligned (cp.async), res 8-byte aligned in f32 and 4-byte in bf16.
+// 16-byte aligned (cp.async, TMA), res 8-byte aligned in f32 and 4-byte in
+// bf16. wide: a head above 64, whose bf16 body takes the wgmma GEMM
+// (wgmma_linear.cuh); every other body the mma.sync tiles below.
 template <typename T>
 inline cudaError_t out_projection(const void* attn, const void* w_out, const void* b_out,
-                                  void* out, int M, int C, cudaStream_t st,
-                                  const void* res = nullptr) {
+                                  void* out, int M, int C, cudaStream_t st, const void* res,
+                                  bool wide) {
   if (!tc::aligned16(attn) || !tc::aligned16(w_out)) return cudaErrorMisalignedAddress;
   if (res && reinterpret_cast<uintptr_t>(res) % (sizeof(T) == 4 ? 8 : 4)) {
     return cudaErrorMisalignedAddress;
   }
   if (C % 8) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (wide) return wg::linear(attn, w_out, b_out, out, M, C, C, st, res);
+  }
   return linear<T>(attn, w_out, b_out, out, M, C, C, st, res);
 }
 

@@ -120,6 +120,10 @@ constexpr int kKC = 32;       // the int8 f32 body: K chunk (32 words of int8)
 // MAX_TILE_HEAD_DIM, the same 64; a wide head handed none is refused)
 constexpr int kMaxTileDh = 64;
 
+// A head above kMaxTileDh: the wide-head body (2d), and in bf16 the wgmma
+// GEMM for its projections.
+inline bool wide_head(int C, int H) { return C / H > kMaxTileDh; }
+
 // The entry points' shape checks: B, S <= 128 and H positive, C a multiple
 // of c_mult and of H, the head size a multiple of 8.
 inline bool valid_shape(int B, int S, int C, int H, int c_mult) {
@@ -920,11 +924,12 @@ inline cudaError_t attention_tc(const void* x, const void* xsc, const void* kpad
 // kernels with the (B*S, 3C) qkv between them, in a scratch of its own that
 // the wrapper hands over beside the o scratch (null below a head of 64; a
 // wide head given none fails with cudaErrorInvalidValue):
-//   1. qkv = the row operand . W_in^T + b_in by the tail's 128 x 128
-//      tensor-core GEMM (mha_tail.cuh: 3xTF32 in f32, bf16 mma.sync, or for
-//      the int8 bodies linear_s8_kernel: mma.sync m16n8k32 .s8, exact int32
-//      sums dequantized as float(acc) * xs * wsc + b_in), q, k and v written
-//      in T (bf16: rounded, as the tile rounds them);
+//   1. qkv = the row operand . W_in^T + b_in by a tensor-core GEMM (f32: the
+//      tail's 128 x 128 3xTF32 tile; bf16: wgmma fed by TMA,
+//      wgmma_linear.cuh; the int8 bodies linear_s8_kernel: mma.sync
+//      m16n8k32 .s8, exact int32 sums dequantized as float(acc) * xs * wsc +
+//      b_in), q, k and v written in T (bf16: rounded, as the tile rounds
+//      them);
 //   2. the slab window kernel (wide_window.cuh) per (window, head), reading
 //      q, k and v where they lie in qkv (row pitch 3C), the MHA tile's order
 //      (scores times 1/sqrt(Dh), p / l before p . v), o into the o scratch.
@@ -932,7 +937,7 @@ inline cudaError_t attention_tc(const void* x, const void* xsc, const void* kpad
 // f32 at B64 S128 C1024, ~0.06 ms at 3.35 TB/s) against 8*B*S*C^2 FLOPs; in
 // exchange the projection runs in full 128 x 128 tiles, not a head's 3*Dh
 // columns a CTA, and shared memory and registers stay bounded at any head.
-// Then the out-projection, as every body.
+// Then the out-projection, as every body (bf16: the wgmma GEMM too).
 
 // Step 2: o of each (window, head) into attn from the packed qkv.
 template <typename T>
@@ -976,7 +981,12 @@ inline cudaError_t attention_exact(const void* a, const void* kpad, const void* 
   if (C / H > kMaxTileDh) {
     if (qkv == nullptr) return cudaErrorInvalidValue;
     if (!tc::aligned16(a) || !tc::aligned16(w_in)) return cudaErrorMisalignedAddress;
-    cudaError_t err = linear<T>(a, w_in, b_in, qkv, B * S, 3 * C, C, st);
+    cudaError_t err;
+    if constexpr (std::is_same<T, bf16>::value) {
+      err = wg::linear(a, w_in, b_in, qkv, B * S, 3 * C, C, st);
+    } else {
+      err = linear<T>(a, w_in, b_in, qkv, B * S, 3 * C, C, st);
+    }
     if (err != cudaSuccess) return err;
     return attention_wide<T>(qkv, kpad, attn, B, S, C, H, st);
   }

@@ -55,6 +55,12 @@ SIGNATURES = {
         # x, kpad, w_in, b_in, w_out, b_out, attn scratch, qkv scratch (wide
         # heads; else null), out, B, S, C, H, dtype (0 f32, 1 bf16), stream
         "fused_mha_forward": (_P,) * 9 + (_I,) * 5 + (_P,),
+        # a, w, bias, res (or null), y, M, N, K, stream: the wide-head bf16
+        # bodies' wgmma GEMM alone
+        "wgmma_linear_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
+        # the wgmma GEMM's launches since the last call (every library of the
+        # MHA family exports it, csrc/wgmma_linear.cuh)
+        "wgmma_linear_launches": (),
     },
     "fused_mlp": {
         # x, c_fc w, c_fc b, c_proj w, c_proj b, out, f32 workspace, rows, C,
@@ -65,6 +71,7 @@ SIGNATURES = {
         # x, kpad, w_in int8, w_in scales, b_in, w_out, b_out, x int8, x scales,
         # attn scratch, qkv scratch, out, B, S, C, H, dtype, stream
         "fused_mha_int8_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
+        "wgmma_linear_launches": (),
     },
     "fused_mlp_int8": {
         # x, c_fc w int8, c_fc scales, c_fc b, c_proj w, c_proj b, out, f32
@@ -83,12 +90,14 @@ SIGNATURES = {
         # x, kpad, ln w, ln b, w_in, b_in, w_out, b_out, attn scratch, qkv
         # scratch, out, x_norm, B, S, C, H, dtype, stream
         "block_attn_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
+        "wgmma_linear_launches": (),
     },
     "block_attn_int8": {
         # x, kpad, ln w, ln b, w_in int8, w_in scales, b_in, w_out, b_out,
         # x_norm int8, x_norm scales, attn scratch, qkv scratch, out, x_norm,
         # B, S, C, H, dtype, stream
         "block_attn_int8_forward": (_P,) * 15 + (_I,) * 5 + (_P,),
+        "wgmma_linear_launches": (),
     },
     "block_mlp": {
         # x, ln w, ln b, c_fc w, c_fc b, c_proj w, c_proj b, out, f32
@@ -118,7 +127,12 @@ LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("fused_mha", "fused_mlp", "fused_mha_int8", "fused_mlp_int8",
                          "milnce_grid_fwd", "milnce_grid_bwd", "flash_fwd", "flash_dq",
                          "flash_dkv", "block_attn", "block_attn_int8", "block_mlp",
-                         "block_mlp_int8", "small_attn")
+                         "block_mlp_int8", "small_attn",
+                         # the bodies behind a wrapper above: the flash cluster
+                         # bodies (D > 128) and the wide-head bf16 MHA family's
+                         # wgmma GEMM (a launch each projection)
+                         "flash_fwd_cluster", "flash_dq_cluster", "flash_dkv_cluster",
+                         "wgmma_linear")
 }
 
 _lock = threading.Lock()
@@ -126,10 +140,10 @@ _count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def count_launch(name: str) -> None:
-    """One launch of wrapper ``name``'s kernel (the wrappers' one count)."""
+def count_launch(name: str, n: int = 1) -> None:
+    """``n`` launches of wrapper ``name``'s kernel (the wrappers' one count)."""
     with _count_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
 
 
 def reset_launches() -> None:

@@ -90,6 +90,10 @@ MAX_FUSED_S = 128  # windows the fused kernel serves (the TPU kernel's tile)
 # kMaxTileDh); a wider one runs the wide-head body (2d), which takes a
 # (B*S, 3C) qkv scratch of its own
 MAX_TILE_HEAD_DIM = 64
+# the flash kernels' head sizes: up to 128 in a fixed head tile, above in
+# the cluster bodies (csrc/flash_attn.cu, namespace cl: up to 8 CTAs, each
+# owning one or more pairs of 64-column slabs), any multiple of 8
+MAX_FLASH_TILE_D = 128
 # 'auto' takes flash from this many scores per (batch, head) on: the JAX
 # package's gate (attention.py:77) as it stands, with "on the TPU" read as
 # "on the card". No H100 measurement has moved it yet (PERF.md §7).
@@ -198,6 +202,21 @@ def _flash_check(name, q, k, v, kpad):
     return bh, bh // kpad.shape[0], sq, sk, d
 
 
+def _check_flash(name, rc, d):
+    """After a flash launch: raise on its error (a head above 128 runs a
+    cluster body, whose launch the card refuses where no GPC holds the
+    cluster: cudaOccupancyMaxActiveClusters tells), then count it, and a
+    cluster body under its own name too."""
+    wide = d > MAX_FLASH_TILE_D
+    if rc != 0 and wide:
+        raise RuntimeError(f"{name}: the cluster body (head size {d}) failed to launch with "
+                           f"cudaError {rc}")
+    _kernels.check(name, rc)
+    _kernels.count_launch(name)
+    if wide:
+        _kernels.count_launch(f"{name}_cluster")
+
+
 def flash_forward(q, k, v, kpad):
     """Launch the forward kernel: (o, lse) as ``flash_attention_plain``,
     from contiguous CUDA tensors (kpad int32)."""
@@ -208,8 +227,7 @@ def flash_forward(q, k, v, kpad):
     rc = _kernels.library("flash_attn").flash_attn_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpad.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, h, sq, sk, d, _kernels.dtype_code(q), _kernels.stream_of(q))
-    _kernels.check(name, rc)
-    _kernels.count_launch(name)
+    _check_flash(name, rc, d)
     return o, lse
 
 
@@ -234,8 +252,7 @@ def flash_dq(q, k, v, kpad, do, lse, delta):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpad.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, h, sq, sk, d,
         _kernels.dtype_code(q), _kernels.stream_of(q))
-    _kernels.check(name, rc)
-    _kernels.count_launch(name)
+    _check_flash(name, rc, d)
     return dq
 
 
@@ -249,8 +266,7 @@ def flash_dkv(q, k, v, kpad, do, lse, delta):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpad.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, h, sq, sk, d,
         _kernels.dtype_code(q), _kernels.stream_of(q))
-    _kernels.check(name, rc)
-    _kernels.count_launch(name)
+    _check_flash(name, rc, d)
     return dk, dv
 
 
@@ -520,6 +536,48 @@ def mha_scratch(x, int8: bool, num_heads: int):
             torch.empty((b * s,), dtype=torch.float32, device=x.device), attn, qkv)
 
 
+def wide_linear_plain(a, w, bias, res=None):
+    """The wide-head bf16 bodies' GEMM written plainly: a . w^T + bias (+
+    res) summed in float32 and rounded once to a's type, the kernel's
+    order."""
+    y = torch.matmul(a.float(), w.float().t()) + bias.float()
+    if res is not None:
+        y = y + res.float()
+    return y.to(a.dtype)
+
+
+def wide_linear(a, w, bias, res=None):
+    """y (M, N) = a (M, K) . w (N, K)^T + bias (+ res) in bfloat16: the
+    GEMM that the MHA family's wide-head bf16 bodies run for their
+    projections (``csrc/wgmma_linear.cuh``: wgmma fed by TMA), alone. CPU
+    tensors take ``wide_linear_plain``; CUDA tensors launch the kernel or
+    raise (an encode or launch error included)."""
+    name = "wgmma_linear"
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1] or bias.shape != (w.shape[0],):
+        raise ValueError(f"{name}: a {tuple(a.shape)}, w {tuple(w.shape)}, bias "
+                         f"{tuple(bias.shape)} do not fit")
+    m, n = a.shape[0], w.shape[0]
+    if res is not None and res.shape != (m, n):
+        raise ValueError(f"{name}: res {tuple(res.shape)} != {(m, n)}")
+    if a.device.type == "cpu":
+        return wide_linear_plain(a, w, bias, res)
+    if n % 8 or a.shape[1] % 8:
+        raise ValueError(f"{name}: N {n} and K {a.shape[1]} must be multiples of 8")
+    _kernels.check_inference(name, a, w, bias, *(() if res is None else (res,)))
+    extra = {} if res is None else {"res": res}
+    _kernels.check_cuda_inputs(name, a.device, torch.bfloat16, a=a, w=w, bias=bias, **extra)
+    _kernels.check_aligned(name, a=a, w=w)
+    y = a.new_empty((m, n))
+    lib = _kernels.library("fused_mha")
+    rc = lib.wgmma_linear_forward(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), None if res is None else res.data_ptr(),
+        y.data_ptr(), m, n, a.shape[1], _kernels.stream_of(a))
+    launched = lib.wgmma_linear_launches()  # as the library counted them
+    _kernels.check(name, rc)
+    _kernels.count_launch(name, launched)
+    return y
+
+
 def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, *, ln=None,
                 int8=False):
     """One call of the MHA family: the checks, W_in (quantized and cached
@@ -540,13 +598,18 @@ def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, 
     b, s, c = x.shape
     w = quant.quantized_weight(w_in) if int8 else (w_in,)
     outs = (torch.empty_like(x), torch.empty_like(x)) if ln else (torch.empty_like(x),)
-    entry = getattr(_kernels.library(name), f"{name}_forward")
+    lib = _kernels.library(name)
     ptrs = [None if t is None else t.data_ptr()
             for t in (x, kpad, *ln.values(), *w, b_in, w_out, b_out,
                       *mha_scratch(x, int8, num_heads), *outs)]
-    rc = entry(*ptrs, b, s, c, num_heads, _kernels.dtype_code(x), _kernels.stream_of(x))
+    rc = getattr(lib, f"{name}_forward")(*ptrs, b, s, c, num_heads, _kernels.dtype_code(x),
+                                         _kernels.stream_of(x))
+    # the wgmma GEMM's launches in this call (the wide bf16 bodies'
+    # projections), as the library counted them where it launched them
+    launched = lib.wgmma_linear_launches()
     _kernels.check(name, rc)
     _kernels.count_launch(name)
+    _kernels.count_launch("wgmma_linear", launched)
     return outs if ln else outs[0]
 
 

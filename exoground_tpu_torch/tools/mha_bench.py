@@ -1,6 +1,6 @@
 """The MHA family's kernels timed back to back on the card.
 
-    python3 exoground_tpu_torch/tools/mha_bench.py [--hash TAG]
+    python3 exoground_tpu_torch/tools/mha_bench.py [--hash TAG | --wide TAG | --flash TAG]
 
 Imports ``exoground_tpu_torch`` from the working directory, so that, run from
 the root of another checkout (an unpacked parent commit, say), it measures
@@ -21,6 +21,24 @@ forward at the global path's (S 2048, 2096 with 48 padding keys) and at head
 size 128, float32 and bfloat16: the sha256 of each output and the fused MHA's
 median of 20 single timed calls (``MHACMP`` line), to hold one checkout's
 kernels against another's bit for bit.
+
+``--wide``: the wide-head bodies at the grounding model's full widths, B 64,
+S 128 and 64, back to back (30 launches between two events, 3 rounds whose
+order alternates, medians) beside one PyTorch call for the same function:
+rows 1, 5 and 7 (fused MHA, the int8 MHA, both block bodies) in bfloat16 at
+C 1024 and 2048 (8 heads: head sizes 128 and 256) beside
+``F.multi_head_attention_forward``; row 4 (flash) at D 256, the forward
+beside SDPA and the backward pair (dq then dk/dv) beside one SDPA backward,
+float32 and bfloat16; and, where the checkout has it, the wgmma GEMM alone
+(``ops.attention.wide_linear``) at the bodies' products beside
+``F.linear``. One ``WIDE`` JSON line a shape under TAG.
+
+``--flash``: row 4 above D 128 (the cluster bodies): at D 136, 256, 520,
+1024, 1032 and 2056 (B2 H2, Sq 96, Sk 77, a ragged key tail and an empty
+batch row), float32 and bfloat16, the sha256 of o, lse, dq, dk and dv and
+their largest error relative to max|flash_attention_plain| (``FLASHCMP``
+line), then row 4's ``--wide`` lines and the same at B1 H8 S256 D2048 (two
+pairs of slabs a CTA).
 
 Needs a CUDA device.
 """
@@ -130,10 +148,155 @@ def hashes(tag: str) -> None:
     print("MHACMP", tag, json.dumps(res), flush=True)
 
 
+def _rounds(fns, rounds=3, launches=30):
+    """Median back-to-back ms of each of ``fns`` over ``rounds`` rounds whose
+    order alternates."""
+    from exoground_tpu_torch.tools.mlp_bench import _events_ms
+
+    res = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            res[k].append(_events_ms(fns[k], launches))
+    return {k: round(statistics.median(v), 4) for k, v in res.items()}
+
+
+def wide(tag: str) -> None:
+    import torch.nn.functional as F
+
+    from exoground_tpu_torch.ops import attention as A
+
+    for c in (1024, 2048):
+        for s in (128, 64):
+            x, kpad, (lw, lb), w = _inputs(64, s, c, torch.bfloat16, c + s)
+            with torch.inference_mode():
+                fns = {
+                    "row1 fused_mha": lambda: A.fused_mha(x, kpad, *w, 8),
+                    "row5 fused_mha_int8": lambda: A.fused_mha_int8(x, kpad, *w, 8),
+                    "row7 block_attn": lambda: A.fused_block_attn(x, kpad, lw, lb, *w, 8),
+                    "row7 block_attn_int8": lambda: A.fused_block_attn(x, kpad, lw, lb, *w, 8,
+                                                                       int8_qkv=True),
+                    "library F.multi_head_attention_forward":
+                        lambda: F.multi_head_attention_forward(
+                            x.transpose(0, 1), x.transpose(0, 1), x.transpose(0, 1), c, 8, w[0],
+                            w[1], None, None, False, 0.0, w[2], w[3], training=False,
+                            key_padding_mask=kpad, need_weights=False),
+                }
+                print("WIDE", tag, json.dumps(dict(shape=f"B64 S{s} C{c} H8", dtype="bfloat16",
+                                                   ms_b2b=_rounds(fns))), flush=True)
+    _wide_flash(tag)
+    if not hasattr(A, "wide_linear"):
+        return
+    _wide_gemm(tag)
+
+
+def _wide_flash(tag, shapes=((64, 8, 128, 256), (64, 8, 64, 256))):
+    """Row 4's WIDE lines: the forward beside SDPA and the backward pair
+    beside one SDPA backward, back to back, at each (B, H, S, D)."""
+    import torch.nn.functional as F
+
+    from exoground_tpu_torch.ops import attention as A
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, s, d in shapes:
+            g = torch.Generator(device="cuda").manual_seed(s + d)
+            q, k, v, do = (torch.randn(b * h, s, d, generator=g, device="cuda").to(dtype)
+                           for _ in range(4))
+            q = (q * d ** -0.5).to(dtype)
+            kpad = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+            kpad[0, s - 5:] = 1
+            o, lse = A.flash_forward(q, k, v, kpad)
+            delta = (do.float() * o.float()).sum(-1)
+            attend = (kpad == 0)[:, None, None, :]
+            q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+            q4g, k4g, v4g = (t.clone().requires_grad_() for t in (q4, k4, v4))
+            lo = F.scaled_dot_product_attention(q4g, k4g, v4g, attn_mask=attend, scale=1.0)
+
+            def pair():
+                A.flash_dq(q, k, v, kpad, do, lse, delta)
+                A.flash_dkv(q, k, v, kpad, do, lse, delta)
+
+            fns = {
+                "row4 fwd": lambda: A.flash_forward(q, k, v, kpad),
+                "row4 dq + dk/dv": pair,
+                "library SDPA fwd": lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=attend, scale=1.0),
+                "library SDPA backward": lambda: torch.autograd.grad(
+                    lo, [q4g, k4g, v4g], do4, retain_graph=True),
+            }
+            print("WIDE", tag, json.dumps(dict(shape=f"B{b} H{h} S{s} D{d}",
+                                               dtype=str(dtype).split(".")[-1],
+                                               ms_b2b=_rounds(fns))), flush=True)
+            del lo
+
+
+def flash(tag: str) -> None:
+    from exoground_tpu_torch.ops import attention as A
+
+    res = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (136, 256, 520, 1024, 1032, 2056):
+            g = torch.Generator(device="cuda").manual_seed(d)
+            q, k, v, do = (torch.randn(4, n, d, generator=g, device="cuda").to(dtype)
+                           for n in (96, 77, 77, 96))
+            q = (q * d ** -0.5).to(dtype)
+            kpad = torch.zeros(2, 77, dtype=torch.int32, device="cuda")
+            kpad[:, 64:] = 1
+            kpad[0] = 1  # a batch row with no valid key
+            try:
+                o, lse = A.flash_forward(q, k, v, kpad)
+            except ValueError as e:  # a checkout whose wrappers refuse this head
+                res.append(dict(shape=f"B2 H2 Sq96 Sk77 D{d}", dtype=str(dtype).split(".")[-1],
+                                refused=str(e)))
+                continue
+            delta = (do.float() * o.float()).sum(-1)
+            got = {"o": o, "lse": lse, "dq": A.flash_dq(q, k, v, kpad, do, lse, delta)}
+            got["dk"], got["dv"] = A.flash_dkv(q, k, v, kpad, do, lse, delta)
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            po, _ = A.flash_attention_plain(qq, kk, vv, kpad)
+            po.backward(do)
+            want = {"o": po, "dq": qq.grad, "dk": kk.grad, "dv": vv.grad}
+            rel = {n: (got[n].float() - w.float()).abs().max().item()
+                   / max(w.float().abs().max().item(), 1e-30) for n, w in want.items()}
+            res.append(dict(shape=f"B2 H2 Sq96 Sk77 D{d}", dtype=str(dtype).split(".")[-1],
+                            sha="/".join(_sha(got[n]) for n in ("o", "lse", "dq", "dk", "dv")),
+                            rel_err=rel))
+    print("FLASHCMP", tag, json.dumps(res), flush=True)
+    _wide_flash(tag)
+    try:
+        _wide_flash(tag, ((1, 8, 256, 2048),))
+    except ValueError as e:
+        print("WIDE", tag, json.dumps(dict(shape="B1 H8 S256 D2048", refused=str(e))), flush=True)
+
+
+def _wide_gemm(tag: str) -> None:
+    import torch.nn.functional as F
+
+    from exoground_tpu_torch.ops import attention as A
+
+    for m, n, kk in ((8192, 6144, 2048), (8192, 2048, 2048), (8192, 3072, 1024),
+                     (8192, 1024, 1024)):
+        g = torch.Generator(device="cuda").manual_seed(n + kk)
+        a = torch.randn(m, kk, generator=g, device="cuda").bfloat16()
+        wt = (torch.randn(n, kk, generator=g, device="cuda") * kk ** -0.5).bfloat16()
+        bias = torch.randn(n, generator=g, device="cuda").bfloat16()
+        with torch.inference_mode():
+            t = _rounds({"wgmma_linear": lambda: A.wide_linear(a, wt, bias),
+                         "library F.linear": lambda: F.linear(a, wt, bias)})
+        flops = 2.0 * m * n * kk
+        print("WIDE", tag, json.dumps(dict(shape=f"GEMM M{m} N{n} K{kk}", dtype="bfloat16",
+                                           ms_b2b=t, tflops={k: round(flops / v / 1e9, 1)
+                                                             for k, v in t.items()})),
+              flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hash", metavar="TAG", default=None,
                     help="print the fused MHA's output hashes and times under TAG")
+    ap.add_argument("--wide", metavar="TAG", default=None,
+                    help="time the wide-head bodies at full width under TAG")
+    ap.add_argument("--flash", metavar="TAG", default=None,
+                    help="hash and check flash's cluster bodies, then time row 4, under TAG")
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     if not torch.cuda.is_available():
@@ -143,6 +306,10 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip(), flush=True)
     if args.hash is not None:
         hashes(args.hash)
+    elif args.wide is not None:
+        wide(args.wide)
+    elif args.flash is not None:
+        flash(args.flash)
     else:
         bench()
 
