@@ -220,26 +220,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      'fused' (18 block_attn + 18 block_mlp + 6 fused_mha + 6 fused_mlp), then
      its forward under quant.matmul_impl('int8', min_cols=2048) under 'auto'
      (24 fused_mha_int8 + 24 fused_mlp_int8) and 'fused' (their block twins
-     and 6 + 6); C 2048 under 'auto' and 'small'; 4 requests of each run
+     and 6 + 6); C 2048 under 'auto' and 'small'; behind the wrappers, as
+     the libraries count them (wide_gnd_launches), each MHA-family launch
+     one wide_window and two wgmma_linear_tf32 (int8: one), each small_attn
+     launch at D 128 and above one wide_window; 4 requests of each run
      against the CPU under the same impl (<= 1e-4 of max|CPU|; int8 at
      phase 7's floor over 3 noise draws); requests/s of each
      (`wide_ground_bench {...}`); then at C 2048 the forwards of
      WIDE_GND_HOPPER, each counted per forward against the f32 'auto' card
      answer of the same batch: f32 'flash' (30 flash_fwd through the cluster
      body + 24 fused_mlp; <= 1e-4) and a bf16 copy under 'auto' (24 fused_mha
-     with 48 wgmma_linear + 24 fused_mlp) and 'flash' (within 2x the bf16
+     with 48 wgmma_linear and 24 wide_window + 24 fused_mlp) and 'flash'
+     (within 2x the bf16
      model's error on its plain versions, at least 1e-3). The wide cases of
      the kernel phases: 3 (fused MHA at Dh 72, 96, 128, 256, each at two of
      S 17, 64, 96, 128 and each S at two heads, one fully-masked window
      each, and the full widths C 1024 / 2048 timed at B64 S128 and S64,
      single calls and back to back beside the library's back-to-back time;
-     the wgmma GEMM alone, `wgmma_linear {...}`, at the bodies' products and
-     at M, N, K tails), 3d and 3e (the same for the int8 MHA and both block
-     bodies; each call's wgmma launches, as the library counted them, held
-     to the design), 3c (flash at D 136, 192, 256, 520, 1024 and 1032 with
-     a ragged tail and an empty row, D 60 through flash_attention's zero-column padding, D 128 and
-     256 timed at B64 H8 S128 and S64) and 3f (the window core at D 60, 136,
-     192, 256, S 17 and 100, and D 128 / 256 timed at B64 H8 S128 and S64).
+     Dh 520 at S 17 (C 8320, 16 heads: a window of many slabs); the wgmma
+     GEMMs alone, `wgmma_linear {...}` (bf16) and `wgmma_linear_tf32 {...}`
+     (f32, 3xTF32), at the bodies' products with TFLOP/s and at M, N, K
+     tails), 3d and 3e (the same for the int8 MHA and both block bodies;
+     each call's wgmma GEMM and window kernel launches, as the library
+     counted them, held to the design), 3c (flash at D 136, 192, 256, 520,
+     1024 and 1032 with a ragged tail and an empty row, D 60 through
+     flash_attention's zero-column padding, D 128 and 256 timed at B64 H8
+     S128 and S64) and 3f (the window core at D 60, 136, 192, 256 and 520,
+     S 17 and 100, and D 128 / 256 timed at B64 H8 S128 and S64, single
+     calls and back to back beside SDPA; each wide call's window kernel
+     launch counted).
   8. the training command line: ``exoground_tpu_torch.train.main`` (``--dataset
      htm-370k --model cotrain``, E6D6 width 512, seq 64, text bucket 32, token
      length 32, B64, seed 0) over a seeded tree under build/ (tools/synth_htm.py:
@@ -536,17 +545,23 @@ def routes_bound(int8_ops: float, exact_flops: float, nbytes: float, dtype) -> d
 
 # ----------------------------------------------------------------- phase 3
 def check_wgmma_launches(name, n0, C, H, dtype, int8):
-    """After one call of an MHA-family wrapper: the wgmma GEMM launches that
-    its library reported (counted in C where it launches them, read by the
-    wrapper after the call) are the bodies' design, two in the exact wide
-    bf16 bodies (qkv and out-projection), one in the int8 ones (the
-    out-projection), none at a head of 64 or in float32."""
+    """After one call of an MHA-family wrapper: the wide bodies' launches
+    that its library reported (counted in C where it launches them, read by
+    the wrapper after the call; ``n0`` the counts before it) are the bodies'
+    design: above a head of 64 the wgmma GEMM of the call's type
+    (wgmma_linear in bf16, wgmma_linear_tf32 in f32) twice in the exact
+    bodies (qkv and out-projection) and once in the int8 ones (the
+    out-projection), the other type's none, and the window kernel once;
+    none of them at a head of 64."""
     from exoground_tpu_torch.ops import _kernels
 
-    want = (1 if int8 else 2) if dtype == torch.bfloat16 and C // H > 64 else 0
-    got = _kernels.LAUNCHES["wgmma_linear"] - n0
+    wide = C // H > 64
+    gemm, other = (("wgmma_linear", "wgmma_linear_tf32") if dtype == torch.bfloat16
+                   else ("wgmma_linear_tf32", "wgmma_linear"))
+    want = {gemm: (1 if int8 else 2) if wide else 0, other: 0, "wide_window": int(wide)}
+    got = {k: _kernels.LAUNCHES[k] - n0[k] for k in want}
     if got != want:
-        fail(f"{name} at C{C} H{H} {dtype}: the library launched the wgmma GEMM {got} times, "
+        fail(f"{name} at C{C} H{H} {dtype}: the library launched the wide bodies {got}, "
              f"the design {want}")
 
 
@@ -572,7 +587,7 @@ def mha_case(B, S, C, H, dtype, seed, b2b=False):
     lens[1] = S
     kpad = torch.tensor(np.arange(S)[None, :] >= lens[:, None], device=dev)
     with torch.inference_mode():
-        n0, wg0 = _kernels.LAUNCHES["fused_mha"], _kernels.LAUNCHES["wgmma_linear"]
+        n0, wg0 = _kernels.LAUNCHES["fused_mha"], dict(_kernels.LAUNCHES)
         out = fused_mha(x, kpad, w_in, b_in, w_out, b_out, H)
         torch.cuda.synchronize()
         if _kernels.LAUNCHES["fused_mha"] != n0 + 1:
@@ -611,69 +626,74 @@ def mha_case(B, S, C, H, dtype, seed, b2b=False):
     return case
 
 
-def wgmma_linear_case(M, N, K, seed, res=False, timed=False):
-    """The wide-head bf16 bodies' wgmma GEMM alone (ops.attention.wide_linear:
-    y = a . w^T + bias (+ res) in bf16) against wide_linear_plain on the card,
-    its launch counted; with ``timed``, single calls and back to back beside
-    the plain version, F.linear on the same operands (a yardstick the port
-    never calls) and the bound (2*M*N*K FLOPs at the bf16 rate, or the bytes
+def wgmma_linear_case(M, N, K, seed, res=False, timed=False, dtype=torch.bfloat16):
+    """The wide-head bodies' wgmma GEMM of ``dtype`` alone
+    (ops.attention.wide_linear: y = a . w^T + bias (+ res); bf16, or f32 in
+    3xTF32, counted as wgmma_linear_tf32) against wide_linear_plain on the
+    card, its launch counted; with ``timed``, single calls and back to back
+    beside the plain version, F.linear on the same operands (a yardstick the
+    port never calls; f32 with TF32 off) and the bound (2*M*N*K FLOPs at the
+    bf16 rate, in f32 the lesser of the CUDA cores and 3xTF32, or the bytes
     of a, w, bias, res and y)."""
     import torch.nn.functional as F
 
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.ops.attention import wide_linear, wide_linear_plain
 
+    name = "wgmma_linear" if dtype == torch.bfloat16 else "wgmma_linear_tf32"
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
-        return card_normal(rng, shape, scale, torch.bfloat16)
+        return card_normal(rng, shape, scale, dtype)
 
     a, w, b = t(M, K), t(N, K, scale=K ** -0.5), t(N, scale=0.02)
     r = t(M, N) if res else None
     with torch.inference_mode():
-        n0 = _kernels.LAUNCHES["wgmma_linear"]
+        n0 = _kernels.LAUNCHES[name]
         y = wide_linear(a, w, b, r)
         torch.cuda.synchronize()
-        if _kernels.LAUNCHES["wgmma_linear"] != n0 + 1:
-            fail("wgmma_linear did not count its launch")
+        if _kernels.LAUNCHES[name] != n0 + 1:
+            fail(f"{name} did not count its launch")
         ref = wide_linear_plain(a, w, b, r)
         if not torch.isfinite(y.float()).all():
-            fail(f"wgmma_linear non-finite output at M{M} N{N} K{K}")
+            fail(f"{name} non-finite output at M{M} N{N} K{K}")
         err = (y.float() - ref.float()).abs().max().item()
-        case = dict(shape=f"M{M} N{N} K{K}" + (" + res" if res else ""), dtype="bfloat16",
-                    max_abs_err=err, max_rel_err=err / ref.float().abs().max().item())
+        case = dict(shape=f"M{M} N{N} K{K}" + (" + res" if res else ""),
+                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                    max_rel_err=err / ref.float().abs().max().item())
         if timed:
             flops = 2.0 * M * N * K
-            nbytes = 2.0 * (M * K + N * K + N + M * N * (2 if res else 1))
+            nbytes = a.element_size() * (M * K + N * K + N + M * N * (2 if res else 1))
             lib = (lambda: F.linear(a, w, b) + r) if res else (lambda: F.linear(a, w, b))
             case.update(ms=time_ms(lambda: wide_linear(a, w, b, r)),
                         plain_ms=time_ms(lambda: wide_linear_plain(a, w, b, r)),
                         library_ms=time_ms(lib),
                         ms_b2b=b2b_ms(lambda: wide_linear(a, w, b, r)),
-                        library_ms_b2b=b2b_ms(lib), **routes_bound(0.0, flops, nbytes,
-                                                                   torch.bfloat16))
+                        library_ms_b2b=b2b_ms(lib), **routes_bound(0.0, flops, nbytes, dtype))
             case["tflops_b2b"] = flops / case["ms_b2b"] / 1e9
             case["library_tflops_b2b"] = flops / case["library_ms_b2b"] / 1e9
         else:
             case.update(ms=None, plain_ms=None, library_ms=None, bound_ms=None, bound_by=None)
-    print("wgmma_linear", json.dumps(case), flush=True)
-    if not case["max_rel_err"] <= TOL[torch.bfloat16]:
-        fail(f"wgmma_linear disagrees with wide_linear_plain: {case}")
+    print(name, json.dumps(case), flush=True)
+    if not case["max_rel_err"] <= TOL[dtype]:
+        fail(f"{name} disagrees with wide_linear_plain: {case}")
     return case
 
 
-def wgmma_linear_cases():
-    """The GEMM at the wide bodies' products, timed: the qkv (N = 3C) and
-    the out-projection (N = C, the block bodies' residual) at C 2048 and
-    1024, B64 S128 (M 8192); then M, N and K tails (WIDE_MHA_GRID's C 1152
-    and 768 at S 17 and 64, B3)."""
-    out = [wgmma_linear_case(8192, 6144, 2048, 300, timed=True),
-           wgmma_linear_case(8192, 2048, 2048, 301, res=True, timed=True),
-           wgmma_linear_case(8192, 3072, 1024, 302, timed=True),
-           wgmma_linear_case(8192, 1024, 1024, 303, res=True, timed=True)]
+def wgmma_linear_cases(dtype):
+    """The GEMM of ``dtype`` at the wide bodies' products, timed: the qkv (N
+    = 3C) and the out-projection (N = C, the block bodies' residual) at C
+    2048 and 1024, B64 S128 (M 8192); then M, N and K tails (WIDE_MHA_GRID's
+    C 1152 and 768 at S 17 and 64, B3; K 72 and 264, N 24 and 2056: none a
+    multiple of the tile)."""
+    out = [wgmma_linear_case(8192, 6144, 2048, 300, timed=True, dtype=dtype),
+           wgmma_linear_case(8192, 2048, 2048, 301, res=True, timed=True, dtype=dtype),
+           wgmma_linear_case(8192, 3072, 1024, 302, timed=True, dtype=dtype),
+           wgmma_linear_case(8192, 1024, 1024, 303, res=True, timed=True, dtype=dtype)]
     for i, (m, n, k, res) in enumerate(((51, 3456, 1152, False), (51, 1152, 1152, True),
-                                        (192, 2304, 768, False), (192, 768, 768, True))):
-        out.append(wgmma_linear_case(m, n, k, 310 + i, res=res))
+                                        (192, 2304, 768, False), (192, 768, 768, True),
+                                        (17, 24, 72, True), (130, 2056, 264, False))):
+        out.append(wgmma_linear_case(m, n, k, 310 + i, res=res, dtype=dtype))
     return out
 
 
@@ -792,7 +812,7 @@ def mha_int8_case(B, S, C, H, dtype, seed, timed=False, b2b=True, library_b2b=Fa
     kpad = torch.tensor(np.arange(S)[None, :] >= lens[:, None], device="cuda")
     args = (x, kpad, w_in, b_in, w_out, b_out, H)
     with torch.inference_mode():
-        n0, wg0 = _kernels.LAUNCHES["fused_mha_int8"], _kernels.LAUNCHES["wgmma_linear"]
+        n0, wg0 = _kernels.LAUNCHES["fused_mha_int8"], dict(_kernels.LAUNCHES)
         out = fused_mha_int8(*args)
         torch.cuda.synchronize()
         if _kernels.LAUNCHES["fused_mha_int8"] != n0 + 1:
@@ -952,7 +972,7 @@ def block_attn_case(B, S, C, H, dtype, seed, int8=False, timed=False, b2b=True,
     plain = block_attn_int8_plain if int8 else block_attn_plain
     args = (x, kpad, ln_w, ln_b, w_in, b_in, w_out, b_out, H)
     with torch.inference_mode():
-        n0, wg0 = _kernels.LAUNCHES[name], _kernels.LAUNCHES["wgmma_linear"]
+        n0, wg0 = _kernels.LAUNCHES[name], dict(_kernels.LAUNCHES)
         out, xn = fused_block_attn(*args, int8_qkv=int8)
         torch.cuda.synchronize()
         if _kernels.LAUNCHES[name] != n0 + 1:
@@ -1137,20 +1157,22 @@ def block_kernel_cases():
 
 
 # ---------------------------------------------------------------- phase 3f
-def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
+def small_case(B, H, S, D, dtype, seed, timed=False, packed=False, b2b=False):
     """The window-attention kernel (through ``small_attention``) against
     small_attention_plain on the card: one fully-masked window and ragged
-    lengths. ``packed``: q, k and v are the strided views mha_plain's head
-    split makes of a packed (B, S, 3C) qkv, strides (S*3C, D, 3C, 1), as the
-    aligner and grounding hand them over; else contiguous (B, H, S, D)
-    tensors. With ``timed``, beside the plain version,
-    F.scaled_dot_product_attention with the boolean mask on the same
-    tensors (a yardstick the path never calls) and the bound max(4 BH S^2 D
-    FLOPs by routes_bound (float32: the lesser of the CUDA cores and 3xTF32,
-    both given), 4 BH S D bytes / 3.35 TB/s)."""
+    lengths; above the fixed tiles (D > MAX_SMALL_TILE_D) the wide window
+    kernel, whose launch the library counts (``wide_window``). ``packed``:
+    q, k and v are the strided views mha_plain's head split makes of a
+    packed (B, S, 3C) qkv, strides (S*3C, D, 3C, 1), as the aligner and
+    grounding hand them over; else contiguous (B, H, S, D) tensors. With
+    ``timed``, beside the plain version, F.scaled_dot_product_attention with
+    the boolean mask on the same tensors (a yardstick the path never calls)
+    and the bound max(4 BH S^2 D FLOPs by routes_bound (float32: the lesser
+    of the CUDA cores and 3xTF32, both given), 4 BH S D bytes / 3.35 TB/s);
+    with ``b2b`` the kernel and SDPA back to back too."""
     from exoground_tpu_torch.ops import _kernels
     from exoground_tpu_torch.ops.attention import (
-        _split_heads, small_attention, small_attention_plain)
+        MAX_SMALL_TILE_D, _split_heads, small_attention, small_attention_plain)
 
     rng = np.random.RandomState(seed)
     if packed:
@@ -1165,11 +1187,15 @@ def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
     kpad = mask.to(torch.int32)
     qs = q * (1.0 / D ** 0.5)
     with torch.inference_mode():
-        n0 = _kernels.LAUNCHES["small_attn"]
+        n0, w0 = _kernels.LAUNCHES["small_attn"], _kernels.LAUNCHES["wide_window"]
         out = small_attention(q, k, v, mask)
         torch.cuda.synchronize()
         if _kernels.LAUNCHES["small_attn"] != n0 + 1:
             fail("small_attn did not count its launch")
+        wide = int(-(-D // 8) * 8 > MAX_SMALL_TILE_D)
+        if _kernels.LAUNCHES["wide_window"] - w0 != wide:
+            fail(f"small_attn at D{D}: {_kernels.LAUNCHES['wide_window'] - w0} wide window "
+                 f"launches, the design {wide}")
         ref = small_attention_plain(qs, k, v, kpad)
         if not torch.isfinite(out.float()).all():
             fail(f"small_attn non-finite output at B{B} H{H} S{S} D{D} {dtype}")
@@ -1177,7 +1203,8 @@ def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
         case = dict(shape=f"B{B} H{H} S{S} D{D}" + (" packed qkv" if packed else ""),
                     dtype=str(dtype).split(".")[-1], max_abs_err=err,
                     max_rel_err=err / ref.float().abs().max().item(),
-                    masked_window_err=(out[0].float() - ref[0].float()).abs().max().item())
+                    masked_window_err=(out[0].float() - ref[0].float()).abs().max().item(),
+                    wide_window=bool(wide))
         if timed:
             attend = ~mask[:, None, None, :]
             sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1186,6 +1213,9 @@ def small_case(B, H, S, D, dtype, seed, timed=False, packed=False):
                         library_ms=time_ms(lambda: sdpa(q, k, v, attn_mask=attend)),
                         **routes_bound(0, 4.0 * B * H * S * S * D,
                                        4.0 * B * H * S * D * q.element_size(), dtype))
+            if b2b:
+                case.update(ms_b2b=b2b_ms(lambda: small_attention(q, k, v, mask)),
+                            library_ms_b2b=b2b_ms(lambda: sdpa(q, k, v, attn_mask=attend)))
     print("small_attn", json.dumps(case), flush=True)
     if not case["max_rel_err"] <= TOL[dtype]:
         fail(f"small_attn disagrees with small_attention_plain: {case}")
@@ -1486,7 +1516,7 @@ def flash_kernel_cases():
 # (C, H, S); C 2048 at S 64 and 128 runs in the full-width cases alone (B64),
 # not at B3 too, to keep the script well within its time limit
 WIDE_MHA_GRID = ((1152, 16, 17), (1152, 16, 128), (768, 8, 64), (768, 8, 96), (1024, 8, 17),
-                 (1024, 8, 96))
+                 (1024, 8, 96), (8320, 16, 17))  # the last: head size 520, a window of many slabs
 WIDE_CORE_D = (60, 136, 192, 256)
 WIDE_FULL_C = (1024, 2048)
 WIDE_FULL_BS = ((64, 128), (64, 64))
@@ -1588,19 +1618,20 @@ def wide_flash_cases():
 
 
 def wide_small_cases():
-    """Phase 3f's wide heads, float32 then bfloat16: D 60, 136, 192 and 256 at
-    S 17 and 100 (a fully-masked window and ragged lengths; packed-qkv views
-    and contiguous tensors), and the full widths' D 128 and 256 timed at B64
-    H8 S128 and S64 on the packed views grounding hands over."""
+    """Phase 3f's wide heads, float32 then bfloat16: D 60, 136, 192, 256 and
+    520 (a window of 17 / 9 score steps) at S 17 and 100 (a fully-masked
+    window and ragged lengths; packed-qkv views and contiguous tensors), and
+    the full widths' D 128 and 256 timed at B64 H8 S128 and S64 on the
+    packed views grounding hands over, single calls and back to back."""
     t0, out = time.perf_counter(), []
     for dtype in (torch.float32, torch.bfloat16):
-        for i, d in enumerate(WIDE_CORE_D):
+        for i, d in enumerate(WIDE_CORE_D + (520,)):
             out.append(small_case(3, 2, 17, d, dtype, seed=170 + i, packed=True))
             out.append(small_case(3, 2, 100, d, dtype, seed=175 + i))
         for i, d in enumerate((128, 256)):
             for j, (b, s) in enumerate(WIDE_FULL_BS):
                 out.append(small_case(b, 8, s, d, dtype, seed=180 + 2 * i + j, timed=True,
-                                      packed=True))
+                                      packed=True, b2b=True))
     print(f"wide cases of small_attn: {len(out)} in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -3134,6 +3165,25 @@ WIDE_GND_LAUNCHES = {
     "int8 fused": dict(block_attn_int8=18, block_mlp_int8=18, fused_mha_int8=6,
                        fused_mlp_int8=6),
 }
+
+
+def wide_gnd_launches(impl, width):
+    """WIDE_GND_LAUNCHES[impl] with the wide bodies behind the wrappers, a
+    float32 forward at feature_dim ``width`` (8 heads; heads above 64):
+    every MHA-family launch runs the window kernel once and the f32 wgmma
+    GEMM twice (exact: qkv and out-projection) or once (int8: the
+    out-projection); small_attn runs the window kernel above
+    MAX_SMALL_TILE_D."""
+    from exoground_tpu_torch.ops.attention import MAX_SMALL_TILE_D
+
+    want = dict(WIDE_GND_LAUNCHES[impl])
+    exact = want.get("fused_mha", 0) + want.get("block_attn", 0)
+    int8 = want.get("fused_mha_int8", 0) + want.get("block_attn_int8", 0)
+    small = want.get("small_attn", 0) if width // 8 > MAX_SMALL_TILE_D else 0
+    want.update(wgmma_linear_tf32=2 * exact + int8, wide_window=exact + int8 + small)
+    return {k: v for k, v in want.items() if v}
+
+
 WIDE_GND_REQS = 64  # requests a served batch: one bucket of 64-frame windows, 64 narrations
 WIDE_GND_CPU_REQS = 4  # of them run again on the CPU for agreement
 WIDE_GND_INT8_MIN_COLS = 2048
@@ -3182,7 +3232,7 @@ def _served_rows(results, preds, reqs):
 # on its plain versions, disable_fused_kernels() and 'xla', at least 1e-3).
 WIDE_GND_HOPPER = {
     "f32 'flash'": dict(flash_fwd=30, flash_fwd_cluster=30, fused_mlp=24),
-    "bf16 'auto'": dict(fused_mha=24, fused_mlp=24, wgmma_linear=48),
+    "bf16 'auto'": dict(fused_mha=24, fused_mlp=24, wgmma_linear=48, wide_window=24),
     "bf16 'flash'": dict(flash_fwd=30, flash_fwd_cluster=30, fused_mlp=24),
 }
 
@@ -3249,7 +3299,7 @@ def wide_grounding_path(card):
     then its forward under quant.matmul_impl('int8', min_cols=2048) under
     'auto' (rows 5 and 6) and 'fused' (row 7's int8 body); C 2048 under
     'auto' and 'small' (rows 1 and 9 at 256). Each run counted per forward
-    (WIDE_GND_LAUNCHES); the counted forward's first WIDE_GND_CPU_REQS
+    (wide_gnd_launches); the counted forward's first WIDE_GND_CPU_REQS
     requests against the CPU's answer to them (<= 1e-4 of max|CPU| in f32;
     int8 at phase 7's floor: twice the CPU's largest own change under 1e-7
     input noise over WIDE_GND_NOISE_DRAWS draws, at least 1e-3, taken once
@@ -3315,7 +3365,7 @@ def wide_grounding_path(card):
             torch.cuda.synchronize()
             launches = dict(_kernels.LAUNCHES)
             label = f"C{width} '{impl}'"
-            check(label, launches, 1, WIDE_GND_LAUNCHES[impl])
+            check(label, launches, 1, wide_gnd_launches(impl, width))
             counted[label] = launches
             t0 = time.perf_counter()
             cpu = on_cpu(cpu_svc, impl, few, contextlib.nullcontext())
@@ -3364,7 +3414,7 @@ def wide_grounding_path(card):
             torch.cuda.synchronize()
             launches = dict(_kernels.LAUNCHES)
             label = f"C{width} int8 '{impl}' (min_cols {WIDE_GND_INT8_MIN_COLS})"
-            check(label, launches, 1, WIDE_GND_LAUNCHES[f"int8 {impl}"])
+            check(label, launches, 1, wide_gnd_launches(f"int8 {impl}", width))
             counted[label] = launches
             err = rel(got[:len(few)], cpu8)
             print(f"wide grounding {label} card vs CPU: rel err {err:.3e}, limit {limit:.3e} "
@@ -4310,6 +4360,9 @@ def grounding_train_path(card):
         if rec["cfg"].model != "view_invariant":
             want["fused_mlp"] = GND_FWD * rec["val_batches"]
             want["fused_mha"] = 0 if flash else GND_FWD * rec["val_batches"]
+            if rec["cfg"].feature_dim // 8 > 64:  # 8 heads: the wide bodies behind fused_mha
+                gemm = "wgmma_linear" if rec["cfg"].amp else "wgmma_linear_tf32"
+                want[gemm], want["wide_window"] = 2 * want["fused_mha"], want["fused_mha"]
         got = dict(rec["launches"])
         if flash:
             if not all(got[k] > 0 for k in ("flash_fwd", "flash_dq", "flash_dkv")):
@@ -6062,7 +6115,8 @@ def main():
         mha_cases.append(mha_case(64, 128, 512, 8, dtype, seed=13))
         mha_cases.append(mha_case(2, 50, 256, 16, dtype, seed=14))
     mha_cases += wide_mha_family_cases("fused_mha", mha_case, 100, b2b=True)  # the wide body
-    gemm_cases = wgmma_linear_cases()
+    gemm_cases = wgmma_linear_cases(torch.bfloat16)
+    gemm32_cases = wgmma_linear_cases(torch.float32)
     mlp_cases += mlp_kernel_cases()
 
     mark("3b")
@@ -6112,7 +6166,8 @@ def main():
     mark("3f")
     # phase 3f: the window-attention kernel against its plain version (the
     # wide body too)
-    small_cases = small_kernel_cases() + wide_small_cases()
+    wide_small = wide_small_cases()
+    small_cases = small_kernel_cases() + wide_small
 
     mark("4")
     # phase 4: the serving path, counted
@@ -6235,7 +6290,7 @@ def main():
     # 3c, the timed first) and the wgmma GEMM. The cluster dq and dk/dv run on
     # no path yet (a D 256 training run waits for chip_smoke time): their cases
     # stay in flash_dq's and flash_dkv's lines, held to the plain version there
-    for name in ("flash_fwd_cluster", "wgmma_linear"):
+    for name in ("flash_fwd_cluster", "wgmma_linear", "wgmma_linear_tf32", "wide_window"):
         launches[name] = sum(n.get(name, 0) for n in wide_launches.values())
     wide_flash = sorted((c for c in flash_cases if c.get("head_size", 0) > 128),
                         key=lambda c: "fwd_ms" not in c)
@@ -6275,6 +6330,22 @@ def main():
              launches_by_path={}, part_of="rows 1, 5 and 7's wide bf16 bodies (qkv and "
                                          "out-projection; the TPU kernels' products inside "
                                          "_mha_kernel :658 and _mha_attention_tail :575)"),
+        dict(entry("wgmma_linear_tf32", "exoground_tpu_torch/csrc/wgmma_linear.cuh",
+                   "exoground_tpu/ops/attention.py:761", gemm32_cases),
+             launches_by_path={}, part_of="rows 1, 5 and 7's wide f32 bodies (3xTF32; the qkv "
+                                         "of the exact bodies, every out-projection; the TPU "
+                                         "kernels' products inside _mha_kernel :658 and "
+                                         "_mha_attention_tail :575)"),
+        # the window kernel: its cases the window core's wide ones (phase 3f,
+        # D >= 128, the timed D 256 first), beside SDPA
+        dict(entry("wide_window", "exoground_tpu_torch/csrc/wide_window.cuh",
+                   "exoground_tpu/ops/attention.py:514",
+                   sorted((c for c in wide_small if c["wide_window"]),
+                          key=lambda c: (c.get("ms") is None, "D256 " not in c["shape"]))),
+             launches_by_path={}, part_of="row 9 at D >= 128 (small_attn) and the attention "
+                                         "core of rows 1, 5 and 7's wide bodies (the TPU "
+                                         "kernels' _small_kernel :450 and "
+                                         "_mha_attention_tail :575)"),
     ]
     for e in kernels:
         if e["name"] in ("milnce_grid_fwd", "milnce_grid_bwd"):

@@ -22,8 +22,9 @@
 // mha_tail.cuh adds the residual x in f32 before its one rounding. The
 // sources build without fast math: the LN root and quotients are IEEE
 // operations, as in the plain version. Above a head of 64 the attention
-// body is mha_tile.cuh's wide-head body (2d); in bf16 its qkv and the
-// out-projection with the residual run the wgmma GEMM (wgmma_linear.cuh).
+// body is mha_tile.cuh's wide-head body (2d); its qkv and the
+// out-projection with the residual run the wgmma GEMMs (wgmma_linear.cuh:
+// bf16, and f32 in 3xTF32).
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, ln_w and ln_b (C), w_in

@@ -20,7 +20,8 @@
 // (window, head) kernel on __dp4a; bf16: the tensor-core tile on m16n8k32
 // .s8) and the out-projection of mha_tail.cuh with the residual x. Above a
 // head of 64: the wide-head body (mha_tile.cuh 2d) with the int8 projection,
-// the bf16 out-projection on the wgmma GEMM (wgmma_linear.cuh).
+// the out-projection on the wgmma GEMMs (wgmma_linear.cuh: bf16, and f32 in
+// 3xTF32).
 #include "mha_tile.cuh"
 
 // As block_attn_forward (csrc/block_attn.cu), with W_in quantized per row

@@ -29,8 +29,9 @@
 // bfloat16: mha_tc_kernel<DHP, false>, one CTA of 8 warps per (128-row tile,
 // head), mma.sync m16n8k16, then the bf16 out-projection.
 // Above a head of 64 (C 1024 at H 8): mha_tile.cuh's wide-head body (2d),
-// the qkv as a GEMM into a scratch (bf16: wgmma fed by TMA,
-// wgmma_linear.cuh, as its out-projection), then attention in head slabs.
+// the qkv as a GEMM into a scratch (wgmma fed by TMA, wgmma_linear.cuh, bf16
+// and f32 in 3xTF32, as its out-projection), then the window kernel of
+// wide_window.cuh.
 // x, W_in, W_out and the attn scratch must be 16-byte aligned (cp.async).
 #include "mha_tile.cuh"
 
@@ -64,4 +65,12 @@ extern "C" int fused_mha_forward(const void* x, const void* kpad, const void* w_
 extern "C" int wgmma_linear_forward(const void* a, const void* w, const void* bias,
                                     const void* res, void* y, int M, int N, int K, void* stream) {
   return exo::wg::linear(a, w, bias, y, M, N, K, static_cast<cudaStream_t>(stream), res);
+}
+
+// The wide-head f32 bodies' GEMM alone (wgmma_linear.cuh, 3xTF32): as
+// wgmma_linear_forward in float32; res 8-byte aligned.
+extern "C" int wgmma_linear_tf32_forward(const void* a, const void* w, const void* bias,
+                                         const void* res, void* y, int M, int N, int K,
+                                         void* stream) {
+  return exo::wg::linear_tf32(a, w, bias, y, M, N, K, static_cast<cudaStream_t>(stream), res);
 }

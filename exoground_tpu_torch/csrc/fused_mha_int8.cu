@@ -31,8 +31,9 @@
 // shared with the exact body). The f32 (window, head) kernel keeps its
 // CUDA-core design: only chip_smoke's f32 + int8 agreement check runs it.
 // Above a head of 64, both types run mha_tile.cuh's wide-head body (2d)
-// with the int8 qkv product as linear_s8_kernel (s8 mma.sync); the bf16
-// out-projection there is the wgmma GEMM of wgmma_linear.cuh.
+// with the int8 qkv product as linear_s8_kernel (s8 mma.sync); the
+// out-projection there is a wgmma GEMM of wgmma_linear.cuh (bf16, and f32
+// in 3xTF32).
 #include "mha_tile.cuh"
 
 // x (B, S, C), kpad (B, S) int32 nonzero at padding, wq (3C, C) int8 and wsc

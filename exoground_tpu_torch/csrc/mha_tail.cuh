@@ -196,8 +196,9 @@ inline cudaError_t linear(const void* a, const void* w, const void* bias, void* 
 // The out-projection of a fused MHA: out (M x C) = attn . W_out^T + b_out
 // (+ res, the block bodies' residual x, when given). attn and W_out
 // 16-byte aligned (cp.async, TMA), res 8-byte aligned in f32 and 4-byte in
-// bf16. wide: a head above 64, whose bf16 body takes the wgmma GEMM
-// (wgmma_linear.cuh); every other body the mma.sync tiles below.
+// bf16. wide: a head above 64, whose bodies take the wgmma GEMMs
+// (wgmma_linear.cuh: bf16, and f32 in 3xTF32); every other body the
+// mma.sync tiles below.
 template <typename T>
 inline cudaError_t out_projection(const void* attn, const void* w_out, const void* b_out,
                                   void* out, int M, int C, cudaStream_t st, const void* res,
@@ -207,8 +208,12 @@ inline cudaError_t out_projection(const void* attn, const void* w_out, const voi
     return cudaErrorMisalignedAddress;
   }
   if (C % 8) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (wide) return wg::linear(attn, w_out, b_out, out, M, C, C, st, res);
+  if (wide) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      return wg::linear(attn, w_out, b_out, out, M, C, C, st, res);
+    } else {
+      return wg::linear_tf32(attn, w_out, b_out, out, M, C, C, st, res);
+    }
   }
   return linear<T>(attn, w_out, b_out, out, M, C, C, st, res);
 }

@@ -924,9 +924,9 @@ inline cudaError_t attention_tc(const void* x, const void* xsc, const void* kpad
 // kernels with the (B*S, 3C) qkv between them, in a scratch of its own that
 // the wrapper hands over beside the o scratch (null below a head of 64; a
 // wide head given none fails with cudaErrorInvalidValue):
-//   1. qkv = the row operand . W_in^T + b_in by a tensor-core GEMM (f32: the
-//      tail's 128 x 128 3xTF32 tile; bf16: wgmma fed by TMA,
-//      wgmma_linear.cuh; the int8 bodies linear_s8_kernel: mma.sync
+//   1. qkv = the row operand . W_in^T + b_in by a tensor-core GEMM (wgmma
+//      fed by TMA, wgmma_linear.cuh: bf16, and f32 in 3xTF32; the int8
+//      bodies linear_s8_kernel: mma.sync
 //      m16n8k32 .s8, exact int32 sums dequantized as float(acc) * xs * wsc +
 //      b_in), q, k and v written in T (bf16: rounded, as the tile rounds
 //      them);
@@ -937,7 +937,7 @@ inline cudaError_t attention_tc(const void* x, const void* xsc, const void* kpad
 // f32 at B64 S128 C1024, ~0.06 ms at 3.35 TB/s) against 8*B*S*C^2 FLOPs; in
 // exchange the projection runs in full 128 x 128 tiles, not a head's 3*Dh
 // columns a CTA, and shared memory and registers stay bounded at any head.
-// Then the out-projection, as every body (bf16: the wgmma GEMM too).
+// Then the out-projection, as every body (the wgmma GEMM too, in both types).
 
 // Step 2: o of each (window, head) into attn from the packed qkv.
 template <typename T>
@@ -985,7 +985,7 @@ inline cudaError_t attention_exact(const void* a, const void* kpad, const void* 
     if constexpr (std::is_same<T, bf16>::value) {
       err = wg::linear(a, w_in, b_in, qkv, B * S, 3 * C, C, st);
     } else {
-      err = linear<T>(a, w_in, b_in, qkv, B * S, 3 * C, C, st);
+      err = wg::linear_tf32(a, w_in, b_in, qkv, B * S, 3 * C, C, st);
     }
     if (err != cudaSuccess) return err;
     return attention_wide<T>(qkv, kpad, attn, B, S, C, H, st);

@@ -56,15 +56,17 @@
 // broadcast) feeds 8 FMAs per owned column pair (a 64-bit load a key), 8
 // rows at once.
 //
-// Head sizes: multiples of 8 up to 128 in the bodies above; larger multiples
-// of 8 in the wide body (wide_window.cuh's window kernel in its SMALL order,
-// the same function: q scaled and rounded as it is loaded, p unnormalised in
-// p . v, o / l after): per (batch, head) window q and k in head slabs of 64
-// columns, the scores summed over the slabs in registers, the softmax once,
-// then o slab by slab from v's slabs, every product on the tensor cores
-// (3xTF32 in f32). Its tiles take 2 * 128 * 68 floats (70 KB) in f32 at S
-// 128 whatever the head size, where the f32 body above keeps all of k and v
-// (266 KB at D 256).
+// Head sizes: multiples of 8 below 128 in the bodies above; 128 and larger
+// multiples of 8 in the wide body (wide_window.cuh's window kernel in its
+// SMALL order, the same function: q scaled and rounded as it is read, p
+// unnormalised in p . v, o / l after): per (batch, head) window q and k in
+// tiles of 128 bytes of columns through a ring of stages, the scores summed
+// over the tiles in registers, the softmax once, then o tile by tile from
+// v's tiles, every product on the tensor cores (3xTF32 in f32). Its ring
+// takes 74 KB at S 128 whatever the head size, where the f32 body above
+// keeps all of k and v (266 KB at D 256). At D 128 the bodies above still
+// build, but the wide body is faster on an H100 in both types at S 64 and
+// 128 (PERF.md section 6, row 9), so it takes D 128 too.
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
@@ -544,7 +546,7 @@ extern "C" int small_attn_forward(const void* q, const void* k, const void* v,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* kp = static_cast<const unsigned char*>(kpad);
-  if (D > kMaxTileD) {
+  if (D >= kMaxTileD) {
     const exo::wide::Window WW{qsb, qsh, qsr, ksb, ksh, ksr, vsb, vsh, vsr, osb, osh, osr};
     if (dtype == 0) {
       return exo::wide::window<float, true>(q, k, v, kp, o, WW, B, H, S, D, scale, st);

@@ -49,6 +49,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+# The bodies a library counts in C where it launches them, each under its
+# LAUNCHES name, by the C function that hands over (and restarts) its count:
+# the wide-head MHA family's two wgmma GEMMs (csrc/wgmma_linear.cuh) and the
+# wide-head window kernel (csrc/wide_window.cuh).
+BODY_COUNTERS = {"wgmma_linear": "wgmma_linear_launches",
+                 "wgmma_linear_tf32": "wgmma_linear_tf32_launches",
+                 "wide_window": "wide_window_launches"}
+BODY_READERS = {fn: () for fn in BODY_COUNTERS.values()}
 # C signatures of the entry points, by source
 SIGNATURES = {
     "fused_mha": {
@@ -58,9 +66,11 @@ SIGNATURES = {
         # a, w, bias, res (or null), y, M, N, K, stream: the wide-head bf16
         # bodies' wgmma GEMM alone
         "wgmma_linear_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
-        # the wgmma GEMM's launches since the last call (every library of the
-        # MHA family exports it, csrc/wgmma_linear.cuh)
-        "wgmma_linear_launches": (),
+        # the same for the wide-head f32 bodies' 3xTF32 wgmma GEMM
+        "wgmma_linear_tf32_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
+        # each GEMM's launches, and the window kernel's, since the last call
+        # (every library of the MHA family exports them: BODY_COUNTERS)
+        **BODY_READERS,
     },
     "fused_mlp": {
         # x, c_fc w, c_fc b, c_proj w, c_proj b, out, f32 workspace, rows, C,
@@ -71,7 +81,7 @@ SIGNATURES = {
         # x, kpad, w_in int8, w_in scales, b_in, w_out, b_out, x int8, x scales,
         # attn scratch, qkv scratch, out, B, S, C, H, dtype, stream
         "fused_mha_int8_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
-        "wgmma_linear_launches": (),
+        **BODY_READERS,
     },
     "fused_mlp_int8": {
         # x, c_fc w int8, c_fc scales, c_fc b, c_proj w, c_proj b, out, f32
@@ -90,14 +100,14 @@ SIGNATURES = {
         # x, kpad, ln w, ln b, w_in, b_in, w_out, b_out, attn scratch, qkv
         # scratch, out, x_norm, B, S, C, H, dtype, stream
         "block_attn_forward": (_P,) * 12 + (_I,) * 5 + (_P,),
-        "wgmma_linear_launches": (),
+        **BODY_READERS,
     },
     "block_attn_int8": {
         # x, kpad, ln w, ln b, w_in int8, w_in scales, b_in, w_out, b_out,
         # x_norm int8, x_norm scales, attn scratch, qkv scratch, out, x_norm,
         # B, S, C, H, dtype, stream
         "block_attn_int8_forward": (_P,) * 15 + (_I,) * 5 + (_P,),
-        "wgmma_linear_launches": (),
+        **BODY_READERS,
     },
     "block_mlp": {
         # x, ln w, ln b, c_fc w, c_fc b, c_proj w, c_proj b, out, f32
@@ -111,6 +121,8 @@ SIGNATURES = {
         # q, k, v, kpad (bool, or null), o, B, H, S, D, the (batch, head, row) element
         # strides of q, k, v and o, scale, dtype, stream
         "small_attn_forward": (_P,) * 5 + (_I,) * 4 + (_L,) * 12 + (_F, _I, _P),
+        # the wide-head window kernel's launches since the last call
+        "wide_window_launches": (),
     },
     "flash_attn": {
         # q, k, v, kpad, o, lse, BH, H, Sq, Sk, D, dtype, stream
@@ -129,10 +141,12 @@ LAUNCHES: Dict[str, int] = {
                          "flash_dkv", "block_attn", "block_attn_int8", "block_mlp",
                          "block_mlp_int8", "small_attn",
                          # the bodies behind a wrapper above: the flash cluster
-                         # bodies (D > 128) and the wide-head bf16 MHA family's
-                         # wgmma GEMM (a launch each projection)
+                         # bodies (D > 128), the wide-head MHA family's wgmma
+                         # GEMMs (bf16 and f32; a launch each projection) and
+                         # the wide-head window kernel (the MHA family's wide
+                         # bodies, small_attn above its fixed tiles)
                          "flash_fwd_cluster", "flash_dq_cluster", "flash_dkv_cluster",
-                         "wgmma_linear")
+                         "wgmma_linear", "wgmma_linear_tf32", "wide_window")
 }
 
 _lock = threading.Lock()
@@ -263,6 +277,14 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     return lib if lib is not None else build([name])[name]
+
+
+def body_launches(lib, names: Iterable[str]) -> Dict[str, int]:
+    """The launches of the bodies ``names`` (BODY_COUNTERS) that library
+    ``lib`` counted in C since the last read, which restarts them. Read
+    after every call that may launch them, before the call's return code
+    is checked: a failed call's counts are not kept."""
+    return {n: getattr(lib, BODY_COUNTERS[n])() for n in names}
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -100,6 +100,10 @@ MAX_FLASH_TILE_D = 128
 FLASH_MIN_SCORES = 2048 * 2048
 
 MAX_SMALL_S = 128  # windows the window-attention kernel serves (S == Sk)
+# the largest head the window core's fixed tiles serve (csrc/small_attn.cu:
+# below kMaxTileD = 128); 128 and wider run the wide window kernel
+# (csrc/wide_window.cuh), faster on an H100 at 128 too
+MAX_SMALL_TILE_D = 120
 
 IMPLS = ("auto", "xla", "flash", "small", "fused")  # None means 'auto'
 
@@ -397,12 +401,18 @@ def small_attention(q, k, v, key_padding_mask=None):
                             device=q.device)
     strides = (_window_strides(q, name) + _window_strides(k, name) + _window_strides(v, name)
                + (s * h * d8, d8, h * d8))
-    rc = _kernels.library(name).small_attn_forward(
+    lib = _kernels.library(name)
+    rc = lib.small_attn_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kpad is None else kpad.data_ptr(),
         o.data_ptr(), b, h, s, d8,
         *strides, scale, _kernels.dtype_code(q), _kernels.stream_of(q))
+    # the wide-head window kernel's launches (the heads past the fixed
+    # tiles), as the library counted them where it launched them
+    launched = _kernels.body_launches(lib, ("wide_window",))
     _kernels.check(name, rc)
     _kernels.count_launch(name)
+    for body, n in launched.items():
+        _kernels.count_launch(body, n)
     return o if d8 == d else o[..., :d]
 
 
@@ -537,8 +547,8 @@ def mha_scratch(x, int8: bool, num_heads: int):
 
 
 def wide_linear_plain(a, w, bias, res=None):
-    """The wide-head bf16 bodies' GEMM written plainly: a . w^T + bias (+
-    res) summed in float32 and rounded once to a's type, the kernel's
+    """The wide-head bodies' GEMM written plainly: a . w^T + bias (+ res)
+    summed in float32 and rounded once to a's type (bf16), the kernels'
     order."""
     y = torch.matmul(a.float(), w.float().t()) + bias.float()
     if res is not None:
@@ -547,12 +557,13 @@ def wide_linear_plain(a, w, bias, res=None):
 
 
 def wide_linear(a, w, bias, res=None):
-    """y (M, N) = a (M, K) . w (N, K)^T + bias (+ res) in bfloat16: the
-    GEMM that the MHA family's wide-head bf16 bodies run for their
-    projections (``csrc/wgmma_linear.cuh``: wgmma fed by TMA), alone. CPU
-    tensors take ``wide_linear_plain``; CUDA tensors launch the kernel or
+    """y (M, N) = a (M, K) . w (N, K)^T + bias (+ res) in bfloat16 or
+    float32: the GEMM that the MHA family's wide-head bodies run for their
+    projections (``csrc/wgmma_linear.cuh``: wgmma fed by TMA; float32 in
+    3xTF32, counted as ``wgmma_linear_tf32``), alone. CPU tensors take
+    ``wide_linear_plain``; CUDA tensors launch the kernel of a's type or
     raise (an encode or launch error included)."""
-    name = "wgmma_linear"
+    name = "wgmma_linear_tf32" if a.dtype == torch.float32 else "wgmma_linear"
     if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1] or bias.shape != (w.shape[0],):
         raise ValueError(f"{name}: a {tuple(a.shape)}, w {tuple(w.shape)}, bias "
                          f"{tuple(bias.shape)} do not fit")
@@ -565,14 +576,15 @@ def wide_linear(a, w, bias, res=None):
         raise ValueError(f"{name}: N {n} and K {a.shape[1]} must be multiples of 8")
     _kernels.check_inference(name, a, w, bias, *(() if res is None else (res,)))
     extra = {} if res is None else {"res": res}
-    _kernels.check_cuda_inputs(name, a.device, torch.bfloat16, a=a, w=w, bias=bias, **extra)
+    dtype = torch.float32 if name == "wgmma_linear_tf32" else torch.bfloat16
+    _kernels.check_cuda_inputs(name, a.device, dtype, a=a, w=w, bias=bias, **extra)
     _kernels.check_aligned(name, a=a, w=w)
     y = a.new_empty((m, n))
     lib = _kernels.library("fused_mha")
-    rc = lib.wgmma_linear_forward(
+    rc = getattr(lib, f"{name}_forward")(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(), None if res is None else res.data_ptr(),
         y.data_ptr(), m, n, a.shape[1], _kernels.stream_of(a))
-    launched = lib.wgmma_linear_launches()  # as the library counted them
+    launched = _kernels.body_launches(lib, (name,))[name]  # as the library counted them
     _kernels.check(name, rc)
     _kernels.count_launch(name, launched)
     return y
@@ -604,12 +616,14 @@ def _launch_mha(name, x, key_padding_mask, w_in, b_in, w_out, b_out, num_heads, 
                       *mha_scratch(x, int8, num_heads), *outs)]
     rc = getattr(lib, f"{name}_forward")(*ptrs, b, s, c, num_heads, _kernels.dtype_code(x),
                                          _kernels.stream_of(x))
-    # the wgmma GEMM's launches in this call (the wide bf16 bodies'
-    # projections), as the library counted them where it launched them
-    launched = lib.wgmma_linear_launches()
+    # the wide bodies' launches in this call (the wgmma GEMMs of the
+    # projections, the window kernel), as the library counted them where it
+    # launched them
+    launched = _kernels.body_launches(lib, _kernels.BODY_COUNTERS)
     _kernels.check(name, rc)
     _kernels.count_launch(name)
-    _kernels.count_launch("wgmma_linear", launched)
+    for body, n in launched.items():
+        _kernels.count_launch(body, n)
     return outs if ln else outs[0]
 
 

@@ -22,16 +22,25 @@ size 128, float32 and bfloat16: the sha256 of each output and the fused MHA's
 median of 20 single timed calls (``MHACMP`` line), to hold one checkout's
 kernels against another's bit for bit.
 
+``--hash`` also hashes the window core (``small_attention``) on the strided
+views of a packed qkv at D 8, 40, 64, 128 (the fixed tiles), 136, 256 and
+520 (the wide window kernel), S 17, 100 and 128, and the MHA family's wide
+bodies (Dh 128 and 256, B 3 S 17 and 100), float32 and bfloat16
+(``SMALLCMP`` line).
+
 ``--wide``: the wide-head bodies at the grounding model's full widths, B 64,
 S 128 and 64, back to back (30 launches between two events, 3 rounds whose
 order alternates, medians) beside one PyTorch call for the same function:
-rows 1, 5 and 7 (fused MHA, the int8 MHA, both block bodies) in bfloat16 at
-C 1024 and 2048 (8 heads: head sizes 128 and 256) beside
-``F.multi_head_attention_forward``; row 4 (flash) at D 256, the forward
-beside SDPA and the backward pair (dq then dk/dv) beside one SDPA backward,
-float32 and bfloat16; and, where the checkout has it, the wgmma GEMM alone
-(``ops.attention.wide_linear``) at the bodies' products beside
-``F.linear``. One ``WIDE`` JSON line a shape under TAG.
+rows 1, 5 and 7 (fused MHA, the int8 MHA, both block bodies) in float32 and
+bfloat16 at C 1024 and 2048 (8 heads: head sizes 128 and 256) beside
+``F.multi_head_attention_forward``; row 9 (``small_attention`` on a packed
+qkv's views, B64 H8) at D 128 and 256 beside SDPA; row 4 (flash) at D 256
+and 128, the forward beside SDPA and the plain version and the backward pair
+(dq then dk/dv) beside one SDPA backward, float32 and bfloat16; and, where the checkout has them, the
+wgmma GEMMs alone (``ops.attention.wide_linear``, bf16 and f32) at the
+bodies' products beside ``F.linear`` (float32 with TF32 off). One ``WIDE``
+JSON line a shape under TAG; a body the checkout refuses prints
+``refused``.
 
 ``--flash``: row 4 above D 128 (the cluster bodies): at D 136, 256, 520,
 1024, 1032 and 2056 (B2 H2, Sq 96, Sk 77, a ragged key tail and an empty
@@ -148,6 +157,44 @@ def hashes(tag: str) -> None:
     print("MHACMP", tag, json.dumps(res), flush=True)
 
 
+def _packed_qkv(b, s, h, d, dtype, seed):
+    """q, k and v as the (B, H, S, D) strided views of one packed (B, S, 3HD)
+    tensor (grounding's layout), and a key padding with a fully-masked
+    window and ragged lengths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device="cuda").to(dtype)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.chunk(3, -1))
+    lens = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    lens[0] = 0
+    return q, k, v, torch.arange(s, device="cuda")[None, :] >= lens[:, None]
+
+
+def small_hashes(tag: str) -> None:
+    from exoground_tpu_torch.ops import attention as A
+
+    res = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 40, 64, 128, 136, 256, 520):
+            for s in (17, 100, 128):
+                q, k, v, kpad = _packed_qkv(3, s, 2, d, dtype, d + s)
+                with torch.inference_mode():
+                    o = A.small_attention(q, k, v, kpad)
+                res.append(dict(shape=f"small B3 H2 S{s} D{d}", dtype=str(dtype).split(".")[-1],
+                                sha=_sha(o)))
+        for c in (1024, 2048):
+            for s in (17, 100):
+                x, kpad, (lw, lb), w = _inputs(3, s, c, dtype, c + s)
+                with torch.inference_mode():
+                    outs = {"fused_mha": A.fused_mha(x, kpad, *w, 8),
+                            "fused_mha_int8": A.fused_mha_int8(x, kpad, *w, 8),
+                            "block_attn": A.fused_block_attn(x, kpad, lw, lb, *w, 8)[0],
+                            "block_attn_int8": A.fused_block_attn(x, kpad, lw, lb, *w, 8,
+                                                                  int8_qkv=True)[0]}
+                res.append(dict(shape=f"wide B3 S{s} C{c} H8", dtype=str(dtype).split(".")[-1],
+                                sha={k: _sha(v) for k, v in outs.items()}))
+    print("SMALLCMP", tag, json.dumps(res), flush=True)
+
+
 def _rounds(fns, rounds=3, launches=30):
     """Median back-to-back ms of each of ``fns`` over ``rounds`` rounds whose
     order alternates."""
@@ -165,9 +212,9 @@ def wide(tag: str) -> None:
 
     from exoground_tpu_torch.ops import attention as A
 
-    for c in (1024, 2048):
-        for s in (128, 64):
-            x, kpad, (lw, lb), w = _inputs(64, s, c, torch.bfloat16, c + s)
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, s in ((c, s) for c in (1024, 2048) for s in (128, 64)):
+            x, kpad, (lw, lb), w = _inputs(64, s, c, dtype, c + s)
             with torch.inference_mode():
                 fns = {
                     "row1 fused_mha": lambda: A.fused_mha(x, kpad, *w, 8),
@@ -181,17 +228,41 @@ def wide(tag: str) -> None:
                             w[1], None, None, False, 0.0, w[2], w[3], training=False,
                             key_padding_mask=kpad, need_weights=False),
                 }
-                print("WIDE", tag, json.dumps(dict(shape=f"B64 S{s} C{c} H8", dtype="bfloat16",
+                print("WIDE", tag, json.dumps(dict(shape=f"B64 S{s} C{c} H8",
+                                                   dtype=str(dtype).split(".")[-1],
                                                    ms_b2b=_rounds(fns))), flush=True)
-    _wide_flash(tag)
+    _wide_small(tag)
+    _wide_flash(tag, ((64, 8, 128, 256), (64, 8, 64, 256), (64, 8, 128, 128), (64, 8, 64, 128)))
     if not hasattr(A, "wide_linear"):
         return
     _wide_gemm(tag)
 
 
+def _wide_small(tag):
+    """Row 9's WIDE lines: small_attention on a packed qkv's views beside SDPA
+    on the same views (the boolean mask), back to back, B64 H8."""
+    import torch.nn.functional as F
+
+    from exoground_tpu_torch.ops import attention as A
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (128, 256):
+            for s in (128, 64):
+                q, k, v, kpad = _packed_qkv(64, s, 8, d, dtype, d + s)
+                attend = (~kpad)[:, None, None, :]
+                with torch.inference_mode():
+                    fns = {"row9 small_attn": lambda: A.small_attention(q, k, v, kpad),
+                           "library SDPA": lambda: F.scaled_dot_product_attention(
+                               q, k, v, attn_mask=attend)}
+                    print("WIDE", tag, json.dumps(dict(shape=f"B64 H8 S{s} D{d} packed qkv",
+                                                       dtype=str(dtype).split(".")[-1],
+                                                       ms_b2b=_rounds(fns))), flush=True)
+
+
 def _wide_flash(tag, shapes=((64, 8, 128, 256), (64, 8, 64, 256))):
-    """Row 4's WIDE lines: the forward beside SDPA and the backward pair
-    beside one SDPA backward, back to back, at each (B, H, S, D)."""
+    """Row 4's WIDE lines: the forward beside SDPA and the plain version
+    (flash_attention_plain) and the backward pair beside one SDPA backward,
+    back to back, at each (B, H, S, D)."""
     import torch.nn.functional as F
 
     from exoground_tpu_torch.ops import attention as A
@@ -218,6 +289,7 @@ def _wide_flash(tag, shapes=((64, 8, 128, 256), (64, 8, 64, 256))):
             fns = {
                 "row4 fwd": lambda: A.flash_forward(q, k, v, kpad),
                 "row4 dq + dk/dv": pair,
+                "plain fwd": lambda: A.flash_attention_plain(q, k, v, kpad),
                 "library SDPA fwd": lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=attend, scale=1.0),
                 "library SDPA backward": lambda: torch.autograd.grad(
@@ -273,20 +345,28 @@ def _wide_gemm(tag: str) -> None:
 
     from exoground_tpu_torch.ops import attention as A
 
-    for m, n, kk in ((8192, 6144, 2048), (8192, 2048, 2048), (8192, 3072, 1024),
-                     (8192, 1024, 1024)):
-        g = torch.Generator(device="cuda").manual_seed(n + kk)
-        a = torch.randn(m, kk, generator=g, device="cuda").bfloat16()
-        wt = (torch.randn(n, kk, generator=g, device="cuda") * kk ** -0.5).bfloat16()
-        bias = torch.randn(n, generator=g, device="cuda").bfloat16()
-        with torch.inference_mode():
-            t = _rounds({"wgmma_linear": lambda: A.wide_linear(a, wt, bias),
-                         "library F.linear": lambda: F.linear(a, wt, bias)})
-        flops = 2.0 * m * n * kk
-        print("WIDE", tag, json.dumps(dict(shape=f"GEMM M{m} N{n} K{kk}", dtype="bfloat16",
-                                           ms_b2b=t, tflops={k: round(flops / v / 1e9, 1)
-                                                             for k, v in t.items()})),
-              flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n, kk in ((8192, 6144, 2048), (8192, 2048, 2048), (8192, 3072, 1024),
+                         (8192, 1024, 1024)):
+            g = torch.Generator(device="cuda").manual_seed(n + kk)
+            a = torch.randn(m, kk, generator=g, device="cuda").to(dtype)
+            wt = (torch.randn(n, kk, generator=g, device="cuda") * kk ** -0.5).to(dtype)
+            bias = torch.randn(n, generator=g, device="cuda").to(dtype)
+            name = "wgmma_linear" if dtype == torch.bfloat16 else "wgmma_linear_tf32"
+            flops = 2.0 * m * n * kk
+            line = dict(shape=f"GEMM M{m} N{n} K{kk}", dtype=str(dtype).split(".")[-1])
+            with torch.inference_mode():
+                try:
+                    A.wide_linear(a, wt, bias)
+                except TypeError as e:  # a checkout whose GEMM takes bf16 only
+                    line["refused"] = str(e)
+                    fns = {}
+                else:
+                    fns = {name: lambda: A.wide_linear(a, wt, bias)}
+                fns["library F.linear"] = lambda: F.linear(a, wt, bias)
+                t = _rounds(fns)
+            print("WIDE", tag, json.dumps(dict(line, ms_b2b=t, tflops={
+                k: round(flops / v / 1e9, 1) for k, v in t.items()})), flush=True)
 
 
 def main() -> None:
@@ -306,6 +386,7 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip(), flush=True)
     if args.hash is not None:
         hashes(args.hash)
+        small_hashes(args.hash)
     elif args.wide is not None:
         wide(args.wide)
     elif args.flash is not None:

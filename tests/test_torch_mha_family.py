@@ -451,11 +451,11 @@ def test_float32_tile_packs_a_fully_masked_window_beside_a_real_one():
 # ----------------------------------------------------- the wrappers' calls
 def _fake_library(monkeypatch, calls):
     """Stand in for the kernel libraries: record each C call and return 0
-    (the wgmma GEMM's launch count, which the MHA wrappers read after each
-    call, is 0 and not recorded)."""
+    (the wide bodies' launch counts, which the MHA wrappers read after each
+    call, are 0 and not recorded)."""
     class Lib:
         def __getattr__(self, fn):
-            if fn == "wgmma_linear_launches":
+            if fn in _kernels.BODY_COUNTERS.values():
                 return lambda: 0
 
             def entry(*args):
